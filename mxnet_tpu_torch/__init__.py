@@ -1,0 +1,24 @@
+"""mxnet_tpu_torch: the MXNet-style framework on PyTorch and CUDA.
+
+The port of ``mxnet_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
+kept in the same module layout and public names: ``mx.nd``,
+``mx.autograd``, ``mx.gluon``, ``mx.init``, ``mx.random``, ``mx.serve``.
+Its default context is the card (``mx.gpu(0)``); the CPU runs only when
+the caller asks for ``mx.cpu()``.  Hand-written CUDA kernels live in
+``csrc/`` and are built at first use (``kernels.py``).  This package
+imports neither JAX nor ``mxnet_tpu``.
+"""
+from . import base  # noqa: F401
+from .base import MXNetError  # noqa: F401
+from .context import Context, cpu, current_context, gpu  # noqa: F401
+from . import autograd  # noqa: F401
+from . import random  # noqa: F401
+from . import ops  # noqa: F401
+from . import ndarray  # noqa: F401
+from . import ndarray as nd  # noqa: F401
+from . import initializer  # noqa: F401
+from . import initializer as init  # noqa: F401
+from . import telemetry  # noqa: F401
+from . import gluon  # noqa: F401
+from . import serve  # noqa: F401
+from .base import __version__  # noqa: F401

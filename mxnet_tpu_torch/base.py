@@ -1,0 +1,36 @@
+"""Base utilities: the framework error type, numeric type tuples and dtypes.
+
+Counterpart of ``mxnet_tpu/base.py``.  The port keeps its own copy rather
+than importing the JAX package.  ``torch_dtype`` is new here: it maps the
+dtype spellings MXNet code uses (numpy dtypes, strings) onto torch dtypes.
+"""
+from __future__ import annotations
+
+import numpy as onp
+import torch
+
+__all__ = ["MXNetError", "numeric_types", "torch_dtype"]
+
+__version__ = "0.1.0"
+
+
+class MXNetError(RuntimeError):
+    """Default error type raised by the framework."""
+
+
+numeric_types = (float, int, onp.generic)
+
+_NAMED = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+          "float32": torch.float32, "float64": torch.float64,
+          "int32": torch.int32, "int64": torch.int64, "int8": torch.int8,
+          "uint8": torch.uint8, "bool": torch.bool}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """``torch.dtype`` for a torch dtype, a numpy dtype or a dtype name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else onp.dtype(dtype).name
+    if name not in _NAMED:
+        raise MXNetError("unsupported dtype %r" % (dtype,))
+    return _NAMED[name]

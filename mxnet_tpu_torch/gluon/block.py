@@ -1,0 +1,250 @@
+"""Gluon Block and HybridBlock as ``torch.nn.Module`` subclasses.
+
+Counterpart of ``mxnet_tpu/gluon/block.py``.  Kept from there: name scopes
+and the auto-naming counters (``resnetv10_conv2d0_weight``...),
+``collect_params``, ``_collect_params_with_prefix`` (structural names such
+as ``features.5.0.body.0.weight``), ``save_parameters`` and
+``load_parameters`` keyed by structural names, and ``hybrid_forward(F, x,
+**params)`` with ``F`` the ``mx.nd`` namespace.  Child blocks are torch
+submodules (``named_modules()`` sees the tree) and forward hooks are
+torch's.  ``hybridize()`` is accepted and the forward stays eager; the
+JAX package's ``_CachedGraph`` (a ``jax.jit`` cache) and ``SymbolBlock``
+are not ported.
+"""
+from __future__ import annotations
+
+import re
+import threading
+
+import torch
+
+from ..context import cpu
+from .parameter import DeferredInitializationError, Parameter, ParameterDict
+
+__all__ = ["Block", "HybridBlock"]
+
+
+class _NameCounter(threading.local):
+    def __init__(self):
+        self.counts = {}
+
+
+_GLOBAL_NAMES = _NameCounter()
+
+
+class _BlockScope:
+    """Name-scope manager assigning unique prefixes."""
+
+    _current = threading.local()
+
+    def __init__(self, block):
+        self._block = block
+        self._counter = {}
+        self._old_scope = None
+
+    @staticmethod
+    def create(prefix, params, hint):
+        current = getattr(_BlockScope._current, "value", None)
+        if current is None:
+            if prefix is None:
+                cnt = _GLOBAL_NAMES.counts.get(hint, 0)
+                _GLOBAL_NAMES.counts[hint] = cnt + 1
+                prefix = "%s%d_" % (hint, cnt)
+            if params is None:
+                params = ParameterDict(prefix)
+            else:
+                params = ParameterDict(params.prefix, params)
+            return prefix, params
+        if prefix is None:
+            cnt = current._counter.get(hint, 0)
+            current._counter[hint] = cnt + 1
+            prefix = "%s%d_" % (hint, cnt)
+        if params is None:
+            parent = current._block.params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old_scope = getattr(_BlockScope._current, "value", None)
+        _BlockScope._current.value = self
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        if self._block._empty_prefix:
+            return
+        _BlockScope._current.value = self._old_scope
+
+
+class Block(torch.nn.Module):
+    """Base building block."""
+
+    def __init__(self, prefix=None, params=None):
+        torch.nn.Module.__init__(self)
+        self._empty_prefix = prefix == ""
+        self._prefix, self._params = _BlockScope.create(
+            prefix, params, self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._reg_params = {}
+
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    def __repr__(self):
+        modstr = "\n".join("  (%s): %s" % (key, _indent(repr(block), 2))
+                           for key, block in self._children.items())
+        return "%s(\n%s\n)" % (self.__class__.__name__, modstr)
+
+    def __setattr__(self, name, value):
+        """Assigning a Block registers a child (a torch submodule);
+        assigning a Parameter registers it with this block."""
+        if hasattr(self, name):
+            existing = getattr(self, name)
+            if isinstance(existing, (Parameter, Block)) and \
+                    not isinstance(value, type(existing)) and \
+                    not isinstance(existing, type(value)):
+                raise TypeError("Changing attribute type for %s from %s to %s "
+                                "is not allowed." % (name, type(existing),
+                                                     type(value)))
+        if isinstance(value, Parameter):
+            if name in self._reg_params and self._reg_params[name] is not value:
+                raise AssertionError("Overriding Parameter attribute %s is "
+                                     "not allowed." % name)
+            self._reg_params[name] = value
+        super().__setattr__(name, value)
+
+    @property
+    def _children(self):
+        """Child blocks by name, in registration order (torch's own
+        submodule table)."""
+        return {k: v for k, v in self._modules.items() if v is not None}
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    def name_scope(self):
+        return self._scope
+
+    @property
+    def params(self):
+        """This block's own parameters, without its descendants'."""
+        return self._params
+
+    def collect_params(self, select=None):
+        """This block's and all descendants' parameters, optionally
+        filtered by the regular expression ``select``."""
+        ret = ParameterDict(self._params.prefix)
+        if not select:
+            ret.update(self.params)
+        else:
+            pattern = re.compile(select)
+            ret.update({name: value for name, value in self.params.items()
+                        if pattern.match(name)})
+        for child in self._children.values():
+            ret.update(child.collect_params(select=select))
+        return ret
+
+    def _collect_params_with_prefix(self, prefix=""):
+        """``{structural name: Parameter}``, e.g. ``features.0.weight``."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + key: val for key, val in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def register_child(self, block, name=None):
+        if name is None:
+            name = str(len(self._modules))
+        self.add_module(name, block)
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        """Initialize every parameter on ``ctx`` (default: the current
+        context, ``gpu(0)`` unless a ``with mx.cpu():`` scope is open)."""
+        from .. import initializer as _init
+        init = init if init is not None else _init.Uniform()
+        self.collect_params().initialize(init, ctx, verbose, force_reinit)
+
+    def hybridize(self, active=True, **kwargs):
+        """Accepted for API parity; the forward runs eagerly."""
+        for child in self._children.values():
+            child.hybridize(active, **kwargs)
+
+    def save_parameters(self, filename):
+        """Save with structural names, in the JAX package's npz format."""
+        from ..ndarray.utils import save as nd_save
+        params = self._collect_params_with_prefix()
+        nd_save(filename, {key: val.data() for key, val in params.items()
+                           if val._data is not None})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False):
+        """Load a file written by ``save_parameters`` (of either package).
+        Arrays are read on the host and copied onto each parameter's own
+        context (``ctx`` for parameters not yet allocated)."""
+        from ..ndarray.utils import load as nd_load
+        loaded = nd_load(filename, ctx=cpu())
+        if not isinstance(loaded, dict):
+            raise ValueError("load_parameters needs a name->NDArray dict "
+                             "file; %r contains an unnamed array list"
+                             % (filename,))
+        params = self._collect_params_with_prefix()
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise AssertionError("Parameter '%s' is missing in file "
+                                         "'%s'" % (name, filename))
+        for name, value in loaded.items():
+            if name not in params:
+                if not ignore_extra:
+                    raise AssertionError(
+                        "Parameter '%s' loaded from file '%s' is not present "
+                        "in this Block" % (name, filename))
+                continue
+            params[name]._load_init(value, ctx)
+
+    def forward(self, *args, **kwargs):
+        raise NotImplementedError
+
+
+def _indent(s, num_spaces):
+    lines = s.split("\n")
+    if len(lines) == 1:
+        return s
+    return lines[0] + "\n" + "\n".join(" " * num_spaces + line
+                                       for line in lines[1:])
+
+
+class HybridBlock(Block):
+    """A Block written as ``hybrid_forward(F, x, *args, **params)``."""
+
+    def infer_shape(self, *args):
+        """Complete deferred parameter shapes from the input shapes; layers
+        with deferred parameters override this."""
+
+    def forward(self, x, *args):
+        """Fetch this block's parameters (finishing deferred ones from
+        ``x``) and call ``hybrid_forward`` with ``F = mx.nd``."""
+        from .. import ndarray as nd
+        params = {}
+        for name, p in self._reg_params.items():
+            try:
+                params[name] = p.data()
+            except DeferredInitializationError:
+                self.infer_shape(x, *args)
+                params[name] = p.data()
+        return self.hybrid_forward(nd, x, *args, **params)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError

@@ -1,0 +1,198 @@
+"""Basic Gluon layers.
+
+Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential``,
+``HybridSequential``, ``Dense``, ``Activation``, ``BatchNorm``,
+``BatchNormAddReLU`` and ``Flatten``.  Each layer manages its parameters
+and deferred shapes and calls the registered ops (``ops/nn.py``) through
+``F``.  Dropout, Embedding and the other norms come with later slices.
+"""
+from __future__ import annotations
+
+import numpy as onp
+
+from ... import autograd
+from ..block import Block, HybridBlock
+
+__all__ = ["Sequential", "HybridSequential", "Dense", "BatchNorm",
+           "BatchNormAddReLU", "Flatten", "Activation"]
+
+
+class _SequentialMixin:
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def forward(self, x, *args):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+    def __getitem__(self, key):
+        layers = list(self._children.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+    def __len__(self):
+        return len(self._children)
+
+    def __iter__(self):
+        return iter(self._children.values())
+
+
+class Sequential(_SequentialMixin, Block):
+    """Stack of blocks run one after another."""
+
+
+class HybridSequential(_SequentialMixin, HybridBlock):
+    """Stack of hybrid blocks run one after another."""
+
+
+class Dense(HybridBlock):
+    """Fully-connected layer ``y = act(x·Wᵀ + b)``."""
+
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, **kwargs):
+        super().__init__(**kwargs)
+        self._units = units
+        self._in_units = in_units
+        self._flatten = flatten
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(units, in_units), init=weight_initializer,
+                dtype=dtype, allow_deferred_init=True)
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(units,), init=bias_initializer,
+                    dtype=dtype, allow_deferred_init=True)
+            else:
+                self.bias = None
+            if activation is not None:
+                self.act = Activation(activation, prefix=activation + "_")
+            else:
+                self.act = None
+
+    def infer_shape(self, x, *args):
+        in_units = int(onp.prod(x.shape[1:])) if self._flatten \
+            else x.shape[-1]
+        self.weight._finish_deferred_init((self._units, in_units))
+        if self.bias is not None:
+            self.bias._finish_deferred_init((self._units,))
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        out = F.FullyConnected(x, weight, bias, no_bias=bias is None,
+                               num_hidden=self._units, flatten=self._flatten)
+        if self.act is not None:
+            out = self.act(out)
+        return out
+
+    def __repr__(self):
+        shape = self.weight.shape
+        return "%s(%s -> %s, linear)" % (
+            self.__class__.__name__, shape[1] if shape[1] else None, shape[0])
+
+
+class Activation(HybridBlock):
+    """Activation layer (``relu``, ``sigmoid``, ``tanh``, ...)."""
+
+    def __init__(self, activation, **kwargs):
+        self._act_type = activation
+        super().__init__(**kwargs)
+
+    def _alias(self):
+        return self._act_type
+
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type)
+
+    def __repr__(self):
+        return "Activation(%s)" % self._act_type
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalization with moving statistics.  In training mode the
+    op returns the batch statistics and this layer updates the moving
+    averages."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
+                        "use_global_stats": use_global_stats}
+        self._axis = axis
+        self._momentum = momentum
+        self.in_channels = in_channels
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True, differentiable=scale)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True, differentiable=center)
+        self.running_mean = self.params.get(
+            "running_mean", grad_req="null", shape=(in_channels,),
+            init=running_mean_initializer, allow_deferred_init=True,
+            differentiable=False)
+        self.running_var = self.params.get(
+            "running_var", grad_req="null", shape=(in_channels,),
+            init=running_variance_initializer, allow_deferred_init=True,
+            differentiable=False)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            p._finish_deferred_init((c,))
+
+    def _update_moving(self, running_mean, running_var, mean, var):
+        if autograd.is_training() and not self._kwargs["use_global_stats"]:
+            m = self._momentum
+            with autograd.pause():
+                self.running_mean.set_data(running_mean * m + mean * (1 - m))
+                self.running_var.set_data(running_var * m + var * (1 - m))
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        out, mean, var = F.BatchNorm(x, gamma, beta, running_mean,
+                                     running_var, **self._kwargs)
+        self._update_moving(running_mean, running_var, mean, var)
+        return out
+
+    def __repr__(self):
+        in_channels = self.gamma.shape[0] if self.gamma.shape else None
+        return "BatchNorm(axis=%d, eps=%s, momentum=%s, in_channels=%s)" % (
+            self._axis, self._kwargs["eps"], self._momentum, in_channels)
+
+
+class BatchNormAddReLU(BatchNorm):
+    """``relu(BatchNorm(x) + residual)``, the tail of every ResNet v1
+    residual unit, through the fused epilogue kernel.  Same parameters and
+    auto-naming alias as :class:`BatchNorm`, so parameter names and
+    checkpoints match a plain BatchNorm in its place."""
+
+    def _alias(self):
+        return "batchnorm"
+
+    def hybrid_forward(self, F, x, residual, gamma, beta, running_mean,
+                       running_var):
+        out, mean, var = F.BatchNormAddRelu(x, residual, gamma, beta,
+                                            running_mean, running_var,
+                                            **self._kwargs)
+        self._update_moving(running_mean, running_var, mean, var)
+        return out
+
+
+class Flatten(HybridBlock):
+    """Flatten to ``(batch, -1)``."""
+
+    def hybrid_forward(self, F, x):
+        return x.reshape((0, -1))
+
+    def __repr__(self):
+        return self.__class__.__name__

@@ -1,0 +1,5 @@
+"""Operators on torch tensors (counterpart of ``mxnet_tpu/ops``).
+Importing this package registers every op with ``ops/registry.py``."""
+from . import registry  # noqa: F401
+from . import fused_norm  # noqa: F401
+from . import nn  # noqa: F401

@@ -1,0 +1,169 @@
+"""Neural-network operators on torch tensors.
+
+Counterpart of ``mxnet_tpu/ops/nn.py`` for the ops the ResNet v1 serving
+path uses: ``FullyConnected``, ``Convolution``, ``Pooling``,
+``Activation``, ``BatchNorm`` and ``_contrib_BatchNormAddRelu``, plus
+``Flatten`` (``mxnet_tpu/ops/matrix.py`` there).  Convolutions and dense
+layers are ``torch.nn.functional`` calls (cuDNN and cuBLAS on the card,
+as XLA's own lowering was on the TPU).  The BatchNorm ops reproduce the
+JAX package's numerics exactly: one-pass fp32 batch statistics, and the
+per-op difference in where the folded scale/shift are rounded (see
+:func:`batch_norm` and :func:`batch_norm_add_relu`).  The residual
+epilogue runs through the hand-written kernel in ``ops/fused_norm.py``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..base import MXNetError
+from .fused_norm import fused_bn_add_relu_epilogue
+from .registry import register
+
+__all__ = ["fully_connected", "convolution", "pooling", "activation",
+           "flatten", "batch_norm", "batch_norm_add_relu"]
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def _tup(v, n):
+    if v is None:
+        return (1,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    t = tuple(v)
+    return t if len(t) == n else t + (t[-1],) * (n - len(t))
+
+
+@register("FullyConnected", aliases=("fully_connected",))
+def fully_connected(data, weight, bias=None, num_hidden: int = 0,
+                    no_bias: bool = False, flatten: bool = True):
+    """y = x·Wᵀ + b, flattening all but the batch axis when ``flatten``."""
+    x = data.reshape(data.shape[0], -1) if flatten and data.dim() > 2 else data
+    return F.linear(x, weight, None if no_bias else bias)
+
+
+@register("Convolution", aliases=("convolution",))
+def convolution(data, weight, bias=None, kernel=(), stride=None, dilate=None,
+                pad=None, num_filter: int = 0, num_group: int = 1,
+                no_bias: bool = False, cudnn_tune=None, cudnn_off: bool = False,
+                workspace: int = 1024, layout=None):
+    """N-D convolution in NC(D)HW layout with an OI(D)HW weight."""
+    n = len(kernel) if kernel else data.dim() - 2
+    if layout not in (None, "NCW", "NCHW", "NCDHW"):
+        raise MXNetError("Convolution: layout %r is not ported" % (layout,))
+    pads = _tup(pad, n) if pad is not None else (0,) * n
+    return _CONV[n](data, weight, None if no_bias else bias,
+                    stride=_tup(stride, n), padding=pads,
+                    dilation=_tup(dilate, n), groups=num_group)
+
+
+@register("Pooling", aliases=("pooling",))
+def pooling(data, kernel=(), pool_type: str = "max", global_pool: bool = False,
+            stride=None, pad=None, pooling_convention: str = "valid",
+            cudnn_off: bool = False, p_value=None, count_include_pad=None,
+            layout=None):
+    """Max pooling with the ``valid`` convention (padding with -inf, as
+    the JAX op does), or global max or average pooling."""
+    n = data.dim() - 2
+    if global_pool:
+        dims = tuple(range(2, data.dim()))
+        if pool_type == "max":
+            return torch.amax(data, dim=dims, keepdim=True)
+        if pool_type == "avg":
+            return torch.mean(data, dim=dims, keepdim=True)
+        raise MXNetError("Pooling: global %r pooling is not ported" % pool_type)
+    if pooling_convention != "valid":
+        raise MXNetError("Pooling: convention %r is not ported"
+                         % pooling_convention)
+    k = _tup(kernel, n)
+    s = _tup(stride, n) if stride is not None else k
+    p = _tup(pad, n) if pad is not None else (0,) * n
+    if any(2 * pp > kk for pp, kk in zip(p, k)):
+        raise MXNetError("Pooling: pad %r exceeds half the kernel %r" % (p, k))
+    if pool_type != "max":
+        raise MXNetError("Pooling: pool_type %r is not ported" % pool_type)
+    return _MAX_POOL[n](data, k, s, p)
+
+
+@register("Activation", aliases=("activation",))
+def activation(data, act_type: str = "relu"):
+    if act_type == "relu":
+        return torch.relu(data)
+    if act_type == "sigmoid":
+        return torch.sigmoid(data)
+    if act_type == "tanh":
+        return torch.tanh(data)
+    if act_type == "softrelu":
+        return F.softplus(data)
+    if act_type == "softsign":
+        return F.softsign(data)
+    if act_type == "gelu":
+        return F.gelu(data, approximate="none")
+    raise ValueError("unknown act_type %r" % act_type)
+
+
+@register("Flatten", aliases=("flatten",))
+def flatten(data):
+    return data.reshape(data.shape[0], -1)
+
+
+def _batch_stats(data, axis):
+    """One-pass fp32 batch statistics ``E[x]`` and ``E[x²]−E[x]²``
+    (clamped at 0), cast to the data dtype, as the JAX ops compute them."""
+    dims = tuple(i for i in range(data.dim()) if i != axis % data.dim())
+    mean = torch.mean(data, dim=dims, dtype=torch.float32)
+    sq = torch.mean(torch.square(data), dim=dims, dtype=torch.float32)
+    var = torch.clamp_min(sq - torch.square(mean), 0.0)
+    return mean.to(data.dtype), var.to(data.dtype)
+
+
+def _fold(mean, var, gamma, beta, eps, fix_gamma):
+    """fp32 per-channel (scale, shift) of normalize + affine."""
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    inv = torch.rsqrt(var.float() + eps) * g.float()
+    return inv, beta.float() - mean.float() * inv
+
+
+@register("BatchNorm", num_outputs=3, needs_training=True,
+          aliases=("batch_norm",))
+def batch_norm(data, gamma, beta, moving_mean, moving_var,
+               eps: float = 1e-3, momentum: float = 0.9,
+               fix_gamma: bool = True, use_global_stats: bool = False,
+               output_mean_var: bool = False, axis: int = 1,
+               cudnn_off: bool = False, training: bool = True):
+    """Returns ``(out, mean, var)``; the moving-average update is the Gluon
+    layer's.  The folded scale and shift are cast to the DATA dtype before
+    ``data * scale + shift``, as ``_bn_apply`` does in the JAX package."""
+    if use_global_stats or not training:
+        mean, var = moving_mean, moving_var
+    else:
+        mean, var = _batch_stats(data, axis)
+    inv, shift = _fold(mean, var, gamma, beta, eps, fix_gamma)
+    shp = [1] * data.dim()
+    shp[axis % data.dim()] = data.shape[axis % data.dim()]
+    out = data * inv.to(data.dtype).reshape(shp) \
+        + shift.to(data.dtype).reshape(shp)
+    return out, mean, var
+
+
+@register("_contrib_BatchNormAddRelu", num_outputs=3, needs_training=True,
+          aliases=("BatchNormAddRelu",))
+def batch_norm_add_relu(data, residual, gamma, beta, moving_mean, moving_var,
+                        eps: float = 1e-3, momentum: float = 0.9,
+                        fix_gamma: bool = True,
+                        use_global_stats: bool = False,
+                        output_mean_var: bool = False, axis: int = 1,
+                        cudnn_off: bool = False, training: bool = True):
+    """``relu(BatchNorm(data) + residual)`` as one epilogue.  Statistics as
+    :func:`batch_norm`; the folded scale and shift stay in fp32 and go to
+    the fused kernel.  Returns ``(out, mean, var)``."""
+    if use_global_stats or not training:
+        mean, var = moving_mean, moving_var
+    else:
+        mean, var = _batch_stats(data, axis)
+    inv, shift = _fold(mean, var, gamma, beta, eps, fix_gamma)
+    out = fused_bn_add_relu_epilogue(data, inv, shift, residual,
+                                     axis % data.dim())
+    return out, mean, var

@@ -1,0 +1,50 @@
+"""Random number state: MXNet's stateful seed over ``torch.Generator``s.
+
+Counterpart of ``mxnet_tpu/random.py``, which hides a JAX PRNG key
+stream behind ``mx.random.seed``.  Here the state is one
+``torch.Generator`` per device, created on first use and seeded from the
+last ``seed()`` (0 before any).  The two packages draw different numbers
+from the same seed; tests that compare them carry weights across.
+"""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+__all__ = ["seed", "generator"]
+
+
+class _RngState:
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.seed = 0
+        self.generators = {}       # torch.device -> torch.Generator
+
+
+_STATE = _RngState()
+
+
+def seed(seed_state: int, ctx="all") -> None:
+    """Seed every device's generator (``ctx="all"``) or one context's."""
+    with _STATE.lock:
+        if ctx == "all":
+            _STATE.seed = int(seed_state)
+            for g in _STATE.generators.values():
+                g.manual_seed(_STATE.seed)
+            return
+    generator(ctx.torch_device).manual_seed(int(seed_state))
+
+
+def generator(device) -> torch.Generator:
+    """The generator of ``device`` (a ``torch.device`` or a name)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _STATE.lock:
+        g = _STATE.generators.get(device)
+        if g is None:
+            g = torch.Generator(device=device)
+            g.manual_seed(_STATE.seed)
+            _STATE.generators[device] = g
+        return g

@@ -1,0 +1,83 @@
+"""Hygiene of the port: ``mxnet_tpu_torch/`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package, and the port's default (GPU) entry points
+raise without CUDA instead of running on the CPU."""
+import ast
+import os
+
+import numpy as onp
+import pytest
+import torch
+
+import mxnet_tpu_torch as mxt
+from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tresnet
+from mxnet_tpu_torch.serve import AotModel, InferenceServer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "mxnet_tpu_torch")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module:
+            yield node.module
+
+
+def _forbidden(module):
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "mxnet_tpu")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = _port_files()
+    assert len(files) > 20 and os.path.exists(files[0])
+    bad = [(os.path.relpath(p, REPO), m) for p in files
+           for m in _imported_modules(p) if _forbidden(m)]
+    assert bad == []
+
+
+def test_forbidden_import_check_sees_the_spellings():
+    for m in ("jax", "jax.numpy", "jaxlib.xla_client", "mxnet_tpu",
+              "mxnet_tpu.ops.nn"):
+        assert _forbidden(m)
+    assert not _forbidden("mxnet_tpu_torch.ops.nn")
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_context_is_the_gpu():
+    assert mxt.current_context() == mxt.gpu(0)
+    with mxt.cpu():
+        assert mxt.current_context() == mxt.cpu()
+
+
+def test_gpu_entry_points_raise_without_cuda(no_cuda):
+    with pytest.raises(mxt.MXNetError, match="CUDA"):
+        mxt.gpu(0).torch_device
+    with pytest.raises(mxt.MXNetError, match="CUDA"):
+        mxt.nd.zeros((2, 2))
+    with pytest.raises(mxt.MXNetError, match="CUDA"):
+        mxt.nd.array(onp.zeros(3, "float32"))
+    with pytest.raises(mxt.MXNetError, match="CUDA"):
+        tresnet.resnet18_v1().initialize()
+    with pytest.raises(mxt.MXNetError, match="CUDA"):
+        AotModel(lambda x: x, feature_shape=(3,))
+    with pytest.raises(mxt.MXNetError, match="CUDA"):
+        InferenceServer(lambda x: x, feature_shape=(3,))
+    # the CPU only when asked for
+    assert mxt.nd.zeros((2,), ctx=mxt.cpu()).context == mxt.cpu()
