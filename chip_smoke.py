@@ -11,16 +11,28 @@ and PyTorch built for CUDA.  It:
 2. builds every CUDA kernel of the package from ``mxnet_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel) and prints the build time;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
-   card at the shapes the serving path gives it (plus an NHWC, a bfloat16,
-   a ragged and an unaligned case) and times kernel, plain version and the
-   memory-bandwidth bound with CUDA events (L2 flushed between launches);
+   card and times kernel, plain version and the memory-bandwidth bound with
+   CUDA events (L2 flushed between launches): the epilogue forward at the
+   shapes the serving path gives it (bucket 8) and the training path gives
+   it (batch 32), and the epilogue backward at the training shapes, each
+   kernel also with an NHWC, a bfloat16, a ragged and an unaligned case;
 4. serving phase: builds ResNet-50 v1 (224x224x3, 1000 classes, float32,
    random weights from ``--seed``) on ``mx.gpu(0)``, serves it through
    ``serve.InferenceServer`` with buckets (1, 2, 4, 8), submits the
    requests in bursts of 1, 2, 3, 5 and 8, and checks every result
    against a direct batch-1 forward, zero dispatch errors, no quarantine,
    zero steady-state recompiles and 16 kernel launches per dispatch;
-5. prints one JSON line describing each kernel, then as its last line
+5. training phase: ResNet-50 v1 at full width (Xavier weights from
+   ``--seed``) trained on ``mx.gpu(0)`` through ``autograd.record``,
+   ``backward`` and ``gluon.Trainer`` (SGD, lr 0.1, momentum 0.9, wd 1e-4,
+   softmax cross entropy) on one fixed batch of 32 synthetic images fed by
+   ``io.NDArrayIter``: 3 warm-up and 10 timed steps.  It checks that every
+   loss is finite and the lowest of the last five is 10% below the first,
+   that each step launches the forward and the backward epilogue kernel 16
+   times each, that the moving statistics moved, and that one step on the
+   card matches the same step on the CPU (batch 2, same weights, the plain
+   versions there);
+6. prints one JSON line describing each kernel, then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero without the ``ok``
@@ -37,10 +49,49 @@ import subprocess
 import sys
 import time
 
-# ResNet-50's BN -> add -> ReLU epilogues at serving bucket 8, NCHW:
-# (shape, launches per forward) for stages 1-4
-EPILOGUE_SHAPES = [((8, 256, 56, 56), 3), ((8, 512, 28, 28), 4),
-                   ((8, 1024, 14, 14), 6), ((8, 2048, 7, 7), 3)]
+# ResNet-50's BN -> add -> ReLU epilogues, NCHW: (channels and spatial
+# size, launches per forward or backward) for stages 1-4
+STAGES = [((256, 56, 56), 3), ((512, 28, 28), 4), ((1024, 14, 14), 6),
+          ((2048, 7, 7), 3)]
+SERVE_BATCH = 8                     # the largest serving bucket
+TRAIN_BATCH = 32
+IMAGE_SIZE = 224                    # ResNet-50 v1 at full width
+SERVE_SHAPES = [((SERVE_BATCH,) + chw, n) for chw, n in STAGES]
+TRAIN_SHAPES = [((TRAIN_BATCH,) + chw, n) for chw, n in STAGES]
+# the cases of each kernel beyond the path's own shapes:
+# (name, shape, channel axis, dtype name, element offset)
+EXTRA_CASES = [("nhwc", (8, 28, 28, 512), 3, "float32", 0),
+               ("bf16", (8, 256, 56, 56), 1, "bfloat16", 0),
+               ("ragged", (3, 7, 13, 11), 1, "float32", 0),
+               ("unaligned", (2, 64, 7, 7), 1, "float32", 1)]
+WARMUP_STEPS = 3
+TIMED_STEPS = 10
+# The loss must fall: the lowest of the last five steps at least 10% below
+# the first step's.  Not the last step alone: at lr 0.1, eight times the
+# linear-scaling rate for batch 32, the loss on the fixed batch oscillates
+# from step to step, and the trajectory differs between runs (max-pool's
+# backward and cuDNN's weight gradients sum in a run-dependent order).  One
+# of four runs on an H100 ended at 7.89 against a first loss of 7.85 after
+# reaching 5.05 two steps before (PERF.md).
+LOSS_WINDOW = 5
+LOSS_DROP = 0.9
+# One training step on the card against the same step on the CPU (batch 2,
+# same weights).  The loss is held to rel 1e-4.  The updates w1 - w0 are
+# held only to a relative L2 error of 5e-2 over all 267 parameters (the
+# moving statistics included) and 1e-1 for any one parameter: at batch 2
+# from Xavier weights the step's gradients are ill-conditioned sums, so
+# that the order of summation alone moves them by about 1e-2 (measured on
+# the CPU, one thread against eight: 1.2e-2 over all parameters and 2.1e-2
+# for the worst, a BatchNorm beta).  The script measures that floor in
+# every run and prints it beside the card's error.  A wrong kernel moves
+# gradients by far more: the card with its kernels agreed with the card
+# with the plain versions to 2.7e-6 (``chip_diag.py parity``; PERF.md).
+PARITY_BATCH = 2
+PARITY_LOSS_RTOL = 1e-4
+PARITY_UPDATE_REL_L2 = 5e-2
+PARITY_PARAM_REL_L2 = 1e-1
+# bench.py's train step: SGD with momentum and weight decay
+SGD_PARAMS = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 BUCKETS = (1, 2, 4, 8)
 BURSTS = (1, 2, 3, 5, 8)
 N_REQUESTS = 64
@@ -120,79 +171,154 @@ def host_us(torch, fn):
     return dt / TIMED_ITERS * 1e6
 
 
-def kernel_phase(torch, fused_norm, card, flush):
-    """Kernel against plain version, timings and bounds.  Launches made
-    here are comparisons, not the main path: the caller resets the count
-    afterwards."""
+def _prod(shape):
+    n = 1
+    for d in shape:
+        n *= d
+    return n
+
+
+def _operands(torch, gen, shape, axis, dtype, offset):
+    """x, r, ct in ``dtype`` (offset by ``offset`` elements from an aligned
+    start) and fp32 per-channel scale/shift on the card."""
     dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(1234)
+    n = _prod(shape)
+
+    def rand():
+        v = torch.randn(n + offset, device=dev, generator=gen)
+        return v.to(dtype)[offset:].view(shape)
+    c = shape[axis]
+    x, r, ct = rand(), rand(), rand()
+    s = torch.rand(c, device=dev, generator=gen) + 0.5
+    t = torch.randn(c, device=dev, generator=gen) * 0.1
+    return n, c, x, r, ct, s, t
+
+
+def _elementwise_err(torch, what, got, want):
+    """max |got - want|; f32 must agree within 1e-6 of the largest |want|
+    (the kernels round each operation as the plain versions do), bf16
+    within 1 ulp (the same fp32 value rounded once)."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          "%s: kernel gave %s %s" % (what, tuple(got.shape), got.dtype))
+    err = (got.float() - want.float()).abs().max().item()
+    if got.dtype == torch.float32:
+        tol = 1e-6 * want.abs().max().item()
+        check(err <= tol, "%s: max|kernel-plain| %.3g > %.3g" % (what, err,
+                                                                tol))
+    else:
+        ulps = (got.view(torch.int16).int()
+                - want.view(torch.int16).int()).abs().max().item()
+        check(ulps <= 1, "%s: kernel is %d bf16 ulps from plain" % (what,
+                                                                    ulps))
+    return err
+
+
+def kernel_phase(torch, fused_norm, card, flush):
+    """Each kernel against its plain version, with timings and bounds:
+    the forward at the serving and training shapes, the backward at the
+    training shapes, both with the extra cases.  Launches made here are
+    comparisons, not the main path: the paths reset the counts."""
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    # bring the card to its working clocks first: the first case timed on
+    # an idle card read twice its later time in two of three runs
+    for _ in range(300):
+        flush.sum()
+    torch.cuda.synchronize()
     bw = memory_bytes_per_s(card)
     peak = fp32_ops_per_s(card)
-    kernel = fused_norm.fused_bn_add_relu_epilogue
-    plain = fused_norm.fused_bn_add_relu_epilogue_plain
-    cases = [("nchw", shape, 1, torch.float32, 0, n)
-             for shape, n in EPILOGUE_SHAPES]
-    cases += [("nhwc", (8, 28, 28, 512), 3, torch.float32, 0, 0),
-              ("bf16", (8, 256, 56, 56), 1, torch.bfloat16, 0, 0),
-              ("ragged", (3, 7, 13, 11), 1, torch.float32, 0, 0),
-              ("unaligned", (2, 64, 7, 7), 1, torch.float32, 1, 0)]
-    rows = []
-    for kind, shape, axis, dtype, offset, per_forward in cases:
-        n = 1
-        for d in shape:
-            n *= d
-        c = shape[axis]
-        x = torch.randn(n + offset, device=dev, generator=gen)
-        r = torch.randn(n + offset, device=dev, generator=gen)
-        x = x.to(dtype)[offset:].view(shape)
-        r = r.to(dtype)[offset:].view(shape)
-        s = torch.rand(c, device=dev, generator=gen) + 0.5
-        t = torch.randn(c, device=dev, generator=gen) * 0.1
-        with torch.inference_mode():
-            y = kernel(x, s, t, r, axis)
-            want = plain(x, s, t, r, axis)
-            torch.cuda.synchronize()
-            check(y.shape == want.shape and y.dtype == want.dtype,
-                  "%s: kernel gave %s %s" % (kind, y.shape, y.dtype))
-            err = (y.float() - want.float()).abs().max().item()
-            if dtype == torch.float32:
-                tol = 1e-6 * want.abs().max().item()
-                check(err <= tol, "%s %s: max|kernel-plain| %.3g > %.3g"
-                      % (kind, shape, err, tol))
-            else:
-                ulps = (y.view(torch.int16).int()
-                        - want.view(torch.int16).int()).abs().max().item()
-                check(ulps <= 1, "%s %s: kernel is %d bf16 ulps from plain"
-                      % (kind, shape, ulps))
-            ms = time_cuda(torch, lambda: kernel(x, s, t, r, axis), flush)
-            plain_ms = time_cuda(torch, lambda: plain(x, s, t, r, axis), flush)
-            k_host = host_us(torch, lambda: kernel(x, s, t, r, axis))
-            p_host = host_us(torch, lambda: plain(x, s, t, r, axis))
-        nbytes = 3 * n * x.element_size() + 2 * c * 4
-        bound_ms = max(nbytes / bw, 4 * n / peak) * 1e3
-        rows.append({"case": kind, "shape": list(shape), "dtype":
-                     str(dtype).replace("torch.", ""), "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bytes": nbytes, "launches_per_forward": per_forward,
-                     "host_us": k_host, "plain_host_us": p_host})
-        print("kernel %-9s %-20s %-8s err %.3g  kernel %.4f ms  plain %.4f ms"
-              "  bound %.4f ms  host/call kernel %.1f us plain %.1f us  (%s)"
-              % (kind, shape, rows[-1]["dtype"], err, ms, plain_ms, bound_ms,
-                 k_host, p_host, card))
+    fwd, fwd_plain = (fused_norm.fused_bn_add_relu_epilogue,
+                      fused_norm.fused_bn_add_relu_epilogue_plain)
+    bwd, bwd_plain = (fused_norm.fused_bn_add_relu_epilogue_bwd,
+                      fused_norm.fused_bn_add_relu_epilogue_bwd_plain)
+    extras = [(kind, shape, axis, getattr(torch, dt), off, None, 0)
+              for kind, shape, axis, dt, off in EXTRA_CASES]
+    fwd_cases = [("nchw", shape, 1, torch.float32, 0, "serve", n)
+                 for shape, n in SERVE_SHAPES]
+    fwd_cases += [("nchw", shape, 1, torch.float32, 0, "train", n)
+                  for shape, n in TRAIN_SHAPES]
+    bwd_cases = [("nchw", shape, 1, torch.float32, 0, "train", n)
+                 for shape, n in TRAIN_SHAPES]
+    rows = {"fwd": [], "bwd": []}
+    for direction, cases in (("fwd", fwd_cases + extras),
+                             ("bwd", bwd_cases + extras)):
+        for kind, shape, axis, dtype, offset, path, per_pass in cases:
+            n, c, x, r, ct, s, t = _operands(torch, gen, shape, axis, dtype,
+                                             offset)
+            what = "%s %s %s %s" % (direction, kind, shape, dtype)
+            with torch.inference_mode():
+                if direction == "fwd":
+                    def k_fn():
+                        return fwd(x, s, t, r, axis)
+
+                    def p_fn():
+                        return fwd_plain(x, s, t, r, axis)
+                    err = _elementwise_err(torch, what, k_fn(), p_fn())
+                    rel_sums = None
+                    nbytes = 3 * n * x.element_size() + 2 * c * 4
+                    ops = 4 * n
+                else:
+                    y = fwd_plain(x, s, t, r, axis)
+
+                    def k_fn():
+                        return bwd(x, s, y, ct, axis)
+
+                    def p_fn():
+                        return bwd_plain(x, s, y, ct, axis)
+                    got, again, want = k_fn(), k_fn(), p_fn()
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          "%s: two runs differ" % what)
+                    err = max(_elementwise_err(torch, what + " dx", got[0],
+                                               want[0]),
+                              _elementwise_err(torch, what + " dr", got[1],
+                                               want[1]))
+                    rel_sums = 0.0
+                    for name, a, b in (("dscale", got[2], want[2]),
+                                       ("dshift", got[3], want[3])):
+                        check(a.dtype == torch.float32 and a.shape == (c,),
+                              "%s %s: %s %s" % (what, name, a.dtype,
+                                                tuple(a.shape)))
+                        e = (a - b).abs().max().item()
+                        rel = e / max(b.abs().max().item(), 1e-30)
+                        # only the order of the channel sums differs
+                        check(rel <= 1e-5, "%s %s: rel err %.3g > 1e-5"
+                              % (what, name, rel))
+                        err = max(err, e)
+                        rel_sums = max(rel_sums, rel)
+                    nbytes = 5 * n * x.element_size() + 3 * c * 4
+                    ops = 5 * n
+                ms, plain_ms = (time_cuda(torch, k_fn, flush),
+                                time_cuda(torch, p_fn, flush))
+                k_host, p_host = host_us(torch, k_fn), host_us(torch, p_fn)
+            bound_ms = max(nbytes / bw, ops / peak) * 1e3
+            row = {"case": kind, "path": path, "shape": list(shape),
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bytes": nbytes,
+                   "launches_per_pass": per_pass, "host_us": k_host,
+                   "plain_host_us": p_host}
+            if rel_sums is not None:
+                row["max_rel_err_sums"] = rel_sums
+            rows[direction].append(row)
+            print("kernel %s %-9s %-5s %-20s %-8s err %.3g  kernel %.4f ms  "
+                  "plain %.4f ms  bound %.4f ms  host/call kernel %.1f us "
+                  "plain %.1f us  (%s)"
+                  % (direction, kind, path or "-", shape, row["dtype"], err,
+                     ms, plain_ms, bound_ms, k_host, p_host, card))
     return rows
 
 
-def profile_calls(torch, model, x, bucket, calls=5):
-    """torch.profiler over ``calls`` model calls of one bucket: the wall
-    time per call, the device's busy time per call (kernel time summed)
-    and the kernels that take it."""
+def profile_calls(torch, fn, label, calls=5):
+    """torch.profiler over ``calls`` calls of ``fn`` (each ending in a
+    host sync): the wall time per call, the device's busy time per call
+    (kernel time summed) and the kernels that take it."""
     from torch.profiler import ProfilerActivity, profile
-    model.run(bucket, x).cpu()
+    fn()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            model.run(bucket, x).cpu()
+            fn()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     avgs = prof.key_averages()
     key = "self_device_time_total" if hasattr(avgs[0], "self_device_time_total") \
@@ -201,10 +327,10 @@ def profile_calls(torch, model, x, bucket, calls=5):
               and getattr(a, "device_type", None) is not None
               and "CUDA" in str(a.device_type)]
     busy_ms = sum(getattr(a, key) for a in device) / 1e3 / calls
-    top = sorted(device, key=lambda a: -getattr(a, key))[:12]
-    return {"bucket": bucket, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    top = sorted(device, key=lambda a: -getattr(a, key))[:16]
+    return {"label": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "top": [(a.key[:60], getattr(a, key) / 1e3 / calls, a.count // calls)
+            "top": [(a.key[:90], getattr(a, key) / 1e3 / calls, a.count // calls)
                     for a in top]}
 
 
@@ -273,8 +399,9 @@ def serving_phase(torch, mx, fused_norm, seed, n_requests, profile=False):
                 times.append(time.perf_counter() - t)
             call_ms[b] = statistics.median(times[2:]) * 1e3
         b8_ms = call_ms[8]
-        profiles = [profile_calls(torch, srv._model, inputs[:b], b)
-                    for b in (1, 8)] if profile else []
+        profiles = [profile_calls(
+            torch, lambda b=b: srv._model.run(b, inputs[:b]).cpu(),
+            "serving bucket %d" % b) for b in (1, 8)] if profile else []
     finally:
         srv.close()
     # every result against a direct batch-1 forward of the same net
@@ -297,12 +424,192 @@ def serving_phase(torch, mx, fused_norm, seed, n_requests, profile=False):
             "max_rel_err": worst, "requests": len(handles)}
 
 
+def print_profiles(profiles, card):
+    for p in profiles:
+        print("profile %s: wall %.3f ms/call, device busy %.3f ms/call, "
+              "idle share %.3f (%s)" % (p["label"], p["wall_ms"],
+                                        p["device_busy_ms"],
+                                        p["device_idle_share"], card))
+        for name, ms, n in p["top"]:
+            print("  %-90s %8.3f ms/call  %4d launches/call" % (name, ms, n))
+
+
+def _param_arrays(net):
+    return {k: p.data().asnumpy()
+            for k, p in net._collect_params_with_prefix().items()}
+
+
+def _one_step(mx, net, x, y, batch):
+    """One record/backward/Trainer.step on fresh SGD state; the loss."""
+    from mxnet_tpu_torch import gluon
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(SGD_PARAMS))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(batch)
+    return loss.asnumpy()
+
+
+def _update_errors(w0, w1, w1_ref):
+    """Relative L2 error of the updates ``w1 - w0`` against
+    ``w1_ref - w0``: over all parameters together, and each parameter's
+    own (worst first)."""
+    import numpy as onp
+    per_param, err2, ref2 = [], 0.0, 0.0
+    for k, w in w0.items():
+        du_ref = (w1_ref[k] - w).astype("float64")
+        diff = (w1[k] - w).astype("float64") - du_ref
+        ref = float(onp.linalg.norm(du_ref))
+        err2 += float(onp.sum(diff * diff))
+        ref2 += ref * ref
+        if ref == 0.0:
+            check(onp.array_equal(w1[k], w), "parity: %s moved on one side "
+                  "only" % k)
+            continue
+        per_param.append((float(onp.linalg.norm(diff)) / ref, k))
+    per_param.sort(reverse=True)
+    return (err2 / ref2) ** 0.5, per_param
+
+
+def card_vs_cpu_step(torch, mx, net, w0, data, label):
+    """The same SGD step from the same weights on the card and on the CPU
+    (the plain versions there), and, as the floor of what summation order
+    alone does, the CPU step again on one thread.  Returns the loss rel
+    error and the update errors of the card and of the floor."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.utils import load_jax_params
+    b = PARITY_BATCH
+    gpu_loss = _one_step(mx, net, mx.nd.array(data[:b], ctx=mx.gpu(0)),
+                         mx.nd.array(label[:b], ctx=mx.gpu(0)), b)
+    w1_gpu = _param_arrays(net)
+    cpu_net = resnet50_v1()
+    cpu_net.initialize(ctx=mx.cpu())
+    with mx.autograd.predict_mode():
+        cpu_net(mx.nd.zeros((1, 3, IMAGE_SIZE, IMAGE_SIZE), ctx=mx.cpu()))
+
+    def cpu_step():
+        load_jax_params(cpu_net, w0)
+        loss = _one_step(mx, cpu_net, mx.nd.array(data[:b], ctx=mx.cpu()),
+                         mx.nd.array(label[:b], ctx=mx.cpu()), b)
+        return loss, _param_arrays(cpu_net)
+    cpu_loss, w1_cpu = cpu_step()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    _, w1_cpu1 = cpu_step()
+    torch.set_num_threads(threads)
+    import numpy as onp
+    loss_rel = float(onp.abs(gpu_loss - cpu_loss).max()
+                     / onp.abs(cpu_loss).max())
+    return (loss_rel, _update_errors(w0, w1_gpu, w1_cpu),
+            _update_errors(w0, w1_cpu1, w1_cpu))
+
+
+def training_phase(torch, mx, fused_norm, seed, card, profile=False):
+    """ResNet-50 v1 training on the card through the Gluon entry points;
+    returns the numbers.  The card-vs-CPU step runs first, from the
+    initial weights, which the net then gets back for the main path."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon, io
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    mx.random.seed(seed)
+    net = resnet50_v1()
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    with mx.autograd.predict_mode():
+        net(mx.nd.zeros((1, 3, IMAGE_SIZE, IMAGE_SIZE), ctx=mx.gpu(0)))
+    rng = onp.random.RandomState(seed)
+    data = rng.uniform(-1, 1, (TRAIN_BATCH, 3, IMAGE_SIZE, IMAGE_SIZE)) \
+        .astype("float32")
+    label = rng.randint(0, 1000, TRAIN_BATCH).astype("float32")
+    w0 = _param_arrays(net)
+    t0 = time.perf_counter()
+    loss_rel, (update_rel, per_param), (floor_rel, floor_param) = \
+        card_vs_cpu_step(torch, mx, net, w0, data, label)
+    parity_s = time.perf_counter() - t0
+    print("training: card vs CPU, one step at batch %d: loss rel err %.3g, "
+          "update rel L2 err %.3g over all parameters; worst parameters %s"
+          % (PARITY_BATCH, loss_rel, update_rel,
+             ", ".join("%s %.3g" % (k, e) for e, k in per_param[:4])))
+    print("training: floor, CPU on 1 thread vs CPU on %d: update rel L2 err "
+          "%.3g over all parameters; worst parameters %s"
+          % (torch.get_num_threads(), floor_rel,
+             ", ".join("%s %.3g" % (k, e) for e, k in floor_param[:4])))
+    check(loss_rel <= PARITY_LOSS_RTOL, "card vs CPU loss rel err %.3g > %g"
+          % (loss_rel, PARITY_LOSS_RTOL))
+    check(update_rel <= PARITY_UPDATE_REL_L2,
+          "card vs CPU update: rel L2 err %.3g > %g"
+          % (update_rel, PARITY_UPDATE_REL_L2))
+    check(per_param[0][0] <= PARITY_PARAM_REL_L2,
+          "card vs CPU update of %s: rel L2 err %.3g > %g"
+          % (per_param[0][1], per_param[0][0], PARITY_PARAM_REL_L2))
+    for k, p in net._collect_params_with_prefix().items():
+        p.set_data(w0[k])
+
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(SGD_PARAMS))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    it = io.NDArrayIter(data, label, batch_size=TRAIN_BATCH)
+    bn = net._collect_params_with_prefix()["features.1.running_mean"]
+    mean0 = bn.data().asnumpy()
+
+    def step():
+        try:
+            batch = it.next()
+        except StopIteration:
+            it.reset()
+            batch = it.next()
+        with mx.autograd.record():
+            loss = loss_fn(net(batch.data[0]), batch.label[0])
+        loss.backward()
+        trainer.step(TRAIN_BATCH)
+        return float(loss.mean().asscalar())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts from 0 just before, read just after
+    fused_norm.LAUNCHES = 0
+    fused_norm.BWD_LAUNCHES = 0
+    losses, times = [], []
+    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+        t = time.perf_counter()
+        losses.append(step())
+        times.append(time.perf_counter() - t)
+    launches = (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    check(all(onp.isfinite(losses)), "non-finite loss: %r" % losses)
+    check(min(losses[-LOSS_WINDOW:]) < LOSS_DROP * losses[0],
+          "loss did not fall: %r" % losses)
+    check(launches == (16 * n_steps, 16 * n_steps),
+          "%d forward and %d backward kernel launches in %d steps (want 16 "
+          "each a step)" % (launches[0], launches[1], n_steps))
+    check(not onp.array_equal(bn.data().asnumpy(), mean0),
+          "moving statistics did not change")
+    check(all(p.data().astorch().grad_fn is None
+              for p in net.collect_params().values()),
+          "a parameter keeps a graph after the step")
+    step_ms = statistics.median(times[WARMUP_STEPS:]) * 1e3
+    profiles = [profile_calls(torch, step, "training step", calls=3)] \
+        if profile else []
+    return {"losses": losses, "step_ms": step_ms,
+            "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
+            "step_ms_all": [t * 1e3 for t in times],
+            "fwd_launches": launches[0], "bwd_launches": launches[1],
+            "steps": n_steps, "peak_bytes": peak_bytes,
+            "parity_loss_rel": loss_rel, "parity_update_rel_l2": update_rel,
+            "parity_worst_params": per_param[:4],
+            "parity_floor_rel_l2": floor_rel,
+            "parity_floor_worst": floor_param[:4], "parity_s": parity_s,
+            "profiles": profiles}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace bucket-1 and bucket-8 model calls with "
-                         "torch.profiler and print where the device time goes")
+                    help="also trace bucket-1 and bucket-8 model calls and "
+                         "training steps with torch.profiler and print where "
+                         "the device time goes")
     args = ap.parse_args(argv)
 
     import torch
@@ -352,35 +659,60 @@ def main(argv=None):
     print("serving: model call ms per bucket %s; first latencies ms %s"
           % ({b: round(v, 3) for b, v in res["call_ms"].items()},
              res["first_latencies_ms"]))
-    for p in res["profiles"]:
-        print("profile bucket %d: wall %.3f ms/call, device busy %.3f ms/call, "
-              "idle share %.3f (%s)" % (p["bucket"], p["wall_ms"],
-                                        p["device_busy_ms"],
-                                        p["device_idle_share"], card))
-        for name, ms, n in p["top"]:
-            print("  %-60s %8.3f ms/call  %3d launches/call" % (name, ms, n))
+    print_profiles(res["profiles"], card)
 
-    def per_fwd(key):
-        return sum(r[key] * r["launches_per_forward"] for r in rows)
+    train = training_phase(torch, mx, fused_norm, args.seed, card,
+                           profile=args.profile)
+    print("training: ResNet-50 v1 batch %d, %d steps, losses %s"
+          % (TRAIN_BATCH, train["steps"],
+             [round(v, 4) for v in train["losses"]]))
+    print("training: step %.3f ms (median of %d) = %.1f images/s, peak "
+          "device memory %.2f GiB, epilogue launches fwd %d bwd %d, card vs "
+          "CPU check %.1f s (%s)"
+          % (train["step_ms"], TIMED_STEPS, train["images_per_s"],
+             train["peak_bytes"] / 2 ** 30, train["fwd_launches"],
+             train["bwd_launches"], train["parity_s"], card))
+    print("training: step ms %s" % [round(v, 3) for v in train["step_ms_all"]])
+    print_profiles(train["profiles"], card)
 
-    entry = {
-        "name": "fused_bn_add_relu_epilogue",
-        "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/fused_norm.cu",
-        "replaces": "mxnet_tpu/ops/pallas_fused_norm.py:45",
-        "launches": res["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": per_fwd("ms"),
-        "plain_ms": per_fwd("plain_ms"),
-        "bound_ms": per_fwd("bound_ms"),
-        "bound_by": "bytes",
-        "library_ms": None,
-        "per": "one bucket-8 ResNet-50 forward: 16 launches at the shapes "
-               "below; library: no single PyTorch call computes it",
-        "shapes": rows,
-    }
+    def per_pass(direction, path, key):
+        return sum(r[key] * r["launches_per_pass"] for r in rows[direction]
+                   if r["path"] == path)
+
+    def numbers(direction, path):
+        return {k: per_pass(direction, path, k)
+                for k in ("ms", "plain_ms", "bound_ms")}
+
+    no_library = "no single PyTorch call computes it"
+    fwd_entry = dict(
+        name="fused_bn_add_relu_epilogue", route="cuda",
+        source="mxnet_tpu_torch/csrc/fused_norm.cu",
+        replaces="mxnet_tpu/ops/pallas_fused_norm.py:45",
+        launches=train["fwd_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in rows["fwd"]),
+        bound_by="bytes", library_ms=None,
+        launches_by_path={"serving": res["launches"],
+                          "training": train["fwd_launches"]},
+        serving=numbers("fwd", "serve"),
+        per="ms/plain_ms/bound_ms: one batch-32 ResNet-50 training step (16 "
+            "launches at the train shapes below); serving: one bucket-8 "
+            "forward; launches: the training path's %d steps; library: %s"
+            % (train["steps"], no_library),
+        shapes=rows["fwd"], **numbers("fwd", "train"))
+    bwd_entry = dict(
+        name="fused_bn_add_relu_epilogue_bwd", route="cuda",
+        source="mxnet_tpu_torch/csrc/fused_norm.cu",
+        replaces="mxnet_tpu/ops/pallas_fused_norm.py:52",
+        launches=train["bwd_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in rows["bwd"]),
+        max_rel_err_sums=max(r["max_rel_err_sums"] for r in rows["bwd"]),
+        bound_by="bytes", library_ms=None,
+        per="ms/plain_ms/bound_ms: one batch-32 ResNet-50 training step (16 "
+            "launches at the train shapes below); launches: the training "
+            "path's %d steps; library: %s" % (train["steps"], no_library),
+        shapes=rows["bwd"], **numbers("bwd", "train"))
     print(card)                       # as nvidia-smi prints it
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [fwd_entry, bwd_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,9 @@
 
 The port of ``mxnet_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
 kept in the same module layout and public names: ``mx.nd``,
-``mx.autograd``, ``mx.gluon``, ``mx.init``, ``mx.random``, ``mx.serve``.
+``mx.autograd``, ``mx.gluon``, ``mx.init``, ``mx.random``,
+``mx.optimizer``, ``mx.lr_scheduler``, ``mx.metric``, ``mx.io``,
+``mx.callback`` and ``mx.serve``.
 Its default context is the card (``mx.gpu(0)``); the CPU runs only when
 the caller asks for ``mx.cpu()``.  Hand-written CUDA kernels live in
 ``csrc/`` and are built at first use (``kernels.py``).  This package
@@ -19,6 +21,11 @@ from . import ndarray as nd  # noqa: F401
 from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import telemetry  # noqa: F401
+from . import lr_scheduler  # noqa: F401
+from . import optimizer  # noqa: F401
+from . import metric  # noqa: F401
+from . import io  # noqa: F401
+from . import callback  # noqa: F401
 from . import gluon  # noqa: F401
 from . import serve  # noqa: F401
 from .base import __version__  # noqa: F401

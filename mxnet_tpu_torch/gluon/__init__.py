@@ -1,11 +1,16 @@
 """Gluon (counterpart of ``mxnet_tpu/gluon``): blocks, parameters, layers,
-the ResNet v1 model zoo and the JAX-weight loader."""
+losses, the Trainer, the data API, the ResNet v1 model zoo and the
+JAX-weight loader."""
 from . import nn  # noqa: F401
 from . import utils  # noqa: F401
 from . import model_zoo  # noqa: F401
+from . import loss  # noqa: F401
+from . import data  # noqa: F401
 from .block import Block, HybridBlock  # noqa: F401
 from .parameter import (  # noqa: F401
     DeferredInitializationError, Parameter, ParameterDict)
+from .trainer import Trainer  # noqa: F401
 
-__all__ = ["nn", "utils", "model_zoo", "Block", "HybridBlock", "Parameter",
-           "ParameterDict", "DeferredInitializationError"]
+__all__ = ["nn", "utils", "model_zoo", "loss", "data", "Block",
+           "HybridBlock", "Parameter", "ParameterDict",
+           "DeferredInitializationError", "Trainer"]

@@ -9,6 +9,7 @@ and deferred shapes and calls the registered ops (``ops/nn.py``) through
 from __future__ import annotations
 
 import numpy as onp
+import torch
 
 from ... import autograd
 from ..block import Block, HybridBlock
@@ -152,11 +153,15 @@ class BatchNorm(HybridBlock):
             p._finish_deferred_init((c,))
 
     def _update_moving(self, running_mean, running_var, mean, var):
+        """Moving averages from the (detached) batch statistics, outside
+        any recorded graph, so no step's graph outlives its backward."""
         if autograd.is_training() and not self._kwargs["use_global_stats"]:
             m = self._momentum
-            with autograd.pause():
-                self.running_mean.set_data(running_mean * m + mean * (1 - m))
-                self.running_var.set_data(running_var * m + var * (1 - m))
+            with torch.no_grad():
+                self.running_mean.set_data(
+                    running_mean._data * m + mean._data.detach() * (1 - m))
+                self.running_var.set_data(
+                    running_var._data * m + var._data.detach() * (1 - m))
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         out, mean, var = F.BatchNorm(x, gamma, beta, running_mean,

@@ -4,8 +4,11 @@ Counterpart of ``mxnet_tpu/gluon/parameter.py``: a Parameter holds one
 NDArray on one context, with deferred initialization (a 0 in the shape is
 filled in by the layer at its first forward), ``data()``, ``set_data()``
 and ``initialize()``.  Values are initialized on the host from the port's
-generator and then placed on the parameter's context.  Gradient buffers
-come with the training port; ``grad_req`` is kept as an attribute.
+generator and then placed on the parameter's context.  A parameter whose
+``grad_req`` is not ``'null'`` is an autograd variable with a gradient
+buffer (``grad()``) that each ``backward`` writes (``'write'``) or adds to
+(``'add'``); ``set_data`` updates the value in place, so the variable
+stays one.  ``lr_mult`` and ``wd_mult`` scale the optimizer's rates.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from typing import Optional
 import numpy as onp
 import torch
 
-from .. import initializer
+from .. import autograd, initializer
 from ..base import MXNetError, torch_dtype
 from ..context import Context, current_context
 from ..ndarray import NDArray
@@ -48,15 +51,36 @@ class Parameter:
         self.allow_deferred_init = allow_deferred_init
         self._differentiable = differentiable
         self._data: Optional[NDArray] = None
-        if grad_req not in ("write", "add", "null"):
-            raise ValueError("grad_req must be one of 'write', 'add', or "
-                             "'null', but got %r" % grad_req)
-        self.grad_req = grad_req if differentiable else "null"
+        self._grad: Optional[NDArray] = None
+        self._grad_req = None
+        self.grad_req = grad_req
         self._deferred_init = ()
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self.shape,
                                                      self.dtype)
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise ValueError("grad_req must be one of 'write', 'add', or "
+                             "'null', but got %r" % (req,))
+        if not self._differentiable:
+            req = "null"
+        if self._grad_req == req:
+            return
+        self._grad_req = req
+        if req == "null":
+            self._grad = None
+            if self._data is not None:
+                autograd.mark_variables([self._data], [None], "null")
+                self._data._data.requires_grad_(False)
+        elif self._data is not None:
+            self._init_grad()
 
     @property
     def shape(self):
@@ -114,6 +138,14 @@ class Parameter:
             self._data = _wrap(host._data.to(
                 device=Context(ctx).torch_device,
                 dtype=torch_dtype(self.dtype)))
+            if self._grad_req != "null":
+                self._init_grad()
+
+    def _init_grad(self):
+        """A zero gradient buffer beside the value, which becomes an
+        autograd variable with this parameter's ``grad_req``."""
+        self._grad = _wrap(torch.zeros_like(self._data._data.detach()))
+        autograd.mark_variables([self._data], [self._grad], self._grad_req)
 
     def _finish_deferred_init(self, shape):
         """Complete a deferred init once the layer knows the full shape."""
@@ -134,6 +166,23 @@ class Parameter:
                 "initialize parameters with Block.initialize()." % self.name)
         return self._data
 
+    def grad(self, ctx=None) -> NDArray:
+        """The gradient buffer; raises when ``grad_req`` is ``'null'``."""
+        if self._grad is None:
+            raise RuntimeError(
+                "Cannot get gradient array for Parameter '%s' because "
+                "grad_req='null'" % self.name)
+        return self._grad
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        """Set the gradient buffer to zeros (for ``grad_req='add'``)."""
+        if self._grad is not None:
+            with torch.no_grad():
+                self._grad._data = torch.zeros_like(self._grad._data)
+
     def list_ctx(self):
         if self._data is None:
             if self._deferred_init:
@@ -143,9 +192,10 @@ class Parameter:
         return [self._data.context]
 
     def set_data(self, data):
-        """Replace the value (an NDArray, tensor or numpy array) on the
-        parameter's own context and dtype.  A deferred parameter takes its
-        shape from ``data`` and is initialized with it."""
+        """Replace the value (an NDArray, tensor or numpy array) in place,
+        on the parameter's own context and dtype; an autograd variable stays
+        one.  A deferred parameter takes its shape from ``data`` and is
+        initialized with it."""
         if self._data is None:
             if not self._deferred_init:
                 raise RuntimeError("Parameter '%s' has not been initialized"
@@ -163,8 +213,8 @@ class Parameter:
             data = data.astorch()
         elif not isinstance(data, torch.Tensor):
             data = torch.from_numpy(onp.array(data))
-        cur = self._data.astorch()
-        self._data._data = data.to(device=cur.device, dtype=cur.dtype)
+        with torch.no_grad():
+            self._data._data.copy_(data.detach())
 
     def _load_init(self, data, ctx=None):
         """Initialize from a loaded array (a checkpoint entry)."""
@@ -277,3 +327,13 @@ class ParameterDict:
                    force_reinit=False):
         for v in self.values():
             v.initialize(None, ctx, init, force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for v in self.values():
+            v.zero_grad()
+
+    def setattr(self, name, value):
+        """Set one attribute (``grad_req``, ``lr_mult``, ``wd_mult``...) on
+        every parameter."""
+        for v in self.values():
+            setattr(v, name, value)

@@ -1,5 +1,8 @@
-"""Gluon utilities: carrying weights over from the JAX package.
+"""Gluon utilities: batch splitting, global-norm clipping, and carrying
+weights over from the JAX package.
 
+``split_data``, ``split_and_load`` and ``clip_global_norm`` are the
+counterparts of those in ``mxnet_tpu/gluon/utils.py``.
 ``load_jax_params(net, arrays)`` copies arrays keyed by the structural
 names of the JAX package's ``_collect_params_with_prefix()`` into the port
 net's parameters of the same structural names.  Both packages keep conv
@@ -10,13 +13,67 @@ prefixes (``resnetv10_`` vs ``resnetv11_``).
 """
 from __future__ import annotations
 
+import warnings
 from typing import Mapping
 
 import numpy as onp
+import torch
 
 from ..base import MXNetError
+from ..ndarray import NDArray, array
 
-__all__ = ["load_jax_params"]
+__all__ = ["split_data", "split_and_load", "clip_global_norm",
+           "load_jax_params"]
+
+
+def split_data(data, num_slice, batch_axis=0, even_split=True):
+    """``data`` cut along ``batch_axis`` into ``num_slice`` pieces (the
+    last one takes the remainder unless ``even_split`` refuses it)."""
+    size = data.shape[batch_axis]
+    if even_split and size % num_slice != 0:
+        raise ValueError(
+            "data with shape %s cannot be evenly split into %d slices along "
+            "axis %d. Use a batch size that's multiple of %d or set "
+            "even_split=False to allow uneven partitioning of data."
+            % (str(data.shape), num_slice, batch_axis, num_slice))
+    if num_slice == 1:
+        return [data]
+    step = size // num_slice
+    slices = []
+    for i in range(num_slice):
+        idx = [slice(None)] * len(data.shape)
+        idx[batch_axis] = slice(i * step,
+                                (i + 1) * step if i < num_slice - 1 else size)
+        slices.append(data[tuple(idx)])
+    return slices
+
+
+def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
+    """``data`` split as :func:`split_data` does, one piece on each
+    context of ``ctx_list``."""
+    if not isinstance(data, NDArray):
+        data = array(data, ctx=ctx_list[0])
+    if len(ctx_list) == 1:
+        return [data.as_in_context(ctx_list[0])]
+    slices = split_data(data, len(ctx_list), batch_axis, even_split)
+    return [s.as_in_context(ctx) for s, ctx in zip(slices, ctx_list)]
+
+
+def clip_global_norm(arrays, max_norm, check_isfinite=True):
+    """Scale ``arrays`` in place so that their global 2-norm is at most
+    ``max_norm``; returns the norm before scaling (a float, or a 0-d
+    tensor when ``check_isfinite`` is False and no sync is wanted)."""
+    with torch.no_grad():
+        total = sum(torch.sum(torch.square(a._data.float())) for a in arrays)
+        total_norm = torch.sqrt(total)
+        if check_isfinite and not bool(torch.isfinite(total_norm)):
+            warnings.warn(UserWarning("nan or inf is detected. Clipping "
+                                      "results will be undefined."),
+                          stacklevel=2)
+        scale = torch.clamp_max(max_norm / (total_norm + 1e-8), 1.0)
+        for a in arrays:
+            a._data = a._data * scale.to(a._data.dtype)
+    return float(total_norm) if check_isfinite else total_norm
 
 
 def load_jax_params(net, arrays: Mapping[str, onp.ndarray]) -> None:

@@ -5,10 +5,12 @@ lazily against the op registry (PEP 562 ``__getattr__``), so ``F.<Op>``
 inside a layer's ``hybrid_forward`` finds ``ops/nn.py``'s functions.
 NDArray arguments are unwrapped to tensors, the op runs, and its outputs
 are wrapped back.  ``training`` is filled in from autograd's thread-local
-mode for ops that depend on it.
+mode for ops that depend on it, and every op runs through
+``autograd.call_op``: it records a graph only inside ``autograd.record()``.
 """
 from __future__ import annotations
 
+from .. import autograd as _ag
 from .. import ops as _ops  # noqa: F401  (registers the ops)
 from ..ops.registry import get_op, list_ops
 from .ndarray import NDArray, array, zeros, ones, _wrap  # noqa: F401
@@ -27,12 +29,11 @@ def _make_op_func(op):
     def func(*args, **kwargs):
         kwargs.pop("name", None)
         if op.needs_training and "training" not in kwargs:
-            from .. import autograd as _ag
             kwargs["training"] = _ag.is_training()
         args = [a._data if isinstance(a, NDArray) else a for a in args]
         kwargs = {k: v._data if isinstance(v, NDArray) else v
                   for k, v in kwargs.items()}
-        res = op.fn(*args, **kwargs)
+        res = _ag.call_op(op.fn, *args, **kwargs)
         if isinstance(res, (tuple, list)):
             return [_wrap(r) for r in res]
         return _wrap(res)

@@ -1,12 +1,16 @@
 """NDArray: MXNet's imperative array over a ``torch.Tensor``.
 
 Counterpart of ``mxnet_tpu/ndarray/ndarray.py``, carrying over what the
-Gluon layers and the serving path use: ``asnumpy``, ``shape``, ``dtype``,
-``context``, ``astype``, arithmetic, ``reshape`` with MXNet's special
-codes (``Flatten`` uses it), and the ``array``/``zeros``/``ones``
-constructors.  The tensor lives on the context's device; its context is
-read from the tensor.  Updates rebind the wrapped tensor
-(``self._data = new``) as the JAX package does.
+Gluon layers, the serving path and the training loop use: ``asnumpy``,
+``asscalar``, ``shape``, ``dtype``, ``context``, ``astype``, arithmetic,
+basic indexing, ``reshape`` with MXNet's special codes (``Flatten`` uses
+it), placement (``copyto``, ``as_in_context``), the autograd surface
+(``attach_grad``, ``grad``, ``backward``, ``detach``), and the
+``array``/``zeros``/``ones`` constructors.  The tensor lives on the
+context's device; its context is read from the tensor.  Arithmetic
+rebinds the wrapped tensor (``self._data = new``) as the JAX package does;
+every operation runs in :func:`autograd.op_scope`, so it builds a graph
+only inside ``autograd.record()``.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import List, Optional
 import numpy as onp
 import torch
 
+from .. import autograd
 from ..base import MXNetError, numeric_types, torch_dtype
 from ..context import Context, current_context
 
@@ -26,6 +31,11 @@ class NDArray:
     """A multi-dimensional array on a device context."""
 
     __array_priority__ = 1000.0
+    # autograd variable state, set by autograd.mark_variables
+    _grad: Optional["NDArray"] = None
+    _grad_req: Optional[str] = None
+    _fresh_grad = False
+    _hooked = None
 
     def __init__(self, data, ctx: Optional[Context] = None, dtype=None):
         if isinstance(data, NDArray):
@@ -49,13 +59,37 @@ class NDArray:
     def context(self) -> Context:
         return Context.from_device(self._data.device)
 
+    @property
+    def size(self) -> int:
+        return self._data.numel()
+
+    @property
+    def grad(self) -> Optional["NDArray"]:
+        """The gradient buffer attached by :meth:`attach_grad`."""
+        return self._grad
+
     # -- conversion -----------------------------------------------------
     def asnumpy(self) -> onp.ndarray:
-        """Copy to a host numpy array (waits for the device)."""
+        """A host numpy copy (waits for the device)."""
         if self._data.dtype == torch.bfloat16:
             raise MXNetError("numpy has no bfloat16: call "
                              ".astype('float32').asnumpy()")
-        return self._data.detach().cpu().numpy()
+        t = self._data.detach()
+        # a copy, as MXNet gives: a host tensor's numpy() would share its
+        # memory, and parameters are updated in place
+        return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+
+    def asscalar(self):
+        """The value of a one-element array as a numpy scalar (waits for
+        the device)."""
+        if self.size != 1:
+            raise ValueError("The current array is not a scalar")
+        return self.asnumpy().reshape(())[()]
+
+    def wait_to_read(self):
+        """Wait until the value is computed."""
+        if self._data.device.type == "cuda":
+            torch.cuda.current_stream(self._data.device).synchronize()
 
     def astorch(self) -> torch.Tensor:
         """The underlying ``torch.Tensor``."""
@@ -65,7 +99,68 @@ class NDArray:
         dt = torch_dtype(dtype)
         if not copy and dt == self._data.dtype:
             return self
-        return _wrap(self._data.to(dt))
+        with autograd.op_scope():
+            return _wrap(self._data.to(dt))
+
+    # -- placement ------------------------------------------------------
+    def copyto(self, other):
+        """Copy into another NDArray (rebinding it, on its own device) or
+        onto a Context (a new array)."""
+        if isinstance(other, NDArray):
+            other._data = self._data.detach().to(other._data.device)
+            return other
+        if isinstance(other, Context):
+            return _wrap(self._data.detach().to(other.torch_device,
+                                                copy=True))
+        raise TypeError("copyto does not support type %s" % type(other))
+
+    def as_in_context(self, ctx: Context) -> "NDArray":
+        """This array when it is on ``ctx`` already, else a copy there."""
+        if ctx == self.context:
+            return self
+        return self.copyto(ctx)
+
+    # -- autograd -------------------------------------------------------
+    def detach(self) -> "NDArray":
+        """The same value, cut from any recorded graph."""
+        return _wrap(self._data.detach())
+
+    def attach_grad(self, grad_req: str = "write", stype=None):
+        """Allocate a zero gradient buffer and make this array a variable
+        that ``backward`` writes (or adds) its gradient into."""
+        buf = _wrap(torch.zeros_like(self._data.detach()))
+        autograd.mark_variables([self], [buf], grad_req)
+
+    def backward(self, out_grad=None, retain_graph: bool = False,
+                 train_mode: bool = True):
+        """Backward from this array (seeded with ones, or ``out_grad``)."""
+        autograd.backward([self], [out_grad] if out_grad is not None
+                          else None, retain_graph=retain_graph,
+                          train_mode=train_mode)
+
+    # -- reductions -----------------------------------------------------
+    def _reduce(self, fn, axis, keepdims):
+        dims = tuple(range(self._data.dim())) if axis is None else axis
+        with autograd.op_scope():
+            return _wrap(fn(self._data, dim=dims, keepdim=keepdims))
+
+    def sum(self, axis=None, keepdims=False) -> "NDArray":
+        return self._reduce(torch.sum, axis, keepdims)
+
+    def mean(self, axis=None, keepdims=False) -> "NDArray":
+        return self._reduce(torch.mean, axis, keepdims)
+
+    # -- indexing -------------------------------------------------------
+    def __getitem__(self, key):
+        """Basic indexing: integers, slices, ``None`` and ``...``."""
+        parts = key if isinstance(key, tuple) else (key,)
+        if not all(p is None or p is Ellipsis
+                   or isinstance(p, (numbers.Integral, slice))
+                   for p in parts):
+            raise MXNetError("NDArray indexing takes integers, slices, None "
+                             "and Ellipsis; got %r" % (key,))
+        with autograd.op_scope():
+            return _wrap(self._data[key])
 
     def __repr__(self):
         return "\n%s\n<NDArray %s @%s>" % (
@@ -85,24 +180,27 @@ class NDArray:
             shape = tuple(kwargs["shape"])
         new_shape = _infer_reshape(self.shape, shape,
                                    kwargs.get("reverse", False))
-        return _wrap(self._data.reshape(new_shape))
+        with autograd.op_scope():
+            return _wrap(self._data.reshape(new_shape))
 
     # -- arithmetic -----------------------------------------------------
     def _binop(self, other, fn):
         if isinstance(other, NDArray):
-            return _wrap(fn(self._data, other._data))
-        if isinstance(other, numeric_types):
+            other = other._data
+        elif isinstance(other, (onp.ndarray, list, tuple)):
+            other = array(other, ctx=self.context)._data
+        elif not isinstance(other, numeric_types):
+            return NotImplemented
+        with autograd.op_scope():
             return _wrap(fn(self._data, other))
-        if isinstance(other, (onp.ndarray, list, tuple)):
-            return _wrap(fn(self._data, array(other, ctx=self.context)._data))
-        return NotImplemented
 
     def _rbinop(self, other, fn):
-        if isinstance(other, numeric_types):
-            return _wrap(fn(other, self._data))
         if isinstance(other, (onp.ndarray, list, tuple)):
-            return _wrap(fn(array(other, ctx=self.context)._data, self._data))
-        return NotImplemented
+            other = array(other, ctx=self.context)._data
+        elif not isinstance(other, numeric_types):
+            return NotImplemented
+        with autograd.op_scope():
+            return _wrap(fn(other, self._data))
 
     def __add__(self, o): return self._binop(o, torch.add)
     def __radd__(self, o): return self.__add__(o)
@@ -112,10 +210,22 @@ class NDArray:
     def __rmul__(self, o): return self.__mul__(o)
     def __truediv__(self, o): return self._binop(o, torch.div)
     def __rtruediv__(self, o): return self._rbinop(o, torch.div)
-    def __neg__(self): return _wrap(torch.neg(self._data))
+    def __neg__(self):
+        with autograd.op_scope():
+            return _wrap(torch.neg(self._data))
 
     def _inplace(self, res):
-        self._data = res._data
+        """``a op= b`` rebinds ``a``; a variable (``attach_grad``) is
+        updated in place instead and stays a variable, which is refused
+        while recording, as in the JAX package."""
+        if self._grad_req is None:
+            self._data = res._data
+            return self
+        if autograd.is_recording():
+            raise MXNetError("in-place operations on an array that requires "
+                             "grad are not supported while recording")
+        with torch.no_grad():
+            self._data.copy_(res._data)
         return self
 
     def __iadd__(self, o): return self._inplace(self.__add__(o))
@@ -124,6 +234,15 @@ class NDArray:
     def __itruediv__(self, o): return self._inplace(self.__truediv__(o))
 
     __hash__ = object.__hash__
+
+    # pickling, in the JAX package's form: optimizer-state files of either
+    # package hold NDArrays as {"data": numpy array, "ctx_kind": ...}.
+    # An unpickled array lands on the host; its user moves it on.
+    def __getstate__(self):
+        return {"data": self.asnumpy(), "ctx_kind": self.context.device_type}
+
+    def __setstate__(self, state):
+        self._data = torch.from_numpy(onp.array(state["data"]))
 
 
 def _to_tensor(data, ctx: Context, dtype=None) -> torch.Tensor:

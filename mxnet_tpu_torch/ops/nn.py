@@ -9,7 +9,8 @@ as XLA's own lowering was on the TPU).  The BatchNorm ops reproduce the
 JAX package's numerics exactly: one-pass fp32 batch statistics, and the
 per-op difference in where the folded scale/shift are rounded (see
 :func:`batch_norm` and :func:`batch_norm_add_relu`).  The residual
-epilogue runs through the hand-written kernel in ``ops/fused_norm.py``.
+epilogue runs through the hand-written kernels in ``ops/fused_norm.py``,
+forward and backward.  Every op is differentiable through torch's autograd.
 """
 from __future__ import annotations
 
@@ -119,6 +120,11 @@ def _batch_stats(data, axis):
     return mean.to(data.dtype), var.to(data.dtype)
 
 
+def _stop(t):
+    """``t`` cut from the graph (a no-op where nothing is recorded)."""
+    return t.detach() if t.requires_grad else t
+
+
 def _fold(mean, var, gamma, beta, eps, fix_gamma):
     """fp32 per-channel (scale, shift) of normalize + affine."""
     g = torch.ones_like(gamma) if fix_gamma else gamma
@@ -135,7 +141,10 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var,
                cudnn_off: bool = False, training: bool = True):
     """Returns ``(out, mean, var)``; the moving-average update is the Gluon
     layer's.  The folded scale and shift are cast to the DATA dtype before
-    ``data * scale + shift``, as ``_bn_apply`` does in the JAX package."""
+    ``data * scale + shift``, as ``_bn_apply`` does in the JAX package.
+    In training the gradient of ``out`` flows through the batch statistics
+    into ``data``; the returned ``mean`` and ``var`` are detached, as the
+    JAX op stops their gradient."""
     if use_global_stats or not training:
         mean, var = moving_mean, moving_var
     else:
@@ -145,7 +154,7 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var,
     shp[axis % data.dim()] = data.shape[axis % data.dim()]
     out = data * inv.to(data.dtype).reshape(shp) \
         + shift.to(data.dtype).reshape(shp)
-    return out, mean, var
+    return out, _stop(mean), _stop(var)
 
 
 @register("_contrib_BatchNormAddRelu", num_outputs=3, needs_training=True,
@@ -158,7 +167,8 @@ def batch_norm_add_relu(data, residual, gamma, beta, moving_mean, moving_var,
                         cudnn_off: bool = False, training: bool = True):
     """``relu(BatchNorm(data) + residual)`` as one epilogue.  Statistics as
     :func:`batch_norm`; the folded scale and shift stay in fp32 and go to
-    the fused kernel.  Returns ``(out, mean, var)``."""
+    the fused epilogue, whose backward is a kernel too.  Returns ``(out,
+    mean, var)``, the statistics detached as in :func:`batch_norm`."""
     if use_global_stats or not training:
         mean, var = moving_mean, moving_var
     else:
@@ -166,4 +176,4 @@ def batch_norm_add_relu(data, residual, gamma, beta, moving_mean, moving_var,
     inv, shift = _fold(mean, var, gamma, beta, eps, fix_gamma)
     out = fused_bn_add_relu_epilogue(data, inv, shift, residual,
                                      axis % data.dim())
-    return out, mean, var
+    return out, _stop(mean), _stop(var)

@@ -1,0 +1,464 @@
+"""Optimizers and the updater that owns their states.
+
+Counterpart of ``mxnet_tpu/optimizer/optimizer.py`` for ``SGD`` (with
+momentum), ``NAG`` and ``Adam``: the ``Optimizer`` base with its name
+registry, learning-rate and weight-decay multipliers, update counting,
+gradient preprocessing (rescale, then clip, then weight decay) and fp32
+master weights for half-width weights (``multi_precision``), plus
+``Updater``/``get_updater`` with state (de)serialization.
+
+Where the JAX package writes each rule as a pure step function that
+``jax.jit`` fuses over all parameters, an update here runs the rule once
+over lists of tensors with ``torch._foreach_*`` operations, in place under
+``torch.no_grad()``: one call covers every parameter the trainer updates.
+The order of the floating-point operations is the JAX package's, so the
+two agree to rounding.
+
+Attribute names match the JAX package's, and ``Updater.get_states`` and
+``set_states`` read and write the JAX package's pickle format, so a
+``Trainer.save_states`` file of either package loads in the other.
+"""
+from __future__ import annotations
+
+import importlib
+import io
+import math
+import pickle
+from typing import Dict
+
+import torch
+
+from ..context import cpu
+from ..ndarray import NDArray
+from ..ndarray.ndarray import _wrap
+
+__all__ = ["Optimizer", "Updater", "get_updater", "create", "register",
+           "SGD", "NAG", "Adam"]
+
+
+class Optimizer:
+    """Base optimizer: rescale_grad, clip_gradient, learning_rate,
+    lr_scheduler, wd, per-parameter lr/wd multipliers (from the Gluon
+    parameters in ``param_dict``, else by index, else by name in
+    ``param_idx2name``) and multi_precision."""
+
+    opt_registry: Dict[str, type] = {}
+
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 sym=None, begin_num_update=0, multi_precision=False,
+                 param_dict=None):
+        self.lr, self.wd = learning_rate, wd
+        self.rescale_grad, self.clip_gradient = rescale_grad, clip_gradient
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
+        self.begin_num_update = self.num_update = begin_num_update
+        self._index_update_count = {}
+        self.multi_precision = multi_precision
+        self.aggregate_num = 0
+        self.sym_info = ()
+        if param_idx2name is None:
+            param_idx2name = {}
+        if not isinstance(param_idx2name, dict):
+            raise ValueError("param_idx2name should be a dict of param "
+                             "indexes to names.")
+        self.idx2name = param_idx2name.copy()
+        self.param_dict = param_dict if param_dict else {}
+        self.lr_mult, self.wd_mult = {}, {}
+        self.set_lr_mult({})
+        self.set_wd_mult({})
+
+    @staticmethod
+    def register(klass):
+        if not isinstance(klass, type):
+            raise TypeError("register takes a class")
+        Optimizer.opt_registry[klass.__name__.lower()] = klass
+        return klass
+
+    @staticmethod
+    def create_optimizer(name, **kwargs):
+        if name.lower() in Optimizer.opt_registry:
+            return Optimizer.opt_registry[name.lower()](**kwargs)
+        raise ValueError("Cannot find optimizer %s" % name)
+
+    # -- states ---------------------------------------------------------
+    def create_state(self, index, weight):
+        """Auxiliary state of one weight: None, an NDArray or a tuple."""
+        return None
+
+    @staticmethod
+    def _is_half(dtype):
+        return dtype in (torch.float16, torch.bfloat16)
+
+    def create_state_multi_precision(self, index, weight):
+        """Half-width weights get an fp32 master copy as state leaf 0."""
+        if self.multi_precision and self._is_half(weight._data.dtype):
+            master = _wrap(weight._data.detach().float())
+            return (master, self.create_state(index, master))
+        return self.create_state(index, weight)
+
+    # -- rates ----------------------------------------------------------
+    @property
+    def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
+        return self.lr
+
+    def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise UserWarning("LRScheduler of the optimizer has already been "
+                              "defined. Note that set_learning_rate can mutate "
+                              "the value of the learning rate of the optimizer "
+                              "only when the LRScheduler of the optimizer is "
+                              "undefined.")
+        self.lr = lr
+
+    def set_lr_mult(self, args_lr_mult):
+        self.lr_mult = {}
+        self.lr_mult.update(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        """Per-name weight-decay multipliers: names in ``param_idx2name``
+        that end in neither ``_weight`` nor ``_gamma`` get 0.  A Gluon
+        parameter's own ``wd_mult`` (``param_dict``) takes precedence."""
+        self.wd_mult = {}
+        for n in self.idx2name.values():
+            if not (n.endswith("_weight") or n.endswith("_gamma")):
+                self.wd_mult[n] = 0.0
+        self.wd_mult.update(args_wd_mult)
+
+    def _update_count(self, indices):
+        """Advance each weight's update clock; ``num_update`` follows the
+        most-updated weight (it drives the lr schedule)."""
+        counts = self._index_update_count
+        for idx in indices:
+            counts[idx] = counts.get(idx, self.begin_num_update) + 1
+            if counts[idx] > self.num_update:
+                self.num_update = counts[idx]
+
+    def _multiplier_for(self, index, mult_table, attr):
+        if index in self.param_dict:
+            return getattr(self.param_dict[index], attr)
+        if index in mult_table:
+            return mult_table[index]
+        name = self.idx2name.get(index)
+        return mult_table.get(name, 1.0) if name is not None else 1.0
+
+    def _get_lrs(self, indices):
+        base = self.learning_rate
+        return [base * self._multiplier_for(i, self.lr_mult, "lr_mult")
+                for i in indices]
+
+    def _get_wds(self, indices):
+        return [self.wd * self._multiplier_for(i, self.wd_mult, "wd_mult")
+                for i in indices]
+
+    # -- updates --------------------------------------------------------
+    def update(self, index, weight, grad, state):
+        """Update one weight (or, given lists, several) with its state."""
+        indices, weights, grads, states = _as_lists(index, weight, grad,
+                                                    state)
+        self._update_count(indices)
+        self._run(indices, [w._data for w in weights],
+                  [g._data for g in grads], states)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """As :meth:`update`; a half-width weight under ``multi_precision``
+        is updated through its fp32 master (state leaf 0) and then set to
+        the master's value."""
+        indices, weights, grads, states = _as_lists(index, weight, grad,
+                                                    state)
+        self._update_count(indices)
+        half = [self.multi_precision and self._is_half(w._data.dtype)
+                for w in weights]
+        full = [k for k, h in enumerate(half) if not h]
+        if full:
+            self._run([indices[k] for k in full],
+                      [weights[k]._data for k in full],
+                      [grads[k]._data for k in full],
+                      [states[k] for k in full])
+        mp = [k for k, h in enumerate(half) if h]
+        if mp:
+            masters = [states[k][0]._data for k in mp]
+            self._run([indices[k] for k in mp], masters,
+                      [grads[k]._data.float() for k in mp],
+                      [states[k][1] for k in mp])
+            with torch.no_grad():
+                for k, m in zip(mp, masters):
+                    weights[k]._data.copy_(m)
+
+    def _run(self, indices, ws, gs, states):
+        leaves = [_leaves(s) for s in states]
+        slots = [list(col) for col in zip(*leaves)] if leaves and leaves[0] \
+            else []
+        counts = [self._index_update_count[i] for i in indices]
+        with torch.no_grad():
+            self._step(ws, gs, slots, self._get_lrs(indices),
+                       self._get_wds(indices), counts)
+
+    def _step(self, ws, gs, slots, lrs, wds, counts):
+        """Update the weight tensors ``ws`` and the state tensors (one list
+        per state slot) in place."""
+        raise NotImplementedError
+
+    def _preprocess(self, gs, ws, wds):
+        """New gradient tensors ``g * rescale_grad``, clipped to
+        ``clip_gradient``, plus ``wd * w`` where ``wd`` is not 0."""
+        g = torch._foreach_mul(gs, self.rescale_grad)
+        if self.clip_gradient is not None:
+            torch._foreach_clamp_min_(g, -self.clip_gradient)
+            torch._foreach_clamp_max_(g, self.clip_gradient)
+        decay = [k for k, wd in enumerate(wds) if wd]
+        if decay:
+            torch._foreach_add_([g[k] for k in decay], torch._foreach_mul(
+                [ws[k] for k in decay], [wds[k] for k in decay]))
+        return g
+
+    def __getstate__(self):
+        # the Gluon parameters hold device tensors; whoever loads the
+        # states sets its own (Trainer.load_states does)
+        state = self.__dict__.copy()
+        state["param_dict"] = {}
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
+
+register = Optimizer.register
+create = Optimizer.create_optimizer
+
+
+def _as_lists(index, weight, grad, state):
+    if isinstance(index, (list, tuple)):
+        return list(index), list(weight), list(grad), list(state)
+    return [index], [weight], [grad], [state]
+
+
+def _leaves(state):
+    if state is None:
+        return []
+    if isinstance(state, NDArray):
+        return [state._data]
+    return [s._data for s in state]
+
+
+def _zeros_like(weight: NDArray) -> NDArray:
+    return _wrap(torch.zeros_like(weight._data.detach()))
+
+
+def _sgd_step(ws, g, lrs):
+    torch._foreach_add_(ws, torch._foreach_mul(g, [-lr for lr in lrs]))
+
+
+@register
+class SGD(Optimizer):
+    """SGD with optional momentum: ``m = momentum * m - lr * g``,
+    ``w = w + m`` (``w = w - lr * g`` without momentum); the state is the
+    momentum buffer, or None when momentum is 0."""
+
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return _zeros_like(weight)
+
+    def _step(self, ws, gs, slots, lrs, wds, counts):
+        g = self._preprocess(gs, ws, wds)
+        if not slots:
+            _sgd_step(ws, g, lrs)
+            return
+        (moms,) = slots
+        torch._foreach_mul_(moms, self.momentum)
+        torch._foreach_sub_(moms, torch._foreach_mul(g, lrs))
+        torch._foreach_add_(ws, moms)
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov accelerated SGD: ``m = momentum * m + g``,
+    ``w = w - lr * (g + momentum * m)``."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return _zeros_like(weight)
+
+    def _step(self, ws, gs, slots, lrs, wds, counts):
+        g = self._preprocess(gs, ws, wds)
+        if not slots:
+            _sgd_step(ws, g, lrs)
+            return
+        (moms,) = slots
+        torch._foreach_mul_(moms, self.momentum)
+        torch._foreach_add_(moms, g)
+        step = torch._foreach_mul(moms, self.momentum)
+        torch._foreach_add_(step, g)
+        torch._foreach_mul_(step, lrs)
+        torch._foreach_sub_(ws, step)
+
+
+@register
+class Adam(Optimizer):
+    """Adam with bias correction folded into the step size:
+    ``lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t)``,
+    ``w = w - lr_t * m / (sqrt(v) + epsilon)``; the state is (m, v)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_update=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def _step(self, ws, gs, slots, lrs, wds, counts):
+        b1, b2 = self.beta1, self.beta2
+        g = self._preprocess(gs, ws, wds)
+        means, variances = slots
+        torch._foreach_mul_(means, b1)
+        torch._foreach_add_(means, torch._foreach_mul(g, 1 - b1))
+        sq = torch._foreach_mul(g, 1 - b2)
+        torch._foreach_mul_(sq, g)
+        torch._foreach_mul_(variances, b2)
+        torch._foreach_add_(variances, sq)
+        lr_ts = [lr * math.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
+                 for lr, t in zip(lrs, counts)]
+        den = torch._foreach_sqrt(variances)
+        torch._foreach_add_(den, self.epsilon)
+        step = torch._foreach_mul(means, lr_ts)
+        torch._foreach_div_(step, den)
+        torch._foreach_sub_(ws, step)
+
+
+# ---------------------------------------------------------------------------
+# Updater and the state files
+# ---------------------------------------------------------------------------
+
+_PORT, _JAX = "mxnet_tpu_torch", "mxnet_tpu"
+# JAX-package modules whose pickled classes have a counterpart here
+_PORTED_MODULES = ("ndarray.ndarray", "optimizer.optimizer", "lr_scheduler")
+
+
+class _Foreign:
+    """Stands in, while a state file of the JAX package is read, for any
+    of its objects that has no counterpart here (the Gluon parameters and
+    trainer its optimizer refers to); nothing reads these stand-ins."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        pass
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        top = module.split(".")[0]
+        if top == _JAX:
+            sub = module[len(_JAX) + 1:]
+            if sub in _PORTED_MODULES:
+                found = getattr(importlib.import_module(
+                    "%s.%s" % (_PORT, sub)), name, None)
+                if found is not None:
+                    return found
+            return _Foreign
+        if top in ("jax", "jaxlib", "ml_dtypes"):
+            return _Foreign
+        return super().find_class(module, name)
+
+
+class _Pickler(pickle._Pickler):
+    """Writes this package's classes under the JAX package's module names
+    (``mxnet_tpu_torch.x`` as ``mxnet_tpu.x``), so that the JAX package's
+    plain ``pickle.loads`` reads the file into its own classes."""
+
+    def save_global(self, obj, name=None):
+        module = getattr(obj, "__module__", None) or ""
+        if module == _PORT or module.startswith(_PORT + "."):
+            self.write(pickle.GLOBAL
+                       + (_JAX + module[len(_PORT):]).encode() + b"\n"
+                       + (name or obj.__qualname__).encode() + b"\n")
+            self.memoize(obj)
+            return
+        super().save_global(obj, name)
+
+
+def _on_host(state):
+    if isinstance(state, NDArray):
+        return state.as_in_context(cpu())
+    if isinstance(state, (tuple, list)):
+        return type(state)(_on_host(s) for s in state)
+    return state
+
+
+class Updater:
+    """Applies an optimizer to (index, grad, weight) triples and owns the
+    per-index states."""
+
+    def __init__(self, optimizer: Optimizer):
+        self.optimizer = optimizer
+        self.states: Dict = {}
+        self.states_synced: Dict[int, bool] = {}
+        self.aggregate_updates = optimizer.aggregate_num > 0
+
+    def __call__(self, index, grad, weight):
+        """Update one weight, or lists of them in one pass."""
+        if isinstance(index, (list, tuple)):
+            indices, grads, weights = list(index), list(grad), list(weight)
+        else:
+            indices, grads, weights = [index], [grad], [weight]
+        for i, w in zip(indices, weights):
+            if i not in self.states:
+                self.states[i] = self.optimizer.create_state_multi_precision(
+                    i, w)
+                self.states_synced[i] = True
+            elif not self.states_synced[i]:
+                self.states[i] = self.sync_state_context(self.states[i],
+                                                         w.context)
+                self.states_synced[i] = True
+        self.optimizer.update_multi_precision(
+            indices, weights, grads, [self.states[i] for i in indices])
+
+    def sync_state_context(self, state, context):
+        if isinstance(state, NDArray):
+            return state.as_in_context(context)
+        if isinstance(state, (tuple, list)):
+            return type(state)(self.sync_state_context(s, context)
+                               for s in state)
+        return state
+
+    def set_states(self, states):
+        """Read what :meth:`get_states` of either package wrote; a
+        2-tuple carries the optimizer too.  The arrays land on the host and
+        move to their weight's device at its next update."""
+        payload = _Unpickler(io.BytesIO(states)).load()
+        with_optimizer = isinstance(payload, tuple) and len(payload) == 2
+        self.states = payload[0] if with_optimizer else payload
+        if with_optimizer:
+            self.optimizer = payload[1]
+        self.states_synced = dict.fromkeys(self.states.keys(), False)
+
+    def get_states(self, dump_optimizer=False):
+        """The states (and the optimizer) in the JAX package's format."""
+        states = {i: _on_host(s) for i, s in self.states.items()}
+        buf = io.BytesIO()
+        _Pickler(buf, protocol=4).dump((states, self.optimizer)
+                                       if dump_optimizer else states)
+        return buf.getvalue()
+
+
+def get_updater(optimizer: Optimizer) -> Updater:
+    return Updater(optimizer)

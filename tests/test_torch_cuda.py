@@ -46,3 +46,58 @@ def test_kernel_matches_plain_on_cuda():
                 diff = y.view(torch.int16).int() - want.view(torch.int16).int()
                 assert diff.abs().max().item() <= 1
     assert n_launches == 6
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_matches_plain_on_cuda():
+    """On the card: the backward kernel against the plain backward, dx and
+    dresidual bitwise in f32 (the same fp32 product) and within 1 ulp in
+    bf16, dscale/dshift within rel 1e-5 of their largest entry (summation
+    order), the same bits on a second run (no atomics), NCHW with a
+    trail that is not a multiple of 4 and NHWC, counted as launches; and
+    the autograd Function through both kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for shape, axis, dtype in [((4, 64, 7, 7), 1, torch.float32),
+                               ((3, 5, 5, 40), 3, torch.bfloat16),
+                               ((2, 3, 37), 1, torch.float32),
+                               ((96, 24), 1, torch.float32)]:
+        c = shape[axis]
+        x = torch.randn(shape, device=dev, generator=g).to(dtype)
+        r = torch.randn(shape, device=dev, generator=g).to(dtype)
+        ct = torch.randn(shape, device=dev, generator=g).to(dtype)
+        s = torch.rand(c, device=dev, generator=g) + 0.5
+        t = torch.randn(c, device=dev, generator=g) * 0.1
+        y = TFN.fused_bn_add_relu_epilogue_plain(x, s, t, r, axis)
+        before = TFN.BWD_LAUNCHES
+        got = TFN.fused_bn_add_relu_epilogue_bwd(x, s, y, ct, axis)
+        again = TFN.fused_bn_add_relu_epilogue_bwd(x, s, y, ct, axis)
+        torch.cuda.synchronize()
+        assert TFN.BWD_LAUNCHES == before + 2
+        want = TFN.fused_bn_add_relu_epilogue_bwd_plain(x, s, y, ct, axis)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        for a, b in zip(got[:2], want[:2]):
+            if dtype == torch.float32:
+                assert torch.equal(a, b)
+            else:
+                diff = a.view(torch.int16).int() - b.view(torch.int16).int()
+                assert diff.abs().max().item() <= 1
+        for a, b in zip(got[2:], want[2:]):
+            assert a.dtype == torch.float32
+            tol = 1e-5 * b.abs().max().item()
+            assert (a - b).abs().max().item() <= tol
+    xg = torch.randn((2, 8, 3, 3), device=dev, generator=g).requires_grad_()
+    sg = (torch.rand(8, device=dev, generator=g) + 0.5).requires_grad_()
+    tg = torch.zeros(8, device=dev).requires_grad_()
+    rg = torch.randn((2, 8, 3, 3), device=dev, generator=g).requires_grad_()
+    fwd, bwd = TFN.LAUNCHES, TFN.BWD_LAUNCHES
+    TFN.fused_bn_add_relu_epilogue(xg, sg, tg, rg, 1).sum().backward()
+    assert (TFN.LAUNCHES, TFN.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    grads = [a.grad.clone() for a in (xg, sg, tg, rg)]
+    cpu = [a.detach().cpu().requires_grad_() for a in (xg, sg, tg, rg)]
+    TFN.fused_bn_add_relu_epilogue(*cpu, 1).sum().backward()
+    for got, ref in zip(grads, cpu):
+        torch.testing.assert_close(got.cpu(), ref.grad, rtol=1e-5, atol=1e-5)

@@ -92,9 +92,12 @@ def test_cpu_wrapper_runs_plain_without_launch():
 
 
 def test_wrapper_refuses_grad_and_bad_shapes():
+    """Operands that require grad are taken since the epilogue has a
+    backward (the Function); mismatched shapes are refused."""
     x, s, t, r = (torch.from_numpy(a) for a in _operands(4, 6, 40))
-    with pytest.raises(mxt.MXNetError):
-        TFN.fused_bn_add_relu_epilogue(x.requires_grad_(), s, t, r, 1)
+    y = TFN.fused_bn_add_relu_epilogue(x.requires_grad_(), s, t, r, 1)
+    y.sum().backward()
+    assert x.grad is not None and x.grad.shape == x.shape
     with pytest.raises(ValueError):
         TFN.fused_bn_add_relu_epilogue(x.detach(), s, t, r[:2], 1)
     with pytest.raises(ValueError):

@@ -1,6 +1,7 @@
 """Hygiene of the port: ``mxnet_tpu_torch/`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and the port's default (GPU) entry points
-raise without CUDA instead of running on the CPU."""
+neither JAX nor the JAX package, the kernel wrappers have no ``try`` that
+could fall back from a kernel to something else, and the port's default
+(GPU) entry points raise without CUDA instead of running on the CPU."""
 import ast
 import os
 
@@ -17,7 +18,7 @@ PKG = os.path.join(REPO, "mxnet_tpu_torch")
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_diag.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -46,6 +47,33 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_modules(p) if _forbidden(m)]
     assert bad == []
+
+
+def test_every_module_of_the_training_slice_is_checked():
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("autograd.py", "lr_scheduler.py", "metric.py",
+                 "callback.py", "optimizer/optimizer.py", "io/io.py",
+                 "gluon/loss.py", "gluon/trainer.py", "gluon/utils.py",
+                 "gluon/data/dataset.py", "gluon/data/sampler.py",
+                 "gluon/data/dataloader.py"):
+        assert name in rel, name
+
+
+def test_kernel_wrappers_have_no_fallback_try():
+    """A module that loads a kernel library launches its kernel or raises:
+    no ``try`` around a launch that could run something else."""
+    wrappers = []
+    for path in _port_files():
+        if not path.startswith(PKG):
+            continue
+        with open(path) as f:
+            src = f.read()
+        if "kernels.load(" not in src:
+            continue
+        wrappers.append(os.path.relpath(path, REPO))
+        tree = ast.parse(src, filename=path)
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
+    assert "mxnet_tpu_torch/ops/fused_norm.py" in wrappers
 
 
 def test_forbidden_import_check_sees_the_spellings():
@@ -79,5 +107,7 @@ def test_gpu_entry_points_raise_without_cuda(no_cuda):
         AotModel(lambda x: x, feature_shape=(3,))
     with pytest.raises(mxt.MXNetError, match="CUDA"):
         InferenceServer(lambda x: x, feature_shape=(3,))
+    with pytest.raises(mxt.MXNetError, match="CUDA"):
+        mxt.io.NDArrayIter(onp.zeros((4, 2), "float32"), batch_size=2).next()
     # the CPU only when asked for
     assert mxt.nd.zeros((2,), ctx=mxt.cpu()).context == mxt.cpu()
