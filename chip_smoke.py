@@ -32,7 +32,24 @@ and PyTorch built for CUDA.  It:
    times each, that the moving statistics moved, and that one step on the
    card matches the same step on the CPU (batch 2, same weights, the plain
    versions there);
-6. prints one JSON line describing each kernel, then as its last line
+6. BERT kernel phase: holds the flash-attention forward and the LayerNorm
+   forward against their plain versions (BERT-base's shapes and masks,
+   causal, segments, kv_lens of 0 and past Tk, ragged T, Tq != Tk, D = 128,
+   T = 2048, float32), times them beside their bounds and the one PyTorch
+   call that computes the same function (scaled_dot_product_attention,
+   layer_norm; yardsticks the port never calls), and times the kernel and
+   the composed attention side by side at S = 64 and 128;
+7. BERT phase (``MXNET_FUSED_LAYERNORM=1``): BERT-base (12 layers, 768
+   units, 12 heads, the full 30522-word MLM decoder on 76 masked positions
+   a row) built as ``bench.py`` builds it, Xavier weights from ``--seed``,
+   cast to bfloat16, batch 24 x 512 with ``bench.py``'s valid lengths,
+   through ``Block.__call__``: 3 warm-up and 10 timed forwards.  It checks
+   12 attention and 26 LayerNorm launches a forward, finite outputs, the
+   bf16 sequence output against the same net's float32 forward, and a
+   float32 forward on the card against the same forward on the CPU (batch
+   2, S 128, pooler and decoder), and prints one forward on the default
+   (composed) LayerNorm route beside it;
+8. prints one JSON line describing each kernel, then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero without the ``ok``
@@ -99,6 +116,46 @@ TIMED_ITERS = 30
 WARMUP_ITERS = 5
 L2_FLUSH_BYTES = 128 << 20          # more than twice the H100's 50 MB L2
 SPIN_CYCLES = 100_000_000           # about 50 ms at the H100's clock
+
+
+# BERT-base as bench.py's config-5 step builds it (bench.py
+# _build_bert_step): vocabulary, batch, sequence, masked positions a row
+BERT_VOCAB = 30522
+BERT_BATCH = 24
+BERT_SEQ = 512
+BERT_PRED = int(BERT_SEQ * 0.15)        # 76
+BERT_HEADS = 12
+BERT_UNITS = 768
+BERT_LAYERS = 12
+BERT_WARMUP = 3
+BERT_TIMED = 10
+# kernel launches a BERT-base forward makes: one attention per layer; a
+# LayerNorm after the embeddings, two per layer and one in the MLM head
+BERT_ATTN_PER_FWD = BERT_LAYERS
+BERT_LN_PER_FWD = 2 * BERT_LAYERS + 2
+# the bf16 forward against the same weights' f32 forward on the card: bf16
+# keeps 8 bits of mantissa through 12 layers, so a relative L2 error of a
+# few 1e-3 is expected; a wrong kernel gives O(1)
+BERT_BF16_REL_L2 = 5e-2
+# a f32 forward on the card against the CPU (batch 2, S 128, 77 valid keys
+# in row 2, 19 masked positions a row): the same arithmetic summed in
+# another order, through 12 layers
+BERT_PARITY_REL_L2 = 1e-4
+BERT_PARITY_SEQ = 128
+BERT_PARITY_LENS = (128, 77)
+BERT_PARITY_PRED = 19
+# Kernel-vs-plain tolerances.  Attention, f32: o within 2e-5 and lse within
+# 1e-5 (absolute; fp32 sums in another order).  bf16: o and lse within 2e-2
+# of the largest |plain value| (P is rounded to bf16 against the running
+# row max in the kernel and the final row max in the plain version).
+# LayerNorm, f32: within 1e-5 absolute; bf16: within 1e-5 plus one bf16 ulp
+# of the larger value (fp32 values that agree within 1e-5, their statistics
+# summed in another order, each rounded once: near 0 a bf16 ulp is far
+# below 1e-5, so an ulp count alone would not do); mu and rstd within 1e-5
+# relative.
+ATTN_F32_O, ATTN_F32_LSE, ATTN_BF16_REL = 2e-5, 1e-5, 2e-2
+LN_F32_ABS, LN_STAT_REL = 1e-5, 1e-5
+BF16_PEAK_OPS = 989e12                  # H100 SXM tensor cores, dense
 
 
 class SmokeFailure(RuntimeError):
@@ -603,6 +660,390 @@ def training_phase(torch, mx, fused_norm, seed, card, profile=False):
             "profiles": profiles}
 
 
+def bert_inputs(seed):
+    """bench.py's config-5 inputs from ``RandomState(seed)``: token ids,
+    wikipedia-style valid lengths (the first quarter of the rows full, the
+    rest drawn from [seq // 3, seq]) and sorted masked positions within
+    the shortest valid length."""
+    import numpy as onp
+    batch, seq, n_pred = BERT_BATCH, BERT_SEQ, BERT_PRED
+    rs = onp.random.RandomState(seed)
+    tokens = rs.randint(0, BERT_VOCAB, (batch, seq)).astype("float32")
+    lens = rs.randint(seq // 3, seq + 1, (batch,))
+    lens[: max(1, batch // 4)] = seq
+    pos = onp.stack([rs.choice(int(lens.min()), n_pred, replace=False)
+                     for _ in range(batch)])
+    return tokens, lens.astype("int32"), onp.sort(pos, 1).astype("int32")
+
+
+def _rel_l2(got, want):
+    import numpy as onp
+    got = onp.asarray(got, "float64")
+    want = onp.asarray(want, "float64")
+    return float(onp.linalg.norm(got - want) / onp.linalg.norm(want))
+
+
+def _visible_pairs(torch, attention, B, Tq, Tk, causal, lens, qs, ks):
+    """How many (query, key) pairs of one head the masks leave visible."""
+    mask = attention._visible(B, Tq, Tk, torch.device("cuda", 0), causal,
+                              lens, qs, ks)
+    if mask is None:
+        return B * Tq * Tk
+    return int(mask.expand(B, 1, Tq, Tk).sum().item())
+
+
+# (case, B, H, Tq, Tk, D, dtype, causal, kv_lens, segments); kv_lens
+# "bench" is bench.py's draw for batch 24
+ATTN_CASES = [
+    ("bert", 24, 12, 512, 512, 64, "bfloat16", False, "bench", False),
+    ("b32_s128", 32, 12, 128, 128, 64, "bfloat16", False, None, False),
+    ("f32", 2, 12, 128, 128, 64, "float32", False, None, False),
+    ("causal", 2, 12, 512, 512, 64, "bfloat16", True, None, False),
+    ("segments", 2, 12, 256, 256, 64, "bfloat16", False, None, True),
+    ("lens_0_and_past_tk", 2, 12, 256, 256, 64, "bfloat16", False,
+     (0, 1000), False),
+    ("ragged_t200", 2, 12, 200, 200, 64, "bfloat16", False, None, False),
+    ("tq_ne_tk", 2, 12, 128, 384, 64, "bfloat16", False, (300, 384), False),
+    ("d128", 2, 12, 256, 256, 128, "bfloat16", False, None, False),
+    ("t2048", 1, 12, 2048, 2048, 64, "bfloat16", False, None, False),
+]
+def _bf16_ulp(torch, a, b):
+    """One bf16 ulp of max(|a|, |b|), elementwise: 2**(e - 8) for a value
+    m * 2**e with 0.5 <= m < 1."""
+    _, e = torch.frexp(torch.maximum(a.float().abs(), b.float().abs()))
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
+
+
+# (case, N, C, x dtype, gamma/beta dtype)
+LN_CASES = [
+    ("bert", BERT_BATCH * BERT_SEQ, BERT_UNITS, "bfloat16", "bfloat16"),
+    ("bert_decoder", BERT_BATCH * BERT_PRED, BERT_UNITS, "bfloat16",
+     "bfloat16"),
+    ("f32", BERT_BATCH * BERT_SEQ, BERT_UNITS, "float32", "float32"),
+    ("bf16_x_f32_affine", BERT_BATCH * BERT_SEQ, BERT_UNITS, "bfloat16",
+     "float32"),
+    ("ragged", 37, 1000, "float32", "float32"),
+]
+
+
+def attention_cases(torch, attention, card, flush, seed):
+    """The flash-attention kernel against its plain version, timed beside
+    its bound and scaled_dot_product_attention."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    dev = torch.device("cuda", 0)
+    bw = memory_bytes_per_s(card)
+    _, bench_lens, _ = bert_inputs(seed)
+    rows = []
+    for case, B, H, Tq, Tk, D, dt, causal, lens, seg in ATTN_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn((B, H, T, D), device=dev, generator=gen)
+                   .to(dtype) for T in (Tq, Tk, Tk))
+        kw = {"causal": causal}
+        if lens is not None:
+            kw["kv_lens"] = torch.tensor(
+                bench_lens if lens == "bench" else lens, device=dev,
+                dtype=torch.int32)
+        if seg:
+            kw["q_segments"] = torch.randint(0, 4, (B, Tq), device=dev,
+                                             generator=gen).sort(1).values
+            kw["kv_segments"] = torch.randint(0, 4, (B, Tk), device=dev,
+                                              generator=gen).sort(1).values
+        what = "attention %s %s" % (case, (B, H, Tq, Tk, D))
+        with torch.inference_mode():
+            def k_fn():
+                return attention.flash_attention_fwd(q, k, v, **kw)
+
+            def p_fn():
+                return attention._flash_attention_plain(q, k, v, **kw)
+            (o, lse), (po, plse) = k_fn(), p_fn()
+            torch.cuda.synchronize()
+            check(o.shape == po.shape and o.dtype == po.dtype
+                  and lse.dtype == torch.float32,
+                  "%s: kernel gave %s %s" % (what, tuple(o.shape), o.dtype))
+            check(bool(torch.isfinite(o).all()), "%s: non-finite o" % what)
+            err = (o.float() - po.float()).abs().max().item()
+            lse_err = (lse - plse).abs().max().item()
+            if dtype == torch.float32:
+                check(err <= ATTN_F32_O and lse_err <= ATTN_F32_LSE,
+                      "%s: max|o err| %.3g, max|lse err| %.3g" % (what, err,
+                                                                 lse_err))
+            else:
+                o_rel = err / max(po.float().abs().max().item(), 1e-30)
+                lse_rel = lse_err / max(plse.abs().max().item(), 1e-30)
+                check(o_rel <= ATTN_BF16_REL and lse_rel <= ATTN_BF16_REL,
+                      "%s: o rel err %.3g, lse rel err %.3g" % (what, o_rel,
+                                                               lse_rel))
+            if lens is not None and lens != "bench" and lens[0] == 0:
+                check(not o[0].any() and not lse[0].any(),
+                      "%s: a row with no visible key is not 0" % what)
+            # the library's yardstick: the same masks as one boolean mask
+            mask = attention._visible(B, Tq, Tk, dev, causal,
+                                      kw.get("kv_lens"), kw.get("q_segments"),
+                                      kw.get("kv_segments"))
+
+            def l_fn():
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=mask)
+            ms = time_cuda(torch, k_fn, flush)
+            plain_ms = time_cuda(torch, p_fn, flush)
+            library_ms = time_cuda(torch, l_fn, flush)
+            host = host_us(torch, k_fn)
+        pairs = _visible_pairs(torch, attention, B, Tq, Tk, causal,
+                               kw.get("kv_lens"), kw.get("q_segments"),
+                               kw.get("kv_segments"))
+        ops = 4.0 * H * D * pairs
+        if lens is None:
+            keys = B * Tk
+        else:
+            keys = int(torch.clamp(kw["kv_lens"], 0, Tk).sum().item())
+        nbytes = (2 * B * Tq + 2 * keys) * H * D * q.element_size() \
+            + B * H * Tq * 4
+        peak = BF16_PEAK_OPS if dtype == torch.bfloat16 \
+            else fp32_ops_per_s(card)
+        bound_ms = max(nbytes / bw, ops / peak) * 1e3
+        row = {"case": case, "shape": [B, H, Tq, Tk, D], "dtype": dt,
+               "causal": causal, "kv_lens": None if lens is None else
+               ("bench" if lens == "bench" else list(lens)),
+               "segments": seg, "max_abs_err": err, "lse_max_abs_err": lse_err,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms,
+               "bound_by": "bytes" if nbytes / bw > ops / peak
+               else "operations", "visible_pairs": pairs * H,
+               "tflops": ops / ms / 1e9, "host_us": host,
+               "dispatch": attention.attention_dispatch(Tq, Tk, D, dtype,
+                                                        census=False)
+               ["kernel"]}
+        rows.append(row)
+        print("kernel attention %-18s %-26s %-8s err %.3g lse err %.3g  "
+              "kernel %.4f ms (%.1f TFLOP/s)  plain %.4f ms  sdpa %.4f ms  "
+              "bound %.4f ms (%s)  host/call %.1f us  (%s)"
+              % (case, (B, H, Tq, Tk, D), dt, err, lse_err, ms, row["tflops"],
+                 plain_ms, library_ms, bound_ms, row["bound_by"], host, card))
+        del q, k, v, o, lse, po, plse, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def short_seq_side_by_side(torch, attention, card, flush, seed):
+    """The kernel and the composed attention at S = 64 and 128 (BERT-base
+    heads, batch 24, bf16): the data for re-deriving the dispatcher's
+    128-key threshold on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    out = []
+    for S in (64, 128):
+        q, k, v = (torch.randn((BERT_BATCH, BERT_HEADS, S, 64), device="cuda",
+                               generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        with torch.inference_mode():
+            kern = time_cuda(torch, lambda: attention.flash_attention_fwd(
+                q, k, v), flush)
+            comp = time_cuda(torch, lambda: attention._composed_attention(
+                q, k, v), flush)
+        out.append({"seq": S, "kernel_ms": kern, "composed_ms": comp})
+        print("attention S=%d (24, 12, %d, 64) bf16: kernel %.4f ms, "
+              "composed %.4f ms (dispatch takes %s)  (%s)"
+              % (S, S, kern, comp, attention.attention_dispatch(
+                  S, S, 64, census=False)["kernel"], card))
+    return out
+
+
+def layernorm_cases(torch, layernorm, card, flush, seed):
+    """The LayerNorm kernel against its plain version, timed beside its
+    bound and torch.nn.functional.layer_norm."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    bw = memory_bytes_per_s(card)
+    eps = 1e-12
+    rows = []
+    for case, N, C, xdt, gdt in LN_CASES:
+        x = (torch.randn((N, C), device="cuda", generator=gen) * 2 + 0.5) \
+            .to(getattr(torch, xdt))
+        g = (torch.rand(C, device="cuda", generator=gen) + 0.5) \
+            .to(getattr(torch, gdt))
+        b = (torch.rand(C, device="cuda", generator=gen) - 0.5) \
+            .to(getattr(torch, gdt))
+        gl, bl = g.to(x.dtype), b.to(x.dtype)
+        what = "layernorm %s (%d, %d)" % (case, N, C)
+        with torch.inference_mode():
+            def k_fn():
+                return layernorm.layer_norm_fwd(x, g, b, eps)
+
+            def p_fn():
+                return layernorm._layer_norm_fwd_plain(x, g, b, eps)
+
+            def l_fn():
+                return F.layer_norm(x, (C,), gl, bl, eps)
+            (y, mu, rstd), (py, pmu, prstd) = k_fn(), p_fn()
+            torch.cuda.synchronize()
+            check(y.dtype == py.dtype and y.shape == py.shape,
+                  "%s: kernel gave %s" % (what, y.dtype))
+            err = (y.float() - py.float()).abs().max().item()
+            excess = (y.float() - py.float()).abs() - LN_F32_ABS
+            if y.dtype == torch.bfloat16:
+                excess = excess - _bf16_ulp(torch, y, py)
+            check(excess.max().item() <= 0, "%s: max|err| %.3g beyond the "
+                  "tolerance" % (what, err))
+            stat = max(((mu - pmu).abs() / pmu.abs().clamp_min(1e-3))
+                       .max().item(),
+                       ((rstd - prstd).abs() / prstd.abs()).max().item())
+            check(stat <= LN_STAT_REL, "%s: mu/rstd rel err %.3g"
+                  % (what, stat))
+            ms = time_cuda(torch, k_fn, flush)
+            plain_ms = time_cuda(torch, p_fn, flush)
+            library_ms = time_cuda(torch, l_fn, flush)
+            host = host_us(torch, k_fn)
+        nbytes = N * C * (x.element_size() + y.element_size()) \
+            + 2 * C * g.element_size() + 8 * N
+        ops = 8.0 * N * C
+        bound_ms = max(nbytes / bw, ops / fp32_ops_per_s(card)) * 1e3
+        row = {"case": case, "shape": [N, C], "dtype": xdt,
+               "affine_dtype": gdt, "max_abs_err": err,
+               "stat_max_rel_err": stat, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": "bytes" if nbytes / bw > ops / fp32_ops_per_s(card)
+               else "operations", "host_us": host}
+        rows.append(row)
+        print("kernel layernorm %-17s %-13s %-8s/%-8s err %.3g  kernel %.4f "
+              "ms  plain %.4f ms  F.layer_norm %.4f ms  bound %.4f ms  "
+              "host/call %.1f us  (%s)"
+              % (case, (N, C), xdt, gdt, err, ms, plain_ms, library_ms,
+                 bound_ms, host, card))
+    return rows
+
+
+def _bert(mx, use_pooler):
+    from mxnet_tpu_torch.gluon.model_zoo import bert_base
+    return bert_base(vocab_size=BERT_VOCAB, max_length=BERT_SEQ,
+                     dropout=0.0, use_pooler=use_pooler, use_decoder=True)
+
+
+def bert_card_vs_cpu(torch, mx, seed):
+    """BERT-base in f32 with pooler and decoder, batch 2, S 128: one
+    forward on the card (the kernels) and on the CPU (the plain
+    versions), the same weights on both.  Returns each output's relative
+    L2 error."""
+    import numpy as onp
+    from mxnet_tpu_torch.gluon.utils import load_jax_params
+    mx.random.seed(seed)
+    rs = onp.random.RandomState(seed + 1)
+    S = BERT_PARITY_SEQ
+    tokens = rs.randint(0, BERT_VOCAB, (2, S)).astype("float32")
+    lens = onp.array(BERT_PARITY_LENS, "int32")
+    pos = onp.sort(onp.stack([rs.choice(min(BERT_PARITY_LENS),
+                                        BERT_PARITY_PRED, replace=False)
+                              for _ in range(2)]), 1).astype("int32")
+
+    def run(net, ctx):
+        return [o.asnumpy() for o in net(
+            mx.nd.array(tokens, ctx=ctx), None, None,
+            mx.nd.array(lens, ctx=ctx, dtype="int32"),
+            mx.nd.array(pos, ctx=ctx, dtype="int32"))]
+    gnet = _bert(mx, use_pooler=True)
+    gnet.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    card = run(gnet, mx.gpu(0))
+    cnet = _bert(mx, use_pooler=True)
+    cnet.initialize(ctx=mx.cpu())
+    load_jax_params(cnet, _param_arrays(gnet))
+    with mx.cpu():
+        cpu = run(cnet, mx.cpu())
+    del gnet, cnet
+    names = ("sequence", "pooled", "logits")
+    for name, c, h in zip(names, card, cpu):
+        check(c.shape == h.shape and onp.isfinite(c).all(),
+              "BERT card vs CPU: bad %s output %s" % (name, c.shape))
+    return {name: _rel_l2(c, h) for name, c, h in zip(names, card, cpu)}
+
+
+def bert_phase(torch, mx, attention, layernorm, seed, card, profile=False):
+    """BERT-base forward on the card through the Gluon entry point, bf16,
+    batch 24 x 512, with the fused LayerNorm route; returns the numbers."""
+    import numpy as onp
+    os.environ["MXNET_FUSED_LAYERNORM"] = "1"
+    t0 = time.perf_counter()
+    parity = bert_card_vs_cpu(torch, mx, seed)
+    parity_s = time.perf_counter() - t0
+    print("bert: card vs CPU, f32 forward at batch 2, S %d, valid lengths "
+          "%s, %d masked positions a row: rel L2 err %s"
+          % (BERT_PARITY_SEQ, BERT_PARITY_LENS, BERT_PARITY_PRED,
+             ", ".join("%s %.3g" % kv for kv in parity.items())))
+    for name, err in parity.items():
+        check(err <= BERT_PARITY_REL_L2, "BERT card vs CPU %s: rel L2 err "
+              "%.3g > %g" % (name, err, BERT_PARITY_REL_L2))
+    torch.cuda.empty_cache()
+
+    tokens, lens, pos = bert_inputs(seed)
+    mx.random.seed(seed)
+    net = _bert(mx, use_pooler=False)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    gpu = mx.gpu(0)
+    x = mx.nd.array(tokens, ctx=gpu)
+    vl = mx.nd.array(lens, ctx=gpu, dtype="int32")
+    mp = mx.nd.array(pos, ctx=gpu, dtype="int32")
+
+    def forward():
+        return net(x, None, None, vl, mp)
+    seq32, _ = forward()                 # f32: also settles deferred shapes
+    seq32 = seq32.asnumpy()
+    net.cast("bfloat16")
+
+    def step():
+        seq, logits = forward()
+        torch.cuda.synchronize()
+        return seq, logits
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts from 0 just before, read just after
+    attention.LAUNCHES = 0
+    layernorm.LAUNCHES = 0
+    times = []
+    for _ in range(BERT_WARMUP + BERT_TIMED):
+        t = time.perf_counter()
+        seq, logits = step()
+        times.append(time.perf_counter() - t)
+    launches = (attention.LAUNCHES, layernorm.LAUNCHES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    n_fwd = BERT_WARMUP + BERT_TIMED
+    check(launches == (BERT_ATTN_PER_FWD * n_fwd, BERT_LN_PER_FWD * n_fwd),
+          "%d attention and %d LayerNorm launches in %d forwards (want %d "
+          "and %d a forward)" % (launches[0], launches[1], n_fwd,
+                                 BERT_ATTN_PER_FWD, BERT_LN_PER_FWD))
+    seq16 = seq.astype("float32").asnumpy()
+    logits16 = logits.astype("float32").asnumpy()
+    check(seq16.shape == (BERT_BATCH, BERT_SEQ, BERT_UNITS)
+          and logits16.shape == (BERT_BATCH, BERT_PRED, BERT_VOCAB),
+          "BERT outputs %s %s" % (seq16.shape, logits16.shape))
+    check(onp.isfinite(seq16).all() and onp.isfinite(logits16).all(),
+          "BERT bf16 forward: non-finite output")
+    bf16_rel = _rel_l2(seq16, seq32)
+    check(bf16_rel <= BERT_BF16_REL_L2, "BERT bf16 vs f32 sequence output: "
+          "rel L2 err %.3g > %g" % (bf16_rel, BERT_BF16_REL_L2))
+    fwd_ms = statistics.median(times[BERT_WARMUP:]) * 1e3
+    profiles = [profile_calls(torch, step, "BERT-base forward", calls=3)] \
+        if profile else []
+
+    # the default route (composed LayerNorm), for comparison
+    del os.environ["MXNET_FUSED_LAYERNORM"]
+    ln0 = layernorm.LAUNCHES
+    default_times = []
+    for _ in range(BERT_WARMUP + 2):
+        t = time.perf_counter()
+        step()
+        default_times.append(time.perf_counter() - t)
+    check(layernorm.LAUNCHES == ln0, "the default route launched the "
+          "LayerNorm kernel")
+    default_ms = statistics.median(default_times[BERT_WARMUP:]) * 1e3
+    n_tokens = BERT_BATCH * BERT_SEQ
+    return {"forward_ms": fwd_ms, "forward_ms_all": [t * 1e3 for t in times],
+            "tokens_per_s": n_tokens * 1e3 / fwd_ms,
+            "valid_tokens_per_s": float(lens.sum()) * 1e3 / fwd_ms,
+            "peak_bytes": peak_bytes, "attention_launches": launches[0],
+            "layernorm_launches": launches[1], "forwards": n_fwd,
+            "bf16_vs_f32_rel_l2": bf16_rel, "parity_rel_l2": parity,
+            "parity_s": parity_s, "default_route_forward_ms": default_ms,
+            "valid_tokens": int(lens.sum()), "profiles": profiles}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -619,7 +1060,7 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import kernels
-    from mxnet_tpu_torch.ops import fused_norm
+    from mxnet_tpu_torch.ops import attention, fused_norm, layernorm
 
     card = card_line()
     print("card: %s" % card)
@@ -643,6 +1084,10 @@ def main(argv=None):
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     rows = kernel_phase(torch, fused_norm, card, flush)
+    attn_rows = attention_cases(torch, attention, card, flush, args.seed)
+    side_by_side = short_seq_side_by_side(torch, attention, card, flush,
+                                          args.seed)
+    ln_rows = layernorm_cases(torch, layernorm, card, flush, args.seed)
     del flush
     torch.cuda.empty_cache()
 
@@ -674,6 +1119,24 @@ def main(argv=None):
              train["bwd_launches"], train["parity_s"], card))
     print("training: step ms %s" % [round(v, 3) for v in train["step_ms_all"]])
     print_profiles(train["profiles"], card)
+
+    bert = bert_phase(torch, mx, attention, layernorm, args.seed, card,
+                      profile=args.profile)
+    print("bert: BERT-base bf16 forward, batch %d x %d (%d valid tokens), "
+          "%d forwards: %.3f ms median of %d = %.0f tokens/s (%.0f valid "
+          "tokens/s), peak device memory %.2f GiB, launches attention %d "
+          "LayerNorm %d, bf16 vs f32 sequence output rel L2 %.3g (%s)"
+          % (BERT_BATCH, BERT_SEQ, bert["valid_tokens"], bert["forwards"],
+             bert["forward_ms"], BERT_TIMED, bert["tokens_per_s"],
+             bert["valid_tokens_per_s"], bert["peak_bytes"] / 2 ** 30,
+             bert["attention_launches"], bert["layernorm_launches"],
+             bert["bf16_vs_f32_rel_l2"], card))
+    print("bert: forward ms %s" % [round(v, 3)
+                                   for v in bert["forward_ms_all"]])
+    print("bert: default route (composed LayerNorm, MXNET_FUSED_LAYERNORM "
+          "unset): forward %.3f ms  (%s)" % (bert["default_route_forward_ms"],
+                                            card))
+    print_profiles(bert["profiles"], card)
 
     def per_pass(direction, path, key):
         return sum(r[key] * r["launches_per_pass"] for r in rows[direction]
@@ -711,8 +1174,45 @@ def main(argv=None):
             "launches at the train shapes below); launches: the training "
             "path's %d steps; library: %s" % (train["steps"], no_library),
         shapes=rows["bwd"], **numbers("bwd", "train"))
+    def per_forward(rows_, weights, key):
+        return sum(r[key] * weights.get(r["case"], 0) for r in rows_)
+
+    # a BERT-base forward: 12 attention launches at the "bert" case; 25
+    # LayerNorm launches on 24 x 512 rows and one on the 24 x 76 masked rows
+    attn_w = {"bert": BERT_ATTN_PER_FWD}
+    ln_w = {"bert": BERT_LN_PER_FWD - 1, "bert_decoder": 1}
+    attn_entry = dict(
+        name="flash_attention_fwd", route="cuda",
+        source="mxnet_tpu_torch/csrc/flash_attention.cu",
+        replaces="mxnet_tpu/ops/pallas_attention.py:313",
+        also_replaces="mxnet_tpu/ops/pallas_attention.py:219",
+        launches=bert["attention_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in attn_rows),
+        bound_by=[r for r in attn_rows if r["case"] == "bert"][0]["bound_by"],
+        per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 forward at "
+            "24 x 512 (12 launches at the case 'bert'); launches: the BERT "
+            "path's %d forwards; library: scaled_dot_product_attention with "
+            "the same boolean mask" % bert["forwards"],
+        short_seq_vs_composed=side_by_side, shapes=attn_rows,
+        **{k: per_forward(attn_rows, attn_w, k)
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
+    ln_entry = dict(
+        name="layer_norm_fwd", route="cuda",
+        source="mxnet_tpu_torch/csrc/layernorm.cu",
+        replaces="mxnet_tpu/ops/pallas_layernorm.py:34",
+        launches=bert["layernorm_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in ln_rows),
+        bound_by="bytes",
+        per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 forward "
+            "(25 launches at the case 'bert', one at 'bert_decoder'); "
+            "launches: the BERT path's %d forwards; library: "
+            "torch.nn.functional.layer_norm" % bert["forwards"],
+        shapes=ln_rows,
+        **{k: per_forward(ln_rows, ln_w, k)
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
     print(card)                       # as nvidia-smi prints it
-    print(json.dumps({"kernels": [fwd_entry, bwd_entry]}))
+    print(json.dumps({"kernels": [fwd_entry, bwd_entry, attn_entry,
+                                  ln_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """Gluon (counterpart of ``mxnet_tpu/gluon``): blocks, parameters, layers,
-losses, the Trainer, the data API, the ResNet v1 model zoo and the
-JAX-weight loader."""
+losses, the Trainer, the data API, the transformer blocks (``contrib``),
+the ResNet v1 and BERT model zoo and the JAX-weight loader."""
 from . import nn  # noqa: F401
+from . import contrib  # noqa: F401
 from . import utils  # noqa: F401
 from . import model_zoo  # noqa: F401
 from . import loss  # noqa: F401
@@ -11,6 +12,6 @@ from .parameter import (  # noqa: F401
     DeferredInitializationError, Parameter, ParameterDict)
 from .trainer import Trainer  # noqa: F401
 
-__all__ = ["nn", "utils", "model_zoo", "loss", "data", "Block",
+__all__ = ["nn", "contrib", "utils", "model_zoo", "loss", "data", "Block",
            "HybridBlock", "Parameter", "ParameterDict",
            "DeferredInitializationError", "Trainer"]

@@ -181,6 +181,14 @@ class Block(torch.nn.Module):
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 
+    def cast(self, dtype):
+        """Cast this block's and its descendants' parameters to ``dtype``
+        (``net.cast("bfloat16")``)."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for _, param in self.params.items():
+            param.cast(dtype)
+
     def save_parameters(self, filename):
         """Save with structural names, in the JAX package's npz format."""
         from ..ndarray.utils import save as nd_save

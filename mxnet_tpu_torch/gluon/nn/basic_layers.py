@@ -1,10 +1,11 @@
 """Basic Gluon layers.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential``,
-``HybridSequential``, ``Dense``, ``Activation``, ``BatchNorm``,
-``BatchNormAddReLU`` and ``Flatten``.  Each layer manages its parameters
-and deferred shapes and calls the registered ops (``ops/nn.py``) through
-``F``.  Dropout, Embedding and the other norms come with later slices.
+``HybridSequential``, ``Dense``, ``Activation``, ``Dropout``,
+``BatchNorm``, ``BatchNormAddReLU``, ``LayerNorm``, ``Embedding`` and
+``Flatten``.  Each layer manages its parameters and deferred shapes and
+calls the registered ops (``ops/nn.py``) through ``F``.  The other norms
+and layers come with later slices.
 """
 from __future__ import annotations
 
@@ -14,8 +15,9 @@ import torch
 from ... import autograd
 from ..block import Block, HybridBlock
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "BatchNorm",
-           "BatchNormAddReLU", "Flatten", "Activation"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "BatchNorm", "BatchNormAddReLU", "LayerNorm", "Embedding",
+           "Flatten", "Activation"]
 
 
 class _SequentialMixin:
@@ -114,6 +116,24 @@ class Activation(HybridBlock):
         return "Activation(%s)" % self._act_type
 
 
+class Dropout(HybridBlock):
+    """Inverted dropout: the identity outside training, a Bernoulli mask
+    from the port's generator (``mx.random``) in training."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate > 0:
+            return F.Dropout(x, p=self._rate, axes=self._axes, cudnn_off=True)
+        return x
+
+    def __repr__(self):
+        return "Dropout(p = %s, axes=%s)" % (self._rate, self._axes)
+
+
 class BatchNorm(HybridBlock):
     """Batch normalization with moving statistics.  In training mode the
     op returns the batch statistics and this layer updates the moving
@@ -191,6 +211,55 @@ class BatchNormAddReLU(BatchNorm):
                                             **self._kwargs)
         self._update_moving(running_mean, running_var, mean, var)
         return out
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalization over ``axis`` with a learned scale and shift."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._epsilon = epsilon
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        self.gamma._finish_deferred_init((c,))
+        self.beta._finish_deferred_init((c,))
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._epsilon)
+
+
+class Embedding(HybridBlock):
+    """Index → vector lookup."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        super().__init__(**kwargs)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
+                        "dtype": dtype, "sparse_grad": sparse_grad}
+        self.weight = self.params.get(
+            "weight", shape=(input_dim, output_dim), init=weight_initializer,
+            dtype=dtype, allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, **self._kwargs)
+
+    def __repr__(self):
+        return "Embedding(%d -> %d, %s)" % (
+            self._input_dim, self._output_dim, self._kwargs["dtype"])
 
 
 class Flatten(HybridBlock):

@@ -8,7 +8,8 @@ generator and then placed on the parameter's context.  A parameter whose
 ``grad_req`` is not ``'null'`` is an autograd variable with a gradient
 buffer (``grad()``) that each ``backward`` writes (``'write'``) or adds to
 (``'add'``); ``set_data`` updates the value in place, so the variable
-stays one.  ``lr_mult`` and ``wd_mult`` scale the optimizer's rates.
+stays one.  ``lr_mult`` and ``wd_mult`` scale the optimizer's rates;
+``cast`` changes the dtype.
 """
 from __future__ import annotations
 
@@ -215,6 +216,19 @@ class Parameter:
             data = torch.from_numpy(onp.array(data))
         with torch.no_grad():
             self._data._data.copy_(data.detach())
+
+    def cast(self, dtype):
+        """Change the dtype of the value and of the gradient buffer (the
+        variable stays one); a parameter not allocated yet takes ``dtype``
+        when it is."""
+        self.dtype = dtype
+        if self._data is None:
+            return
+        dt = torch_dtype(dtype)
+        with torch.no_grad():
+            self._data._data = self._data._data.detach().to(dt)
+        if self._grad_req != "null":
+            self._init_grad()
 
     def _load_init(self, data, ctx=None):
         """Initialize from a loaded array (a checkpoint entry)."""

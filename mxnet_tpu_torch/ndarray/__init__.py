@@ -13,7 +13,8 @@ from __future__ import annotations
 from .. import autograd as _ag
 from .. import ops as _ops  # noqa: F401  (registers the ops)
 from ..ops.registry import get_op, list_ops
-from .ndarray import NDArray, array, zeros, ones, _wrap  # noqa: F401
+from .ndarray import (  # noqa: F401
+    NDArray, array, zeros, ones, arange, split, _wrap)
 from .utils import save, load  # noqa: F401
 
 _FUNC_CACHE = {}

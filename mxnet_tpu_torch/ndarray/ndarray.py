@@ -5,12 +5,12 @@ Gluon layers, the serving path and the training loop use: ``asnumpy``,
 ``asscalar``, ``shape``, ``dtype``, ``context``, ``astype``, arithmetic,
 basic indexing, ``reshape`` with MXNet's special codes (``Flatten`` uses
 it), placement (``copyto``, ``as_in_context``), the autograd surface
-(``attach_grad``, ``grad``, ``backward``, ``detach``), and the
-``array``/``zeros``/``ones`` constructors.  The tensor lives on the
-context's device; its context is read from the tensor.  Arithmetic
-rebinds the wrapped tensor (``self._data = new``) as the JAX package does;
-every operation runs in :func:`autograd.op_scope`, so it builds a graph
-only inside ``autograd.record()``.
+(``attach_grad``, ``grad``, ``backward``, ``detach``), ``transpose``, the
+``array``/``zeros``/``ones``/``arange`` constructors and ``split``.  The
+tensor lives on the context's device; its context is read from the
+tensor.  Arithmetic rebinds the wrapped tensor (``self._data = new``) as
+the JAX package does; every operation runs in :func:`autograd.op_scope`,
+so it builds a graph only inside ``autograd.record()``.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from .. import autograd
 from ..base import MXNetError, numeric_types, torch_dtype
 from ..context import Context, current_context
 
-__all__ = ["NDArray", "array", "zeros", "ones"]
+__all__ = ["NDArray", "array", "zeros", "ones", "arange", "split"]
 
 
 class NDArray:
@@ -182,6 +182,12 @@ class NDArray:
                                    kwargs.get("reverse", False))
         with autograd.op_scope():
             return _wrap(self._data.reshape(new_shape))
+
+    def transpose(self, axes=None) -> "NDArray":
+        """Axes permuted (reversed when ``axes`` is None or empty)."""
+        from ..ops.matrix import transpose
+        with autograd.op_scope():
+            return _wrap(transpose(self._data, axes))
 
     # -- arithmetic -----------------------------------------------------
     def _binop(self, other, fn):
@@ -341,3 +347,31 @@ def zeros(shape, ctx: Optional[Context] = None, dtype=None, **kw) -> NDArray:
 def ones(shape, ctx: Optional[Context] = None, dtype=None, **kw) -> NDArray:
     return _filled(shape, 1, ctx, dtype)
 
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx: Optional[Context] = None,
+           dtype=None) -> NDArray:
+    """``start, start + step, ...`` below ``stop`` (float32 unless
+    ``dtype`` says otherwise), each value ``repeat`` times."""
+    ctx = ctx if ctx is not None else current_context()
+    dt = torch_dtype(dtype) if dtype is not None else torch.float32
+    if stop is None:
+        start, stop = 0, start
+    a = torch.arange(start, stop, step, dtype=dt, device=ctx.torch_device)
+    if repeat != 1:
+        a = torch.repeat_interleave(a, repeat)
+    return _wrap(a)
+
+
+def split(data, num_outputs: int, axis: int = 1, squeeze_axis: bool = False):
+    """``data`` cut into ``num_outputs`` equal parts along ``axis`` (a list,
+    or the one array when ``num_outputs`` is 1)."""
+    size = data.shape[axis]
+    if size % num_outputs:
+        raise MXNetError("split: axis %d of size %d does not split into %d"
+                         % (axis, size, num_outputs))
+    with autograd.op_scope():
+        parts = torch.split(data._data, size // num_outputs, dim=axis)
+        if squeeze_axis:
+            parts = [p.squeeze(axis) for p in parts]
+        out = [_wrap(p) for p in parts]
+    return out[0] if num_outputs == 1 else out

@@ -2,4 +2,8 @@
 Importing this package registers every op with ``ops/registry.py``."""
 from . import registry  # noqa: F401
 from . import fused_norm  # noqa: F401
+from . import layernorm  # noqa: F401
+from . import attention  # noqa: F401
 from . import nn  # noqa: F401
+from . import matrix  # noqa: F401
+from . import elemwise  # noqa: F401

@@ -1,0 +1,311 @@
+"""Flash attention: the forward kernel's wrapper, its plain PyTorch
+version, the per-shape dispatcher and the public op.
+
+Counterpart of ``mxnet_tpu/ops/pallas_attention.py`` (forward half).  Over
+(B, H, T, D) operands:
+
+    softmax(q·kᵀ·scale [+ masks])·v
+
+with the JAX package's masks: ``causal`` (query row r sees keys c <= r),
+``kv_lens`` (B,) per-row valid key length (clamped to Tk) and
+``q_segments``/``kv_segments`` (B, T) packed-sequence ids.  A row that sees
+no key gives 0.  :func:`flash_attention_fwd` launches the hand-written
+kernel of ``csrc/flash_attention.cu`` for CUDA tensors (f32 or bf16,
+D <= 128) or raises, and runs :func:`_flash_attention_plain` for CPU
+tensors; it returns ``o`` and the fp32 ``lse``.  One CUDA kernel covers
+both TPU forward kernels (the single-pass one and the streaming one):
+it streams 64-key tiles whatever Tk is.
+
+:func:`attention_dispatch` keeps the JAX package's per-shape choice and
+its ``attention.kernel.*`` counters: min(Tq, Tk) < 128 goes to the
+composed attention, Tk <= 1024 is ``short_seq`` (the single-pass TPU
+kernel's domain) and longer K axes ``streaming``.  The autotuner table is
+not ported, so ``tuner_source`` is always ``"heuristic"``.  The backward
+kernels come with the training slice: on CUDA, a kernel call that would
+record a gradient raises.  The (B, T, H, D) entries wait.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+import torch
+
+from .. import telemetry
+from ..base import MXNetError
+from .registry import register
+
+__all__ = ["flash_attention", "flash_attention_fwd", "attention_dispatch",
+           "tune_attention_blocks", "LAUNCHES"]
+
+_NEG_INF = -1e30
+# Kernel-selection constants of the JAX package (see attention_dispatch):
+# the largest K axis the TPU's single-pass kernel takes whole, and the
+# shortest sequence that goes to a kernel at all
+_SHORT_SEQ_MAX_TK = 1024
+_DENSE_MIN_SEQ = 128
+# the CUDA kernel's tiles (csrc/flash_attention.cu): 64 query rows a block,
+# 64 keys a K tile, for every D <= 128 and both dtypes
+BLOCK_Q = 64
+BLOCK_K = 64
+_HEAD_DIMS = (64, 128)          # D is zero-padded up to one of these
+
+# kernel launches in this process
+LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_FNS = {}
+_CENSUSED = set()
+
+
+def _kernel_fn():
+    if not _FNS:
+        from .. import kernels
+        fn = kernels.load("flash_attention").mx_flash_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
+            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS["fwd"] = fn
+    return _FNS["fwd"]
+
+
+def tune_attention_blocks(seq_q, seq_k, head_dim, dtype="bfloat16"):
+    """(block_q, block_k) of the CUDA kernel for a shape: 64 x 64 for
+    every shape it takes.  The TPU picked blocks up to the whole K axis
+    under a VMEM budget; on the card a block's shared memory and a
+    thread's registers make 64-key tiles the size (the source's note)."""
+    return BLOCK_Q, BLOCK_K
+
+
+def attention_dispatch(seq_q, seq_k, head_dim, dtype="bfloat16",
+                       census=True):
+    """Per-shape choice of the public op: ``{"kernel": "short_seq" |
+    "streaming" | "dense_fallback", "block_q", "block_k",
+    "tuner_source"}``.
+
+    min(Tq, Tk) < 128 goes to the composed attention (``dense_fallback``),
+    as in the JAX package; re-deriving that threshold for the card is
+    measured work still to do.  Otherwise the kernel runs:
+    ``short_seq`` where Tk <= 1024, where the JAX package runs its
+    single-pass TPU kernel, and ``streaming`` above.  Both labels name
+    the same CUDA kernel; they keep the census comparable.  (The JAX
+    package's own label for 1024 < Tk <= 2048 depends on its VMEM budget;
+    here it is always ``streaming``.)  ``census`` bumps
+    ``attention.kernel.<label>`` once a call and journals a shape's first
+    call."""
+    if min(seq_q, seq_k) < _DENSE_MIN_SEQ:
+        if census:
+            telemetry.inc("attention.kernel.dense_fallback")
+        return {"kernel": "dense_fallback", "block_q": None,
+                "block_k": None, "tuner_source": None}
+    block_q, block_k = tune_attention_blocks(seq_q, seq_k, head_dim, dtype)
+    kernel = "short_seq" if seq_k <= _SHORT_SEQ_MAX_TK else "streaming"
+    if census:
+        telemetry.inc("attention.kernel.%s" % kernel)
+        key = (int(seq_q), int(seq_k), int(head_dim), str(dtype))
+        if key not in _CENSUSED:
+            _CENSUSED.add(key)
+            telemetry.event("attention_dispatch", kernel, seq_q=int(seq_q),
+                            seq_k=int(seq_k), head_dim=int(head_dim),
+                            dtype=str(dtype), block_q=block_q,
+                            block_k=block_k, tuner_source="heuristic")
+    return {"kernel": kernel, "block_q": block_q, "block_k": block_k,
+            "tuner_source": "heuristic"}
+
+
+def _visible(B, Tq, Tk, device, causal, kv_lens, q_segments, kv_segments):
+    """(B, 1, Tq, Tk) bool: which key each query row sees, or None when
+    every row sees every key."""
+    mask = None
+    if kv_lens is not None:
+        lens = torch.clamp(kv_lens.to(device=device, dtype=torch.int64),
+                           0, Tk)
+        mask = torch.arange(Tk, device=device).view(1, 1, 1, Tk) \
+            < lens.view(B, 1, 1, 1)
+    if q_segments is not None:
+        seg = q_segments.to(device).view(B, 1, Tq, 1) \
+            == kv_segments.to(device).view(B, 1, 1, Tk)
+        mask = seg if mask is None else mask & seg
+    if causal:
+        tri = torch.arange(Tq, device=device).view(Tq, 1) \
+            >= torch.arange(Tk, device=device).view(1, Tk)
+        mask = tri.view(1, 1, Tq, Tk) if mask is None else mask & tri
+    return mask
+
+
+def _check_segments(q, k, q_segments, kv_segments):
+    if (q_segments is None) != (kv_segments is None):
+        raise ValueError("q_segments and kv_segments go together")
+    if q_segments is not None and (
+            tuple(q_segments.shape) != (q.shape[0], q.shape[2])
+            or tuple(kv_segments.shape) != (k.shape[0], k.shape[2])):
+        raise ValueError("segment ids need shapes (B, Tq) and (B, Tk), got "
+                         "%s and %s" % (tuple(q_segments.shape),
+                                        tuple(kv_segments.shape)))
+
+
+def _flash_attention_plain(q, k, v, causal=False, scale=None, kv_lens=None,
+                           q_segments=None, kv_segments=None):
+    """The plain PyTorch forward, in the arithmetic of the TPU's
+    single-pass kernel: fp32 scores (float64 for float64 inputs), the
+    row max, ``p = exp(s - m)`` zeroed where masked, ``p`` rounded to v's
+    dtype before ``p·v`` with an fp32 sum, ``o = acc / l`` (l = 0 → o = 0)
+    and ``lse = m + log l`` (0 where l = 0).  Returns ``(o, lse)``."""
+    _check_segments(q, k, q_segments, kv_segments)
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    cdt = torch.promote_types(q.dtype, torch.float32)
+    s = torch.matmul(q.to(cdt), k.to(cdt).transpose(-1, -2)) * scale
+    mask = _visible(B, Tq, Tk, q.device, causal, kv_lens, q_segments,
+                    kv_segments)
+    if mask is not None:
+        s = torch.where(mask, s, torch.full((), _NEG_INF, dtype=cdt,
+                                            device=q.device))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros((), dtype=cdt, device=q.device))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(p.to(v.dtype).to(cdt), v.to(cdt))
+    one = torch.ones((), dtype=cdt, device=q.device)
+    o = (acc / torch.where(l > 0, l, one)).to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(l), torch.zeros_like(l))
+    return o, lse.squeeze(-1).to(torch.float32)
+
+
+def _count():
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+
+
+def flash_attention_fwd(q, k, v, causal=False, scale=None, kv_lens=None,
+                        q_segments=None, kv_segments=None):
+    """``(o, lse)`` of masked attention over contiguous (B, H, T, D)
+    operands: o (B, H, Tq, D) in q's dtype, lse (B, H, Tq) fp32.
+    Launches the CUDA kernel for CUDA tensors and runs the plain version
+    for CPU tensors.  The kernel takes float32 or bfloat16 q, k and v of
+    one dtype, D <= 128 (zero-padded to 64 or 128 here) and contiguous
+    operands, and raises on anything else."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError("flash_attention_fwd: q (B, H, Tq, D), k and v "
+                         "(B, H, Tk, D), got %s, %s, %s"
+                         % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+    _check_segments(q, k, q_segments, kv_segments)
+    devices = {t.device for t in (q, k, v)}
+    if len(devices) != 1:
+        raise MXNetError("flash_attention_fwd: operands on several devices "
+                         "%s" % sorted(map(str, devices)))
+    device = devices.pop()
+    if device.type == "cpu":
+        return _flash_attention_plain(q, k, v, causal, scale, kv_lens,
+                                      q_segments, kv_segments)
+    if device.type != "cuda":
+        raise MXNetError("flash_attention_fwd: no kernel for device %s"
+                         % device)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise MXNetError("flash_attention_fwd: the flash-attention backward "
+                         "kernels are not ported yet (the BERT pretraining "
+                         "slice); record no gradient through flash "
+                         "attention on the card")
+    code = _DTYPE_CODE.get(q.dtype)
+    if code is None or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise MXNetError("flash_attention_fwd: the CUDA kernel takes float32 "
+                         "or bfloat16 q, k and v of one dtype, got %s, %s, %s"
+                         % (q.dtype, k.dtype, v.dtype))
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise MXNetError("flash_attention_fwd: the CUDA kernel takes "
+                         "contiguous q, k and v")
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    Dp = next((d for d in _HEAD_DIMS if D <= d), None)
+    if Dp is None:
+        raise MXNetError("flash_attention_fwd: the CUDA kernel takes head "
+                         "dims up to %d, got %d" % (_HEAD_DIMS[-1], D))
+    scale = D ** -0.5 if scale is None else scale
+    if Dp != D:
+        pad = (0, Dp - D)
+        q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise MXNetError("flash_attention_fwd: the CUDA kernel takes "
+                         "16-byte aligned q, k and v")
+    o = torch.empty((B, H, Tq, Dp), dtype=q.dtype, device=device)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=device)
+    lens = qs = ks = None
+    if kv_lens is not None:
+        lens = kv_lens.to(device=device, dtype=torch.int32).contiguous()
+        if lens.shape != (B,):
+            raise ValueError("kv_lens needs shape (%d,), got %s"
+                             % (B, tuple(lens.shape)))
+    if q_segments is not None:
+        qs = q_segments.to(device=device, dtype=torch.int32).contiguous()
+        ks = kv_segments.to(device=device, dtype=torch.int32).contiguous()
+    fn = _kernel_fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), None if lens is None else lens.data_ptr(),
+                None if qs is None else qs.data_ptr(),
+                None if ks is None else ks.data_ptr(), B * H, H, Tq, Tk, Dp,
+                float(scale), int(bool(causal)), code, stream)
+    if rc != 0:
+        raise MXNetError("flash_attention_fwd: kernel launch failed with "
+                         "CUDA error %d" % rc)
+    _count()
+    return (o if Dp == D else o[..., :D]), lse
+
+
+def _composed_attention(q, k, v, causal=False, scale=None, kv_lens=None,
+                        q_segments=None, kv_segments=None):
+    """Composed attention, the JAX package's masked dense form: scores in
+    q's dtype then fp32, an fp32 softmax over the visible keys, rows that
+    see nothing zeroed, the probabilities cast to q's dtype for ``p·v``."""
+    _check_segments(q, k, q_segments, kv_segments)
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    sc = D ** -0.5 if scale is None else scale
+    s = torch.matmul(q, k.transpose(-1, -2)).float() * sc
+    mask = _visible(B, Tq, Tk, q.device, causal, kv_lens, q_segments,
+                    kv_segments)
+    if mask is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        s = torch.where(mask, s, torch.full((), _NEG_INF, device=q.device))
+        p = torch.softmax(s, dim=-1)
+        p = torch.where(mask.any(dim=-1, keepdim=True), p,
+                        torch.zeros((), device=q.device))
+    return torch.matmul(p.to(q.dtype), v)
+
+
+def _kernel_operand(t):
+    """``t`` contiguous and 16-byte aligned (a copy where it is not)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def flash_attention(q, k, v, causal=False, scale=None, kv_lens=None,
+                    q_segments=None, kv_segments=None):
+    """Masked attention over (B, H, T, D) operands through the kernel
+    (:func:`flash_attention_fwd`) or, for short sequences, the composed
+    attention, as :func:`attention_dispatch` decides.  Rows with no
+    visible key return 0."""
+    plan = attention_dispatch(q.shape[2], k.shape[2], q.shape[3], q.dtype)
+    if plan["kernel"] == "dense_fallback":
+        return _composed_attention(q, k, v, causal, scale, kv_lens,
+                                   q_segments, kv_segments)
+    return flash_attention_fwd(_kernel_operand(q), _kernel_operand(k),
+                               _kernel_operand(v), causal, scale, kv_lens,
+                               q_segments, kv_segments)[0]
+
+
+@register("_contrib_flash_attention", aliases=("flash_attention",))
+def _flash_attention_op(queries, keys, values, causal: bool = False,
+                        scale: Optional[float] = None, kv_lens=None,
+                        q_segments=None, kv_segments=None):
+    """Fused multi-head attention op over (B, H, T, D) operands.  The mask
+    operands follow causal/scale, as in the JAX package."""
+    return flash_attention(queries, keys, values, causal, scale, kv_lens,
+                           q_segments, kv_segments)

@@ -1,0 +1,171 @@
+"""Fused LayerNorm over the last axis: the kernel's wrapper, its plain
+PyTorch version and the route the ``LayerNorm`` op takes when
+``MXNET_FUSED_LAYERNORM=1``.
+
+Counterpart of ``mxnet_tpu/ops/pallas_layernorm.py``.  Per row of ``x``
+(N, C):
+
+    mu = mean(x);  var = mean((x - mu)²);  rstd = rsqrt(var + eps)
+    y = (x - mu) * rstd * gamma + beta
+
+in fp32 with ``y`` cast once to the promotion of (x, gamma, beta), and
+``mu``/``rstd`` returned as (N, 1) fp32.  :func:`layer_norm_fwd` launches
+the hand-written kernel of ``csrc/layernorm.cu`` for CUDA tensors (f32 or
+bf16 x, gamma and beta of one of those dtypes) or raises, and runs
+:func:`_layer_norm_fwd_plain` for CPU tensors.  The backward kernel (TPU
+kernel 9) comes with the training slice: on CUDA, a call that would
+record a gradient raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from ..base import MXNetError
+
+__all__ = ["fused_layer_norm", "layer_norm_fwd", "LAUNCHES"]
+
+# kernel launches in this process
+LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the largest C the kernel takes: one warp holds a row in its registers,
+# 64 values a lane (csrc/layernorm.cu, mx_layer_norm_max_channels)
+MAX_CHANNELS = 2048
+_FNS = {}
+
+
+def _kernel_fn():
+    if not _FNS:
+        from .. import kernels
+        lib = kernels.load("layernorm")
+        fn = lib.mx_layer_norm_fwd
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong,
+                                               ctypes.c_int, ctypes.c_float,
+                                               ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        limit = lib.mx_layer_norm_max_channels
+        limit.restype = ctypes.c_int
+        if limit() != MAX_CHANNELS:
+            raise MXNetError("layernorm kernel takes C <= %d, the wrapper "
+                             "assumes %d" % (limit(), MAX_CHANNELS))
+        _FNS["fwd"] = fn
+    return _FNS["fwd"]
+
+
+def _out_dtype(x, gamma, beta):
+    return torch.promote_types(torch.promote_types(x.dtype, gamma.dtype),
+                               beta.dtype)
+
+
+def _layer_norm_fwd_plain(x2d, gamma, beta, eps):
+    """The plain PyTorch forward, in the kernel's order of operations:
+    fp32 statistics (float64 for float64 inputs), two-pass variance,
+    ``y`` rounded once.  Returns ``(y, mu (N, 1), rstd (N, 1))``."""
+    cdt = torch.promote_types(x2d.dtype, torch.float32)
+    x = x2d.to(cdt)
+    mu = x.mean(dim=-1, keepdim=True)
+    xc = x - mu
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    y = xc * rstd * gamma.to(cdt) + beta.to(cdt)
+    return y.to(_out_dtype(x2d, gamma, beta)), mu, rstd
+
+
+def _count():
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+
+
+def layer_norm_fwd(x2d, gamma, beta, eps):
+    """``(y, mu, rstd)`` of a LayerNorm over the rows of ``x2d`` (N, C):
+    y (N, C) in the promotion of the three dtypes, mu and rstd (N, 1)
+    fp32.  Launches the CUDA kernel for CUDA tensors and runs the plain
+    version for CPU tensors."""
+    if x2d.dim() != 2 or gamma.shape != (x2d.shape[1],) \
+            or beta.shape != gamma.shape:
+        raise ValueError("layer_norm_fwd: x (N, C) with gamma and beta (C,), "
+                         "got %s, %s, %s" % (tuple(x2d.shape),
+                                             tuple(gamma.shape),
+                                             tuple(beta.shape)))
+    devices = {t.device for t in (x2d, gamma, beta)}
+    if len(devices) != 1:
+        raise MXNetError("layer_norm_fwd: operands on several devices %s"
+                         % sorted(map(str, devices)))
+    device = devices.pop()
+    if device.type == "cpu":
+        return _layer_norm_fwd_plain(x2d, gamma, beta, eps)
+    if device.type != "cuda":
+        raise MXNetError("layer_norm_fwd: no kernel for device %s" % device)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x2d, gamma, beta)):
+        raise MXNetError("layer_norm_fwd: the LayerNorm backward kernel is "
+                         "not ported yet (the BERT pretraining slice); "
+                         "record no gradient through the fused LayerNorm "
+                         "on the card")
+    x_code = _DTYPE_CODE.get(x2d.dtype)
+    g_code = _DTYPE_CODE.get(gamma.dtype)
+    if x_code is None or g_code is None or beta.dtype != gamma.dtype:
+        raise MXNetError("layer_norm_fwd: the CUDA kernel takes float32 or "
+                         "bfloat16 x and gamma and beta of one such dtype, "
+                         "got %s, %s, %s" % (x2d.dtype, gamma.dtype,
+                                             beta.dtype))
+    if not (x2d.is_contiguous() and gamma.is_contiguous()
+            and beta.is_contiguous()):
+        raise MXNetError("layer_norm_fwd: the CUDA kernel takes contiguous "
+                         "operands")
+    N, C = x2d.shape
+    if C > MAX_CHANNELS:
+        raise MXNetError("layer_norm_fwd: the CUDA kernel takes C <= %d, got "
+                         "%d" % (MAX_CHANNELS, C))
+    y = torch.empty((N, C), dtype=_out_dtype(x2d, gamma, beta),
+                    device=device)
+    mu = torch.empty((N, 1), dtype=torch.float32, device=device)
+    rstd = torch.empty((N, 1), dtype=torch.float32, device=device)
+    fn = _kernel_fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                y.data_ptr(), mu.data_ptr(), rstd.data_ptr(), N, C,
+                float(eps), x_code, g_code, stream)
+    if rc != 0:
+        raise MXNetError("layer_norm_fwd: kernel launch failed with CUDA "
+                         "error %d" % rc)
+    _count()
+    return y, mu, rstd
+
+
+def _pick_block_rows(C):
+    """Rows a block of the kernel normalises (one warp each), or None
+    where C is past the kernel's limit and the composed LayerNorm takes
+    the rows instead: the card's counterpart of the JAX package's VMEM
+    row-block picker."""
+    return 4 if C <= MAX_CHANNELS else None
+
+
+def _composed_ln(data, gamma, beta, eps):
+    """The JAX package's composed form of the fused op (``_jnp_ln``):
+    fp32 two-pass statistics, normalised values cast to the data dtype,
+    then the affine in the promoted dtype."""
+    x32 = data.to(torch.promote_types(data.dtype, torch.float32))
+    mean = x32.mean(dim=-1, keepdim=True)
+    xc = x32 - mean
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    out = (xc * torch.rsqrt(var + eps)).to(data.dtype)
+    return out * gamma + beta
+
+
+def fused_layer_norm(data, gamma, beta, eps=1e-5):
+    """Last-axis LayerNorm through the kernel (the composed form for C
+    past the kernel's limit).  The output dtype is the promotion of
+    (data, gamma, beta), as the composed form's."""
+    C = data.shape[-1]
+    if _pick_block_rows(C) is None:
+        return _composed_ln(data, gamma, beta, eps)
+    y, _, _ = layer_norm_fwd(data.reshape(-1, C).contiguous(), gamma,
+                             beta, eps)
+    return y.reshape(data.shape)

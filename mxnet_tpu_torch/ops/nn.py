@@ -1,28 +1,36 @@
 """Neural-network operators on torch tensors.
 
-Counterpart of ``mxnet_tpu/ops/nn.py`` for the ops the ResNet v1 serving
-path uses: ``FullyConnected``, ``Convolution``, ``Pooling``,
-``Activation``, ``BatchNorm`` and ``_contrib_BatchNormAddRelu``, plus
-``Flatten`` (``mxnet_tpu/ops/matrix.py`` there).  Convolutions and dense
+Counterpart of ``mxnet_tpu/ops/nn.py`` for the ops the ResNet v1 and BERT
+paths use: ``FullyConnected``, ``Convolution``, ``Pooling``,
+``Activation``, ``BatchNorm``, ``_contrib_BatchNormAddRelu``,
+``LayerNorm``, ``LeakyReLU``, ``softmax``, ``Dropout`` and ``Embedding``,
+plus ``Flatten`` (``mxnet_tpu/ops/matrix.py`` there).  Convolutions and dense
 layers are ``torch.nn.functional`` calls (cuDNN and cuBLAS on the card,
 as XLA's own lowering was on the TPU).  The BatchNorm ops reproduce the
 JAX package's numerics exactly: one-pass fp32 batch statistics, and the
 per-op difference in where the folded scale/shift are rounded (see
 :func:`batch_norm` and :func:`batch_norm_add_relu`).  The residual
 epilogue runs through the hand-written kernels in ``ops/fused_norm.py``,
-forward and backward.  Every op is differentiable through torch's autograd.
+forward and backward; LayerNorm takes the kernel of ``ops/layernorm.py``
+when ``MXNET_FUSED_LAYERNORM=1``, as the JAX package takes its Pallas
+kernel.  Every op is differentiable through torch's autograd.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
 
-from ..base import MXNetError
+from ..base import MXNetError, torch_dtype
+from .. import random as _random
 from .fused_norm import fused_bn_add_relu_epilogue
+from .layernorm import fused_layer_norm
 from .registry import register
 
 __all__ = ["fully_connected", "convolution", "pooling", "activation",
-           "flatten", "batch_norm", "batch_norm_add_relu"]
+           "flatten", "batch_norm", "batch_norm_add_relu", "layer_norm",
+           "leaky_relu", "softmax", "dropout", "embedding"]
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
@@ -177,3 +185,103 @@ def batch_norm_add_relu(data, residual, gamma, beta, moving_mean, moving_var,
     out = fused_bn_add_relu_epilogue(data, inv, shift, residual,
                                      axis % data.dim())
     return out, _stop(mean), _stop(var)
+
+
+@register("LayerNorm", aliases=("layer_norm",))
+def layer_norm(data, gamma, beta, axis: int = -1, eps: float = 1e-5,
+               output_mean_var: bool = False):
+    """LayerNorm over ``axis``.  With ``MXNET_FUSED_LAYERNORM=1`` (opt-in,
+    as in the JAX package) the last axis goes through the fused kernel.
+    Otherwise it is composed: inputs under 4 bytes take one-pass fp32
+    statistics ``E[x²]−E[x]²`` (clamped at 0) and cast the normalised
+    values back, wider inputs take the two-pass mean and population
+    variance in their own dtype, as the JAX op does."""
+    if axis in (-1, data.dim() - 1) and not output_mean_var \
+            and os.environ.get("MXNET_FUSED_LAYERNORM", "") == "1":
+        return fused_layer_norm(data, gamma, beta, float(eps))
+    if data.element_size() < 4:
+        x32 = data.float()
+        mean = x32.mean(dim=axis, keepdim=True)
+        msq = (x32 * x32).mean(dim=axis, keepdim=True)
+        var = torch.clamp_min(msq - mean * mean, 0.0)
+        out = ((x32 - mean) * torch.rsqrt(var + eps)).to(data.dtype)
+    else:
+        mean = data.mean(dim=axis, keepdim=True)
+        var = data.var(dim=axis, keepdim=True, unbiased=False)
+        out = (data - mean) * torch.rsqrt(var + eps)
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register("LeakyReLU")
+def leaky_relu(data, gamma=None, act_type: str = "leaky", slope: float = 0.25,
+               lower_bound: float = 0.125, upper_bound: float = 0.334):
+    """Leaky ReLU and its relatives; ``gelu`` is the exact (erf) GELU."""
+    if act_type == "leaky":
+        return torch.where(data > 0, data, slope * data)
+    if act_type == "prelu":
+        shape = (1, -1) + (1,) * (data.dim() - 2) if data.dim() > 1 \
+            else (-1,)
+        return torch.where(data > 0, data, gamma.reshape(shape) * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        a, s = 1.6732632423543772, 1.0507009873554805
+        return s * torch.where(data > 0, data, a * torch.expm1(data))
+    if act_type == "gelu":
+        return F.gelu(data, approximate="none")
+    if act_type == "rrelu":          # eval-mode deterministic slope
+        return torch.where(data > 0, data,
+                           (lower_bound + upper_bound) / 2 * data)
+    raise ValueError("unknown act_type %r" % act_type)
+
+
+@register("softmax")
+def softmax(data, length=None, axis: int = -1, temperature=None,
+            dtype=None, use_length: bool = False):
+    """Softmax over ``axis``; with ``use_length`` the entries at or past
+    each row's ``length`` are masked out and come back as 0."""
+    x = data / temperature if temperature else data
+    mask = None
+    if length is not None and use_length:
+        shape = [1] * x.dim()
+        shape[axis] = x.shape[axis]
+        idx = torch.arange(x.shape[axis], device=x.device).reshape(shape)
+        mask = idx < length.unsqueeze(axis)
+        x = torch.where(mask, x, torch.full((), float("-inf"),
+                                            dtype=x.dtype, device=x.device))
+    out = torch.softmax(x, dim=axis)
+    if mask is not None:
+        out = torch.where(mask, out, torch.zeros((), dtype=out.dtype,
+                                                 device=out.device))
+    return out.to(torch_dtype(dtype)) if dtype else out
+
+
+@register("Dropout", needs_training=True, aliases=("dropout",))
+def dropout(data, p: float = 0.5, mode: str = "training", axes=(),
+            cudnn_off: bool = True, training: bool = True):
+    """Inverted dropout: the identity outside training (unless ``mode`` is
+    ``"always"``); in training a Bernoulli keep-mask from the port's
+    generator of the data's device (``mx.random``), the kept values scaled
+    by ``1 / (1 - p)``.  ``axes`` share one mask value along them."""
+    if (not training and mode != "always") or p <= 0.0:
+        return data
+    shape = list(data.shape)
+    for a in axes or ():
+        shape[a] = 1
+    keep = 1.0 - p
+    probs = torch.full(shape, keep, dtype=torch.float32, device=data.device)
+    mask = torch.bernoulli(probs, generator=_random.generator(data.device))
+    return data * mask.to(data.dtype) / keep
+
+
+@register("Embedding")
+def embedding(data, weight, input_dim: int = 0, output_dim: int = 0,
+              dtype="float32", sparse_grad: bool = False):
+    """Rows of ``weight`` at the ids ``data`` (float ids, as MXNet passes
+    them, cut to int32 and clipped to the vocabulary)."""
+    if sparse_grad:
+        raise MXNetError("Embedding: sparse_grad is not ported")
+    idx = torch.clamp(data.to(torch.int32), 0, weight.shape[0] - 1)
+    return F.embedding(idx.long(), weight)

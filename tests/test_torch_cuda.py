@@ -9,7 +9,10 @@ a machine with the card and without JAX it runs as
 import pytest
 import torch
 
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import attention as TA
 from mxnet_tpu_torch.ops import fused_norm as TFN
+from mxnet_tpu_torch.ops import layernorm as TL
 
 
 @pytest.mark.cuda
@@ -101,3 +104,108 @@ def test_bwd_kernel_matches_plain_on_cuda():
     TFN.fused_bn_add_relu_epilogue(*cpu, 1).sum().backward()
     for got, ref in zip(grads, cpu):
         torch.testing.assert_close(got.cpu(), ref.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_matches_plain_on_cuda():
+    """On the card: the flash-attention kernel against the plain version,
+    f32 o within 2e-5 and lse within 1e-5, bf16 o within 2e-2 of the
+    largest |o| (P rounded to bf16 against the running max in the kernel,
+    the row max in the plain version); masks, padded D and Tq != Tk;
+    counted as launches; grad and bad operands refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(2)
+    cases = [  # B, H, Tq, Tk, D, dtype, causal, lens, segments
+        (2, 3, 200, 200, 64, torch.bfloat16, False, (0, 500), False),
+        (2, 3, 130, 70, 32, torch.float32, True, None, False),
+        (1, 2, 96, 160, 128, torch.bfloat16, False, None, True),
+        (2, 2, 128, 128, 64, torch.float32, True, (100, 128), True)]
+    for B, H, Tq, Tk, D, dtype, causal, lens, seg in cases:
+        q = (torch.rand((B, H, Tq, D), device=dev, generator=g) * 4 - 2)
+        k = (torch.rand((B, H, Tk, D), device=dev, generator=g) * 4 - 2)
+        v = (torch.rand((B, H, Tk, D), device=dev, generator=g) * 2 - 1)
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        kw = dict(causal=causal)
+        if lens is not None:
+            kw["kv_lens"] = torch.tensor(lens, device=dev)
+        if seg:
+            kw["q_segments"] = torch.randint(0, 3, (B, Tq), device=dev,
+                                             generator=g).sort(1).values
+            kw["kv_segments"] = torch.randint(0, 3, (B, Tk), device=dev,
+                                              generator=g).sort(1).values
+        before = TA.LAUNCHES
+        o, lse = TA.flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert TA.LAUNCHES == before + 1
+        want_o, want_lse = TA._flash_attention_plain(q, k, v, **kw)
+        assert o.dtype == dtype and o.shape == want_o.shape
+        assert (lse - want_lse).abs().max().item() <= 1e-5
+        err = (o.float() - want_o.float()).abs().max().item()
+        if dtype == torch.float32:
+            assert err <= 2e-5, err
+        else:
+            assert err <= 2e-2 * want_o.float().abs().max().item(), err
+        if lens is not None and lens[0] == 0:
+            assert not o[0].any() and not lse[0].any()
+    q = torch.zeros((1, 1, 128, 64), device=dev, requires_grad=True)
+    with pytest.raises(MXNetError, match="backward"):
+        TA.flash_attention_fwd(q, q, q)
+    with torch.no_grad():
+        TA.flash_attention_fwd(q, q, q)          # no graph: the kernel runs
+    x = torch.zeros((1, 1, 128, 64), device=dev)
+    with pytest.raises(MXNetError, match="float32 or bfloat16"):
+        TA.flash_attention_fwd(x.half(), x.half(), x.half())
+    with pytest.raises(MXNetError, match="contiguous"):
+        t = x.transpose(2, 3)
+        TA.flash_attention_fwd(t, t, t)
+    with pytest.raises(MXNetError, match="head dims"):
+        y = torch.zeros((1, 1, 128, 160), device=dev)
+        TA.flash_attention_fwd(y, y, y)
+
+
+@pytest.mark.cuda
+def test_layernorm_kernel_matches_plain_on_cuda():
+    """On the card: the LayerNorm kernel against the plain version, f32
+    within 1e-5, bf16 within 1e-5 plus one bf16 ulp of the larger value
+    (fp32 values that agree within 1e-5, their statistics summed in
+    another order, each rounded once), mu and rstd within 1e-5 relative;
+    vectorised, ragged and unaligned rows; counted as launches; grad
+    refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for (N, C), xdt, gdt, off in [((300, 768), torch.bfloat16, torch.bfloat16,
+                                   0),
+                                  ((37, 1000), torch.float32, torch.float32,
+                                   0),
+                                  ((64, 768), torch.bfloat16, torch.float32,
+                                   0),
+                                  ((16, 96), torch.float32, torch.bfloat16,
+                                   0),
+                                  ((5, 768), torch.float32, torch.float32,
+                                   1)]:
+        x = torch.randn(N * C + off, device=dev, generator=gen) * 3 + 1
+        x = x.to(xdt)[off:].view(N, C)
+        gm = (torch.rand(C, device=dev, generator=gen) + 0.5).to(gdt)
+        bt = (torch.rand(C, device=dev, generator=gen) - 0.5).to(gdt)
+        before = TL.LAUNCHES
+        y, mu, rstd = TL.layer_norm_fwd(x, gm, bt, 1e-12)
+        torch.cuda.synchronize()
+        assert TL.LAUNCHES == before + 1
+        wy, wmu, wrs = TL._layer_norm_fwd_plain(x, gm, bt, 1e-12)
+        assert y.dtype == wy.dtype
+        torch.testing.assert_close(mu, wmu, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(rstd, wrs, rtol=1e-5, atol=0)
+        excess = (y.float() - wy.float()).abs() - 1e-5
+        if y.dtype == torch.bfloat16:
+            _, e = torch.frexp(torch.maximum(y.float().abs(),
+                                             wy.float().abs()))
+            excess -= torch.ldexp(torch.ones_like(e, dtype=torch.float32),
+                                  e - 8)
+        assert excess.max().item() <= 0
+    xg = torch.ones((4, 8), device=dev, requires_grad=True)
+    with pytest.raises(MXNetError, match="backward"):
+        TL.layer_norm_fwd(xg, xg[0], xg[0], 1e-5)

@@ -59,6 +59,14 @@ def test_every_module_of_the_training_slice_is_checked():
         assert name in rel, name
 
 
+def test_every_module_of_the_bert_slice_is_checked():
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("ops/attention.py", "ops/layernorm.py", "ops/matrix.py",
+                 "ops/elemwise.py", "gluon/contrib/nn/transformer.py",
+                 "gluon/model_zoo/bert.py"):
+        assert name in rel, name
+
+
 def test_kernel_wrappers_have_no_fallback_try():
     """A module that loads a kernel library launches its kernel or raises:
     no ``try`` around a launch that could run something else."""
@@ -73,7 +81,8 @@ def test_kernel_wrappers_have_no_fallback_try():
         wrappers.append(os.path.relpath(path, REPO))
         tree = ast.parse(src, filename=path)
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
-    assert "mxnet_tpu_torch/ops/fused_norm.py" in wrappers
+    for name in ("fused_norm", "attention", "layernorm"):
+        assert "mxnet_tpu_torch/ops/%s.py" % name in wrappers
 
 
 def test_forbidden_import_check_sees_the_spellings():
@@ -107,6 +116,8 @@ def test_gpu_entry_points_raise_without_cuda(no_cuda):
         AotModel(lambda x: x, feature_shape=(3,))
     with pytest.raises(mxt.MXNetError, match="CUDA"):
         InferenceServer(lambda x: x, feature_shape=(3,))
+    with pytest.raises(mxt.MXNetError, match="CUDA"):
+        mxt.nd.arange(0, 4)
     with pytest.raises(mxt.MXNetError, match="CUDA"):
         mxt.io.NDArrayIter(onp.zeros((4, 2), "float32"), batch_size=2).next()
     # the CPU only when asked for
