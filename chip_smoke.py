@@ -49,7 +49,22 @@ and PyTorch built for CUDA.  It:
    float32 forward on the card against the same forward on the CPU (batch
    2, S 128, pooler and decoder), and prints one forward on the default
    (composed) LayerNorm route beside it;
-8. prints one JSON line describing each kernel, then as its last line
+8. BERT backward kernel phase: holds the flash-attention backward and the
+   LayerNorm backward against their plain versions (the same cases as the
+   forwards, and T = 4096), checks that a second run gives the same bits,
+   and times them beside their bounds and the backward of the same PyTorch
+   calls;
+9. BERT training phase (``MXNET_FUSED_LAYERNORM=1``): BERT-base as in 7,
+   bf16, trained through ``autograd.record``, ``backward`` and
+   ``gluon.Trainer`` (Adam, lr 1e-4, bf16 state, as bench.py's config-5
+   step) on the masked-LM loss of 24 x 512 tokens with random labels: 3
+   warm-up and 10 timed steps.  It checks 12 attention and 26 LayerNorm
+   launches a step, forward and backward each, finite losses that fall,
+   a finite gradient for every parameter after the first step (non-zero
+   for every one the batch reaches), and one f32 step on the card against
+   the same step on the CPU (batch 2, S 128, same weights), with the
+   CPU's own 1-thread-vs-N-thread floor printed beside it;
+10. prints one JSON line describing each kernel, then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero without the ``ok``
@@ -156,6 +171,47 @@ BERT_PARITY_PRED = 19
 ATTN_F32_O, ATTN_F32_LSE, ATTN_BF16_REL = 2e-5, 1e-5, 2e-2
 LN_F32_ABS, LN_STAT_REL = 1e-5, 1e-5
 BF16_PEAK_OPS = 989e12                  # H100 SXM tensor cores, dense
+# The backward kernels against their plain versions.  Attention: dq, dk and
+# dv within 1e-5 of the largest |plain value| in f32 (fp32 sums in another
+# order; 1.7e-7 measured) and 1e-2 in bf16 (p and ds are rounded to bf16
+# before their products on both sides, from fp32 values summed in another
+# order, so a rounding can fall either way: an ulp is 2**-8 of a value;
+# 3.3e-3 measured).  LayerNorm: dx as the forward's y; dgamma and dbeta
+# within rel 1e-5 of their largest entry (fp32 sums over up to 12288 rows
+# in another order; 6e-7 measured).  Both kernels must give the same bits
+# on a second run (no atomics).
+ATTN_BWD_F32_REL, ATTN_BWD_BF16_REL, LN_SUM_REL = 1e-5, 1e-2, 1e-5
+# BERT-base training, bench.py's config-5 step: Adam, lr 1e-4, no
+# multi_precision (the bf16 weights and their bf16 Adam state updated in
+# bf16), the masked-LM loss averaged over the 1,824 masked rows
+BERT_LR = 1e-4
+BERT_TRAIN_WARMUP = 3
+BERT_TRAIN_TIMED = 10
+# the one parameter bench.py's batch (no token types) never reaches: its
+# gradient stays 0, and step(ignore_stale_grad=True) leaves it alone, as the
+# JAX step's zero gradient leaves it unchanged
+BERT_UNREACHED = ("type_embed.weight",)
+# The loss must fall: the lowest of the last five steps at least 0.5 below
+# the first.  On one fixed batch with random labels it fell from 10.35 to
+# 8.95 in 13 steps on an H100 (PERF.md): a third of that fall.
+BERT_LOSS_FALL = 0.5
+# One f32 Adam step on the card against the CPU (batch 2, S 128, the same
+# weights): the loss within rel 1e-5; the updates w1 - w0 within a relative
+# L2 error of 1e-3 over all parameters and 1e-2 for any one.  One Adam step
+# moves a weight by about lr * g / (|g| + 3e-7), so only gradients near 0,
+# whose sign the order of summation decides, move the updates at all.
+# Measured on an H100 (PERF.md): the card 2.7e-5 over all parameters
+# and 7.6e-4 for the worst (an FFN LayerNorm beta), against a floor (the
+# CPU on 1 thread against 8) of 2.1e-5 and 3.5e-4; the script measures the
+# floor in every run and prints it beside the card's error.  A wrong
+# gradient moves the updates by O(1).
+BERT_TRAIN_PARITY_LOSS_RTOL = 1e-5
+BERT_TRAIN_PARITY_UPDATE_REL_L2 = 1e-3
+BERT_TRAIN_PARITY_PARAM_REL_L2 = 1e-2
+# kernel launches a training step makes: each forward launch has its
+# backward
+BERT_ATTN_PER_STEP = BERT_ATTN_PER_FWD
+BERT_LN_PER_STEP = BERT_LN_PER_FWD
 
 
 class SmokeFailure(RuntimeError):
@@ -726,6 +782,26 @@ LN_CASES = [
 ]
 
 
+# (case, B, H, Tq, Tk, D, dtype, causal, kv_lens, segments) of the
+# backward kernels; T 2048 is the domain of the TPU's _dqkv_fused_kernel,
+# T 4096 of its _dq_kernel + _dkv_kernel, the rest of _dqkv_single_kernel
+ATTN_BWD_CASES = [
+    ("bert", 24, 12, 512, 512, 64, "bfloat16", False, "bench", False),
+    ("f32", 2, 12, 128, 128, 64, "float32", False, None, False),
+    ("f32_d128_causal_lens", 2, 4, 256, 200, 128, "float32", True, (0, 150),
+     False),
+    ("causal", 2, 12, 512, 512, 64, "bfloat16", True, None, False),
+    ("segments", 2, 12, 256, 256, 64, "bfloat16", False, None, True),
+    ("lens_0_and_past_tk", 2, 12, 256, 256, 64, "bfloat16", False,
+     (0, 1000), False),
+    ("ragged_t200", 2, 12, 200, 200, 64, "bfloat16", False, None, False),
+    ("tq_ne_tk", 2, 12, 128, 384, 64, "bfloat16", False, (300, 384), False),
+    ("d128", 2, 12, 256, 256, 128, "bfloat16", False, None, False),
+    ("t2048", 1, 12, 2048, 2048, 64, "bfloat16", False, None, False),
+    ("t4096", 1, 12, 4096, 4096, 64, "bfloat16", False, None, False),
+]
+
+
 def attention_cases(torch, attention, card, flush, seed):
     """The flash-attention kernel against its plain version, timed beside
     its bound and scaled_dot_product_attention."""
@@ -735,21 +811,11 @@ def attention_cases(torch, attention, card, flush, seed):
     bw = memory_bytes_per_s(card)
     _, bench_lens, _ = bert_inputs(seed)
     rows = []
-    for case, B, H, Tq, Tk, D, dt, causal, lens, seg in ATTN_CASES:
+    for case in ATTN_CASES:
+        name, B, H, Tq, Tk, D, dt, causal, lens, seg = case
         dtype = getattr(torch, dt)
-        q, k, v = (torch.randn((B, H, T, D), device=dev, generator=gen)
-                   .to(dtype) for T in (Tq, Tk, Tk))
-        kw = {"causal": causal}
-        if lens is not None:
-            kw["kv_lens"] = torch.tensor(
-                bench_lens if lens == "bench" else lens, device=dev,
-                dtype=torch.int32)
-        if seg:
-            kw["q_segments"] = torch.randint(0, 4, (B, Tq), device=dev,
-                                             generator=gen).sort(1).values
-            kw["kv_segments"] = torch.randint(0, 4, (B, Tk), device=dev,
-                                              generator=gen).sort(1).values
-        what = "attention %s %s" % (case, (B, H, Tq, Tk, D))
+        q, k, v, _, kw = _attention_operands(torch, gen, case, bench_lens)
+        what = "attention %s %s" % (name, (B, H, Tq, Tk, D))
         with torch.inference_mode():
             def k_fn():
                 return attention.flash_attention_fwd(q, k, v, **kw)
@@ -802,7 +868,7 @@ def attention_cases(torch, attention, card, flush, seed):
         peak = BF16_PEAK_OPS if dtype == torch.bfloat16 \
             else fp32_ops_per_s(card)
         bound_ms = max(nbytes / bw, ops / peak) * 1e3
-        row = {"case": case, "shape": [B, H, Tq, Tk, D], "dtype": dt,
+        row = {"case": name, "shape": [B, H, Tq, Tk, D], "dtype": dt,
                "causal": causal, "kv_lens": None if lens is None else
                ("bench" if lens == "bench" else list(lens)),
                "segments": seg, "max_abs_err": err, "lse_max_abs_err": lse_err,
@@ -818,7 +884,7 @@ def attention_cases(torch, attention, card, flush, seed):
         print("kernel attention %-18s %-26s %-8s err %.3g lse err %.3g  "
               "kernel %.4f ms (%.1f TFLOP/s)  plain %.4f ms  sdpa %.4f ms  "
               "bound %.4f ms (%s)  host/call %.1f us  (%s)"
-              % (case, (B, H, Tq, Tk, D), dt, err, lse_err, ms, row["tflops"],
+              % (name, (B, H, Tq, Tk, D), dt, err, lse_err, ms, row["tflops"],
                  plain_ms, library_ms, bound_ms, row["bound_by"], host, card))
         del q, k, v, o, lse, po, plse, mask
         torch.cuda.empty_cache()
@@ -908,6 +974,206 @@ def layernorm_cases(torch, layernorm, card, flush, seed):
               "ms  plain %.4f ms  F.layer_norm %.4f ms  bound %.4f ms  "
               "host/call %.1f us  (%s)"
               % (case, (N, C), xdt, gdt, err, ms, plain_ms, library_ms,
+                 bound_ms, host, card))
+    return rows
+
+
+def _attention_operands(torch, gen, case, bench_lens):
+    """q, k, v, the cotangent and the mask keywords of one case."""
+    _, B, H, Tq, Tk, D, dt, causal, lens, seg = case
+    dev = torch.device("cuda", 0)
+    dtype = getattr(torch, dt)
+    q, k, v, do = (torch.randn((B, H, T, D), device=dev, generator=gen)
+                   .to(dtype) for T in (Tq, Tk, Tk, Tq))
+    kw = {"causal": causal}
+    if lens is not None:
+        kw["kv_lens"] = torch.tensor(bench_lens if lens == "bench" else lens,
+                                     device=dev, dtype=torch.int32)
+    if seg:
+        kw["q_segments"] = torch.randint(0, 4, (B, Tq), device=dev,
+                                         generator=gen).sort(1).values
+        kw["kv_segments"] = torch.randint(0, 4, (B, Tk), device=dev,
+                                          generator=gen).sort(1).values
+    return q, k, v, do, kw
+
+
+def attention_bwd_cases(torch, attention, card, flush, seed):
+    """The flash-attention backward kernels against their plain version,
+    timed beside their bound and the backward of
+    scaled_dot_product_attention with the same boolean mask."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    dev = torch.device("cuda", 0)
+    bw = memory_bytes_per_s(card)
+    _, bench_lens, _ = bert_inputs(seed)
+    rows = []
+    for case in ATTN_BWD_CASES:
+        name, B, H, Tq, Tk, D, dt, causal, lens, seg = case
+        q, k, v, do, kw = _attention_operands(torch, gen, case, bench_lens)
+        what = "attention bwd %s %s" % (name, (B, H, Tq, Tk, D))
+        with torch.no_grad():
+            o, lse = attention.flash_attention_fwd(q, k, v, **kw)
+            o = o.contiguous()
+
+            def k_fn():
+                return attention.flash_attention_bwd(q, k, v, o, lse, do,
+                                                     **kw)
+
+            def p_fn():
+                return attention._flash_attention_bwd_plain(q, k, v, o, lse,
+                                                            do, **kw)
+            got, again, want = k_fn(), k_fn(), p_fn()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  "%s: two runs differ" % what)
+            rel_tol = ATTN_BWD_F32_REL if q.dtype == torch.float32 \
+                else ATTN_BWD_BF16_REL
+            err = rel = 0.0
+            for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+                check(a.shape == b.shape and a.dtype == b.dtype,
+                      "%s %s: kernel gave %s %s" % (what, gname,
+                                                    tuple(a.shape), a.dtype))
+                check(bool(torch.isfinite(a).all()),
+                      "%s %s: non-finite" % (what, gname))
+                e = (a.float() - b.float()).abs().max().item()
+                r = e / max(b.float().abs().max().item(), 1e-30)
+                check(r <= rel_tol, "%s %s: max err %.3g of the largest "
+                      "|plain| > %g" % (what, gname, r, rel_tol))
+                err, rel = max(err, e), max(rel, r)
+            if lens is not None:
+                valid = kw["kv_lens"].tolist()
+                for b, n in enumerate(valid):
+                    check(not got[1][b, :, n:].any()
+                          and not got[2][b, :, n:].any(),
+                          "%s: dk/dv of keys past the valid length are not "
+                          "0" % what)
+                    if n == 0:
+                        check(not got[0][b].any(), "%s: dq of rows that "
+                              "see no key is not 0" % what)
+            ms = time_cuda(torch, k_fn, flush)
+            plain_ms = time_cuda(torch, p_fn, flush)
+            host = host_us(torch, k_fn)
+            del got, again, want
+        mask = attention._visible(B, Tq, Tk, dev, causal, kw.get("kv_lens"),
+                                  kw.get("q_segments"),
+                                  kw.get("kv_segments"))
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+
+        def l_fn():
+            return torch.autograd.grad(out, (qg, kg, vg), do,
+                                       retain_graph=True)
+        library_ms = time_cuda(torch, l_fn, flush)
+        del out, qg, kg, vg
+        pairs = _visible_pairs(torch, attention, B, Tq, Tk, causal,
+                               kw.get("kv_lens"), kw.get("q_segments"),
+                               kw.get("kv_segments"))
+        # five products (s, dp, dv, dq, dk) over the visible pairs
+        ops = 10.0 * H * D * pairs
+        keys = B * Tk if lens is None else \
+            int(torch.clamp(kw["kv_lens"], 0, Tk).sum().item())
+        # q, o, do read and dq written; k, v read and dk, dv written up to
+        # the valid lengths; lse read
+        nbytes = (4 * B * Tq + 4 * keys) * H * D * q.element_size() \
+            + B * H * Tq * 4
+        peak = BF16_PEAK_OPS if q.dtype == torch.bfloat16 \
+            else fp32_ops_per_s(card)
+        bound_ms = max(nbytes / bw, ops / peak) * 1e3
+        row = {"case": name, "shape": [B, H, Tq, Tk, D], "dtype": dt,
+               "causal": causal, "kv_lens": None if lens is None else
+               ("bench" if lens == "bench" else list(lens)),
+               "segments": seg, "max_abs_err": err, "max_rel_err": rel,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms,
+               "bound_by": "bytes" if nbytes / bw > ops / peak
+               else "operations", "visible_pairs": pairs * H,
+               "tflops": ops / ms / 1e9, "host_us": host}
+        rows.append(row)
+        print("kernel attention bwd %-20s %-26s %-8s err %.3g (rel %.3g)  "
+              "kernel %.4f ms (%.1f TFLOP/s)  plain %.4f ms  sdpa bwd %.4f "
+              "ms  bound %.4f ms (%s)  host/call %.1f us  (%s)"
+              % (name, (B, H, Tq, Tk, D), dt, err, rel, ms, row["tflops"],
+                 plain_ms, library_ms, bound_ms, row["bound_by"], host, card))
+        del q, k, v, do, o, lse, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def layernorm_bwd_cases(torch, layernorm, card, flush, seed):
+    """The LayerNorm backward kernel against its plain version, timed
+    beside its bound and the backward of torch.nn.functional.layer_norm."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    bw = memory_bytes_per_s(card)
+    eps = 1e-12
+    rows = []
+    for case, N, C, xdt, gdt in LN_CASES:
+        x = (torch.randn((N, C), device="cuda", generator=gen) * 2 + 0.5) \
+            .to(getattr(torch, xdt))
+        g = (torch.rand(C, device="cuda", generator=gen) + 0.5) \
+            .to(getattr(torch, gdt))
+        b = (torch.rand(C, device="cuda", generator=gen) - 0.5) \
+            .to(getattr(torch, gdt))
+        what = "layernorm bwd %s (%d, %d)" % (case, N, C)
+        with torch.no_grad():
+            y, mu, rstd = layernorm.layer_norm_fwd(x, g, b, eps)
+            ct = torch.randn((N, C), device="cuda", generator=gen) \
+                .to(y.dtype)
+
+            def k_fn():
+                return layernorm.layer_norm_bwd(x, g, mu, rstd, ct)
+
+            def p_fn():
+                return layernorm._layer_norm_bwd_plain(x, g, mu, rstd, ct)
+            got, again, want = k_fn(), k_fn(), p_fn()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  "%s: two runs differ" % what)
+            check(all(a.dtype == b.dtype and a.shape == b.shape
+                      for a, b in zip(got, want)),
+                  "%s: kernel gave %s" % (what, [a.dtype for a in got]))
+            dx, pdx = got[0].float(), want[0].float()
+            err = (dx - pdx).abs().max().item()
+            excess = (dx - pdx).abs() - LN_F32_ABS
+            if got[0].dtype == torch.bfloat16:
+                excess = excess - _bf16_ulp(torch, dx, pdx)
+            check(excess.max().item() <= 0, "%s: dx max|err| %.3g beyond "
+                  "the tolerance" % (what, err))
+            sums = max(((a - b).abs().max() / b.abs().max()).item()
+                       for a, b in zip(got[1:], want[1:]))
+            check(sums <= LN_SUM_REL, "%s: dgamma/dbeta rel err %.3g"
+                  % (what, sums))
+            ms = time_cuda(torch, k_fn, flush)
+            plain_ms = time_cuda(torch, p_fn, flush)
+            host = host_us(torch, k_fn)
+        xg = x.detach().requires_grad_()
+        gl = g.to(x.dtype).requires_grad_()
+        bl = b.to(x.dtype).requires_grad_()
+        out = F.layer_norm(xg, (C,), gl, bl, eps)
+        ctl = ct.to(out.dtype)
+
+        def l_fn():
+            return torch.autograd.grad(out, (xg, gl, bl), ctl,
+                                       retain_graph=True)
+        library_ms = time_cuda(torch, l_fn, flush)
+        del out
+        # x and ct read, dx written, mu/rstd and gamma read, dgamma and
+        # dbeta written
+        nbytes = N * C * (2 * x.element_size() + ct.element_size()) \
+            + 8 * N + C * (g.element_size() + 8)
+        ops = 10.0 * N * C
+        bound_ms = max(nbytes / bw, ops / fp32_ops_per_s(card)) * 1e3
+        row = {"case": case, "shape": [N, C], "dtype": xdt,
+               "affine_dtype": gdt, "max_abs_err": err,
+               "sums_max_rel_err": sums, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": "bytes" if nbytes / bw > ops / fp32_ops_per_s(card)
+               else "operations", "host_us": host}
+        rows.append(row)
+        print("kernel layernorm bwd %-17s %-13s %-8s/%-8s err %.3g sums rel "
+              "%.3g  kernel %.4f ms  plain %.4f ms  F.layer_norm bwd %.4f ms"
+              "  bound %.4f ms  host/call %.1f us  (%s)"
+              % (case, (N, C), xdt, gdt, err, sums, ms, plain_ms, library_ms,
                  bound_ms, host, card))
     return rows
 
@@ -1044,11 +1310,209 @@ def bert_phase(torch, mx, attention, layernorm, seed, card, profile=False):
             "valid_tokens": int(lens.sum()), "profiles": profiles}
 
 
+def _mlm_step(mx, net, trainer, ce, x, vl, mp, labels):
+    """One masked-LM training step through the Gluon entry points, as
+    bench.py's config-5 step computes it: softmax cross entropy over the
+    masked positions' logits, its mean over their rows, backward, one Adam
+    update (the one parameter the batch never reaches is skipped).
+    Returns the per-row losses and their mean, the loss the step
+    differentiates, as NDArrays on the step's device."""
+    with mx.autograd.record():
+        _, logits = net(x, None, None, vl, mp)
+        rows = ce(logits.reshape(-1, BERT_VOCAB), labels.reshape(-1))
+        loss = rows.mean()
+    loss.backward()
+    trainer.step(1, ignore_stale_grad=True)
+    return rows, loss
+
+
+def _adam(mx, net):
+    from mxnet_tpu_torch import gluon
+    return gluon.Trainer(net.collect_params(), "adam",
+                         {"learning_rate": BERT_LR})
+
+
+def bert_train_card_vs_cpu(torch, mx, seed):
+    """One f32 training step of BERT-base at batch 2, S 128 from the same
+    weights on the card (the kernels) and on the CPU (the plain versions),
+    and, as the floor of what summation order alone does, the CPU step
+    again on one thread.  Returns the loss rel error and the update errors
+    of the card and of the floor."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.utils import load_jax_params
+    rs = onp.random.RandomState(seed + 3)
+    S = BERT_PARITY_SEQ
+    tokens = rs.randint(0, BERT_VOCAB, (2, S)).astype("float32")
+    lens = onp.array(BERT_PARITY_LENS, "int32")
+    pos = onp.sort(onp.stack([rs.choice(min(BERT_PARITY_LENS),
+                                        BERT_PARITY_PRED, replace=False)
+                              for _ in range(2)]), 1).astype("int32")
+    labels = rs.randint(0, BERT_VOCAB, (2, BERT_PARITY_PRED)) \
+        .astype("float32")
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step(net, ctx):
+        _, loss = _mlm_step(mx, net, _adam(mx, net), ce,
+                         mx.nd.array(tokens, ctx=ctx),
+                         mx.nd.array(lens, ctx=ctx, dtype="int32"),
+                         mx.nd.array(pos, ctx=ctx, dtype="int32"),
+                         mx.nd.array(labels, ctx=ctx))
+        return loss.asnumpy(), _param_arrays(net)
+    mx.random.seed(seed)
+    gnet = _bert(mx, use_pooler=False)
+    gnet.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    with mx.autograd.predict_mode():
+        gnet(mx.nd.array(tokens, ctx=mx.gpu(0)))
+    w0 = _param_arrays(gnet)
+    gpu_loss, w1_gpu = step(gnet, mx.gpu(0))
+    del gnet
+    cnet = _bert(mx, use_pooler=False)
+    cnet.initialize(ctx=mx.cpu())
+
+    def cpu_step():
+        load_jax_params(cnet, w0)
+        return step(cnet, mx.cpu())
+    with mx.cpu():
+        cpu_loss, w1_cpu = cpu_step()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        _, w1_cpu1 = cpu_step()
+        torch.set_num_threads(threads)
+    loss_rel = float(abs(gpu_loss - cpu_loss) / abs(cpu_loss))
+    return (loss_rel, _update_errors(w0, w1_gpu, w1_cpu),
+            _update_errors(w0, w1_cpu1, w1_cpu))
+
+
+def bert_training_phase(torch, mx, attention, layernorm, seed, card,
+                        profile=False):
+    """BERT-base masked-LM pretraining on the card through
+    ``autograd.record``, ``backward`` and ``gluon.Trainer`` (Adam), bf16,
+    batch 24 x 512, with the fused LayerNorm route; returns the numbers.
+    The card-vs-CPU step runs first."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    os.environ["MXNET_FUSED_LAYERNORM"] = "1"
+    t0 = time.perf_counter()
+    loss_rel, (update_rel, per_param), (floor_rel, floor_param) = \
+        bert_train_card_vs_cpu(torch, mx, seed)
+    parity_s = time.perf_counter() - t0
+    print("bert training: card vs CPU, one f32 Adam step at batch 2, S %d: "
+          "loss rel err %.3g, update rel L2 err %.3g over all parameters; "
+          "worst parameters %s" % (BERT_PARITY_SEQ, loss_rel, update_rel,
+                                   ", ".join("%s %.3g" % (k, e)
+                                             for e, k in per_param[:4])))
+    print("bert training: floor, CPU on 1 thread vs CPU on %d: update rel "
+          "L2 err %.3g over all parameters; worst parameters %s"
+          % (torch.get_num_threads(), floor_rel,
+             ", ".join("%s %.3g" % (k, e) for e, k in floor_param[:4])))
+    check(loss_rel <= BERT_TRAIN_PARITY_LOSS_RTOL,
+          "BERT card vs CPU loss rel err %.3g > %g"
+          % (loss_rel, BERT_TRAIN_PARITY_LOSS_RTOL))
+    check(update_rel <= BERT_TRAIN_PARITY_UPDATE_REL_L2,
+          "BERT card vs CPU update: rel L2 err %.3g > %g"
+          % (update_rel, BERT_TRAIN_PARITY_UPDATE_REL_L2))
+    check(per_param[0][0] <= BERT_TRAIN_PARITY_PARAM_REL_L2,
+          "BERT card vs CPU update of %s: rel L2 err %.3g > %g"
+          % (per_param[0][1], per_param[0][0],
+             BERT_TRAIN_PARITY_PARAM_REL_L2))
+    torch.cuda.empty_cache()
+
+    tokens, lens, pos = bert_inputs(seed)
+    labels = onp.random.RandomState(seed + 2).randint(
+        0, BERT_VOCAB, (BERT_BATCH, BERT_PRED)).astype("float32")
+    gpu = mx.gpu(0)
+    x = mx.nd.array(tokens, ctx=gpu)
+    vl = mx.nd.array(lens, ctx=gpu, dtype="int32")
+    mp = mx.nd.array(pos, ctx=gpu, dtype="int32")
+    y = mx.nd.array(labels, ctx=gpu)
+    mx.random.seed(seed)
+    net = _bert(mx, use_pooler=False)
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    with mx.autograd.predict_mode():
+        net(x, None, None, vl, mp)          # settles the deferred shapes
+    net.cast("bfloat16")
+    trainer = _adam(mx, net)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    params = net._collect_params_with_prefix()
+
+    def step():
+        # the step's own loss is the bf16 mean; the fp32 mean of the bf16
+        # row losses reports it with more digits
+        rows, _ = _mlm_step(mx, net, trainer, ce, x, vl, mp, y)
+        return float(rows.astype("float32").mean().asscalar())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts from 0 just before, read just after
+    attention.LAUNCHES = attention.BWD_LAUNCHES = 0
+    layernorm.LAUNCHES = layernorm.BWD_LAUNCHES = 0
+    losses, times = [], []
+    grads_checked = False
+    for _ in range(BERT_TRAIN_WARMUP + BERT_TRAIN_TIMED):
+        t = time.perf_counter()
+        losses.append(step())
+        times.append(time.perf_counter() - t)
+        if not grads_checked:
+            # after one step: every gradient finite, every one the batch
+            # reaches non-zero, the unreached one 0; weights and gradients
+            # stay bf16 and no weight keeps a graph
+            for k, p in params.items():
+                w, g = p.data().astorch(), p.grad().astorch()
+                check(w.dtype == g.dtype == torch.bfloat16,
+                      "%s: weight %s, gradient %s" % (k, w.dtype, g.dtype))
+                check(w.grad_fn is None, "%s keeps a graph" % k)
+                check(bool(torch.isfinite(g).all()),
+                      "%s: non-finite gradient" % k)
+                check(bool(g.any()) == (k not in BERT_UNREACHED),
+                      "%s: gradient %s 0" % (k, "is" if k not in
+                                              BERT_UNREACHED else "is not"))
+            grads_checked = True
+    launches = (attention.LAUNCHES, attention.BWD_LAUNCHES,
+                layernorm.LAUNCHES, layernorm.BWD_LAUNCHES)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    n_steps = BERT_TRAIN_WARMUP + BERT_TRAIN_TIMED
+    want = (BERT_ATTN_PER_STEP * n_steps,) * 2 + \
+        (BERT_LN_PER_STEP * n_steps,) * 2
+    check(launches == want, "launches in %d steps: attention fwd %d bwd %d, "
+          "LayerNorm fwd %d bwd %d (want %d, %d, %d and %d a step)"
+          % ((n_steps,) + launches + (BERT_ATTN_PER_STEP,
+                                      BERT_ATTN_PER_STEP, BERT_LN_PER_STEP,
+                                      BERT_LN_PER_STEP)))
+    check(all(onp.isfinite(losses)), "non-finite loss: %r" % losses)
+    check(min(losses[-LOSS_WINDOW:]) < losses[0] - BERT_LOSS_FALL,
+          "loss did not fall by %g: %r" % (BERT_LOSS_FALL, losses))
+    states = trainer._updater.states
+    check(all(s.astorch().dtype == torch.bfloat16
+              for st in states.values() for s in st),
+          "Adam state is not bf16")
+    step_ms = statistics.median(times[BERT_TRAIN_WARMUP:]) * 1e3
+    profiles = [profile_calls(torch, step, "BERT-base training step",
+                              calls=3)] if profile else []
+    del os.environ["MXNET_FUSED_LAYERNORM"]
+    n_tokens = BERT_BATCH * BERT_SEQ
+    return {"losses": losses, "step_ms": step_ms,
+            "step_ms_all": [t * 1e3 for t in times],
+            "tokens_per_s": n_tokens * 1e3 / step_ms,
+            "valid_tokens_per_s": float(lens.sum()) * 1e3 / step_ms,
+            "valid_tokens": int(lens.sum()), "peak_bytes": peak_bytes,
+            "attention_launches": launches[0],
+            "attention_bwd_launches": launches[1],
+            "layernorm_launches": launches[2],
+            "layernorm_bwd_launches": launches[3], "steps": n_steps,
+            "parity_loss_rel": loss_rel, "parity_update_rel_l2": update_rel,
+            "parity_worst_params": per_param[:4],
+            "parity_floor_rel_l2": floor_rel,
+            "parity_floor_worst": floor_param[:4], "parity_s": parity_s,
+            "profiles": profiles}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace bucket-1 and bucket-8 model calls and "
+                    help="also trace bucket-1 and bucket-8 model calls, "
+                         "ResNet training steps, BERT forwards and BERT "
                          "training steps with torch.profiler and print where "
                          "the device time goes")
     args = ap.parse_args(argv)
@@ -1088,6 +1552,10 @@ def main(argv=None):
     side_by_side = short_seq_side_by_side(torch, attention, card, flush,
                                           args.seed)
     ln_rows = layernorm_cases(torch, layernorm, card, flush, args.seed)
+    attn_bwd_rows = attention_bwd_cases(torch, attention, card, flush,
+                                        args.seed)
+    ln_bwd_rows = layernorm_bwd_cases(torch, layernorm, card, flush,
+                                      args.seed)
     del flush
     torch.cuda.empty_cache()
 
@@ -1137,6 +1605,28 @@ def main(argv=None):
           "unset): forward %.3f ms  (%s)" % (bert["default_route_forward_ms"],
                                             card))
     print_profiles(bert["profiles"], card)
+    torch.cuda.empty_cache()
+
+    btrain = bert_training_phase(torch, mx, attention, layernorm, args.seed,
+                                 card, profile=args.profile)
+    print("bert training: BERT-base bf16 MLM step, batch %d x %d (%d valid "
+          "tokens), Adam lr %g, %d steps, losses %s"
+          % (BERT_BATCH, BERT_SEQ, btrain["valid_tokens"], BERT_LR,
+             btrain["steps"], [round(v, 4) for v in btrain["losses"]]))
+    print("bert training: step %.3f ms (median of %d) = %.0f tokens/s (%.0f "
+          "valid tokens/s), peak device memory %.2f GiB, launches attention "
+          "fwd %d bwd %d, LayerNorm fwd %d bwd %d, card vs CPU check %.1f s "
+          "(%s)" % (btrain["step_ms"], BERT_TRAIN_TIMED,
+                    btrain["tokens_per_s"], btrain["valid_tokens_per_s"],
+                    btrain["peak_bytes"] / 2 ** 30,
+                    btrain["attention_launches"],
+                    btrain["attention_bwd_launches"],
+                    btrain["layernorm_launches"],
+                    btrain["layernorm_bwd_launches"], btrain["parity_s"],
+                    card))
+    print("bert training: step ms %s" % [round(v, 3)
+                                         for v in btrain["step_ms_all"]])
+    print_profiles(btrain["profiles"], card)
 
     def per_pass(direction, path, key):
         return sum(r[key] * r["launches_per_pass"] for r in rows[direction]
@@ -1187,6 +1677,8 @@ def main(argv=None):
         replaces="mxnet_tpu/ops/pallas_attention.py:313",
         also_replaces="mxnet_tpu/ops/pallas_attention.py:219",
         launches=bert["attention_launches"],
+        launches_by_path={"bert_forward": bert["attention_launches"],
+                          "bert_training": btrain["attention_launches"]},
         max_abs_err=max(r["max_abs_err"] for r in attn_rows),
         bound_by=[r for r in attn_rows if r["case"] == "bert"][0]["bound_by"],
         per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 forward at "
@@ -1201,6 +1693,8 @@ def main(argv=None):
         source="mxnet_tpu_torch/csrc/layernorm.cu",
         replaces="mxnet_tpu/ops/pallas_layernorm.py:34",
         launches=bert["layernorm_launches"],
+        launches_by_path={"bert_forward": bert["layernorm_launches"],
+                          "bert_training": btrain["layernorm_launches"]},
         max_abs_err=max(r["max_abs_err"] for r in ln_rows),
         bound_by="bytes",
         per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 forward "
@@ -1210,9 +1704,43 @@ def main(argv=None):
         shapes=ln_rows,
         **{k: per_forward(ln_rows, ln_w, k)
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
+    attn_bwd_entry = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="mxnet_tpu_torch/csrc/flash_attention.cu",
+        replaces="mxnet_tpu/ops/pallas_attention.py:827",
+        also_replaces=["mxnet_tpu/ops/pallas_attention.py:773",
+                       "mxnet_tpu/ops/pallas_attention.py:732",
+                       "mxnet_tpu/ops/pallas_attention.py:866"],
+        launches=btrain["attention_bwd_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in attn_bwd_rows),
+        max_rel_err=max(r["max_rel_err"] for r in attn_bwd_rows),
+        bound_by=[r for r in attn_bwd_rows
+                  if r["case"] == "bert"][0]["bound_by"],
+        per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 training "
+            "step at 24 x 512 (12 launches at the case 'bert'); launches: "
+            "the BERT training path's %d steps; library: the backward of "
+            "scaled_dot_product_attention with the same boolean mask"
+            % btrain["steps"], shapes=attn_bwd_rows,
+        **{k: per_forward(attn_bwd_rows, attn_w, k)
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
+    ln_bwd_entry = dict(
+        name="layer_norm_bwd", route="cuda",
+        source="mxnet_tpu_torch/csrc/layernorm.cu",
+        replaces="mxnet_tpu/ops/pallas_layernorm.py:47",
+        launches=btrain["layernorm_bwd_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in ln_bwd_rows),
+        sums_max_rel_err=max(r["sums_max_rel_err"] for r in ln_bwd_rows),
+        bound_by="bytes",
+        per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 training "
+            "step (25 launches at the case 'bert', one at 'bert_decoder'); "
+            "launches: the BERT training path's %d steps; library: the "
+            "backward of torch.nn.functional.layer_norm" % btrain["steps"],
+        shapes=ln_bwd_rows,
+        **{k: per_forward(ln_bwd_rows, ln_w, k)
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
     print(card)                       # as nvidia-smi prints it
     print(json.dumps({"kernels": [fwd_entry, bwd_entry, attn_entry,
-                                  ln_entry]}))
+                                  ln_entry, attn_bwd_entry, ln_bwd_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-// Flash-attention forward, for sm_90a.
+// Flash-attention forward and backward, for sm_90a.
 //
 // Replaces the TPU kernels _fwd_kernel_single and _fwd_kernel
 // (mxnet_tpu/ops/pallas_attention.py, launched by pallas_flash_attention and
@@ -440,6 +440,672 @@ int launch(Kernel kernel, const Params& p, int BH, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+//
+// Replaces the TPU kernels _dqkv_single_kernel, _dqkv_fused_kernel and the
+// pair _dq_kernel + _dkv_kernel (mxnet_tpu/ops/pallas_attention.py, launched
+// by pallas_flash_attention_bwd).  From q, k, v, the forward's o and lse and
+// the cotangent dO, with the forward's masks:
+//
+//     p = exp(s * scale - lse)   (0 where masked),  delta = rowsum(dO * O)
+//     dp = dO v^T,  ds = p (dp - delta) * scale
+//     dv = bf16(p)^T dO,  dq = bf16(ds) k,  dk = bf16(ds)^T q
+//
+// with every product summed in fp32 and p and ds rounded to the operands'
+// dtype where the TPU kernels round them.  One design covers the three TPU
+// kernels: a Hopper block holds 64-row tiles, so it always streams, and the
+// TPU's single-block kernels are its one-tile case.  It is the TPU's split
+// form, deterministic (no atomics): flash_bwd_q, a block per 64-query tile
+// streaming the K tiles, and flash_bwd_kv, a block per 64-key tile
+// streaming the Q tiles, both recomputing p from lse; flash_bwd_delta
+// computes delta first.  Keys past a row's valid length get dk = dv = 0.
+//
+// What bounds it at BERT-base (B 24, H 12, T 512, D 64, bf16, bench.py's
+// valid lengths): bytes, narrowly.  q, o, dO and dq whole and k, v, dk and
+// dv up to the valid lengths are 137 MB, 41 us at 3.35 TB/s; the five
+// products the visible pairs need are 36 GFLOP, 36 us at 989 TFLOP/s.  This
+// first design recomputes s and dp in both kernels (seven products), stages
+// the operands it needs transposed a second time in shared memory, and does
+// not pipeline its tile loads.
+
+struct BwdParams : Params {
+  const void* dout;    // dO: BH x Tq x D
+  const float* delta;  // rowsum(dO * O): BH x Tq
+  void* dq;
+  void* dk;
+  void* dv;
+  int n_ktiles;
+};
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) {
+  return __bfloat162float(v);
+}
+
+// delta[r] = sum_d dO[r, d] * O[r, d] in fp32, one warp a row
+template <typename T>
+__global__ void __launch_bounds__(128)
+flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+                float* __restrict__ delta, long long rows, int D) {
+  const long long row = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  float s = 0.f;
+  for (int d = lane; d < D; d += 32)
+    s += to_float(o[row * D + d]) * to_float(dout[row * D + d]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) delta[row] = s;
+}
+
+// the first Q tile that sees any key of the K tile at k0 (causal: the rows
+// r >= k0; BQ == BK, so that is tile k0 / BQ)
+__device__ __forceinline__ int first_query_tile(const Params& p, int k0) {
+  return p.causal ? k0 / BQ : 0;
+}
+
+// 16-byte chunk c of row r of a (rows x D) tile into row-major shared
+// memory with row stride LDS, zeros past `rows_valid`
+template <int D, int LDS>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           int r0, int rows_valid, int tid,
+                                           int nthreads) {
+  constexpr int DC = D / 8;
+  for (int i = tid; i < 64 * DC; i += nthreads) {
+    const int r = i / DC, c = (i % DC) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < rows_valid)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
+    *reinterpret_cast<uint4*>(dst + r * LDS + c) = val;
+  }
+}
+
+// the same 64-row tile stored transposed, D rows of 64 (+ 8 padding),
+// neighbouring threads on neighbouring source rows
+template <int D, int LDT>
+__device__ __forceinline__ void stage_cols(bf16* dst, const bf16* src,
+                                           int r0, int rows_valid, int tid,
+                                           int nthreads) {
+  for (int i = tid; i < 64 * (D / 8); i += nthreads) {
+    const int r = i % 64, c = (i / 64) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < rows_valid)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
+    const bf16* h = reinterpret_cast<const bf16*>(&val);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[(c + j) * LDT + r] = h[j];
+  }
+}
+
+// A fragment (16 x 16) of rows row0.. of a row-major shared tile, columns
+// 16 kk ..
+template <int LDS>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
+                                       int row0, int kk, int g, int t) {
+  const bf16* base = tile + (row0 + g) * LDS + kk * 16 + 2 * t;
+  a[0] = *reinterpret_cast<const uint32_t*>(base);
+  a[1] = *reinterpret_cast<const uint32_t*>(base + 8 * LDS);
+  a[2] = *reinterpret_cast<const uint32_t*>(base + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(base + 8 * LDS + 8);
+}
+
+// B fragment (16 x 8): column n of B is row n0 + g of a row-major shared
+// tile, its k rows columns 16 kk + 2t ..
+template <int LDS>
+__device__ __forceinline__ void mma_b_rows(float (&c)[4],
+                                           const uint32_t (&a)[4],
+                                           const bf16* tile, int n0, int kk,
+                                           int g, int t) {
+  const bf16* b = tile + (n0 + g) * LDS + kk * 16 + 2 * t;
+  mma_bf16(c, a, *reinterpret_cast<const uint32_t*>(b),
+           *reinterpret_cast<const uint32_t*>(b + 8));
+}
+
+// the accumulators of n-tiles 2 kk and 2 kk + 1 (16 rows x 16 columns)
+// rounded to bf16 as the A fragment of the next product
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&lo)[4],
+                                         const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+template <int D>
+constexpr size_t bwd_kv_bf16_smem_bytes() {
+  return (4 * (size_t)64 * (D + 8) + 2 * (size_t)D * (64 + 8)) *
+             sizeof(bf16) + 2 * BQ * sizeof(float);
+}
+
+// dK and dV of one 64-key tile, bf16 on the tensor cores.  Four warps, each
+// owns 16 keys and keeps their dK and dV rows in fp32 registers while the
+// Q tiles stream past.  Per Q tile: S^T = K Q^T and dP^T = V dO^T (keys x
+// queries, fp32 accumulators), P^T = exp(S^T * scale - lse) (0 where
+// masked), dS^T = P^T (dP^T - delta) * scale, then dV += bf16(P^T) dO and
+// dK += bf16(dS^T) Q with the accumulators turned into A fragments in
+// registers.  Q and dO are staged row-major (B operands of the first two
+// products) and transposed (B operands of the last two).
+template <int D>
+__global__ void __launch_bounds__(128) flash_bwd_kv_bf16(BwdParams p) {
+  constexpr int LDS = D + 8;
+  constexpr int LDT = BQ + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + BK * LDS;
+  bf16* sQ = sV + BK * LDS;
+  bf16* sdO = sQ + BQ * LDS;
+  bf16* sQt = sdO + BQ * LDS;
+  bf16* sdOt = sQt + D * LDT;
+  float* sLse = reinterpret_cast<float*>(sdOt + D * LDT);
+  float* sDelta = sLse + BQ;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x / p.n_ktiles;
+  const int k0 = (blockIdx.x % p.n_ktiles) * BK;
+  const int b = bh / p.H;
+  const bf16* q = static_cast<const bf16*>(p.q) + (size_t)bh * p.Tq * D;
+  const bf16* k = static_cast<const bf16*>(p.k) + (size_t)bh * p.Tk * D;
+  const bf16* v = static_cast<const bf16*>(p.v) + (size_t)bh * p.Tk * D;
+  const bf16* dout =
+      static_cast<const bf16*>(p.dout) + (size_t)bh * p.Tq * D;
+  const float* lse = p.lse + (size_t)bh * p.Tq;
+  const float* delta = p.delta + (size_t)bh * p.Tq;
+
+  stage_rows<D, LDS>(sK, k, k0, p.Tk, tid, 128);
+  stage_rows<D, LDS>(sV, v, k0, p.Tk, tid, 128);
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[dt][i] = dv[dt][i] = 0.f;
+
+  const int kvlen = valid_keys(p, b);
+  const int key0 = k0 + warp * 16 + g;     // this thread's keys: key0, +8
+  // keys at or past the valid length see nothing: dK = dV = 0
+  const int it_end = k0 < kvlen ? p.n_qtiles : 0;
+  for (int it = first_query_tile(p, k0); it < it_end; ++it) {
+    const int q0 = it * BQ;
+    __syncthreads();                       // the last tile's reads are done
+    stage_rows<D, LDS>(sQ, q, q0, p.Tq, tid, 128);
+    stage_rows<D, LDS>(sdO, dout, q0, p.Tq, tid, 128);
+    stage_cols<D, LDT>(sQt, q, q0, p.Tq, tid, 128);
+    stage_cols<D, LDT>(sdOt, dout, q0, p.Tq, tid, 128);
+    for (int i = tid; i < BQ; i += 128) {
+      const bool in = q0 + i < p.Tq;
+      sLse[i] = in ? lse[q0 + i] : 0.f;
+      sDelta[i] = in ? delta[q0 + i] : 0.f;
+    }
+    __syncthreads();
+
+    float s[BQ / 8][4], dp[BQ / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BQ / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t kf[4], vf[4];
+      load_a<LDS>(kf, sK, warp * 16, kk, g, t);
+      load_a<LDS>(vf, sV, warp * 16, kk, g, t);
+#pragma unroll
+      for (int nt = 0; nt < BQ / 8; ++nt) {
+        mma_b_rows<LDS>(s[nt], kf, sQ, nt * 8, kk, g, t);
+        mma_b_rows<LDS>(dp[nt], vf, sdO, nt * 8, kk, g, t);
+      }
+    }
+
+    // element (nt, i): key key0 + (i >> 1) * 8, query q0 + nt * 8 + 2t +
+    // (i & 1)
+    const bool full = tile_unmasked(p, kvlen, q0, k0);
+#pragma unroll
+    for (int nt = 0; nt < BQ / 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qc = nt * 8 + 2 * t + (i & 1);
+        float pv = 0.f;
+        if (full || visible(p, b, kvlen, q0 + qc, key0 + (i >> 1) * 8))
+          pv = expf(s[nt][i] * p.scale - sLse[qc]);
+        dp[nt][i] = pv * (dp[nt][i] - sDelta[qc]) * p.scale;
+        s[nt][i] = pv;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t pf[4], dsf[4];
+      acc_to_a(pf, s[2 * kk], s[2 * kk + 1]);
+      acc_to_a(dsf, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        mma_b_rows<LDT>(dv[dt], pf, sdOt, dt * 8, kk, g, t);
+        mma_b_rows<LDT>(dk[dt], dsf, sQt, dt * 8, kk, g, t);
+      }
+    }
+  }
+
+  bf16* dkp = static_cast<bf16*>(p.dk) + (size_t)bh * p.Tk * D;
+  bf16* dvp = static_cast<bf16*>(p.dv) + (size_t)bh * p.Tk * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + h * 8;
+    if (key >= p.Tk) continue;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const size_t at = (size_t)key * D + dt * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(dkp + at) =
+          pack_bf16(dk[dt][2 * h], dk[dt][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dvp + at) =
+          pack_bf16(dv[dt][2 * h], dv[dt][2 * h + 1]);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t bwd_q_bf16_smem_bytes() {
+  return (4 * (size_t)64 * (D + 8) + (size_t)D * (64 + 8)) * sizeof(bf16);
+}
+
+// dQ of one 64-query tile, bf16 on the tensor cores.  Four warps, each owns
+// 16 query rows and keeps their dQ rows in fp32 registers while the K tiles
+// stream past.  Per K tile: S = Q K^T and dP = dO V^T, P = exp(S * scale -
+// lse) (0 where masked), dS = P (dP - delta) * scale, dQ += bf16(dS) K.
+template <int D>
+__global__ void __launch_bounds__(128) flash_bwd_q_bf16(BwdParams p) {
+  constexpr int LDS = D + 8;
+  constexpr int LDT = BK + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sdO = sQ + BQ * LDS;
+  bf16* sK = sdO + BQ * LDS;
+  bf16* sV = sK + BK * LDS;
+  bf16* sKt = sV + BK * LDS;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x / p.n_qtiles;
+  const int q0 = (blockIdx.x % p.n_qtiles) * BQ;
+  const int b = bh / p.H;
+  const bf16* q = static_cast<const bf16*>(p.q) + (size_t)bh * p.Tq * D;
+  const bf16* k = static_cast<const bf16*>(p.k) + (size_t)bh * p.Tk * D;
+  const bf16* v = static_cast<const bf16*>(p.v) + (size_t)bh * p.Tk * D;
+  const bf16* dout =
+      static_cast<const bf16*>(p.dout) + (size_t)bh * p.Tq * D;
+
+  stage_rows<D, LDS>(sQ, q, q0, p.Tq, tid, 128);
+  stage_rows<D, LDS>(sdO, dout, q0, p.Tq, tid, 128);
+  const int row0 = q0 + warp * 16 + g;     // this thread's rows: row0, +8
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + h * 8;
+    const bool in = row < p.Tq;
+    lse_r[h] = in ? p.lse[(size_t)bh * p.Tq + row] : 0.f;
+    dl_r[h] = in ? p.delta[(size_t)bh * p.Tq + row] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+
+  const int kvlen = valid_keys(p, b);
+  const int n_tiles = key_tiles(p, kvlen, q0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK;
+    __syncthreads();
+    stage_rows<D, LDS>(sK, k, k0, p.Tk, tid, 128);
+    stage_rows<D, LDS>(sV, v, k0, p.Tk, tid, 128);
+    stage_cols<D, LDT>(sKt, k, k0, p.Tk, tid, 128);
+    __syncthreads();
+
+    float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qf[4], dof[4];
+      load_a<LDS>(qf, sQ, warp * 16, kk, g, t);
+      load_a<LDS>(dof, sdO, warp * 16, kk, g, t);
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        mma_b_rows<LDS>(s[nt], qf, sK, nt * 8, kk, g, t);
+        mma_b_rows<LDS>(dp[nt], dof, sV, nt * 8, kk, g, t);
+      }
+    }
+    const bool full = tile_unmasked(p, kvlen, q0, k0);
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1;
+        float pv = 0.f;
+        if (full || visible(p, b, kvlen, row0 + h * 8,
+                            k0 + nt * 8 + 2 * t + (i & 1)))
+          pv = expf(s[nt][i] * p.scale - lse_r[h]);
+        dp[nt][i] = pv * (dp[nt][i] - dl_r[h]) * p.scale;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t dsf[4];
+      acc_to_a(dsf, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+        mma_b_rows<LDT>(acc[dt], dsf, sKt, dt * 8, kk, g, t);
+    }
+  }
+
+  bf16* dq = static_cast<bf16*>(p.dq) + (size_t)bh * p.Tq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + h * 8;
+    if (row >= p.Tq) continue;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<uint32_t*>(dq + (size_t)row * D + dt * 8 + 2 * t) =
+          pack_bf16(acc[dt][2 * h], acc[dt][2 * h + 1]);
+  }
+}
+
+// a 64-row tile of a float (rows x D) array into shared memory with row
+// stride D + 1, zeros past `rows_valid`
+template <int D>
+__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
+                                               int r0, int rows_valid,
+                                               int tid) {
+  for (int i = tid; i < 64 * D; i += 256) {
+    const int r = i / D, c = i % D;
+    dst[r * (D + 1) + c] = r0 + r < rows_valid ? src[(size_t)(r0 + r) * D + c]
+                                               : 0.f;
+  }
+}
+
+template <int D>
+constexpr size_t bwd_kv_f32_smem_bytes() {
+  return (4 * (size_t)64 * (D + 1) + 2 * (size_t)64 * (64 + 1) + 2 * 64) *
+         sizeof(float);
+}
+
+// dK and dV of one 64-key tile in f32 with scalar FMAs (256 threads).
+// Thread roles: the 64 x 64 S^T tile and the dK/dV tile by (tid / 16,
+// tid % 16): keys 4 (tid / 16) .. + 3, columns tid % 16 + 16 j.
+template <int D>
+__global__ void __launch_bounds__(256) flash_bwd_kv_f32(BwdParams p) {
+  constexpr int LQ = D + 1;
+  constexpr int LS = BQ + 1;
+  constexpr int DJ = D / 16;
+  extern __shared__ __align__(16) float smf[];
+  float* sK = smf;
+  float* sV = sK + BK * LQ;
+  float* sQ = sV + BK * LQ;
+  float* sdO = sQ + BQ * LQ;
+  float* sP = sdO + BQ * LQ;
+  float* sDS = sP + BK * LS;
+  float* sLse = sDS + BK * LS;
+  float* sDelta = sLse + BQ;
+
+  const int tid = threadIdx.x;
+  const int tr = tid / 16, tc = tid % 16;
+  const int bh = blockIdx.x / p.n_ktiles;
+  const int k0 = (blockIdx.x % p.n_ktiles) * BK;
+  const int b = bh / p.H;
+  const float* q = static_cast<const float*>(p.q) + (size_t)bh * p.Tq * D;
+  const float* k = static_cast<const float*>(p.k) + (size_t)bh * p.Tk * D;
+  const float* v = static_cast<const float*>(p.v) + (size_t)bh * p.Tk * D;
+  const float* dout =
+      static_cast<const float*>(p.dout) + (size_t)bh * p.Tq * D;
+  const float* lse = p.lse + (size_t)bh * p.Tq;
+  const float* delta = p.delta + (size_t)bh * p.Tq;
+
+  stage_rows_f32<D>(sK, k, k0, p.Tk, tid);
+  stage_rows_f32<D>(sV, v, k0, p.Tk, tid);
+  float dk[4][DJ], dv[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  const int kvlen = valid_keys(p, b);
+  const int it_end = k0 < kvlen ? p.n_qtiles : 0;
+  for (int it = first_query_tile(p, k0); it < it_end; ++it) {
+    const int q0 = it * BQ;
+    __syncthreads();
+    stage_rows_f32<D>(sQ, q, q0, p.Tq, tid);
+    stage_rows_f32<D>(sdO, dout, q0, p.Tq, tid);
+    for (int i = tid; i < BQ; i += 256) {
+      const bool in = q0 + i < p.Tq;
+      sLse[i] = in ? lse[q0 + i] : 0.f;
+      sDelta[i] = in ? delta[q0 + i] : 0.f;
+    }
+    __syncthreads();
+
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float ka[4], va[4], qb[4], ob[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ka[i] = sK[(tr * 4 + i) * LQ + d];
+        va[i] = sV[(tr * 4 + i) * LQ + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        qb[j] = sQ[(tc + 16 * j) * LQ + d];
+        ob[j] = sdO[(tc + 16 * j) * LQ + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          st[i][j] += ka[i] * qb[j];
+          dpt[i][j] += va[i] * ob[j];
+        }
+    }
+    const bool full = tile_unmasked(p, kvlen, q0, k0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qc = tc + 16 * j;
+        float pv = 0.f;
+        if (full || visible(p, b, kvlen, q0 + qc, k0 + tr * 4 + i))
+          pv = expf(st[i][j] * p.scale - sLse[qc]);
+        sP[(tr * 4 + i) * LS + qc] = pv;
+        sDS[(tr * 4 + i) * LS + qc] =
+            pv * (dpt[i][j] - sDelta[qc]) * p.scale;
+      }
+    }
+    __syncthreads();
+    for (int c = 0; c < BQ; ++c) {
+      float pa[4], da[4], ob[DJ], qb[DJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pa[i] = sP[(tr * 4 + i) * LS + c];
+        da[i] = sDS[(tr * 4 + i) * LS + c];
+      }
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        ob[j] = sdO[c * LQ + tc + 16 * j];
+        qb[j] = sQ[c * LQ + tc + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          dv[i][j] += pa[i] * ob[j];
+          dk[i][j] += da[i] * qb[j];
+        }
+    }
+  }
+
+  float* dkp = static_cast<float*>(p.dk) + (size_t)bh * p.Tk * D;
+  float* dvp = static_cast<float*>(p.dv) + (size_t)bh * p.Tk * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + tr * 4 + i;
+    if (key >= p.Tk) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      dkp[(size_t)key * D + tc + 16 * j] = dk[i][j];
+      dvp[(size_t)key * D + tc + 16 * j] = dv[i][j];
+    }
+  }
+}
+
+template <int D>
+constexpr size_t bwd_q_f32_smem_bytes() {
+  return (4 * (size_t)64 * (D + 1) + (size_t)64 * (64 + 1) + 2 * 64) *
+         sizeof(float);
+}
+
+// dQ of one 64-query tile in f32 with scalar FMAs (256 threads), the same
+// thread roles as flash_bwd_kv_f32 with query rows for key rows.
+template <int D>
+__global__ void __launch_bounds__(256) flash_bwd_q_f32(BwdParams p) {
+  constexpr int LQ = D + 1;
+  constexpr int LS = BK + 1;
+  constexpr int DJ = D / 16;
+  extern __shared__ __align__(16) float smf[];
+  float* sQ = smf;
+  float* sdO = sQ + BQ * LQ;
+  float* sK = sdO + BQ * LQ;
+  float* sV = sK + BK * LQ;
+  float* sDS = sV + BK * LQ;
+  float* sLse = sDS + BQ * LS;
+  float* sDelta = sLse + BQ;
+
+  const int tid = threadIdx.x;
+  const int tr = tid / 16, tc = tid % 16;
+  const int bh = blockIdx.x / p.n_qtiles;
+  const int q0 = (blockIdx.x % p.n_qtiles) * BQ;
+  const int b = bh / p.H;
+  const float* q = static_cast<const float*>(p.q) + (size_t)bh * p.Tq * D;
+  const float* k = static_cast<const float*>(p.k) + (size_t)bh * p.Tk * D;
+  const float* v = static_cast<const float*>(p.v) + (size_t)bh * p.Tk * D;
+  const float* dout =
+      static_cast<const float*>(p.dout) + (size_t)bh * p.Tq * D;
+
+  stage_rows_f32<D>(sQ, q, q0, p.Tq, tid);
+  stage_rows_f32<D>(sdO, dout, q0, p.Tq, tid);
+  for (int i = tid; i < BQ; i += 256) {
+    const bool in = q0 + i < p.Tq;
+    sLse[i] = in ? p.lse[(size_t)bh * p.Tq + q0 + i] : 0.f;
+    sDelta[i] = in ? p.delta[(size_t)bh * p.Tq + q0 + i] : 0.f;
+  }
+  float acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+
+  const int kvlen = valid_keys(p, b);
+  const int n_tiles = key_tiles(p, kvlen, q0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK;
+    __syncthreads();
+    stage_rows_f32<D>(sK, k, k0, p.Tk, tid);
+    stage_rows_f32<D>(sV, v, k0, p.Tk, tid);
+    __syncthreads();
+
+    float sc[4][4], dps[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = dps[i][j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float qa[4], oa[4], kb[4], vb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qa[i] = sQ[(tr * 4 + i) * LQ + d];
+        oa[i] = sdO[(tr * 4 + i) * LQ + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kb[j] = sK[(tc + 16 * j) * LQ + d];
+        vb[j] = sV[(tc + 16 * j) * LQ + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[i][j] += qa[i] * kb[j];
+          dps[i][j] += oa[i] * vb[j];
+        }
+    }
+    const bool full = tile_unmasked(p, kvlen, q0, k0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = tr * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float pv = 0.f;
+        if (full || visible(p, b, kvlen, q0 + r, k0 + tc + 16 * j))
+          pv = expf(sc[i][j] * p.scale - sLse[r]);
+        sDS[r * LS + tc + 16 * j] = pv * (dps[i][j] - sDelta[r]) * p.scale;
+      }
+    }
+    __syncthreads();
+    for (int c = 0; c < BK; ++c) {
+      float da[4], kb[DJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) da[i] = sDS[(tr * 4 + i) * LS + c];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) kb[j] = sK[c * LQ + tc + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[i][j] += da[i] * kb[j];
+    }
+  }
+
+  float* dq = static_cast<float*>(p.dq) + (size_t)bh * p.Tq * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + tr * 4 + i;
+    if (row >= p.Tq) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j)
+      dq[(size_t)row * D + tc + 16 * j] = acc[i][j];
+  }
+}
+
+template <typename Kernel>
+int launch_bwd(Kernel kernel, const BwdParams& p, long long blocks,
+               int threads, size_t smem, cudaStream_t s) {
+  if (blocks == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, threads, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd_bf16(const BwdParams& p, int BH, cudaStream_t s) {
+  int rc = launch_bwd(flash_bwd_q_bf16<D>, p, (long long)BH * p.n_qtiles,
+                      128, bwd_q_bf16_smem_bytes<D>(), s);
+  if (rc != 0) return rc;
+  return launch_bwd(flash_bwd_kv_bf16<D>, p, (long long)BH * p.n_ktiles,
+                    128, bwd_kv_bf16_smem_bytes<D>(), s);
+}
+
+template <int D>
+int launch_bwd_f32(const BwdParams& p, int BH, cudaStream_t s) {
+  int rc = launch_bwd(flash_bwd_q_f32<D>, p, (long long)BH * p.n_qtiles,
+                      256, bwd_q_f32_smem_bytes<D>(), s);
+  if (rc != 0) return rc;
+  return launch_bwd(flash_bwd_kv_f32<D>, p, (long long)BH * p.n_ktiles,
+                    256, bwd_kv_f32_smem_bytes<D>(), s);
+}
+
 }  // namespace
 
 // q: BH x Tq x D, k and v: BH x Tk x D, o: BH x Tq x D, all contiguous, of
@@ -482,4 +1148,68 @@ extern "C" int mx_flash_attention_fwd(const void* q, const void* k,
   if (D == 64)
     return launch(flash_fwd_f32<64>, p, BH, 256, f32_smem_bytes<64>(), s);
   return launch(flash_fwd_f32<128>, p, BH, 256, f32_smem_bytes<128>(), s);
+}
+
+// The backward of mx_flash_attention_fwd.  q, o and dout: BH x Tq x D; k and
+// v: BH x Tk x D; all contiguous, of `dtype`, D = 64 or 128, the pointers
+// 16-byte aligned; lse: the forward's BH x Tq floats; delta: BH x Tq floats
+// of scratch.  dq (BH x Tq x D), dk and dv (BH x Tk x D), of `dtype`, are
+// written whole: rows of dk and dv past a row's valid length are zeros.
+// lens, qseg, kseg, H, scale and causal as for the forward.  Three kernels
+// run in turn on `stream`: delta = rowsum(dout * o), dq, then dk and dv.
+// Returns a cudaError_t as int (0 = ok).
+extern "C" int mx_flash_attention_bwd(const void* q, const void* k,
+                                      const void* v, const void* o,
+                                      const void* lse, const void* dout,
+                                      void* delta, void* dq, void* dk,
+                                      void* dv, const void* lens,
+                                      const void* qseg, const void* kseg,
+                                      int BH, int H, int Tq, int Tk, int D,
+                                      float scale, int causal, int dtype,
+                                      void* stream) {
+  if (BH < 0 || H <= 0 || BH % H != 0 || Tq < 0 || Tk < 0 ||
+      (D != 64 && D != 128) || dtype < 0 || dtype > 1 ||
+      (qseg == nullptr) != (kseg == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (BH == 0) return 0;
+  BwdParams p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = nullptr;
+  p.lse = static_cast<float*>(const_cast<void*>(lse));
+  p.lens = static_cast<const int*>(lens);
+  p.qseg = static_cast<const int*>(qseg);
+  p.kseg = static_cast<const int*>(kseg);
+  p.H = H;
+  p.Tq = Tq;
+  p.Tk = Tk;
+  p.n_qtiles = (Tq + BQ - 1) / BQ;
+  p.scale = scale;
+  p.causal = causal;
+  p.dout = dout;
+  p.delta = static_cast<const float*>(delta);
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.n_ktiles = (Tk + BK - 1) / BK;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long rows = (long long)BH * Tq;
+  if (rows > 0) {
+    const unsigned blocks = (unsigned)((rows + 3) / 4);
+    if (dtype == 1)
+      flash_bwd_delta<bf16><<<blocks, 128, 0, s>>>(
+          static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+          static_cast<float*>(delta), rows, D);
+    else
+      flash_bwd_delta<float><<<blocks, 128, 0, s>>>(
+          static_cast<const float*>(o), static_cast<const float*>(dout),
+          static_cast<float*>(delta), rows, D);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  if (dtype == 1)
+    return D == 64 ? launch_bwd_bf16<64>(p, BH, s)
+                   : launch_bwd_bf16<128>(p, BH, s);
+  return D == 64 ? launch_bwd_f32<64>(p, BH, s) : launch_bwd_f32<128>(p, BH, s);
 }

@@ -1,8 +1,9 @@
-"""Flash attention: the forward kernel's wrapper, its plain PyTorch
-version, the per-shape dispatcher and the public op.
+"""Flash attention: the forward and backward kernels' wrappers, their
+plain PyTorch versions, the autograd Function that pairs them, the
+per-shape dispatcher and the public op.
 
-Counterpart of ``mxnet_tpu/ops/pallas_attention.py`` (forward half).  Over
-(B, H, T, D) operands:
+Counterpart of ``mxnet_tpu/ops/pallas_attention.py``.  Over (B, H, T, D)
+operands:
 
     softmax(q·kᵀ·scale [+ masks])·v
 
@@ -16,13 +17,25 @@ tensors; it returns ``o`` and the fp32 ``lse``.  One CUDA kernel covers
 both TPU forward kernels (the single-pass one and the streaming one):
 it streams 64-key tiles whatever Tk is.
 
+:func:`flash_attention_bwd` is the backward from the forward's ``o`` and
+``lse`` and the cotangent ``do``, in the arithmetic of the TPU backward
+kernels: ``p = exp(s - lse)``, ``dp = do·vᵀ``, ``ds = p∘(dp - δ)·scale``
+with ``δ = rowsum(do∘o)`` in fp32, ``dv = pᵀ·do`` with p rounded to do's
+dtype and ``dq = ds·k``, ``dk = dsᵀ·q`` with ds rounded to q's dtype.  It
+launches the CUDA backward (one design for the three TPU backward kernels:
+a dQ kernel that streams K tiles and a dK/dV kernel that streams Q tiles)
+for CUDA tensors and runs :func:`_flash_attention_bwd_plain` for CPU
+tensors.  :func:`flash_attention` runs the pair as one
+``torch.autograd.Function`` where a gradient is recorded.
+
 :func:`attention_dispatch` keeps the JAX package's per-shape choice and
 its ``attention.kernel.*`` counters: min(Tq, Tk) < 128 goes to the
-composed attention, Tk <= 1024 is ``short_seq`` (the single-pass TPU
-kernel's domain) and longer K axes ``streaming``.  The autotuner table is
-not ported, so ``tuner_source`` is always ``"heuristic"``.  The backward
-kernels come with the training slice: on CUDA, a kernel call that would
-record a gradient raises.  The (B, T, H, D) entries wait.
+composed attention (differentiated by autograd, as the JAX package falls
+back to the reference VJP there), Tk <= 1024 is ``short_seq`` (the
+single-pass TPU kernel's domain) and longer K axes ``streaming``.  The
+autotuner table is not ported, so ``tuner_source`` is always
+``"heuristic"``.  The backward does not consult the dispatcher again.
+The (B, T, H, D) entries wait.
 """
 from __future__ import annotations
 
@@ -36,8 +49,9 @@ from .. import telemetry
 from ..base import MXNetError
 from .registry import register
 
-__all__ = ["flash_attention", "flash_attention_fwd", "attention_dispatch",
-           "tune_attention_blocks", "LAUNCHES"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "attention_dispatch", "tune_attention_blocks", "LAUNCHES",
+           "BWD_LAUNCHES"]
 
 _NEG_INF = -1e30
 # Kernel-selection constants of the JAX package (see attention_dispatch):
@@ -51,23 +65,29 @@ BLOCK_Q = 64
 BLOCK_K = 64
 _HEAD_DIMS = (64, 128)          # D is zero-padded up to one of these
 
-# kernel launches in this process
+# kernel launches in this process, forward and backward
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}
 _CENSUSED = set()
 
 
-def _kernel_fn():
+def _kernel_fn(name="fwd"):
     if not _FNS:
         from .. import kernels
-        fn = kernels.load("flash_attention").mx_flash_attention_fwd
+        lib = kernels.load("flash_attention")
+        fn = lib.mx_flash_attention_fwd
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
             [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FNS["fwd"] = fn
-    return _FNS["fwd"]
+        bwd = lib.mx_flash_attention_bwd
+        bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + \
+            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        bwd.restype = ctypes.c_int
+        _FNS.update(fwd=fn, bwd=bwd)
+    return _FNS[name]
 
 
 def tune_attention_blocks(seq_q, seq_k, head_dim, dtype="bfloat16"):
@@ -175,10 +195,98 @@ def _flash_attention_plain(q, k, v, causal=False, scale=None, kv_lens=None,
     return o, lse.squeeze(-1).to(torch.float32)
 
 
-def _count():
-    global LAUNCHES
+def _flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False,
+                               scale=None, kv_lens=None, q_segments=None,
+                               kv_segments=None):
+    """The plain PyTorch backward, in the arithmetic of the TPU backward
+    kernels (``_bwd_core``, ``_scores_T``): fp32 scores (float64 for
+    float64 inputs) masked to -1e30, ``p = exp(s - lse)``, ``dp = do·vᵀ``,
+    ``δ = rowsum(do∘o)``, ``ds = p∘(dp - δ)·scale``; p rounded to do's
+    dtype before ``dv = pᵀ·do`` and ds to q's dtype before ``dq = ds·k``
+    and ``dk = dsᵀ·q``, every product summed in fp32.  Returns
+    ``(dq, dk, dv)`` in the dtypes of q, k and v."""
+    _check_segments(q, k, q_segments, kv_segments)
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    cdt = torch.promote_types(q.dtype, torch.float32)
+    qc, kc, vc, doc = (t.to(cdt) for t in (q, k, v, do))
+    s = torch.matmul(qc, kc.transpose(-1, -2)) * scale
+    mask = _visible(B, Tq, Tk, q.device, causal, kv_lens, q_segments,
+                    kv_segments)
+    if mask is not None:
+        s = torch.where(mask, s, torch.full((), _NEG_INF, dtype=cdt,
+                                            device=q.device))
+    p = torch.exp(s - lse.to(cdt).unsqueeze(-1))
+    dp = torch.matmul(doc, vc.transpose(-1, -2))
+    delta = (doc * o.to(cdt)).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    dv = torch.matmul(p.to(do.dtype).to(cdt).transpose(-1, -2), doc)
+    ds = ds.to(q.dtype).to(cdt)
+    dq = torch.matmul(ds, kc)
+    dk = torch.matmul(ds.transpose(-1, -2), qc)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _count(backward=False):
+    global LAUNCHES, BWD_LAUNCHES
     with _COUNT_LOCK:
-        LAUNCHES += 1
+        if backward:
+            BWD_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
+
+
+def _mask_operands(B, device, kv_lens, q_segments, kv_segments):
+    """The kernels' mask operands: kv_lens (B,) and the segment ids as
+    contiguous int32 on ``device``, each None where absent."""
+    lens = qs = ks = None
+    if kv_lens is not None:
+        lens = kv_lens.to(device=device, dtype=torch.int32).contiguous()
+        if lens.shape != (B,):
+            raise ValueError("kv_lens needs shape (%d,), got %s"
+                             % (B, tuple(lens.shape)))
+    if q_segments is not None:
+        qs = q_segments.to(device=device, dtype=torch.int32).contiguous()
+        ks = kv_segments.to(device=device, dtype=torch.int32).contiguous()
+    return lens, qs, ks
+
+
+def _ptrs(tensors):
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
+def _kernel_operands(what, tensors):
+    """The device of ``tensors`` and the CUDA kernels' dtype code for them,
+    after the checks every kernel makes: one device, float32 or bfloat16
+    of one dtype, contiguous.  ``None`` as the code: the tensors lie on
+    the CPU."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise MXNetError("%s: operands on several devices %s"
+                         % (what, sorted(map(str, devices))))
+    device = devices.pop()
+    if device.type == "cpu":
+        return device, None
+    if device.type != "cuda":
+        raise MXNetError("%s: no kernel for device %s" % (what, device))
+    code = _DTYPE_CODE.get(tensors[0].dtype)
+    if code is None or any(t.dtype != tensors[0].dtype for t in tensors):
+        raise MXNetError("%s: the CUDA kernel takes float32 or bfloat16 "
+                         "operands of one dtype, got %s"
+                         % (what, ", ".join(str(t.dtype) for t in tensors)))
+    if not all(t.is_contiguous() for t in tensors):
+        raise MXNetError("%s: the CUDA kernel takes contiguous operands"
+                         % what)
+    return device, code
+
+
+def _padded_head_dim(what, D):
+    Dp = next((d for d in _HEAD_DIMS if D <= d), None)
+    if Dp is None:
+        raise MXNetError("%s: the CUDA kernel takes head dims up to %d, got "
+                         "%d" % (what, _HEAD_DIMS[-1], D))
+    return Dp
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None, kv_lens=None,
@@ -195,36 +303,13 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, kv_lens=None,
                          "(B, H, Tk, D), got %s, %s, %s"
                          % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
     _check_segments(q, k, q_segments, kv_segments)
-    devices = {t.device for t in (q, k, v)}
-    if len(devices) != 1:
-        raise MXNetError("flash_attention_fwd: operands on several devices "
-                         "%s" % sorted(map(str, devices)))
-    device = devices.pop()
-    if device.type == "cpu":
+    device, code = _kernel_operands("flash_attention_fwd", (q, k, v))
+    if code is None:
         return _flash_attention_plain(q, k, v, causal, scale, kv_lens,
                                       q_segments, kv_segments)
-    if device.type != "cuda":
-        raise MXNetError("flash_attention_fwd: no kernel for device %s"
-                         % device)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise MXNetError("flash_attention_fwd: the flash-attention backward "
-                         "kernels are not ported yet (the BERT pretraining "
-                         "slice); record no gradient through flash "
-                         "attention on the card")
-    code = _DTYPE_CODE.get(q.dtype)
-    if code is None or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise MXNetError("flash_attention_fwd: the CUDA kernel takes float32 "
-                         "or bfloat16 q, k and v of one dtype, got %s, %s, %s"
-                         % (q.dtype, k.dtype, v.dtype))
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise MXNetError("flash_attention_fwd: the CUDA kernel takes "
-                         "contiguous q, k and v")
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    Dp = next((d for d in _HEAD_DIMS if D <= d), None)
-    if Dp is None:
-        raise MXNetError("flash_attention_fwd: the CUDA kernel takes head "
-                         "dims up to %d, got %d" % (_HEAD_DIMS[-1], D))
+    Dp = _padded_head_dim("flash_attention_fwd", D)
     scale = D ** -0.5 if scale is None else scale
     if Dp != D:
         pad = (0, Dp - D)
@@ -234,28 +319,101 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, kv_lens=None,
                          "16-byte aligned q, k and v")
     o = torch.empty((B, H, Tq, Dp), dtype=q.dtype, device=device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=device)
-    lens = qs = ks = None
-    if kv_lens is not None:
-        lens = kv_lens.to(device=device, dtype=torch.int32).contiguous()
-        if lens.shape != (B,):
-            raise ValueError("kv_lens needs shape (%d,), got %s"
-                             % (B, tuple(lens.shape)))
-    if q_segments is not None:
-        qs = q_segments.to(device=device, dtype=torch.int32).contiguous()
-        ks = kv_segments.to(device=device, dtype=torch.int32).contiguous()
+    masks = _mask_operands(B, device, kv_lens, q_segments, kv_segments)
     fn = _kernel_fn()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), None if lens is None else lens.data_ptr(),
-                None if qs is None else qs.data_ptr(),
-                None if ks is None else ks.data_ptr(), B * H, H, Tq, Tk, Dp,
+                lse.data_ptr(), *_ptrs(masks), B * H, H, Tq, Tk, Dp,
                 float(scale), int(bool(causal)), code, stream)
     if rc != 0:
         raise MXNetError("flash_attention_fwd: kernel launch failed with "
                          "CUDA error %d" % rc)
     _count()
     return (o if Dp == D else o[..., :D]), lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
+                        kv_lens=None, q_segments=None, kv_segments=None):
+    """``(dq, dk, dv)`` of :func:`flash_attention_fwd` from its ``o`` and
+    ``lse`` and the cotangent ``do`` of o, in the dtypes of q, k and v.
+    Launches the CUDA backward for CUDA tensors and runs the plain version
+    for CPU tensors.  The kernels take q, k, v, o and do of one dtype,
+    float32 or bfloat16, contiguous, D <= 128 (zero-padded to 64 or 128
+    here), and raise on anything else."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3] \
+            or o.shape != q.shape or do.shape != q.shape \
+            or lse.shape != q.shape[:3]:
+        raise ValueError("flash_attention_bwd: q, o and do (B, H, Tq, D), k "
+                         "and v (B, H, Tk, D), lse (B, H, Tq), got %s"
+                         % ", ".join(str(tuple(t.shape))
+                                     for t in (q, k, v, o, lse, do)))
+    _check_segments(q, k, q_segments, kv_segments)
+    device, code = _kernel_operands("flash_attention_bwd", (q, k, v, o, do))
+    if code is None:
+        return _flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
+                                          kv_lens, q_segments, kv_segments)
+    if lse.device != device or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise MXNetError("flash_attention_bwd: the CUDA kernel takes a "
+                         "contiguous float32 lse on the operands' device")
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    Dp = _padded_head_dim("flash_attention_bwd", D)
+    scale = D ** -0.5 if scale is None else scale
+    if Dp != D:
+        pad = (0, Dp - D)
+        q, k, v, o, do = (torch.nn.functional.pad(t, pad)
+                          for t in (q, k, v, o, do))
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise MXNetError("flash_attention_bwd: the CUDA kernel takes "
+                         "16-byte aligned operands")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=device)
+    masks = _mask_operands(B, device, kv_lens, q_segments, kv_segments)
+    fn = _kernel_fn("bwd")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_ptrs(masks),
+                B * H, H, Tq, Tk, Dp, float(scale), int(bool(causal)), code,
+                stream)
+    if rc != 0:
+        raise MXNetError("flash_attention_bwd: kernel launch failed with "
+                         "CUDA error %d" % rc)
+    _count(backward=True)
+    if Dp != D:
+        dq, dk, dv = dq[..., :D], dk[..., :D], dv[..., :D]
+    return dq, dk, dv
+
+
+class _FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its backward kernel: forward
+    :func:`flash_attention_fwd`, which saves q, k, v, o and lse; backward
+    :func:`flash_attention_bwd`.  The mask operands get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, kv_lens, q_segments,
+                kv_segments):
+        o, lse = flash_attention_fwd(q, k, v, causal, scale, kv_lens,
+                                     q_segments, kv_segments)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lens, q_segments,
+                              kv_segments)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_lens, q_segments, kv_segments = ctx.saved_tensors
+        # do arrives strided from the head transpose that follows
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, _kernel_operand(o), lse, _kernel_operand(do),
+            ctx.causal, ctx.scale, kv_lens, q_segments, kv_segments)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _composed_attention(q, k, v, causal=False, scale=None, kv_lens=None,
@@ -288,17 +446,18 @@ def _kernel_operand(t):
 
 def flash_attention(q, k, v, causal=False, scale=None, kv_lens=None,
                     q_segments=None, kv_segments=None):
-    """Masked attention over (B, H, T, D) operands through the kernel
-    (:func:`flash_attention_fwd`) or, for short sequences, the composed
-    attention, as :func:`attention_dispatch` decides.  Rows with no
-    visible key return 0."""
+    """Masked attention over (B, H, T, D) operands through the kernels
+    (:func:`flash_attention_fwd`, and :func:`flash_attention_bwd` where a
+    gradient is recorded) or, for short sequences, the composed attention,
+    as :func:`attention_dispatch` decides.  Rows with no visible key
+    return 0."""
     plan = attention_dispatch(q.shape[2], k.shape[2], q.shape[3], q.dtype)
     if plan["kernel"] == "dense_fallback":
         return _composed_attention(q, k, v, causal, scale, kv_lens,
                                    q_segments, kv_segments)
-    return flash_attention_fwd(_kernel_operand(q), _kernel_operand(k),
-                               _kernel_operand(v), causal, scale, kv_lens,
-                               q_segments, kv_segments)[0]
+    return _FlashAttentionFunction.apply(
+        _kernel_operand(q), _kernel_operand(k), _kernel_operand(v), causal,
+        scale, kv_lens, q_segments, kv_segments)
 
 
 @register("_contrib_flash_attention", aliases=("flash_attention",))

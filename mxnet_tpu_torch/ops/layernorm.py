@@ -9,12 +9,19 @@ Counterpart of ``mxnet_tpu/ops/pallas_layernorm.py``.  Per row of ``x``
     y = (x - mu) * rstd * gamma + beta
 
 in fp32 with ``y`` cast once to the promotion of (x, gamma, beta), and
-``mu``/``rstd`` returned as (N, 1) fp32.  :func:`layer_norm_fwd` launches
-the hand-written kernel of ``csrc/layernorm.cu`` for CUDA tensors (f32 or
-bf16 x, gamma and beta of one of those dtypes) or raises, and runs
-:func:`_layer_norm_fwd_plain` for CPU tensors.  The backward kernel (TPU
-kernel 9) comes with the training slice: on CUDA, a call that would
-record a gradient raises.
+``mu``/``rstd`` returned as (N, 1) fp32.  The backward, from the
+cotangent ``ct`` of y:
+
+    xhat = (x - mu) * rstd;  ctg = ct * gamma
+    dx = (ctg - mean(ctg) - xhat * mean(ctg * xhat)) * rstd   (x's dtype)
+    dgamma = sum over rows of ct * xhat;  dbeta = sum of ct   (fp32)
+
+:func:`layer_norm_fwd` and :func:`layer_norm_bwd` launch the hand-written
+kernels of ``csrc/layernorm.cu`` for CUDA tensors (f32 or bf16 x, gamma
+and beta of one of those dtypes) or raise, and run their plain versions
+for CPU tensors.  :func:`fused_layer_norm` pairs the two as one
+``torch.autograd.Function``, whose backward casts dgamma and dbeta to the
+dtypes of gamma and beta, as the JAX package's ``_fln_bwd`` does.
 """
 from __future__ import annotations
 
@@ -25,10 +32,12 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["fused_layer_norm", "layer_norm_fwd", "LAUNCHES"]
+__all__ = ["fused_layer_norm", "layer_norm_fwd", "layer_norm_bwd",
+           "LAUNCHES", "BWD_LAUNCHES"]
 
-# kernel launches in this process
+# kernel launches in this process, forward and backward
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the largest C the kernel takes: one warp holds a row in its registers,
@@ -37,7 +46,7 @@ MAX_CHANNELS = 2048
 _FNS = {}
 
 
-def _kernel_fn():
+def _kernel_fn(name="fwd"):
     if not _FNS:
         from .. import kernels
         lib = kernels.load("layernorm")
@@ -47,13 +56,21 @@ def _kernel_fn():
                                                ctypes.c_int, ctypes.c_int,
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        bwd = lib.mx_layer_norm_bwd
+        bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong,
+                                                ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_int, ctypes.c_void_p]
+        bwd.restype = ctypes.c_int
+        blocks = lib.mx_layer_norm_bwd_blocks
+        blocks.argtypes = [ctypes.c_longlong]
+        blocks.restype = ctypes.c_longlong
         limit = lib.mx_layer_norm_max_channels
         limit.restype = ctypes.c_int
         if limit() != MAX_CHANNELS:
             raise MXNetError("layernorm kernel takes C <= %d, the wrapper "
                              "assumes %d" % (limit(), MAX_CHANNELS))
-        _FNS["fwd"] = fn
-    return _FNS["fwd"]
+        _FNS.update(fwd=fn, bwd=bwd, bwd_blocks=blocks)
+    return _FNS[name]
 
 
 def _out_dtype(x, gamma, beta):
@@ -75,10 +92,29 @@ def _layer_norm_fwd_plain(x2d, gamma, beta, eps):
     return y.to(_out_dtype(x2d, gamma, beta)), mu, rstd
 
 
-def _count():
-    global LAUNCHES
+def _layer_norm_bwd_plain(x2d, gamma, mu, rstd, ct2d):
+    """The plain PyTorch backward, in the order of operations of the TPU
+    kernel ``_ln_bwd_kernel``: fp32 (float64 for float64 inputs) x-hat,
+    ``ct * gamma`` and its two row means, ``dx`` rounded once to x's
+    dtype, ``dgamma``/``dbeta`` summed over the rows in fp32.  Returns
+    ``(dx, dgamma, dbeta)``."""
+    cdt = torch.promote_types(x2d.dtype, torch.float32)
+    ct = ct2d.to(cdt)
+    xhat = (x2d.to(cdt) - mu) * rstd
+    ctg = ct * gamma.to(cdt)
+    m1 = ctg.mean(dim=-1, keepdim=True)
+    m2 = (ctg * xhat).mean(dim=-1, keepdim=True)
+    dx = ((ctg - m1 - xhat * m2) * rstd).to(x2d.dtype)
+    return dx, (ct * xhat).sum(dim=0), ct.sum(dim=0)
+
+
+def _count(backward=False):
+    global LAUNCHES, BWD_LAUNCHES
     with _COUNT_LOCK:
-        LAUNCHES += 1
+        if backward:
+            BWD_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
 
 
 def layer_norm_fwd(x2d, gamma, beta, eps):
@@ -101,12 +137,6 @@ def layer_norm_fwd(x2d, gamma, beta, eps):
         return _layer_norm_fwd_plain(x2d, gamma, beta, eps)
     if device.type != "cuda":
         raise MXNetError("layer_norm_fwd: no kernel for device %s" % device)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x2d, gamma, beta)):
-        raise MXNetError("layer_norm_fwd: the LayerNorm backward kernel is "
-                         "not ported yet (the BERT pretraining slice); "
-                         "record no gradient through the fused LayerNorm "
-                         "on the card")
     x_code = _DTYPE_CODE.get(x2d.dtype)
     g_code = _DTYPE_CODE.get(gamma.dtype)
     if x_code is None or g_code is None or beta.dtype != gamma.dtype:
@@ -139,6 +169,83 @@ def layer_norm_fwd(x2d, gamma, beta, eps):
     return y, mu, rstd
 
 
+def layer_norm_bwd(x2d, gamma, mu, rstd, ct2d):
+    """``(dx, dgamma, dbeta)`` of :func:`layer_norm_fwd` from the cotangent
+    ``ct2d`` of y: dx (N, C) in x's dtype, dgamma and dbeta (C,) fp32.
+    Launches the CUDA kernel for CUDA tensors and runs the plain version
+    for CPU tensors.  The kernel takes the forward's operand dtypes, ``ct2d``
+    in y's dtype and contiguous operands, and raises on anything else."""
+    N, C = x2d.shape if x2d.dim() == 2 else (None, None)
+    if N is None or gamma.shape != (C,) or ct2d.shape != x2d.shape \
+            or mu.shape != (N, 1) or rstd.shape != (N, 1):
+        raise ValueError("layer_norm_bwd: x and ct (N, C), gamma (C,), mu "
+                         "and rstd (N, 1), got %s, %s, %s, %s, %s"
+                         % tuple(tuple(t.shape) for t in (x2d, ct2d, gamma,
+                                                          mu, rstd)))
+    devices = {t.device for t in (x2d, gamma, mu, rstd, ct2d)}
+    if len(devices) != 1:
+        raise MXNetError("layer_norm_bwd: operands on several devices %s"
+                         % sorted(map(str, devices)))
+    device = devices.pop()
+    if device.type == "cpu":
+        return _layer_norm_bwd_plain(x2d, gamma, mu, rstd, ct2d)
+    if device.type != "cuda":
+        raise MXNetError("layer_norm_bwd: no kernel for device %s" % device)
+    x_code = _DTYPE_CODE.get(x2d.dtype)
+    g_code = _DTYPE_CODE.get(gamma.dtype)
+    if x_code is None or g_code is None \
+            or ct2d.dtype != torch.promote_types(x2d.dtype, gamma.dtype) \
+            or mu.dtype != torch.float32 or rstd.dtype != torch.float32:
+        raise MXNetError("layer_norm_bwd: the CUDA kernel takes float32 or "
+                         "bfloat16 x and gamma, ct in their promotion and "
+                         "float32 mu and rstd, got %s, %s, %s, %s, %s"
+                         % (x2d.dtype, gamma.dtype, ct2d.dtype, mu.dtype,
+                            rstd.dtype))
+    if not all(t.is_contiguous() for t in (x2d, gamma, mu, rstd, ct2d)):
+        raise MXNetError("layer_norm_bwd: the CUDA kernel takes contiguous "
+                         "operands")
+    if C > MAX_CHANNELS:
+        raise MXNetError("layer_norm_bwd: the CUDA kernel takes C <= %d, got "
+                         "%d" % (MAX_CHANNELS, C))
+    fn = _kernel_fn("bwd")
+    blocks = _kernel_fn("bwd_blocks")(N)
+    dx = torch.empty_like(x2d)
+    ws = torch.empty((blocks, 2, C), dtype=torch.float32, device=device)
+    dg = torch.empty(C, dtype=torch.float32, device=device)
+    db = torch.empty(C, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(x2d.data_ptr(), gamma.data_ptr(), mu.data_ptr(),
+                rstd.data_ptr(), ct2d.data_ptr(), dx.data_ptr(),
+                ws.data_ptr(), dg.data_ptr(), db.data_ptr(), N, C, x_code,
+                g_code, stream)
+    if rc != 0:
+        raise MXNetError("layer_norm_bwd: kernel launch failed with CUDA "
+                         "error %d" % rc)
+    _count(backward=True)
+    return dx, dg, db
+
+
+class _LayerNormFunction(torch.autograd.Function):
+    """The fused LayerNorm over the rows of a contiguous (N, C) ``x``:
+    forward :func:`layer_norm_fwd`, which saves x, gamma, mu and rstd;
+    backward :func:`layer_norm_bwd`, its dgamma and dbeta cast to the
+    dtypes of gamma and beta."""
+
+    @staticmethod
+    def forward(ctx, x2d, gamma, beta, eps):
+        y, mu, rstd = layer_norm_fwd(x2d, gamma, beta, eps)
+        ctx.save_for_backward(x2d, gamma, mu, rstd)
+        ctx.beta_dtype = beta.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, ct):
+        x2d, gamma, mu, rstd = ctx.saved_tensors
+        dx, dg, db = layer_norm_bwd(x2d, gamma, mu, rstd, ct.contiguous())
+        return dx, dg.to(gamma.dtype), db.to(ctx.beta_dtype), None
+
+
 def _pick_block_rows(C):
     """Rows a block of the kernel normalises (one warp each), or None
     where C is past the kernel's limit and the composed LayerNorm takes
@@ -160,12 +267,13 @@ def _composed_ln(data, gamma, beta, eps):
 
 
 def fused_layer_norm(data, gamma, beta, eps=1e-5):
-    """Last-axis LayerNorm through the kernel (the composed form for C
-    past the kernel's limit).  The output dtype is the promotion of
+    """Last-axis LayerNorm through the kernels (the composed form for C
+    past the kernel's limit), differentiable through the backward kernel
+    where a gradient is recorded.  The output dtype is the promotion of
     (data, gamma, beta), as the composed form's."""
     C = data.shape[-1]
     if _pick_block_rows(C) is None:
         return _composed_ln(data, gamma, beta, eps)
-    y, _, _ = layer_norm_fwd(data.reshape(-1, C).contiguous(), gamma,
-                             beta, eps)
+    y = _LayerNormFunction.apply(data.reshape(-1, C).contiguous(), gamma,
+                                 beta, eps)
     return y.reshape(data.shape)

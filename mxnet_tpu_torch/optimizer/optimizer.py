@@ -307,11 +307,23 @@ class NAG(Optimizer):
         torch._foreach_sub_(ws, step)
 
 
+def _in_dtype(value, dtype):
+    """``value`` rounded to ``dtype``, as a Python float."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
 @register
 class Adam(Optimizer):
     """Adam with bias correction folded into the step size:
     ``lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t)``,
-    ``w = w - lr_t * m / (sqrt(v) + epsilon)``; the state is (m, v)."""
+    ``w = w - lr_t * m / (sqrt(v) + epsilon)``; the state is (m, v).
+
+    The moments are updated in the weight's dtype.  For a half-width
+    weight (bfloat16 without ``multi_precision``) the rest follows the
+    JAX package's jitted step: lr is rounded to the weight's dtype, the
+    step ``lr_t * m / (sqrt(v) + epsilon)`` and ``w`` minus it are
+    computed in fp32, and the new weight is rounded once to its dtype
+    (``pin_update_dtypes``)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_update=True, **kwargs):
@@ -334,13 +346,22 @@ class Adam(Optimizer):
         torch._foreach_mul_(sq, g)
         torch._foreach_mul_(variances, b2)
         torch._foreach_add_(variances, sq)
-        lr_ts = [lr * math.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
-                 for lr, t in zip(lrs, counts)]
+        rounded = {}
+        for lr, w in zip(lrs, ws):
+            if (lr, w.dtype) not in rounded:
+                rounded[lr, w.dtype] = _in_dtype(lr, w.dtype)
+        lr_ts = [rounded[lr, w.dtype] * math.sqrt(1.0 - b2 ** t)
+                 / (1.0 - b1 ** t) for lr, t, w in zip(lrs, counts, ws)]
         den = torch._foreach_sqrt(variances)
         torch._foreach_add_(den, self.epsilon)
-        step = torch._foreach_mul(means, lr_ts)
-        torch._foreach_div_(step, den)
-        torch._foreach_sub_(ws, step)
+        # fp32 from here: a no-op for fp32 tensors, a copy for half ones
+        step = torch._foreach_mul([m.float() for m in means], lr_ts)
+        torch._foreach_div_(step, [d.float() for d in den])
+        new = [w.float() for w in ws]
+        torch._foreach_sub_(new, step)
+        for w, n in zip(ws, new):
+            if n is not w:
+                w.copy_(n)
 
 
 # ---------------------------------------------------------------------------

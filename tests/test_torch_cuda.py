@@ -112,7 +112,8 @@ def test_flash_attention_kernel_matches_plain_on_cuda():
     f32 o within 2e-5 and lse within 1e-5, bf16 o within 2e-2 of the
     largest |o| (P rounded to bf16 against the running max in the kernel,
     the row max in the plain version); masks, padded D and Tq != Tk;
-    counted as launches; grad and bad operands refused."""
+    counted as launches, also where q requires grad; bad operands
+    refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -150,10 +151,9 @@ def test_flash_attention_kernel_matches_plain_on_cuda():
         if lens is not None and lens[0] == 0:
             assert not o[0].any() and not lse[0].any()
     q = torch.zeros((1, 1, 128, 64), device=dev, requires_grad=True)
-    with pytest.raises(MXNetError, match="backward"):
-        TA.flash_attention_fwd(q, q, q)
-    with torch.no_grad():
-        TA.flash_attention_fwd(q, q, q)          # no graph: the kernel runs
+    before = TA.LAUNCHES
+    TA.flash_attention_fwd(q, q, q)          # a recorded gradient runs too
+    assert TA.LAUNCHES == before + 1
     x = torch.zeros((1, 1, 128, 64), device=dev)
     with pytest.raises(MXNetError, match="float32 or bfloat16"):
         TA.flash_attention_fwd(x.half(), x.half(), x.half())
@@ -171,8 +171,8 @@ def test_layernorm_kernel_matches_plain_on_cuda():
     within 1e-5, bf16 within 1e-5 plus one bf16 ulp of the larger value
     (fp32 values that agree within 1e-5, their statistics summed in
     another order, each rounded once), mu and rstd within 1e-5 relative;
-    vectorised, ragged and unaligned rows; counted as launches; grad
-    refused."""
+    vectorised, ragged and unaligned rows; counted as launches, also where
+    x requires grad."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -207,5 +207,181 @@ def test_layernorm_kernel_matches_plain_on_cuda():
                                   e - 8)
         assert excess.max().item() <= 0
     xg = torch.ones((4, 8), device=dev, requires_grad=True)
-    with pytest.raises(MXNetError, match="backward"):
-        TL.layer_norm_fwd(xg, xg[0], xg[0], 1e-5)
+    before = TL.LAUNCHES
+    TL.layer_norm_fwd(xg, xg[0], xg[0], 1e-5)   # a recorded gradient runs
+    assert TL.LAUNCHES == before + 1
+
+
+def _bf16_close(got, want, rel):
+    """max |got - want| within ``rel`` of the largest |want|."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err <= rel * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_kernel_matches_plain_on_cuda():
+    """On the card: the flash-attention backward kernels against the plain
+    backward, f32 within 1e-5 and bf16 within 1e-2 of the largest |plain
+    gradient| (p and ds rounded to bf16 from fp32 values summed in another
+    order), the same bits on a second run, dk and dv exactly 0 past a
+    row's valid length; counted as launches; and the autograd Function
+    through both kernels against the same Function on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(4)
+    for B, H, Tq, Tk, D, dtype, causal, lens in [
+            (2, 3, 200, 200, 64, torch.bfloat16, False, (0, 150)),
+            (2, 2, 130, 70, 32, torch.float32, True, (50, 500)),
+            (1, 2, 96, 160, 128, torch.bfloat16, True, None)]:
+        q, k, v, do = (torch.randn((B, H, T, D), device=dev, generator=g)
+                       .to(dtype) for T in (Tq, Tk, Tk, Tq))
+        kw = dict(causal=causal)
+        if lens is not None:
+            kw["kv_lens"] = torch.tensor(lens, device=dev)
+        o, lse = TA.flash_attention_fwd(q, k, v, **kw)
+        o = o.contiguous()
+        before = TA.BWD_LAUNCHES
+        got = TA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = TA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        assert TA.BWD_LAUNCHES == before + 2
+        want = TA._flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        rel = 1e-5 if dtype == torch.float32 else 1e-2
+        for a, b, c in zip(got, again, want):
+            assert torch.equal(a, b)
+            assert a.dtype == dtype and a.shape == c.shape
+            assert _bf16_close(a, c, rel)
+        if lens is not None:
+            for b, n in enumerate(lens):
+                assert not got[1][b, :, n:].any()
+                assert not got[2][b, :, n:].any()
+    qkv = [torch.randn((2, 2, 128, 32), device=dev, generator=g)
+           .requires_grad_() for _ in range(3)]
+    lens = torch.tensor([128, 40], device=dev)
+    fwd, bwd = TA.LAUNCHES, TA.BWD_LAUNCHES
+    TA.flash_attention(*qkv, causal=True, kv_lens=lens).square().sum() \
+        .backward()
+    assert (TA.LAUNCHES, TA.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    cpu = [t.detach().cpu().requires_grad_() for t in qkv]
+    TA.flash_attention(*cpu, causal=True, kv_lens=lens.cpu()).square() \
+        .sum().backward()
+    for a, b in zip(qkv, cpu):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_layernorm_bwd_kernel_matches_plain_on_cuda():
+    """On the card: the LayerNorm backward kernel against the plain
+    backward, dx in f32 within 1e-5 and in bf16 within 1e-5 plus one bf16
+    ulp of the larger value, dgamma and dbeta within rel 1e-5 of their
+    largest entry, the same bits on a second run; vectorised, ragged,
+    unaligned and wide rows; counted as launches; and the autograd
+    Function through both kernels against the same Function on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for (N, C), xdt, gdt, off in [((300, 768), torch.bfloat16,
+                                   torch.bfloat16, 0),
+                                  ((37, 1000), torch.float32, torch.float32,
+                                   0),
+                                  ((64, 768), torch.bfloat16, torch.float32,
+                                   0),
+                                  ((16, 96), torch.float32, torch.bfloat16,
+                                   0),
+                                  ((5, 768), torch.float32, torch.float32,
+                                   1),
+                                  ((33, 2048), torch.bfloat16,
+                                   torch.bfloat16, 0)]:
+        x = torch.randn(N * C + off, device=dev, generator=gen) * 3 + 1
+        x = x.to(xdt)[off:].view(N, C)
+        gm = (torch.rand(C, device=dev, generator=gen) + 0.5).to(gdt)
+        bt = (torch.rand(C, device=dev, generator=gen) - 0.5).to(gdt)
+        y, mu, rstd = TL.layer_norm_fwd(x, gm, bt, 1e-12)
+        ct = torch.randn(N * C + off, device=dev, generator=gen)
+        ct = ct.to(y.dtype)[off:].view(N, C)
+        before = TL.BWD_LAUNCHES
+        got = TL.layer_norm_bwd(x, gm, mu, rstd, ct)
+        again = TL.layer_norm_bwd(x, gm, mu, rstd, ct)
+        torch.cuda.synchronize()
+        assert TL.BWD_LAUNCHES == before + 2
+        want = TL._layer_norm_bwd_plain(x, gm, mu, rstd, ct)
+        for a, b, c in zip(got, again, want):
+            assert torch.equal(a, b)
+            assert a.dtype == c.dtype and a.shape == c.shape
+        excess = (got[0].float() - want[0].float()).abs() - 1e-5
+        if xdt == torch.bfloat16:
+            _, e = torch.frexp(torch.maximum(got[0].float().abs(),
+                                             want[0].float().abs()))
+            excess -= torch.ldexp(torch.ones_like(e, dtype=torch.float32),
+                                  e - 8)
+        assert excess.max().item() <= 0
+        for a, c in zip(got[1:], want[1:]):
+            assert (a - c).abs().max().item() <= 1e-5 * c.abs().max().item()
+    xg = (torch.randn((6, 40), device=dev, generator=gen) * 2 + 1) \
+        .requires_grad_()
+    gg = (torch.rand(40, device=dev, generator=gen) + 0.5).requires_grad_()
+    bg = torch.zeros(40, device=dev).requires_grad_()
+    fwd, bwd = TL.LAUNCHES, TL.BWD_LAUNCHES
+    TL.fused_layer_norm(xg, gg, bg, 1e-5).square().sum().backward()
+    assert (TL.LAUNCHES, TL.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    cpu = [t.detach().cpu().requires_grad_() for t in (xg, gg, bg)]
+    TL.fused_layer_norm(*cpu, 1e-5).square().sum().backward()
+    for a, b in zip((xg, gg, bg), cpu):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_bert_small_train_step_on_cuda(monkeypatch):
+    """On the card: one masked-LM Adam step of a small BERT through
+    autograd.record, backward and gluon.Trainer, bf16, with the fused
+    LayerNorm route: one attention launch a layer and one LayerNorm launch
+    per norm, forward and backward each; finite loss and gradients; bf16
+    weights, gradients and Adam state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as onp
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import bert_small
+    monkeypatch.setenv("MXNET_FUSED_LAYERNORM", "1")
+    layers, vocab, B, S, P = 2, 97, 2, 128, 5
+    rs = onp.random.RandomState(0)
+    gpu = mx.gpu(0)
+    x = mx.nd.array(rs.randint(0, vocab, (B, S)).astype("float32"), ctx=gpu)
+    vl = mx.nd.array(onp.array([S, 70], "int32"), ctx=gpu, dtype="int32")
+    mp = mx.nd.array(onp.sort(rs.choice(70, (B, P), replace=False), 1)
+                     .astype("int32"), ctx=gpu, dtype="int32")
+    y = mx.nd.array(rs.randint(0, vocab, (B, P)).astype("float32"), ctx=gpu)
+    mx.random.seed(0)
+    net = bert_small(num_layers=layers, units=64, hidden_size=128,
+                     vocab_size=vocab, max_length=S, dropout=0.0,
+                     use_pooler=False, use_decoder=True)
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    with mx.autograd.predict_mode():
+        net(x, None, None, vl, mp)
+    net.cast("bfloat16")
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-4})
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    counts = (TA.LAUNCHES, TA.BWD_LAUNCHES, TL.LAUNCHES, TL.BWD_LAUNCHES)
+    with mx.autograd.record():
+        _, logits = net(x, None, None, vl, mp)
+        loss = ce(logits.reshape(-1, vocab), y.reshape(-1)).mean()
+    loss.backward()
+    trainer.step(1, ignore_stale_grad=True)
+    torch.cuda.synchronize()
+    after = (TA.LAUNCHES, TA.BWD_LAUNCHES, TL.LAUNCHES, TL.BWD_LAUNCHES)
+    n_ln = 2 * layers + 2
+    assert [a - b for a, b in zip(after, counts)] == [layers, layers, n_ln,
+                                                      n_ln]
+    assert onp.isfinite(float(loss.astype("float32").asscalar()))
+    for k, p in net._collect_params_with_prefix().items():
+        w, g = p.data().astorch(), p.grad().astorch()
+        assert w.dtype == g.dtype == torch.bfloat16, k
+        assert bool(torch.isfinite(g).all()), k
+        assert bool(g.any()) == (k != "type_embed.weight"), k
+    for state in trainer._updater.states.values():
+        assert all(s.astorch().dtype == torch.bfloat16 for s in state)
