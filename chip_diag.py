@@ -4,6 +4,7 @@
 
     python3 chip_diag.py parity [--seed 0]
     python3 chip_diag.py ab --parent DIR [--pairs 2]
+    python3 chip_diag.py bwd
 
 ``parity``: the gradients of one batch-2 ResNet-50 v1 training step from
 the same Xavier weights (those of ``chip_smoke.py``'s training phase),
@@ -21,13 +22,26 @@ on the same card: ``chip_smoke.py``'s serving phase (p50, p99, model call
 ms per bucket), the host time to enqueue one bucket-8 forward and the
 number of Python calls it makes.
 
-Both need a CUDA card and exit non-zero without one.
+``bwd``: where the bf16 flash-attention backward spends its time, at
+BERT-base's shape (24, 12, 512, 512, 64) with ``bench.py``'s valid lengths
+and at (1, 12, 4096, 4096, 64): the device time of each of its kernels
+(dQ, which also computes delta, and dK/dV) under torch.profiler, the mean
+of 10 calls; then
+the cycles a tile of each phase of the dK/dV kernel's loop, from
+``clock64()`` counters that an instrumented copy of
+``csrc/flash_attention.cu`` (built into the git-ignored ``_build/``)
+sums over the blocks for warp 0 -- once as the kernel is, and once with
+every tile sent through the general masked exponential loop (a mask test
+an element), which the kernel keeps for causal and segment masks.
+
+All three need a CUDA card and exit non-zero without one.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -183,6 +197,160 @@ def ab(parent, pairs):
     return 0
 
 
+# (anchor, replacement) edits that turn csrc/flash_attention.cu into the
+# instrumented copy; each anchor must occur exactly once
+_PHASES = ("wait for the tile", "S^T and refill (wait<1>)", "exponentials",
+           "dP^T (wait<0>)", "dS^T, bf16 packing", "dV, dK (RS wgmma)",
+           "release")
+_INSTRUMENT = [
+    ("namespace {\n\ntypedef __nv_bfloat16 bf16;",
+     "__device__ unsigned long long g_phase[16];\n"
+     "namespace {\n\ntypedef __nv_bfloat16 bf16;"),
+    ("  if (n_tiles > 0) mbar_wait(kvbar, 0);\n"
+     "  for (int n = 0; n < n_tiles; ++n) {\n",
+     "  unsigned long long ph[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+     "  if (n_tiles > 0) mbar_wait(kvbar, 0);\n"
+     "  for (int n = 0; n < n_tiles; ++n) {\n"
+     "    long long c0 = clock64();\n"),
+    ("    mbar_wait(full0 + 8 * s, (n / STAGES) & 1);\n",
+     "    mbar_wait(full0 + 8 * s, (n / STAGES) & 1);\n"
+     "    long long c1 = clock64(); ph[0] += c1 - c0;\n"),
+    ("    wgmma_wait<1>();\n    fence_regs(st);\n",
+     "    wgmma_wait<1>();\n    fence_regs(st);\n"
+     "    long long c2 = clock64(); ph[1] += c2 - c1;\n"),
+    ("    wgmma_wait<0>();\n    fence_regs(dpt);\n",
+     "    fence_regs(st);\n    long long c3 = clock64(); ph[2] += c3 - c2;\n"
+     "    wgmma_wait<0>();\n    fence_regs(dpt);\n"
+     "    long long c4 = clock64(); ph[3] += c4 - c3;\n"),
+    ("      acc_to_a(dsf[kk], &dpt[8 * kk], &dpt[8 * kk + 4]);\n    }\n",
+     "      acc_to_a(dsf[kk], &dpt[8 * kk], &dpt[8 * kk + 4]);\n    }\n"
+     "    long long c5 = clock64(); ph[4] += c5 - c4;\n"),
+    ("    // this tile's buffer is free once all four warps arrive\n",
+     "    long long c6 = clock64(); ph[5] += c6 - c5;\n"
+     "    // this tile's buffer is free once all four warps arrive\n"),
+    ("    if (lane == 0) mbar_arrive(empty0 + 8 * s);\n  }\n\n  bf16* dkp",
+     "    if (lane == 0) mbar_arrive(empty0 + 8 * s);\n"
+     "    ph[6] += clock64() - c6;\n"
+     "  }\n  if (tid == 0) {\n    for (int i = 0; i < 7; ++i)\n"
+     "      atomicAdd(&g_phase[i], ph[i]);\n"
+     "    atomicAdd(&g_phase[7], (unsigned long long)n_tiles);\n  }\n\n"
+     "  bf16* dkp"),
+]
+_MASKED_LOOP = [("    if (tile_unmasked<BR>(p, kvlen, q0, k0)) {",
+                 "    if (false) {"),
+                ("    } else if (!p.causal && p.qseg == nullptr) {\n"
+                 "      const bool key_in",
+                 "    } else if (false) {\n      const bool key_in")]
+_PHASE_READER = """
+extern "C" int mx_bwd_phases(unsigned long long* host, int reset) {
+  if (reset) {
+    unsigned long long z[16] = {0};
+    return (int)cudaMemcpyToSymbol(g_phase, z, sizeof(z));
+  }
+  return (int)cudaMemcpyFromSymbol(host, g_phase, sizeof(g_phase));
+}
+"""
+
+
+def _instrumented_libs():
+    """Build the two instrumented copies in parallel; {name: library}."""
+    sys.path.insert(0, HERE)
+    from mxnet_tpu_torch import kernels
+    with open(os.path.join(kernels.CSRC_DIR, "flash_attention.cu")) as f:
+        src = f.read()
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name, edits in (("as_is", _INSTRUMENT),
+                        ("masked_loop", _INSTRUMENT + _MASKED_LOOP)):
+        out = src
+        for old, new in edits:
+            if out.count(old) != 1:
+                raise SystemExit("chip_diag bwd: the instrumentation anchor "
+                                 "%r is not in csrc/flash_attention.cu once"
+                                 % old.strip()[:60])
+            out = out.replace(old, new)
+        cu = os.path.join(kernels.BUILD_DIR, "diag_bwd_%s.cu" % name)
+        lib = os.path.join(kernels.BUILD_DIR, "libdiag_bwd_%s.so" % name)
+        with open(cu, "w") as f:
+            f.write(out + _PHASE_READER)
+        procs[name] = (subprocess.Popen(
+            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", lib, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    libs = {}
+    for name, (proc, lib) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise SystemExit("chip_diag bwd: build failed\n" + log[-3000:])
+        libs[name] = lib
+    return libs
+
+
+def bwd():
+    import ctypes
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from mxnet_tpu_torch.ops import attention as TA
+    card = cs.card_line()
+    print("card: %s" % card)
+    libs = _instrumented_libs()
+    _, bench_lens, _ = cs.bert_inputs(0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shapes = [("bert", 24, 12, 512, 512, 64, "bfloat16", False, "bench",
+               False),
+              ("t4096", 1, 12, 4096, 4096, 64, "bfloat16", False, None,
+               False)]
+    for case in shapes:
+        q, k, v, do, kw = cs._attention_operands(torch, gen, case,
+                                                 bench_lens)
+        TA._FNS.clear()
+        with torch.no_grad():
+            o, lse = TA.flash_attention_fwd(q, k, v, **kw)
+            o = o.contiguous()
+            for _ in range(3):
+                TA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    TA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                torch.cuda.synchronize()
+        split = {}
+        for e in prof.key_averages():
+            m = re.search(r"flash_bwd_\w+", e.key)
+            if m and e.device_time_total > 0:
+                split[m.group()] = e.device_time_total / e.count / 1e3
+        print("bwd %s %s: device ms a call by kernel %s  (%s)"
+              % (case[0], tuple(case[1:6]), json.dumps(split), card))
+        for name, path in libs.items():
+            lib = ctypes.CDLL(path)
+            fn = lib.mx_flash_attention_bwd
+            fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + \
+                [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            TA._kernel_fn("fwd")
+            TA._FNS["bwd"] = fn
+            counts = (ctypes.c_ulonglong * 16)()
+            with torch.no_grad():
+                TA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                torch.cuda.synchronize()
+                lib.mx_bwd_phases(counts, 1)
+                TA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                torch.cuda.synchronize()
+            lib.mx_bwd_phases(counts, 0)
+            tiles = max(counts[7], 1)
+            phases = {p: round(counts[i] / tiles, 1)
+                      for i, p in enumerate(_PHASES)}
+            print("bwd %s dK/dV kernel (%s): %d tiles, cycles a tile of warp "
+                  "0 %s, total %.1f" % (case[0], name, counts[7],
+                                        json.dumps(phases),
+                                        sum(phases.values())))
+        TA._FNS.clear()
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -191,6 +359,7 @@ def main(argv=None):
     a = sub.add_parser("ab")
     a.add_argument("--parent", required=True)
     a.add_argument("--pairs", type=int, default=2)
+    sub.add_parser("bwd")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -198,6 +367,8 @@ def main(argv=None):
         return 2
     if args.cmd == "parity":
         return parity(args.seed)
+    if args.cmd == "bwd":
+        return bwd()
     return ab(os.path.abspath(args.parent), args.pairs)
 
 

@@ -9,7 +9,10 @@ and PyTorch built for CUDA.  It:
 1. prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions and the TF32 flags, and turns TF32 off for the whole run;
 2. builds every CUDA kernel of the package from ``mxnet_tpu_torch/csrc``
-   (one ``nvcc`` per source, in parallel) and prints the build time;
+   (one ``nvcc`` per source, in parallel), prints the build time and each
+   kernel's registers and spills from ``-Xptxas -v`` (a spill in a Hopper
+   backward kernel fails the run), and the blocks an SM and shared memory
+   a block of the bf16 attention backward kernels;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card and times kernel, plain version and the memory-bandwidth bound with
    CUDA events (L2 flushed between launches): the epilogue forward at the
@@ -51,9 +54,12 @@ and PyTorch built for CUDA.  It:
    (composed) LayerNorm route beside it;
 8. BERT backward kernel phase: holds the flash-attention backward and the
    LayerNorm backward against their plain versions (the same cases as the
-   forwards, and T = 4096), checks that a second run gives the same bits,
-   and times them beside their bounds and the backward of the same PyTorch
-   calls;
+   forwards, T = 4096, and the edges of the attention backward's tile
+   ring: Tk of 1, 63, 65 and 129, kv_lens on a tile edge and 0, causal
+   with Tq != Tk, D 128 at T 1024, D 80), checks that a second run gives
+   the same bits and that dk and dv are 0 past each row's valid length,
+   and times them beside their bounds and the backward of the same
+   PyTorch calls;
 9. BERT training phase (``MXNET_FUSED_LAYERNORM=1``): BERT-base as in 7,
    bf16, trained through ``autograd.record``, ``backward`` and
    ``gluon.Trainer`` (Adam, lr 1e-4, bf16 state, as bench.py's config-5
@@ -181,6 +187,9 @@ BF16_PEAK_OPS = 989e12                  # H100 SXM tensor cores, dense
 # in another order; 6e-7 measured).  Both kernels must give the same bits
 # on a second run (no atomics).
 ATTN_BWD_F32_REL, ATTN_BWD_BF16_REL, LN_SUM_REL = 1e-5, 1e-2, 1e-5
+# dq and dk with one key a row (0 in exact arithmetic): within this
+# fraction of the largest |dv|
+ATTN_BWD_ONE_KEY_REL = 1e-5
 # BERT-base training, bench.py's config-5 step: Adam, lr 1e-4, no
 # multi_precision (the bf16 weights and their bf16 Adam state updated in
 # bf16), the masked-LM loss averaged over the 1,824 masked rows
@@ -784,7 +793,10 @@ LN_CASES = [
 
 # (case, B, H, Tq, Tk, D, dtype, causal, kv_lens, segments) of the
 # backward kernels; T 2048 is the domain of the TPU's _dqkv_fused_kernel,
-# T 4096 of its _dq_kernel + _dkv_kernel, the rest of _dqkv_single_kernel
+# T 4096 of its _dq_kernel + _dkv_kernel, the rest of _dqkv_single_kernel.
+# The cases from "tk1" on are the edges of the kernels' tile ring: fewer
+# tiles than stages, a ragged last tile, kv_lens on a tile edge and 0,
+# causal with Tq != Tk, D 128 at T 1024, and D 80 (padded to 128).
 ATTN_BWD_CASES = [
     ("bert", 24, 12, 512, 512, 64, "bfloat16", False, "bench", False),
     ("f32", 2, 12, 128, 128, 64, "float32", False, None, False),
@@ -799,7 +811,36 @@ ATTN_BWD_CASES = [
     ("d128", 2, 12, 256, 256, 128, "bfloat16", False, None, False),
     ("t2048", 1, 12, 2048, 2048, 64, "bfloat16", False, None, False),
     ("t4096", 1, 12, 4096, 4096, 64, "bfloat16", False, None, False),
+    ("tk1", 2, 3, 64, 1, 64, "bfloat16", False, None, False),
+    ("tk63", 2, 3, 100, 63, 64, "bfloat16", False, None, False),
+    ("tk65_lens_64_0", 2, 3, 100, 65, 64, "bfloat16", False, (64, 0), False),
+    ("tk129_lens_128", 2, 3, 130, 129, 64, "bfloat16", False, (128, 129),
+     False),
+    ("lens_on_tile_edges", 3, 4, 256, 256, 64, "bfloat16", False,
+     (64, 128, 0), False),
+    ("causal_tq_lt_tk", 2, 3, 96, 200, 64, "bfloat16", True, None, False),
+    ("causal_tq_gt_tk_lens", 2, 3, 200, 96, 64, "bfloat16", True, (96, 50),
+     False),
+    ("d128_t1024", 1, 12, 1024, 1024, 128, "bfloat16", False, None, False),
+    ("d80", 2, 3, 256, 256, 80, "bfloat16", False, (256, 100), False),
 ]
+# the Hopper backward kernels, which must not spill registers
+BWD_HOPPER_KERNELS = ("flash_bwd_q_hopper", "flash_bwd_kv_hopper")
+
+
+def bwd_occupancy(torch, attention):
+    """Blocks an SM and shared memory a block of the bf16 backward kernels,
+    as the CUDA runtime reports them for the built kernels."""
+    import ctypes
+    fn = attention._kernel_fn("bwd_occupancy")
+    for D in (64, 128):
+        out = (ctypes.c_int * 4)()
+        rc = fn(D, out)
+        check(rc == 0, "flash_attention_bwd occupancy query failed: CUDA "
+              "error %d" % rc)
+        print("flash_bwd_q_hopper D %d: %d blocks an SM, %d bytes of shared "
+              "memory a block; flash_bwd_kv_hopper D %d: %d blocks an SM, %d "
+              "bytes" % (D, out[0], out[1], D, out[2], out[3]))
 
 
 def attention_cases(torch, attention, card, flush, seed):
@@ -1036,7 +1077,15 @@ def attention_bwd_cases(torch, attention, card, flush, seed):
                 check(bool(torch.isfinite(a).all()),
                       "%s %s: non-finite" % (what, gname))
                 e = (a.float() - b.float()).abs().max().item()
-                r = e / max(b.float().abs().max().item(), 1e-30)
+                ref = b.float().abs().max().item()
+                if Tk == 1 and gname != "dv":
+                    # one key a row: p = 1 and dp = delta, so dq and dk are
+                    # 0 in exact arithmetic and both sides give the
+                    # rounding of dp - delta; held to that scale, a
+                    # fraction of the largest |dv|
+                    ref = want[2].float().abs().max().item() \
+                        * ATTN_BWD_ONE_KEY_REL / rel_tol
+                r = e / max(ref, 1e-30)
                 check(r <= rel_tol, "%s %s: max err %.3g of the largest "
                       "|plain| > %g" % (what, gname, r, rel_tol))
                 err, rel = max(err, e), max(rel, r)
@@ -1541,10 +1590,15 @@ def main(argv=None):
     build_s = time.perf_counter() - t0
     for name in kernels.SOURCES:
         kernels.load(name)
-        for line in kernels.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print("ptxas %s: %s" % (name, line.strip()))
+        for r in kernels.ptxas_report(kernels.build_log(name)):
+            print("ptxas %s: %s: %s registers, spill %d/%d bytes "
+                  "(stores/loads)" % (name, r["kernel"], r["registers"],
+                                      r["spill_stores"], r["spill_loads"]))
+            check(not (r["kernel"].startswith(BWD_HOPPER_KERNELS)
+                       and r["spill_stores"] + r["spill_loads"]),
+                  "%s spills registers" % r["kernel"])
     print("kernels built in %.2f s: %s" % (build_s, ", ".join(kernels.SOURCES)))
+    bwd_occupancy(torch, attention)
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     rows = kernel_phase(torch, fused_norm, card, flush)

@@ -44,6 +44,7 @@
 // (19.8 us).  This first design is simple, not fast: no cp.async or TMA
 // pipelining of the K and V tiles, no wgmma, and the tiles are synchronised
 // each step.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,11 +84,13 @@ __device__ __forceinline__ int key_tiles(const Params& p, int kvlen, int q0) {
   return end > 0 ? (end + BK - 1) / BK : 0;
 }
 
-// whether no element of the (q0, k0) tile is masked
+// whether no element of the tile of ROWS queries at q0 by BK keys at k0 is
+// masked
+template <int ROWS = BQ>
 __device__ __forceinline__ bool tile_unmasked(const Params& p, int kvlen,
                                               int q0, int k0) {
   return k0 + BK <= kvlen && (!p.causal || q0 >= k0 + BK - 1) &&
-         p.qseg == nullptr && q0 + BQ <= p.Tq;
+         p.qseg == nullptr && q0 + ROWS <= p.Tq;
 }
 
 __device__ __forceinline__ bool visible(const Params& p, int b, int kvlen,
@@ -457,234 +460,529 @@ int launch(Kernel kernel, const Params& p, int BH, int threads, size_t smem,
 // dtype where the TPU kernels round them.  One design covers the three TPU
 // kernels: a Hopper block holds 64-row tiles, so it always streams, and the
 // TPU's single-block kernels are its one-tile case.  It is the TPU's split
-// form, deterministic (no atomics): flash_bwd_q, a block per 64-query tile
-// streaming the K tiles, and flash_bwd_kv, a block per 64-key tile
-// streaming the Q tiles, both recomputing p from lse; flash_bwd_delta
-// computes delta first.  Keys past a row's valid length get dk = dv = 0.
+// form, deterministic (no atomics): a dQ kernel, a block per 64-query tile
+// streaming the K/V tiles, and a dK/dV kernel, a block per 64-key tile
+// streaming the Q/dO tiles, both recomputing p from lse.  The bf16 dQ
+// kernel also computes delta for its rows and writes it, with lse times
+// log2(e), into arrays padded to whole 64-row tiles for the dK/dV kernel,
+// launched after it; the f32 path runs flash_bwd_delta_f32 first.  Keys
+// past a row's valid length get dk = dv = 0.
 //
 // What bounds it at BERT-base (B 24, H 12, T 512, D 64, bf16, bench.py's
 // valid lengths): bytes, narrowly.  q, o, dO and dq whole and k, v, dk and
 // dv up to the valid lengths are 137 MB, 41 us at 3.35 TB/s; the five
-// products the visible pairs need are 36 GFLOP, 36 us at 989 TFLOP/s.  This
-// first design recomputes s and dp in both kernels (seven products), stages
-// the operands it needs transposed a second time in shared memory, and does
-// not pipeline its tile loads.
+// products the visible pairs need are 36 GFLOP, 36 us at 989 TFLOP/s.  Both
+// kernels recompute s and dp (seven products, 50 GFLOP), and each streamed
+// tile is read by every block of its head from L2, so what the card can do
+// is set by how well the tensor cores are fed, not by device memory.
+//
+// The bf16 design (flash_bwd_kv_hopper, flash_bwd_q_hopper), one
+// warpgroup (four warps, 128 threads) a block:
+// - Asynchronous tile loads in a ring.  Thread 0 issues TMA loads
+//   (cp.async.bulk.tensor with a 3-d tensor map over (D, T, B*H), whose
+//   zero fill past T covers the ragged last tile; lse2 and delta by
+//   cp.async.bulk from their padded arrays) of the resident tile once and
+//   of the streamed tiles into a ring of STAGES buffers.  Each buffer has a
+//   "full" mbarrier (the TMA's bytes) and an "empty" one (one arrival per
+//   warp once its products on the buffer are done).  Thread 0 refills the
+//   buffer released one tile earlier, whose arrivals are in by then, right
+//   after issuing the current tile's first products, so the refill costs
+//   the warpgroup nothing while they run, and the loads of the next
+//   STAGES - 1 tiles are in flight while the warps compute.  No
+//   __syncthreads runs inside the loop.  A separate producer warp was
+//   tried first: it bought nothing the lagged refill does not, and it cost
+//   32 threads' registers.
+// - Every product runs on wgmma (m64nNk16, bf16 in, fp32 accumulate), the
+//   warpgroup owning the block's 64 resident rows.  The tiles lie in shared
+//   memory as TMA writes them with the 128-byte swizzle: rows of 64
+//   elements (a D = 128 tile is two such halves), 16-byte chunk c of row r
+//   at c ^ (r % 8).  S (or S^T) and dP (or dP^T) take both operands from
+//   shared memory, K-major, as two commit groups: P is computed while dP
+//   is still on the tensor cores.  P and dS never leave registers: the
+//   fp32 accumulators, rounded to bf16, are the A fragments of the next
+//   product.  The streamed operand whose reduction axis is its row axis
+//   (dO and Q for dV and dK, K for dQ) is the B operand in the same
+//   buffer, read MN-major with wgmma's transpose bit, one 64-column half
+//   (N = 64) at a time: no transposed copy is staged.
+// - exp2 on the special-function unit (ex2.approx), with log2(e) folded
+//   into the scale and into the padded lse; P and dS are rounded where the
+//   TPU kernels round them.  A tile with no masked pair runs the
+//   exponentials without mask tests, a tile masked only by the valid
+//   length and Tq with one test a key and one a query, and only causal
+//   and segment masks test each element: with the element tests in the
+//   same unrolled loop the exponential phase took four to five times as
+//   long, on full tiles too (chip_diag.py bwd, PERF.md).
+// - delta = rowsum(dO * O) is computed in the dQ kernel's prologue, two
+//   threads a row, while its first tiles load, and written with lse *
+//   log2(e) for the dK/dV kernel: no separate kernel for bf16.
+// - Tiles and occupancy (Bf16Bwd below; chip_smoke.py prints the registers
+//   from ptxas -v and the blocks an SM from the CUDA runtime).  dK/dV: 64
+//   keys a block, Q/dO tiles of BR = 64 rows at D 64 and 32 at D 128, so
+//   that S^T, dP^T, dK and dV stay in registers (4 x 32 fp32 at D 64,
+//   2 x 16 + 2 x 64 at D 128); 3 stages.  dQ: 64 queries a block, K/V
+//   tiles of 64 keys, 3 stages at D 64 and 2 at D 128.  Each kernel is
+//   compiled for 2 blocks an SM (at most 255 registers): at 3 (168) the
+//   dK/dV kernel spilled and ran no faster.  At D 64 the dK/dV kernel takes
+//   187 registers and 68 KB of shared memory (2 blocks an SM), the dQ
+//   kernel 156 and 66 KB (3 blocks an SM); at D 128 202 and 84 KB, 188 and
+//   99 KB (2 and 2).  The BERT grids are 2,304 blocks each (24 x 12 heads
+//   x 8 tiles); 1,836 dK/dV blocks hold a key below their row's valid
+//   length.  No kernel spills at D 64 or 128.
+// - One block holds one warpgroup: 64 keys, not 128, a dK/dV block.  Two
+//   consumer warpgroups sharing each streamed Q/dO tile would halve that
+//   tile's traffic a key, but the traffic is from L2 and the tile loads
+//   are not what the warps wait for (PERF.md); the time goes to the
+//   exponentials (4,096 a tile, at the special-function unit's 16 a cycle
+//   an SM) and the dependent chains of wgmma, which the other blocks on
+//   the SM overlap.  Two warpgroups in ping-pong, one's exponentials under
+//   the other's products, are the next step.
+//
+// f32 (flash_bwd_kv_f32, flash_bwd_q_f32) runs scalar FMAs (TF32 off) with
+// synchronous staging; it is not on the BERT path.
 
 struct BwdParams : Params {
   const void* dout;    // dO: BH x Tq x D
-  const float* delta;  // rowsum(dO * O): BH x Tq
+  const float* delta;  // f32: rowsum(dO * O), BH x Tq
   void* dq;
   void* dk;
   void* dv;
   int n_ktiles;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(bf16 v) {
-  return __bfloat162float(v);
-}
+constexpr float kLog2e = 1.4426950408889634f;
 
-// delta[r] = sum_d dO[r, d] * O[r, d] in fp32, one warp a row
-template <typename T>
+// f32: delta[r] = sum_d dO[r, d] * O[r, d] in fp32, a warp a row (the bf16
+// kernels compute delta in the dQ kernel)
 __global__ void __launch_bounds__(128)
-flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
-                float* __restrict__ delta, long long rows, int D) {
+flash_bwd_delta_f32(const float* __restrict__ o,
+                    const float* __restrict__ dout,
+                    float* __restrict__ delta, long long rows, int D) {
   const long long row = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   float s = 0.f;
-  for (int d = lane; d < D; d += 32)
-    s += to_float(o[row * D + d]) * to_float(dout[row * D + d]);
+  for (int d = lane; d < D; d += 32) s += o[row * D + d] * dout[row * D + d];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) delta[row] = s;
 }
 
-// the first Q tile that sees any key of the K tile at k0 (causal: the rows
-// r >= k0; BQ == BK, so that is tile k0 / BQ)
-__device__ __forceinline__ int first_query_tile(const Params& p, int k0) {
-  return p.causal ? k0 / BQ : 0;
-}
-
-// 16-byte chunk c of row r of a (rows x D) tile into row-major shared
-// memory with row stride LDS, zeros past `rows_valid`
-template <int D, int LDS>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           int r0, int rows_valid, int tid,
-                                           int nthreads) {
-  constexpr int DC = D / 8;
-  for (int i = tid; i < 64 * DC; i += nthreads) {
-    const int r = i / DC, c = (i % DC) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rows_valid)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LDS + c) = val;
-  }
-}
-
-// the same 64-row tile stored transposed, D rows of 64 (+ 8 padding),
-// neighbouring threads on neighbouring source rows
-template <int D, int LDT>
-__device__ __forceinline__ void stage_cols(bf16* dst, const bf16* src,
-                                           int r0, int rows_valid, int tid,
-                                           int nthreads) {
-  for (int i = tid; i < 64 * (D / 8); i += nthreads) {
-    const int r = i % 64, c = (i / 64) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rows_valid)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
-    const bf16* h = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c + j) * LDT + r] = h[j];
-  }
-}
-
-// A fragment (16 x 16) of rows row0.. of a row-major shared tile, columns
-// 16 kk ..
-template <int LDS>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int row0, int kk, int g, int t) {
-  const bf16* base = tile + (row0 + g) * LDS + kk * 16 + 2 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(base);
-  a[1] = *reinterpret_cast<const uint32_t*>(base + 8 * LDS);
-  a[2] = *reinterpret_cast<const uint32_t*>(base + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(base + 8 * LDS + 8);
-}
-
-// B fragment (16 x 8): column n of B is row n0 + g of a row-major shared
-// tile, its k rows columns 16 kk + 2t ..
-template <int LDS>
-__device__ __forceinline__ void mma_b_rows(float (&c)[4],
-                                           const uint32_t (&a)[4],
-                                           const bf16* tile, int n0, int kk,
-                                           int g, int t) {
-  const bf16* b = tile + (n0 + g) * LDS + kk * 16 + 2 * t;
-  mma_bf16(c, a, *reinterpret_cast<const uint32_t*>(b),
-           *reinterpret_cast<const uint32_t*>(b + 8));
+// the first Q tile of `rows` rows that sees any key of the K tile at k0
+// (causal: the rows r >= k0)
+__device__ __forceinline__ int first_query_tile(const Params& p, int k0,
+                                                int rows = BQ) {
+  return p.causal ? k0 / rows : 0;
 }
 
 // the accumulators of n-tiles 2 kk and 2 kk + 1 (16 rows x 16 columns)
 // rounded to bf16 as the A fragment of the next product
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&lo)[4],
-                                         const float (&hi)[4]) {
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* lo,
+                                         const float* hi) {
   a[0] = pack_bf16(lo[0], lo[1]);
   a[1] = pack_bf16(lo[2], lo[3]);
   a[2] = pack_bf16(hi[0], hi[1]);
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
-template <int D>
-constexpr size_t bwd_kv_bf16_smem_bytes() {
-  return (4 * (size_t)64 * (D + 8) + 2 * (size_t)D * (64 + 8)) *
-             sizeof(bf16) + 2 * BQ * sizeof(float);
+// ---- Hopper building blocks: mbarriers, TMA, wgmma ------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
-// dK and dV of one 64-key tile, bf16 on the tensor cores.  Four warps, each
-// owns 16 keys and keeps their dK and dV rows in fp32 registers while the
-// Q tiles stream past.  Per Q tile: S^T = K Q^T and dP^T = V dO^T (keys x
-// queries, fp32 accumulators), P^T = exp(S^T * scale - lse) (0 where
-// masked), dS^T = P^T (dP^T - delta) * scale, then dV += bf16(P^T) dO and
-// dK += bf16(dS^T) Q with the accumulators turned into A fragments in
-// registers.  Q and dO are staged row-major (B operands of the first two
-// products) and transposed (B operands of the last two).
-template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_kv_bf16(BwdParams p) {
-  constexpr int LDS = D + 8;
-  constexpr int LDT = BQ + 8;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one (64 x rows) box of a 3-d tensor map at (c0, c1, c2) into shared memory,
+// its bytes counted on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes into shared memory, counted on
+// `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// a wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (both in 16-byte units)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// The tiles in shared memory: `rows` rows of D elements as D / 64 halves of
+// (rows x 128 bytes), each 1024-byte aligned, swizzled as TMA writes them.
+//
+// K-major use (the reduction runs along D): k-slice kk is 16 columns, 32
+// bytes into its half's rows; groups of 8 rows lie 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw_k(uint32_t tile, int rows, int kk) {
+  return sw128_desc(tile + (kk >> 2) * rows * 128 + (kk & 3) * 32, 16, 1024);
+}
+
+// MN-major use (the reduction runs along the rows, wgmma's transpose bit
+// set), one 64-column half (N = 64) at a time: k-slice kk is rows 16 kk ..
+// 16 kk + 15, groups of 8 rows 1024 bytes apart.  With one swizzle atom
+// along N the leading byte offset is not read.
+__device__ __forceinline__ uint64_t sw_mn(uint32_t half, int kk) {
+  return sw128_desc(half + kk * 16 * 128, 1024, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x on the special-function unit (relative error about 2^-22)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// keep the compiler from moving reads or writes of accumulators across the
+// asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma m64nNk16, bf16 in, fp32 accumulated into d.  _ss: A and B from
+// shared memory, both K-major, d = A B where `accumulate` is 0 (the first
+// k-slice) and d += A B elsewhere; _rs: d += A B, A from registers (the
+// m16n8k16 A fragments of each warp's 16 rows), B from shared memory
+// MN-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// the operands of the bf16 backward kernels: 3-d tensor maps (D, T, B*H)
+// of q, k, v and dO, boxes of 64 columns by the kernel's tile rows
+struct HopperBwd {
+  CUtensorMap tq, tk, tv, tdo;
+  BwdParams p;
+  // delta and lse * log2(e), BH x tq_pad each, 0 past Tq: written by the
+  // dQ kernel, read by the dK/dV kernel launched after it
+  float* delta;
+  float* lse2;
+  int tq_pad;          // Tq rounded up to 64
+  float scale_log2;    // scale * log2(e)
+};
+
+// shared memory of flash_bwd_kv_hopper, byte offsets from a 1024-byte
+// aligned base: K and V (64 x D), then STAGES x (Q, dO) tiles of BR x D,
+// then STAGES x (lse2, delta) of BR floats
+template <int D, int BR, int STAGES>
+struct KvSmem {
+  static constexpr int kTile = 64 * D * 2;
+  static constexpr int qTile = BR * D * 2;
+  static constexpr int K = 0;
+  static constexpr int V = kTile;
+  static constexpr int Q = 2 * kTile;                  // + s * 2 qTile
+  static constexpr int LSE = Q + STAGES * 2 * qTile;   // + s * 2 BR * 4
+  static constexpr int BYTES = LSE + STAGES * 2 * BR * 4;
+};
+
+// dK and dV of one 64-key tile.  Per Q tile: S^T = K Q^T and dP^T = V dO^T
+// (keys x queries), P^T = exp2(S^T scale log2 e - lse2) (0 where masked),
+// dS^T = P^T (dP^T - delta) scale, then dV += bf16(P^T) dO and dK +=
+// bf16(dS^T) Q.  Accumulator element 4 j + i of a thread: key key0 +
+// 8 (i >> 1), query q0 + 8 j + 2 t + (i & 1).
+template <int D, int BR, int STAGES, int MINB>
+__global__ void __launch_bounds__(128, MINB)
+flash_bwd_kv_hopper(const __grid_constant__ HopperBwd hp) {
+  using L = KvSmem<D, BR, STAGES>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + BK * LDS;
-  bf16* sQ = sV + BK * LDS;
-  bf16* sdO = sQ + BQ * LDS;
-  bf16* sQt = sdO + BQ * LDS;
-  bf16* sdOt = sQt + D * LDT;
-  float* sLse = reinterpret_cast<float*>(sdOt + D * LDT);
-  float* sDelta = sLse + BQ;
-
+  __shared__ __align__(8) uint64_t bars[2 * STAGES + 1];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const unsigned char* sbase = smem_raw + (base - raw);
+  const BwdParams& p = hp.p;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x / p.n_ktiles;
-  const int k0 = (blockIdx.x % p.n_ktiles) * BK;
+  const int k0 = (blockIdx.x % p.n_ktiles) * 64;
   const int b = bh / p.H;
-  const bf16* q = static_cast<const bf16*>(p.q) + (size_t)bh * p.Tq * D;
-  const bf16* k = static_cast<const bf16*>(p.k) + (size_t)bh * p.Tk * D;
-  const bf16* v = static_cast<const bf16*>(p.v) + (size_t)bh * p.Tk * D;
-  const bf16* dout =
-      static_cast<const bf16*>(p.dout) + (size_t)bh * p.Tq * D;
-  const float* lse = p.lse + (size_t)bh * p.Tq;
-  const float* delta = p.delta + (size_t)bh * p.Tq;
-
-  stage_rows<D, LDS>(sK, k, k0, p.Tk, tid, 128);
-  stage_rows<D, LDS>(sV, v, k0, p.Tk, tid, 128);
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk[dt][i] = dv[dt][i] = 0.f;
-
   const int kvlen = valid_keys(p, b);
-  const int key0 = k0 + warp * 16 + g;     // this thread's keys: key0, +8
+  const int it0 = first_query_tile(p, k0, BR);
   // keys at or past the valid length see nothing: dK = dV = 0
-  const int it_end = k0 < kvlen ? p.n_qtiles : 0;
-  for (int it = first_query_tile(p, k0); it < it_end; ++it) {
-    const int q0 = it * BQ;
-    __syncthreads();                       // the last tile's reads are done
-    stage_rows<D, LDS>(sQ, q, q0, p.Tq, tid, 128);
-    stage_rows<D, LDS>(sdO, dout, q0, p.Tq, tid, 128);
-    stage_cols<D, LDT>(sQt, q, q0, p.Tq, tid, 128);
-    stage_cols<D, LDT>(sdOt, dout, q0, p.Tq, tid, 128);
-    for (int i = tid; i < BQ; i += 128) {
-      const bool in = q0 + i < p.Tq;
-      sLse[i] = in ? lse[q0 + i] : 0.f;
-      sDelta[i] = in ? delta[q0 + i] : 0.f;
+  const int it_end = k0 < kvlen ? (p.Tq + BR - 1) / BR : 0;
+  const uint32_t full0 = smem_addr(&bars[0]);
+  const uint32_t empty0 = smem_addr(&bars[STAGES]);
+  const uint32_t kvbar = smem_addr(&bars[2 * STAGES]);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4);    // one arrival per consumer warp
     }
-    __syncthreads();
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    float s[BQ / 8][4], dp[BQ / 8][4];
+  // thread 0 issues the loads: K, V and the first STAGES Q/dO tiles here,
+  // each later tile in refill below
+  const int n_tiles = it_end - it0;
+  auto load_tile = [&](int n) {
+    const int s = n % STAGES, it = it0 + n;
+    const uint32_t fb = full0 + 8 * s;
+    mbar_expect_tx(fb, 2 * L::qTile + 2 * BR * 4);
+    const uint32_t sq = base + L::Q + s * 2 * L::qTile;
 #pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t kf[4], vf[4];
-      load_a<LDS>(kf, sK, warp * 16, kk, g, t);
-      load_a<LDS>(vf, sV, warp * 16, kk, g, t);
-#pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt) {
-        mma_b_rows<LDS>(s[nt], kf, sQ, nt * 8, kk, g, t);
-        mma_b_rows<LDS>(dp[nt], vf, sdO, nt * 8, kk, g, t);
-      }
+    for (int h = 0; h < D / 64; ++h) {
+      tma_load_3d(sq + h * BR * 128, &hp.tq, fb, h * 64, it * BR, bh);
+      tma_load_3d(sq + L::qTile + h * BR * 128, &hp.tdo, fb, h * 64, it * BR,
+                  bh);
     }
+    const size_t row = (size_t)bh * hp.tq_pad + (size_t)it * BR;
+    const uint32_t sl = base + L::LSE + s * 2 * BR * 4;
+    bulk_load(sl, hp.lse2 + row, BR * 4, fb);
+    bulk_load(sl + BR * 4, hp.delta + row, BR * 4, fb);
+  };
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect_tx(kvbar, 2 * L::kTile);
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) {
+      tma_load_3d(base + L::K + h * 64 * 128, &hp.tk, kvbar, h * 64, k0, bh);
+      tma_load_3d(base + L::V + h * 64 * 128, &hp.tv, kvbar, h * 64, k0, bh);
+    }
+    for (int n = 0; n < n_tiles && n < STAGES; ++n) load_tile(n);
+  }
 
-    // element (nt, i): key key0 + (i >> 1) * 8, query q0 + nt * 8 + 2t +
-    // (i & 1)
-    const bool full = tile_unmasked(p, kvlen, q0, k0);
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = k0 + warp * 16 + g;   // this thread's keys: key0, +8
+  float dk[D / 64][32], dv[D / 64][32];    // by 64-column half
 #pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
+  for (int h = 0; h < D / 64; ++h)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qc = nt * 8 + 2 * t + (i & 1);
-        float pv = 0.f;
-        if (full || visible(p, b, kvlen, q0 + qc, key0 + (i >> 1) * 8))
-          pv = expf(s[nt][i] * p.scale - sLse[qc]);
-        dp[nt][i] = pv * (dp[nt][i] - sDelta[qc]) * p.scale;
-        s[nt][i] = pv;
+    for (int i = 0; i < 32; ++i) dk[h][i] = dv[h][i] = 0.f;
+  // While the tensor cores run tile n's first products, thread 0 refills
+  // the buffer released one tile earlier (its four arrivals are in: every
+  // warp has issued tile n's wgmma) with tile n - 1 + STAGES
+  auto refill = [&](int m) {
+    if (tid == 0 && m >= 0 && m + STAGES < n_tiles) {
+      mbar_wait(empty0 + 8 * (m % STAGES), (m / STAGES) & 1);
+      load_tile(m + STAGES);
+    }
+  };
+  if (n_tiles > 0) mbar_wait(kvbar, 0);
+  for (int n = 0; n < n_tiles; ++n) {
+    const int s = n % STAGES;
+    const int q0 = (it0 + n) * BR;
+    const uint32_t sq = base + L::Q + s * 2 * L::qTile;
+    const uint32_t sdo = sq + L::qTile;
+    const float* slse =
+        reinterpret_cast<const float*>(sbase + L::LSE + s * 2 * BR * 4);
+    const float* sdl = slse + BR;
+    mbar_wait(full0 + 8 * s, (n / STAGES) & 1);
+
+    // S^T and dP^T as two groups: P^T is computed while dP^T is still on
+    // the tensor cores
+    float st[BR / 2], dpt[BR / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(st, sw_k(base + L::K, 64, kk), sw_k(sq, BR, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dpt, sw_k(base + L::V, 64, kk), sw_k(sdo, BR, kk), kk > 0);
+    wgmma_commit();
+    refill(n - 1);
+    wgmma_wait<1>();
+    fence_regs(st);
+
+    // P^T; a tile with no masked pair takes the loop without mask tests,
+    // one masked only by the valid length and Tq a loop with a test a key
+    // and a query
+    if (tile_unmasked<BR>(p, kvlen, q0, k0)) {
+#pragma unroll
+      for (int j = 0; j < BR / 8; ++j) {
+        // lse2 of queries 8 j + 2 t and + 1
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(slse + 8 * j + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          st[4 * j + i] = fast_exp2(st[4 * j + i] * hp.scale_log2 -
+                                    ((i & 1) ? l2.y : l2.x));
+      }
+    } else if (!p.causal && p.qseg == nullptr) {
+      const bool key_in[2] = {key0 < kvlen, key0 + 8 < kvlen};
+#pragma unroll
+      for (int j = 0; j < BR / 8; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(slse + 8 * j + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qc = 8 * j + 2 * t + (i & 1);
+          st[4 * j + i] =
+              key_in[i >> 1] && q0 + qc < p.Tq
+                  ? fast_exp2(st[4 * j + i] * hp.scale_log2 -
+                              ((i & 1) ? l2.y : l2.x))
+                  : 0.f;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BR / 8; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(slse + 8 * j + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qc = 8 * j + 2 * t + (i & 1);
+          st[4 * j + i] =
+              visible(p, b, kvlen, q0 + qc, key0 + (i >> 1) * 8)
+                  ? fast_exp2(st[4 * j + i] * hp.scale_log2 -
+                              ((i & 1) ? l2.y : l2.x))
+                  : 0.f;
+        }
       }
     }
+    wgmma_wait<0>();
+    fence_regs(dpt);
+    // dS^T, and P^T and dS^T rounded to bf16 as the A fragments of dV and
+    // dK, 16 queries at a time
+    uint32_t pf[BR / 16][4], dsf[BR / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pf[4], dsf[4];
-      acc_to_a(pf, s[2 * kk], s[2 * kk + 1]);
-      acc_to_a(dsf, dp[2 * kk], dp[2 * kk + 1]);
+    for (int kk = 0; kk < BR / 16; ++kk) {
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        mma_b_rows<LDT>(dv[dt], pf, sdOt, dt * 8, kk, g, t);
-        mma_b_rows<LDT>(dk[dt], dsf, sQt, dt * 8, kk, g, t);
+      for (int j = 2 * kk; j < 2 * kk + 2; ++j) {
+        const float2 dl =
+            *reinterpret_cast<const float2*>(sdl + 8 * j + 2 * t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dpt[4 * j + i] = st[4 * j + i] *
+                           (dpt[4 * j + i] - ((i & 1) ? dl.y : dl.x)) * p.scale;
       }
+      acc_to_a(pf[kk], &st[8 * kk], &st[8 * kk + 4]);
+      acc_to_a(dsf[kk], &dpt[8 * kk], &dpt[8 * kk + 4]);
     }
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) {
+      fence_regs(dv[h]);
+      fence_regs(dk[h]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk)
+#pragma unroll
+      for (int h = 0; h < D / 64; ++h) {
+        wgmma_rs(dv[h], pf[kk], sw_mn(sdo + h * BR * 128, kk));
+        wgmma_rs(dk[h], dsf[kk], sw_mn(sq + h * BR * 128, kk));
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) {
+      fence_regs(dv[h]);
+      fence_regs(dk[h]);
+    }
+    // this tile's buffer is free once all four warps arrive
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
   }
 
   bf16* dkp = static_cast<bf16*>(p.dk) + (size_t)bh * p.Tk * D;
@@ -696,119 +994,231 @@ __global__ void __launch_bounds__(128) flash_bwd_kv_bf16(BwdParams p) {
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
       const size_t at = (size_t)key * D + dt * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dkp + at) =
-          pack_bf16(dk[dt][2 * h], dk[dt][2 * h + 1]);
-      *reinterpret_cast<uint32_t*>(dvp + at) =
-          pack_bf16(dv[dt][2 * h], dv[dt][2 * h + 1]);
+      const float* k2 = &dk[dt >> 3][4 * (dt & 7) + 2 * h];
+      const float* v2 = &dv[dt >> 3][4 * (dt & 7) + 2 * h];
+      *reinterpret_cast<uint32_t*>(dkp + at) = pack_bf16(k2[0], k2[1]);
+      *reinterpret_cast<uint32_t*>(dvp + at) = pack_bf16(v2[0], v2[1]);
     }
   }
 }
 
-template <int D>
-constexpr size_t bwd_q_bf16_smem_bytes() {
-  return (4 * (size_t)64 * (D + 8) + (size_t)D * (64 + 8)) * sizeof(bf16);
-}
+// shared memory of flash_bwd_q_hopper: Q and dO (64 x D), then STAGES x
+// (K, V) tiles of 64 x D
+template <int D, int STAGES>
+struct QSmem {
+  static constexpr int tile = 64 * D * 2;
+  static constexpr int Q = 0;
+  static constexpr int DO = tile;
+  static constexpr int K = 2 * tile;                   // + s * 2 tile
+  static constexpr int BYTES = K + STAGES * 2 * tile;
+};
 
-// dQ of one 64-query tile, bf16 on the tensor cores.  Four warps, each owns
-// 16 query rows and keeps their dQ rows in fp32 registers while the K tiles
-// stream past.  Per K tile: S = Q K^T and dP = dO V^T, P = exp(S * scale -
-// lse) (0 where masked), dS = P (dP - delta) * scale, dQ += bf16(dS) K.
-template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_q_bf16(BwdParams p) {
-  constexpr int LDS = D + 8;
-  constexpr int LDT = BK + 8;
+// dQ of one 64-query tile.  Per K tile: S = Q K^T and dP = dO V^T, P =
+// exp2(S scale log2 e - lse2) (0 where masked), dS = P (dP - delta) scale,
+// dQ += bf16(dS) K.  Accumulator element 4 j + i of a thread: row row0 +
+// 8 (i >> 1), key k0 + 8 j + 2 t + (i & 1).
+template <int D, int STAGES, int MINB>
+__global__ void __launch_bounds__(128, MINB)
+flash_bwd_q_hopper(const __grid_constant__ HopperBwd hp) {
+  using L = QSmem<D, STAGES>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + BQ * LDS;
-  bf16* sK = sdO + BQ * LDS;
-  bf16* sV = sK + BK * LDS;
-  bf16* sKt = sV + BK * LDS;
-
+  __shared__ __align__(8) uint64_t bars[2 * STAGES + 1];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const BwdParams& p = hp.p;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x / p.n_qtiles;
-  const int q0 = (blockIdx.x % p.n_qtiles) * BQ;
+  const int q0 = (blockIdx.x % p.n_qtiles) * 64;
   const int b = bh / p.H;
-  const bf16* q = static_cast<const bf16*>(p.q) + (size_t)bh * p.Tq * D;
-  const bf16* k = static_cast<const bf16*>(p.k) + (size_t)bh * p.Tk * D;
-  const bf16* v = static_cast<const bf16*>(p.v) + (size_t)bh * p.Tk * D;
-  const bf16* dout =
-      static_cast<const bf16*>(p.dout) + (size_t)bh * p.Tq * D;
+  const int kvlen = valid_keys(p, b);
+  const int n_tiles = key_tiles(p, kvlen, q0);
+  const uint32_t full0 = smem_addr(&bars[0]);
+  const uint32_t empty0 = smem_addr(&bars[STAGES]);
+  const uint32_t qbar = smem_addr(&bars[2 * STAGES]);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  stage_rows<D, LDS>(sQ, q, q0, p.Tq, tid, 128);
-  stage_rows<D, LDS>(sdO, dout, q0, p.Tq, tid, 128);
+  // thread 0 issues the loads: Q, dO and the first STAGES K/V tiles here,
+  // each later tile in refill below
+  auto load_tile = [&](int it) {
+    const int s = it % STAGES;
+    const uint32_t fb = full0 + 8 * s;
+    mbar_expect_tx(fb, 2 * L::tile);
+    const uint32_t sk = base + L::K + s * 2 * L::tile;
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) {
+      tma_load_3d(sk + h * 64 * 128, &hp.tk, fb, h * 64, it * 64, bh);
+      tma_load_3d(sk + L::tile + h * 64 * 128, &hp.tv, fb, h * 64, it * 64,
+                  bh);
+    }
+  };
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect_tx(qbar, 2 * L::tile);
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) {
+      tma_load_3d(base + L::Q + h * 64 * 128, &hp.tq, qbar, h * 64, q0, bh);
+      tma_load_3d(base + L::DO + h * 64 * 128, &hp.tdo, qbar, h * 64, q0, bh);
+    }
+    for (int it = 0; it < n_tiles && it < STAGES; ++it) load_tile(it);
+  }
+
+  const int g = lane >> 2, t = lane & 3;
   const int row0 = q0 + warp * 16 + g;     // this thread's rows: row0, +8
+
+  // delta = rowsum(dO * O) of the block's 64 rows, two threads a row,
+  // while the first tiles load; with lse * log2(e) it goes to the padded
+  // arrays (0 past Tq) that the dK/dV kernel, launched next, reads
+  __shared__ float s_delta[64];
+  {
+    const int r = tid >> 1, row = q0 + r;
+    float sum = 0.f;
+    if (row < p.Tq) {
+      const size_t at = ((size_t)bh * p.Tq + row) * D + (tid & 1) * (D / 2);
+      const uint4* o4 = reinterpret_cast<const uint4*>(
+          static_cast<const bf16*>(p.o) + at);
+      const uint4* d4 = reinterpret_cast<const uint4*>(
+          static_cast<const bf16*>(p.dout) + at);
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        const uint4 ov = o4[c], dv = d4[c];
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 a = __bfloat1622float2(o2[i]);
+          const float2 e = __bfloat1622float2(d2[i]);
+          sum += a.x * e.x + a.y * e.y;
+        }
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if ((tid & 1) == 0) {
+      s_delta[r] = sum;
+      const size_t at = (size_t)bh * hp.tq_pad + row;
+      hp.delta[at] = sum;
+      hp.lse2[at] =
+          row < p.Tq ? p.lse[(size_t)bh * p.Tq + row] * kLog2e : 0.f;
+    }
+  }
+  __syncthreads();
   float lse_r[2], dl_r[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + h * 8;
-    const bool in = row < p.Tq;
-    lse_r[h] = in ? p.lse[(size_t)bh * p.Tq + row] : 0.f;
-    dl_r[h] = in ? p.delta[(size_t)bh * p.Tq + row] : 0.f;
+    lse_r[h] = row < p.Tq ? p.lse[(size_t)bh * p.Tq + row] * kLog2e : 0.f;
+    dl_r[h] = s_delta[row - q0];
   }
-  float acc[D / 8][4];
+  float dq[D / 64][32];                    // by 64-column half
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  const int kvlen = valid_keys(p, b);
-  const int n_tiles = key_tiles(p, kvlen, q0);
+  for (int h = 0; h < D / 64; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[h][i] = 0.f;
+  // buffers released and refilled as in flash_bwd_kv_hopper
+  auto refill = [&](int m) {
+    if (tid == 0 && m >= 0 && m + STAGES < n_tiles) {
+      mbar_wait(empty0 + 8 * (m % STAGES), (m / STAGES) & 1);
+      load_tile(m + STAGES);
+    }
+  };
+  if (n_tiles > 0) mbar_wait(qbar, 0);
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * BK;
-    __syncthreads();
-    stage_rows<D, LDS>(sK, k, k0, p.Tk, tid, 128);
-    stage_rows<D, LDS>(sV, v, k0, p.Tk, tid, 128);
-    stage_cols<D, LDT>(sKt, k, k0, p.Tk, tid, 128);
-    __syncthreads();
+    const int s = it % STAGES;
+    const int k0 = it * 64;
+    const uint32_t sk = base + L::K + s * 2 * L::tile;
+    const uint32_t sv = sk + L::tile;
+    mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
 
-    float s[BK / 8][4], dp[BK / 8][4];
+    // S and dP as two groups: P is computed while dP is on the tensor cores
+    float sc[32], dp[32];
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sc, sw_k(base + L::Q, 64, kk), sw_k(sk, 64, kk), kk > 0);
+    wgmma_commit();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, sw_k(base + L::DO, 64, kk), sw_k(sv, 64, kk), kk > 0);
+    wgmma_commit();
+    refill(it - 1);
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    // P; a tile with no masked pair takes the loop without mask tests,
+    // one masked only by the valid length and Tq a loop with a test a key
+    // and a query
+    if (tile_unmasked(p, kvlen, q0, k0)) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qf[4], dof[4];
-      load_a<LDS>(qf, sQ, warp * 16, kk, g, t);
-      load_a<LDS>(dof, sdO, warp * 16, kk, g, t);
+      for (int i = 0; i < 32; ++i)
+        sc[i] = fast_exp2(sc[i] * hp.scale_log2 - lse_r[(i >> 1) & 1]);
+    } else if (!p.causal && p.qseg == nullptr) {
+      const bool row_in[2] = {row0 < p.Tq, row0 + 8 < p.Tq};
 #pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        mma_b_rows<LDS>(s[nt], qf, sK, nt * 8, kk, g, t);
-        mma_b_rows<LDS>(dp[nt], dof, sV, nt * 8, kk, g, t);
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int h = i >> 1;
+          sc[4 * j + i] =
+              row_in[h] && k0 + 8 * j + 2 * t + (i & 1) < kvlen
+                  ? fast_exp2(sc[4 * j + i] * hp.scale_log2 - lse_r[h])
+                  : 0.f;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int h = i >> 1;
+          sc[4 * j + i] =
+              visible(p, b, kvlen, row0 + h * 8, k0 + 8 * j + 2 * t + (i & 1))
+                  ? fast_exp2(sc[4 * j + i] * hp.scale_log2 - lse_r[h])
+                  : 0.f;
+        }
       }
     }
-    const bool full = tile_unmasked(p, kvlen, q0, k0);
+    wgmma_wait<0>();
+    fence_regs(dp);
+    // dS, rounded to bf16 as the A fragments of dQ, 16 keys at a time
+    uint32_t dsf[4][4];
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
+    for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1;
-        float pv = 0.f;
-        if (full || visible(p, b, kvlen, row0 + h * 8,
-                            k0 + nt * 8 + 2 * t + (i & 1)))
-          pv = expf(s[nt][i] * p.scale - lse_r[h]);
-        dp[nt][i] = pv * (dp[nt][i] - dl_r[h]) * p.scale;
-      }
+      for (int i = 8 * kk; i < 8 * kk + 8; ++i)
+        dp[i] = sc[i] * (dp[i] - dl_r[(i >> 1) & 1]) * p.scale;
+      acc_to_a(dsf[kk], &dp[8 * kk], &dp[8 * kk + 4]);
     }
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t dsf[4];
-      acc_to_a(dsf, dp[2 * kk], dp[2 * kk + 1]);
+    for (int h = 0; h < D / 64; ++h) fence_regs(dq[h]);
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt)
-        mma_b_rows<LDT>(acc[dt], dsf, sKt, dt * 8, kk, g, t);
-    }
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < D / 64; ++h)
+        wgmma_rs(dq[h], dsf[kk], sw_mn(sk + h * 64 * 128, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) fence_regs(dq[h]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
   }
 
-  bf16* dq = static_cast<bf16*>(p.dq) + (size_t)bh * p.Tq * D;
+  bf16* dqp = static_cast<bf16*>(p.dq) + (size_t)bh * p.Tq * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + h * 8;
     if (row >= p.Tq) continue;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(dq + (size_t)row * D + dt * 8 + 2 * t) =
-          pack_bf16(acc[dt][2 * h], acc[dt][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dqp + (size_t)row * D + dt * 8 + 2 * t) =
+          pack_bf16(dq[dt >> 3][4 * (dt & 7) + 2 * h],
+                    dq[dt >> 3][4 * (dt & 7) + 2 * h + 1]);
   }
 }
 
@@ -1077,9 +1487,9 @@ __global__ void __launch_bounds__(256) flash_bwd_q_f32(BwdParams p) {
   }
 }
 
-template <typename Kernel>
-int launch_bwd(Kernel kernel, const BwdParams& p, long long blocks,
-               int threads, size_t smem, cudaStream_t s) {
+template <typename Kernel, typename P>
+int launch_bwd(Kernel kernel, const P& p, long long blocks, int threads,
+               size_t smem, cudaStream_t s) {
   if (blocks == 0) return 0;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1089,21 +1499,120 @@ int launch_bwd(Kernel kernel, const BwdParams& p, long long blocks,
 }
 
 template <int D>
-int launch_bwd_bf16(const BwdParams& p, int BH, cudaStream_t s) {
-  int rc = launch_bwd(flash_bwd_q_bf16<D>, p, (long long)BH * p.n_qtiles,
-                      128, bwd_q_bf16_smem_bytes<D>(), s);
-  if (rc != 0) return rc;
-  return launch_bwd(flash_bwd_kv_bf16<D>, p, (long long)BH * p.n_ktiles,
-                    128, bwd_kv_bf16_smem_bytes<D>(), s);
-}
-
-template <int D>
 int launch_bwd_f32(const BwdParams& p, int BH, cudaStream_t s) {
   int rc = launch_bwd(flash_bwd_q_f32<D>, p, (long long)BH * p.n_qtiles,
                       256, bwd_q_f32_smem_bytes<D>(), s);
   if (rc != 0) return rc;
   return launch_bwd(flash_bwd_kv_f32<D>, p, (long long)BH * p.n_ktiles,
                     256, bwd_kv_f32_smem_bytes<D>(), s);
+}
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
+// library needs no link against libcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// the (D, T, BH) bf16 tensor at `ptr` as a tensor map with boxes of 64
+// columns by `rows` rows, 128-byte swizzled, zeros past T
+int make_map(CUtensorMap* map, const void* ptr, int T, int BH, int D,
+             int rows) {
+  EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)(T > 0 ? T : 1),
+                              (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)(T > 0 ? T : 1) * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The tiles, ring stages and register bounds of the bf16 backward at head
+// dim D (the reasons are in the note above the kernels).  BR: the Q/dO tile
+// rows of the dK/dV kernel; MINB: the blocks an SM a kernel is compiled for,
+// which bounds its registers to 65536 / (128 MINB).
+template <int D>
+struct Bf16Bwd;
+template <>
+struct Bf16Bwd<64> {
+  static constexpr int BR = 64, KV_STAGES = 3, Q_STAGES = 3;
+  static constexpr int KV_MINB = 2, Q_MINB = 2;
+};
+template <>
+struct Bf16Bwd<128> {
+  static constexpr int BR = 32, KV_STAGES = 3, Q_STAGES = 2;
+  static constexpr int KV_MINB = 2, Q_MINB = 2;
+};
+
+template <int D>
+struct Bf16BwdKernels {
+  using C = Bf16Bwd<D>;
+  static constexpr auto q = flash_bwd_q_hopper<D, C::Q_STAGES, C::Q_MINB>;
+  static constexpr auto kv =
+      flash_bwd_kv_hopper<D, C::BR, C::KV_STAGES, C::KV_MINB>;
+  static constexpr size_t q_smem = QSmem<D, C::Q_STAGES>::BYTES + 1024;
+  static constexpr size_t kv_smem =
+      KvSmem<D, C::BR, C::KV_STAGES>::BYTES + 1024;
+};
+
+// dQ, then dK and dV
+template <int D>
+int launch_bwd_bf16(const BwdParams& p, float* delta, float* lse2,
+                    int tq_pad, int BH, cudaStream_t s) {
+  using K = Bf16BwdKernels<D>;
+  constexpr int BR = Bf16Bwd<D>::BR;
+  HopperBwd hp;
+  hp.p = p;
+  hp.delta = delta;
+  hp.lse2 = lse2;
+  hp.tq_pad = tq_pad;
+  hp.scale_log2 = p.scale * kLog2e;
+  int rc = make_map(&hp.tq, p.q, p.Tq, BH, D, 64);
+  if (rc == 0) rc = make_map(&hp.tdo, p.dout, p.Tq, BH, D, 64);
+  if (rc == 0) rc = make_map(&hp.tk, p.k, p.Tk, BH, D, 64);
+  if (rc == 0) rc = make_map(&hp.tv, p.v, p.Tk, BH, D, 64);
+  if (rc == 0)
+    rc = launch_bwd(K::q, hp, (long long)BH * p.n_qtiles, 128, K::q_smem, s);
+  if (rc == 0 && BR != 64) {
+    rc = make_map(&hp.tq, p.q, p.Tq, BH, D, BR);
+    if (rc == 0) rc = make_map(&hp.tdo, p.dout, p.Tq, BH, D, BR);
+  }
+  if (rc == 0)
+    rc = launch_bwd(K::kv, hp, (long long)BH * p.n_ktiles, 128, K::kv_smem,
+                    s);
+  return rc;
+}
+
+template <typename Kernel>
+int occupancy(Kernel kernel, size_t smem, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, 128,
+                                                        smem);
+  return (int)err;
 }
 
 }  // namespace
@@ -1128,7 +1637,7 @@ extern "C" int mx_flash_attention_fwd(const void* q, const void* k,
   p.q = q;
   p.k = k;
   p.v = v;
-  p.o = o;
+  p.o = const_cast<void*>(o);
   p.lse = static_cast<float*>(lse);
   p.lens = static_cast<const int*>(lens);
   p.qseg = static_cast<const int*>(qseg);
@@ -1152,12 +1661,14 @@ extern "C" int mx_flash_attention_fwd(const void* q, const void* k,
 
 // The backward of mx_flash_attention_fwd.  q, o and dout: BH x Tq x D; k and
 // v: BH x Tk x D; all contiguous, of `dtype`, D = 64 or 128, the pointers
-// 16-byte aligned; lse: the forward's BH x Tq floats; delta: BH x Tq floats
-// of scratch.  dq (BH x Tq x D), dk and dv (BH x Tk x D), of `dtype`, are
-// written whole: rows of dk and dv past a row's valid length are zeros.
-// lens, qseg, kseg, H, scale and causal as for the forward.  Three kernels
-// run in turn on `stream`: delta = rowsum(dout * o), dq, then dk and dv.
-// Returns a cudaError_t as int (0 = ok).
+// 16-byte aligned; lse: the forward's BH x Tq floats; delta: scratch of
+// 2 x BH x Tq_pad floats, Tq_pad = Tq rounded up to 64, 16-byte aligned.
+// dq (BH x Tq x D), dk and dv (BH x Tk x D), of `dtype`, are written whole:
+// rows of dk and dv past a row's valid length are zeros.  lens, qseg, kseg,
+// H, scale and causal as for the forward.  The kernels run in turn on
+// `stream`: bf16, dq (with delta = rowsum(dout * o) and lse * log2(e) into
+// the scratch), then dk and dv; f32, delta, dq, then dk and dv.  Returns a
+// cudaError_t as int (0 = ok).
 extern "C" int mx_flash_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* lse, const void* dout,
@@ -1176,7 +1687,7 @@ extern "C" int mx_flash_attention_bwd(const void* q, const void* k,
   p.q = q;
   p.k = k;
   p.v = v;
-  p.o = nullptr;
+  p.o = const_cast<void*>(o);
   p.lse = static_cast<float*>(const_cast<void*>(lse));
   p.lens = static_cast<const int*>(lens);
   p.qseg = static_cast<const int*>(qseg);
@@ -1194,22 +1705,45 @@ extern "C" int mx_flash_attention_bwd(const void* q, const void* k,
   p.dv = dv;
   p.n_ktiles = (Tk + BK - 1) / BK;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    // delta and lse * log2(e), padded to whole 64-row tiles for the dK/dV
+    // kernel's bulk copies, are written by the dQ kernel
+    const int pad = (Tq + 63) / 64 * 64;
+    float* dl = static_cast<float*>(delta);
+    float* lse2 = dl + (size_t)BH * pad;
+    return D == 64 ? launch_bwd_bf16<64>(p, dl, lse2, pad, BH, s)
+                   : launch_bwd_bf16<128>(p, dl, lse2, pad, BH, s);
+  }
   const long long rows = (long long)BH * Tq;
   if (rows > 0) {
-    const unsigned blocks = (unsigned)((rows + 3) / 4);
-    if (dtype == 1)
-      flash_bwd_delta<bf16><<<blocks, 128, 0, s>>>(
-          static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-          static_cast<float*>(delta), rows, D);
-    else
-      flash_bwd_delta<float><<<blocks, 128, 0, s>>>(
-          static_cast<const float*>(o), static_cast<const float*>(dout),
-          static_cast<float*>(delta), rows, D);
+    flash_bwd_delta_f32<<<(unsigned)((rows + 3) / 4), 128, 0, s>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout),
+        static_cast<float*>(delta), rows, D);
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }
-  if (dtype == 1)
-    return D == 64 ? launch_bwd_bf16<64>(p, BH, s)
-                   : launch_bwd_bf16<128>(p, BH, s);
   return D == 64 ? launch_bwd_f32<64>(p, BH, s) : launch_bwd_f32<128>(p, BH, s);
+}
+
+// The resources of the bf16 backward kernels at head dim D (64 or 128), for
+// the build report: out[0..3] = blocks an SM and dynamic shared memory bytes
+// a block of the dQ kernel, then of the dK/dV kernel.  Returns a cudaError_t
+// as int (0 = ok).
+extern "C" int mx_flash_attention_bwd_occupancy(int D, int* out) {
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  int rc;
+  if (D == 64) {
+    using K = Bf16BwdKernels<64>;
+    out[1] = (int)K::q_smem;
+    out[3] = (int)K::kv_smem;
+    rc = occupancy(K::q, K::q_smem, &out[0]);
+    if (rc == 0) rc = occupancy(K::kv, K::kv_smem, &out[2]);
+  } else {
+    using K = Bf16BwdKernels<128>;
+    out[1] = (int)K::q_smem;
+    out[3] = (int)K::kv_smem;
+    rc = occupancy(K::q, K::q_smem, &out[0]);
+    if (rc == 0) rc = occupancy(K::kv, K::kv_smem, &out[2]);
+  }
+  return rc;
 }

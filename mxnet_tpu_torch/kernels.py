@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,7 +23,8 @@ from typing import Dict, Sequence
 
 from .base import MXNetError
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "build_log"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "build_log",
+           "ptxas_report"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -97,6 +99,59 @@ def build_log(name: str) -> str:
     """The compiler's output (``-Xptxas -v`` register and spill report) of
     this process's build of ``name``; empty when it was already built."""
     return _LOGS.get(name, "")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel symbol: the last name of its
+    (possibly nested) name and its integer template arguments, e.g.
+    ``flash_bwd_kv_hopper<64,64,3,2>``; the symbol itself where it does not
+    parse."""
+    m = re.match(r"_ZN?", mangled)
+    if m is None:
+        return mangled
+    pos, name = m.end(), None
+    while pos < len(mangled) and mangled[pos].isdigit():
+        digits = re.match(r"\d+", mangled[pos:]).group()
+        start = pos + len(digits)
+        name = mangled[start:start + int(digits)]
+        pos = start + int(digits)
+    if name is None:
+        return mangled
+    args = []
+    if mangled[pos:pos + 1] == "I":
+        for lit in re.finditer(r"Li(n?\d+)E", mangled[pos + 1:]):
+            if lit.start() != sum(len(a) for a in args):
+                break
+            args.append(lit.group())
+    if not args:
+        return name
+    return "%s<%s>" % (name, ",".join(
+        a[2:-1].replace("n", "-") for a in args))
+
+
+def ptxas_report(log: str):
+    """The ``-Xptxas -v`` lines of a build log, one dict a kernel:
+    ``{"kernel", "registers", "spill_stores", "spill_loads"}`` in bytes of
+    spill, in the order ptxas reports them."""
+    out, current = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = {"kernel": _kernel_name(m.group(1)), "registers": None,
+                       "spill_stores": 0, "spill_loads": 0}
+            out.append(current)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            current["spill_stores"] = int(m.group(1))
+            current["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

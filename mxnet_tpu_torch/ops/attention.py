@@ -86,7 +86,10 @@ def _kernel_fn(name="fwd"):
         bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + \
             [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         bwd.restype = ctypes.c_int
-        _FNS.update(fwd=fn, bwd=bwd)
+        occ = lib.mx_flash_attention_bwd_occupancy
+        occ.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        occ.restype = ctypes.c_int
+        _FNS.update(fwd=fn, bwd=bwd, bwd_occupancy=occ)
     return _FNS[name]
 
 
@@ -372,7 +375,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=device)
+    # the kernels' scratch: delta and lse * log2(e), each padded to whole
+    # 64-row tiles
+    delta = torch.empty(2 * B * H * (-(-Tq // 64) * 64), dtype=torch.float32,
+                        device=device)
     masks = _mask_operands(B, device, kv_lens, q_segments, kv_segments)
     fn = _kernel_fn("bwd")
     with torch.cuda.device(device):

@@ -70,6 +70,16 @@ CASES = [
      True, (256, 150), False),
     ("split_segments_bf16", 1, 1, 256, 256, 64, "bfloat16", 128, 128,
      False, None, True),
+    # the edges of the card kernels' tile ring: a ragged last K tile with
+    # kv_lens on a tile edge and 0, and causal with Tq != Tk
+    ("split_tk65_lens64_bf16", 2, 1, 96, 65, 32, "bfloat16", 64, 32, False,
+     (64, 0), False),
+    ("fused_tk129_lens128_f32", 1, 2, 64, 129, 32, "float32", 64, 256,
+     False, (128,), False),
+    ("split_causal_tq_lt_tk_f32", 1, 2, 64, 129, 32, "float32", 32, 64,
+     True, None, False),
+    ("split_causal_tq_gt_tk_lens_bf16", 2, 1, 129, 65, 32, "bfloat16", 64,
+     32, True, (65, 64), False),
 ]
 
 
