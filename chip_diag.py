@@ -5,6 +5,7 @@
     python3 chip_diag.py parity [--seed 0]
     python3 chip_diag.py ab --parent DIR [--pairs 2]
     python3 chip_diag.py bwd
+    python3 chip_diag.py fwd --other FILE [--pairs 2]
 
 ``parity``: the gradients of one batch-2 ResNet-50 v1 training step from
 the same Xavier weights (those of ``chip_smoke.py``'s training phase),
@@ -34,7 +35,16 @@ sums over the blocks for warp 0 -- once as the kernel is, and once with
 every tile sent through the general masked exponential loop (a mask test
 an element), which the kernel keeps for causal and segment masks.
 
-All three need a CUDA card and exit non-zero without one.
+``fwd``: the bf16 flash-attention forward of another version of
+``csrc/flash_attention.cu`` (``--other``, e.g. the parent commit's file)
+against this checkout's, both built side by side and called through their
+(B, H, T, D) C entry ``mx_flash_attention_fwd`` on the same operands, at
+BERT-base's shape (24, 12, 512, 512, 64) with ``bench.py``'s valid lengths
+and at (1, 12, 2048, 2048, 64): whether the two give the same bits, then
+their times in turns (other, this, this, other for ``--pairs 2``) as
+``chip_smoke.py`` times a kernel, and each build's forward registers.
+
+All four need a CUDA card and exit non-zero without one.
 """
 from __future__ import annotations
 
@@ -351,6 +361,92 @@ def bwd():
     return 0
 
 
+def _build_side_by_side(sources):
+    """Build {name: .cu path} in parallel into ``_build/``; {name: (library,
+    the forward kernels' ptxas lines)}."""
+    from mxnet_tpu_torch import kernels
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name, src in sources.items():
+        lib = os.path.join(kernels.BUILD_DIR, "libdiag_fwd_%s.so" % name)
+        procs[name] = (subprocess.Popen(
+            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    out = {}
+    for name, (proc, lib) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise SystemExit("chip_diag fwd: build of %s failed\n%s"
+                             % (name, log[-3000:]))
+        out[name] = (lib, [r for r in kernels.ptxas_report(log)
+                           if r["kernel"].startswith("flash_fwd")])
+    return out
+
+
+def fwd(other, pairs):
+    import ctypes
+    import torch
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from mxnet_tpu_torch import kernels
+    card = cs.card_line()
+    print("card: %s" % card)
+    builds = _build_side_by_side({
+        "other": other,
+        "this": os.path.join(kernels.CSRC_DIR, "flash_attention.cu")})
+    fns = {}
+    for name, (lib, report) in builds.items():
+        for r in report:
+            print("ptxas %s: %s: %s registers, spill %d/%d bytes" % (
+                name, r["kernel"], r["registers"], r["spill_stores"],
+                r["spill_loads"]))
+        fn = ctypes.CDLL(lib).mx_flash_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
+            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    order = []
+    for i in range(pairs):
+        order += ["other", "this"] if i % 2 == 0 else ["this", "other"]
+    cases = {c[0]: c for c in cs.ATTN_CASES}
+    _, bench_lens, _ = cs.bert_inputs(0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    flush = torch.empty(cs.L2_FLUSH_BYTES // 4, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for label in ("bert", "t2048"):
+        _, B, H, Tq, Tk, D, _, causal, _, _ = cases[label]
+        q, k, v, _, kw = cs._attention_operands(torch, gen, cases[label],
+                                                bench_lens)
+        lens = kw.get("kv_lens")
+        o = torch.empty_like(q)
+        lse = torch.empty((B, H, Tq), device="cuda")
+
+        def call(name):
+            rc = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), lse.data_ptr(),
+                           None if lens is None else lens.data_ptr(), None,
+                           None, B * H, H, Tq, Tk, D, D ** -0.5, int(causal),
+                           1, stream)
+            cs.check(rc == 0, "chip_diag fwd: %s returned %d" % (name, rc))
+        outs = {}
+        for name in fns:
+            call(name)
+            torch.cuda.synchronize()
+            outs[name] = (o.clone(), lse.clone())
+        same = all(torch.equal(a, b) for a, b in zip(outs["other"],
+                                                     outs["this"]))
+        times = {name: [] for name in fns}
+        for name in order:
+            times[name].append(cs.time_cuda(torch, lambda: call(name),
+                                            flush))
+        print("fwd %s %s: same bits %s; ms in turns %s  (%s)" % (
+            label, (B, H, Tq, Tk, D), same,
+            json.dumps({n: t for n, t in times.items()}), card))
+        del q, k, v, o, lse, outs
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -360,6 +456,9 @@ def main(argv=None):
     a.add_argument("--parent", required=True)
     a.add_argument("--pairs", type=int, default=2)
     sub.add_parser("bwd")
+    f = sub.add_parser("fwd")
+    f.add_argument("--other", required=True)
+    f.add_argument("--pairs", type=int, default=2)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -369,6 +468,8 @@ def main(argv=None):
         return parity(args.seed)
     if args.cmd == "bwd":
         return bwd()
+    if args.cmd == "fwd":
+        return fwd(os.path.abspath(args.other), args.pairs)
     return ab(os.path.abspath(args.parent), args.pairs)
 
 

@@ -47,7 +47,8 @@ and PyTorch built for CUDA.  It:
    a row) built as ``bench.py`` builds it, Xavier weights from ``--seed``,
    cast to bfloat16, batch 24 x 512 with ``bench.py``'s valid lengths,
    through ``Block.__call__``: 3 warm-up and 10 timed forwards.  It checks
-   12 attention and 26 LayerNorm launches a forward, finite outputs, the
+   12 (B, T, H, D) attention launches (none of the (B, H, T, D) kernel)
+   and 26 LayerNorm launches a forward, finite outputs, the
    bf16 sequence output against the same net's float32 forward, and a
    float32 forward on the card against the same forward on the CPU (batch
    2, S 128, pooler and decoder), and prints one forward on the default
@@ -60,17 +61,34 @@ and PyTorch built for CUDA.  It:
    the same bits and that dk and dv are 0 past each row's valid length,
    and times them beside their bounds and the backward of the same
    PyTorch calls;
-9. BERT training phase (``MXNET_FUSED_LAYERNORM=1``): BERT-base as in 7,
+9. BSHD phase (``attention_bshd_cases``): holds the (B, T, H, D)
+   flash-attention forward and backward against their plain versions,
+   at BERT-base's shape and valid lengths with q, k and v as strided views
+   of one (B, T, 3 H D) projection output and the backward writing into
+   views of one such gradient, at (1, 2048, 16, 128) causal, (2, 1024, 8,
+   128) float32, D 80 (padded), Tk 65 and 129, and kv_lens 0 and on tile
+   edges: the backward twice to the same bits, exact zeros past the valid
+   lengths; times both beside their bounds and scaled_dot_product_attention
+   on the same strided views; then the attention sublayer at BERT's shape
+   (projection output in, (B, L, E) out, forward and backward) through the
+   (B, T, H, D) kernels and through the (B, H, T, D) op on transposed
+   views, side by side (the data of the layer's choice); then the public
+   ops under autograd (``nd.flash_attention_bshd`` and
+   ``nd.flash_attention`` on transposed views, at BERT's shape and at T
+   2048, D 128, causal), each launch counted from 0, the two ops' outputs
+   and gradients held to each other;
+10. BERT training phase (``MXNET_FUSED_LAYERNORM=1``): BERT-base as in 7,
    bf16, trained through ``autograd.record``, ``backward`` and
    ``gluon.Trainer`` (Adam, lr 1e-4, bf16 state, as bench.py's config-5
    step) on the masked-LM loss of 24 x 512 tokens with random labels: 3
-   warm-up and 10 timed steps.  It checks 12 attention and 26 LayerNorm
-   launches a step, forward and backward each, finite losses that fall,
+   warm-up and 10 timed steps.  It checks 12 (B, T, H, D) attention and 26
+   LayerNorm launches a step, forward and backward each (none of the (B,
+   H, T, D) attention kernels), finite losses that fall,
    a finite gradient for every parameter after the first step (non-zero
    for every one the batch reaches), and one f32 step on the card against
    the same step on the CPU (batch 2, S 128, same weights), with the
    CPU's own 1-thread-vs-N-thread floor printed beside it;
-10. prints one JSON line describing each kernel, then as its last line
+11. prints one JSON line describing each kernel, then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero without the ``ok``
@@ -1227,6 +1245,314 @@ def layernorm_bwd_cases(torch, layernorm, card, flush, seed):
     return rows
 
 
+# (case, B, Tq, Tk, H, D, dtype, causal, kv_lens, packed) of the (B, T,
+# H, D) kernels: "packed" q, k and v are the column blocks of one (B, T, 3
+# H D) buffer (a fused projection's output), the backward writing into
+# views of one such gradient; the others are contiguous (B, T, H, D)
+ATTN_BSHD_CASES = [
+    ("bert", 24, 512, 512, 12, 64, "bfloat16", False, "bench", True),
+    ("t2048_d128_causal", 1, 2048, 2048, 16, 128, "bfloat16", True, None,
+     False),
+    ("f32_t1024_d128", 2, 1024, 1024, 8, 128, "float32", False, None, False),
+    ("d80", 2, 256, 256, 12, 80, "bfloat16", False, (256, 100), False),
+    ("tk65_lens_64_0", 2, 100, 65, 3, 64, "bfloat16", False, (64, 0), False),
+    ("tk129_lens_128", 2, 130, 129, 3, 64, "bfloat16", False, (128, 129),
+     False),
+    ("lens_on_tile_edges", 3, 256, 256, 4, 64, "bfloat16", False,
+     (64, 128, 0), True),
+]
+
+
+# the public ops' second case: (B, T, H, D, causal, kv_lens), where the
+# transformer's note places the (B, T, H, D) entry
+PUBLIC_OP_LONG = (1, 2048, 16, 128, True, None)
+
+
+def _bshd_operands(torch, attention, gen, case, bench_lens):
+    """q, k, v, the cotangent and the mask keywords of one BSHD case, and
+    the (B, T, 3 H D) buffer whose views q, k and v are (None unless
+    packed)."""
+    _, B, Tq, Tk, H, D, dt, causal, lens, packed = case
+    dev = torch.device("cuda", 0)
+    dtype = getattr(torch, dt)
+    buf = None
+    check(not packed or Tq == Tk, "a packed case is self-attention")
+    if packed:
+        buf = torch.randn((B, Tq, 3 * H * D), device=dev,
+                          generator=gen).to(dtype)
+        q, k, v = attention._qkv_heads(buf, H)
+    else:
+        q, k, v = (torch.randn((B, T, H, D), device=dev, generator=gen)
+                   .to(dtype) for T in (Tq, Tk, Tk))
+    do = torch.randn((B, Tq, H, D), device=dev, generator=gen).to(dtype)
+    kw = {"causal": causal}
+    if lens is not None:
+        kw["kv_lens"] = torch.tensor(bench_lens if lens == "bench" else lens,
+                                     device=dev, dtype=torch.int32)
+    return q, k, v, do, kw, buf
+
+
+def _bwd_errors(torch, what, got, want, dtype):
+    """max |got - want| and its ratio to the largest |plain value| over dq,
+    dk and dv, checked against the backward's tolerance."""
+    rel_tol = ATTN_BWD_F32_REL if dtype == torch.float32 \
+        else ATTN_BWD_BF16_REL
+    err = rel = 0.0
+    for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              "%s %s: kernel gave %s %s" % (what, gname, tuple(a.shape),
+                                            a.dtype))
+        check(bool(torch.isfinite(a).all()), "%s %s: non-finite"
+              % (what, gname))
+        e = (a.float() - b.float()).abs().max().item()
+        r = e / max(b.float().abs().max().item(), 1e-30)
+        check(r <= rel_tol, "%s %s: max err %.3g of the largest |plain| > %g"
+              % (what, gname, r, rel_tol))
+        err, rel = max(err, e), max(rel, r)
+    return err, rel
+
+
+def attention_bshd_cases(torch, attention, card, flush, seed):
+    """The (B, T, H, D) flash-attention forward and backward kernels
+    against their plain versions, timed beside their bounds and
+    scaled_dot_product_attention (forward and backward) on the same
+    strided views with the same boolean mask."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    dev = torch.device("cuda", 0)
+    bw = memory_bytes_per_s(card)
+    _, bench_lens, _ = bert_inputs(seed)
+    rows = []
+    for case in ATTN_BSHD_CASES:
+        name, B, Tq, Tk, H, D, dt, causal, lens, packed = case
+        dtype = getattr(torch, dt)
+        q, k, v, do, kw, buf = _bshd_operands(torch, attention, gen, case,
+                                              bench_lens)
+        what = "attention bshd %s %s" % (name, (B, Tq, Tk, H, D))
+        with torch.no_grad():
+            def f_fn():
+                return attention.flash_attention_bshd_fwd(q, k, v, **kw)
+
+            def fp_fn():
+                return attention._flash_attention_bshd_plain(q, k, v, **kw)
+            (o, lse), (po, plse) = f_fn(), fp_fn()
+            torch.cuda.synchronize()
+            check(o.shape == po.shape and o.dtype == po.dtype
+                  and lse.shape == (B, H, Tq) and lse.dtype == torch.float32,
+                  "%s: kernel gave %s %s" % (what, tuple(o.shape), o.dtype))
+            check(bool(torch.isfinite(o).all()), "%s: non-finite o" % what)
+            err = (o.float() - po.float()).abs().max().item()
+            lse_err = (lse - plse).abs().max().item()
+            if dtype == torch.float32:
+                check(err <= ATTN_F32_O and lse_err <= ATTN_F32_LSE,
+                      "%s: max|o err| %.3g, max|lse err| %.3g" % (what, err,
+                                                                 lse_err))
+            else:
+                # the scores are fp32 from bf16 inputs on both sides, so
+                # lse is held as in f32
+                o_rel = err / max(po.float().abs().max().item(), 1e-30)
+                check(o_rel <= ATTN_BF16_REL and lse_err <= ATTN_F32_LSE,
+                      "%s: o rel err %.3g, max|lse err| %.3g" % (what, o_rel,
+                                                                lse_err))
+            del po, plse
+            grad = None if buf is None else torch.empty_like(buf)
+            out = None if buf is None else attention._qkv_heads(grad, H)
+
+            def b_fn():
+                return attention.flash_attention_bshd_bwd(q, k, v, o, lse,
+                                                          do, out=out, **kw)
+
+            def bp_fn():
+                return attention._flash_attention_bshd_bwd_plain(
+                    q, k, v, o, lse, do, **kw)
+            got = [t.clone() for t in b_fn()]
+            again, want = b_fn(), bp_fn()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  "%s: two backward runs differ" % what)
+            bwd_err, bwd_rel = _bwd_errors(torch, what + " bwd", got, want,
+                                           dtype)
+            if lens is not None:
+                for b, n in enumerate(kw["kv_lens"].tolist()):
+                    check(not got[1][b, n:].any() and not got[2][b, n:].any(),
+                          "%s: dk/dv of keys past the valid length are not "
+                          "0" % what)
+                    if n == 0:
+                        check(not o[b].any() and not got[0][b].any(),
+                              "%s: a row that sees no key is not 0" % what)
+            del got, again, want
+            ms, plain_ms = time_cuda(torch, f_fn, flush), \
+                time_cuda(torch, fp_fn, flush)
+            bwd_ms, bwd_plain_ms = time_cuda(torch, b_fn, flush), \
+                time_cuda(torch, bp_fn, flush)
+            host = host_us(torch, f_fn)
+        # the library's yardstick on the same strided views, transposed to
+        # (B, H, T, D) without a copy
+        mask = attention._visible(B, Tq, Tk, dev, causal, kw.get("kv_lens"),
+                                  None, None)
+        qg, kg, vg = (t.detach().transpose(1, 2).requires_grad_()
+                      for t in (q, k, v))
+        with torch.no_grad():
+            library_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=mask), flush)
+        lout = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        dot = do.transpose(1, 2)
+        bwd_library_ms = time_cuda(torch, lambda: torch.autograd.grad(
+            lout, (qg, kg, vg), dot, retain_graph=True), flush)
+        del lout, qg, kg, vg, mask
+        pairs = _visible_pairs(torch, attention, B, Tq, Tk, causal,
+                               kw.get("kv_lens"), None, None)
+        keys = B * Tk if lens is None else \
+            int(torch.clamp(kw["kv_lens"], 0, Tk).sum().item())
+        size = q.element_size()
+        peak = BF16_PEAK_OPS if dtype == torch.bfloat16 \
+            else fp32_ops_per_s(card)
+        # the (B, H, T, D) rows' counts: forward q, k, v read and o written
+        # (k and v up to the valid lengths) and lse written, two products;
+        # backward q, o, do, dq and k, v, dk, dv and lse, five products
+        f_bytes = (2 * B * Tq + 2 * keys) * H * D * size + B * H * Tq * 4
+        b_bytes = (4 * B * Tq + 4 * keys) * H * D * size + B * H * Tq * 4
+        f_ops, b_ops = 4.0 * H * D * pairs, 10.0 * H * D * pairs
+        row = {"case": name, "shape": [B, Tq, Tk, H, D], "dtype": dt,
+               "causal": causal, "kv_lens": None if lens is None else
+               ("bench" if lens == "bench" else list(lens)),
+               "strided_views": packed, "max_abs_err": err,
+               "lse_max_abs_err": lse_err, "bwd_max_abs_err": bwd_err,
+               "bwd_max_rel_err": bwd_rel, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "bound_ms": max(f_bytes / bw, f_ops / peak) * 1e3,
+               "bound_by": "bytes" if f_bytes / bw > f_ops / peak
+               else "operations", "tflops": f_ops / ms / 1e9,
+               "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
+               "bwd_library_ms": bwd_library_ms,
+               "bwd_bound_ms": max(b_bytes / bw, b_ops / peak) * 1e3,
+               "bwd_bound_by": "bytes" if b_bytes / bw > b_ops / peak
+               else "operations", "bwd_tflops": b_ops / bwd_ms / 1e9,
+               "visible_pairs": pairs * H, "host_us": host}
+        rows.append(row)
+        print("kernel attention bshd %-18s %-24s %-8s fwd err %.3g (lse "
+              "%.3g) kernel %.4f ms (%.1f TFLOP/s) plain %.4f sdpa %.4f "
+              "bound %.4f (%s); bwd err %.3g (rel %.3g) kernel %.4f ms (%.1f "
+              "TFLOP/s) plain %.4f sdpa bwd %.4f bound %.4f (%s); host/call "
+              "%.1f us  (%s)"
+              % (name, (B, Tq, Tk, H, D), dt, err, lse_err, ms, row["tflops"],
+                 plain_ms, library_ms, row["bound_ms"], row["bound_by"],
+                 bwd_err, bwd_rel, bwd_ms, row["bwd_tflops"], bwd_plain_ms,
+                 bwd_library_ms, row["bwd_bound_ms"], row["bwd_bound_by"],
+                 host, card))
+        del q, k, v, do, o, lse, buf, grad, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sublayer_side_by_side(torch, attention, card, flush, seed):
+    """The attention sublayer at BERT-base's shape both ways, in turns in
+    one run: the fused (B, L, 3E) projection output in, (B, L, E) out,
+    forward and backward.  ``bshd``: the (B, T, H, D) kernels on its
+    column blocks, the gradient written into one (B, L, 3E) tensor (what
+    MultiHeadAttention runs); ``bhtd``: the (B, H, T, D) op on transposed
+    views, with the copies it makes them contiguous with and the
+    transposes back.  The two must give the same gradient."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    dev = torch.device("cuda", 0)
+    B, L, H, E = BERT_BATCH, BERT_SEQ, BERT_HEADS, BERT_UNITS
+    D = E // H
+    _, bench_lens, _ = bert_inputs(seed)
+    lens = torch.tensor(bench_lens, device=dev, dtype=torch.int32)
+    qkv = torch.randn((B, L, 3 * E), device=dev, generator=gen) \
+        .to(torch.bfloat16).requires_grad_()
+    do = torch.randn((B, L, E), device=dev, generator=gen).to(torch.bfloat16)
+
+    def bshd_fwd():
+        return attention.self_attention_bshd(qkv, H, False, lens)
+
+    def bhtd_fwd():
+        q, k, v = (t.reshape(B, L, H, D).transpose(1, 2)
+                   for t in qkv.split(E, dim=-1))
+        return attention.flash_attention(q, k, v, False, None, lens) \
+            .transpose(1, 2).reshape(B, L, E)
+
+    def both(fwd):
+        return lambda: torch.autograd.grad(fwd(), qkv, do)[0]
+    a, b = both(bshd_fwd)(), both(bhtd_fwd)()
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "attention sublayer: the (B, T, H, D) and (B, "
+          "H, T, D) routes give different gradients (max diff %.3g)"
+          % (a.float() - b.float()).abs().max().item())
+    del a, b
+    times = {"bshd": [], "bhtd": [], "bshd_fwd": [], "bhtd_fwd": []}
+    for way in ("bshd", "bhtd", "bhtd", "bshd"):
+        fwd = bshd_fwd if way == "bshd" else bhtd_fwd
+        times[way].append(time_cuda(torch, both(fwd), flush))
+        with torch.no_grad():
+            times[way + "_fwd"].append(time_cuda(torch, fwd, flush))
+    out = {k: statistics.mean(v) for k, v in times.items()}
+    out["runs"] = times
+    print("attention sublayer %s bf16, bench lengths, forward and "
+          "backward: (B, T, H, D) route %.4f ms, (B, H, T, D) route with "
+          "transposes %.4f ms; forward alone %.4f and %.4f ms  (%s)"
+          % ((B, L, E), out["bshd"], out["bhtd"], out["bshd_fwd"],
+             out["bhtd_fwd"], card))
+    del qkv, do
+    torch.cuda.empty_cache()
+    return out
+
+
+def public_op_phase(torch, mx, attention, seed, card):
+    """The public attention ops through the user's entry points under
+    ``autograd.record``: ``nd.flash_attention_bshd`` on (B, T, H, D)
+    arrays and ``nd.flash_attention`` on the same arrays transposed, at
+    BERT-base's shape and valid lengths and at (1, 2048, 16, 128) causal,
+    bf16, forward and backward.  The counts start from 0 just before and
+    are read just after; each op launches its own kernels once a case each
+    way, and the two ops' outputs and gradients agree."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    dev = torch.device("cuda", 0)
+    gpu = mx.gpu(0)
+    _, bench_lens, _ = bert_inputs(seed)
+    cases = [(BERT_BATCH, BERT_SEQ, BERT_HEADS, BERT_UNITS // BERT_HEADS,
+              False, bench_lens), PUBLIC_OP_LONG]
+    attention.LAUNCHES = attention.BWD_LAUNCHES = 0
+    attention.BSHD_LAUNCHES = attention.BSHD_BWD_LAUNCHES = 0
+    for B, T, H, D, causal, lens in cases:
+        what = "public attention ops %s" % ((B, T, H, D),)
+        q, k, v, do = (torch.randn((B, T, H, D), device=dev, generator=gen)
+                       .to(torch.bfloat16) for _ in range(4))
+        vl = None if lens is None else mx.nd.array(lens, ctx=gpu,
+                                                   dtype="int32")
+        results = []
+        for op, layout in ((mx.nd.flash_attention_bshd, lambda t: t),
+                           (mx.nd.flash_attention,
+                            lambda t: t.transpose(1, 2))):
+            args = [mx.nd.array(layout(t).clone(), ctx=gpu)
+                    for t in (q, k, v)]
+            for a in args:
+                a.attach_grad()
+            with mx.autograd.record():
+                out = op(*args, causal=causal, kv_lens=vl)
+            out.backward(mx.nd.array(layout(do), ctx=gpu))
+            results.append([layout(t.astorch()) for t in
+                            [out] + [a.grad for a in args]])
+        torch.cuda.synchronize()
+        for name, a, b in zip(("o", "dq", "dk", "dv"), *results):
+            check(bool(torch.isfinite(a).all()), "%s: non-finite %s"
+                  % (what, name))
+            err = (a.float() - b.float()).abs().max().item()
+            check(err <= ATTN_BWD_BF16_REL * b.float().abs().max().item(),
+                  "%s %s: the two ops differ by %.3g" % (what, name, err))
+        del q, k, v, do, results
+    launches = {"bshd_fwd": attention.BSHD_LAUNCHES,
+                "bshd_bwd": attention.BSHD_BWD_LAUNCHES,
+                "bhtd_fwd": attention.LAUNCHES,
+                "bhtd_bwd": attention.BWD_LAUNCHES}
+    check(set(launches.values()) == {len(cases)}, "public attention ops: "
+          "launches %s, want %d of each" % (launches, len(cases)))
+    print("public attention ops under autograd, %d cases: launches %s  (%s)"
+          % (len(cases), launches, card))
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _bert(mx, use_pooler):
     from mxnet_tpu_torch.gluon.model_zoo import bert_base
     return bert_base(vocab_size=BERT_VOCAB, max_length=BERT_SEQ,
@@ -1309,20 +1635,23 @@ def bert_phase(torch, mx, attention, layernorm, seed, card, profile=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path: counts from 0 just before, read just after
-    attention.LAUNCHES = 0
+    attention.LAUNCHES = attention.BSHD_LAUNCHES = 0
     layernorm.LAUNCHES = 0
     times = []
     for _ in range(BERT_WARMUP + BERT_TIMED):
         t = time.perf_counter()
         seq, logits = step()
         times.append(time.perf_counter() - t)
-    launches = (attention.LAUNCHES, layernorm.LAUNCHES)
+    launches = (attention.BSHD_LAUNCHES, layernorm.LAUNCHES)
+    bhtd_launches = attention.LAUNCHES
     peak_bytes = torch.cuda.max_memory_allocated()
     n_fwd = BERT_WARMUP + BERT_TIMED
-    check(launches == (BERT_ATTN_PER_FWD * n_fwd, BERT_LN_PER_FWD * n_fwd),
-          "%d attention and %d LayerNorm launches in %d forwards (want %d "
-          "and %d a forward)" % (launches[0], launches[1], n_fwd,
-                                 BERT_ATTN_PER_FWD, BERT_LN_PER_FWD))
+    check(launches == (BERT_ATTN_PER_FWD * n_fwd, BERT_LN_PER_FWD * n_fwd)
+          and bhtd_launches == 0,
+          "%d (B, T, H, D) attention, %d (B, H, T, D) attention and %d "
+          "LayerNorm launches in %d forwards (want %d, 0 and %d a forward)"
+          % (launches[0], bhtd_launches, launches[1], n_fwd,
+             BERT_ATTN_PER_FWD, BERT_LN_PER_FWD))
     seq16 = seq.astype("float32").asnumpy()
     logits16 = logits.astype("float32").asnumpy()
     check(seq16.shape == (BERT_BATCH, BERT_SEQ, BERT_UNITS)
@@ -1353,6 +1682,7 @@ def bert_phase(torch, mx, attention, layernorm, seed, card, profile=False):
             "tokens_per_s": n_tokens * 1e3 / fwd_ms,
             "valid_tokens_per_s": float(lens.sum()) * 1e3 / fwd_ms,
             "peak_bytes": peak_bytes, "attention_launches": launches[0],
+            "bhtd_attention_launches": bhtd_launches,
             "layernorm_launches": launches[1], "forwards": n_fwd,
             "bf16_vs_f32_rel_l2": bf16_rel, "parity_rel_l2": parity,
             "parity_s": parity_s, "default_route_forward_ms": default_ms,
@@ -1495,6 +1825,7 @@ def bert_training_phase(torch, mx, attention, layernorm, seed, card,
     torch.cuda.reset_peak_memory_stats()
     # the main path: counts from 0 just before, read just after
     attention.LAUNCHES = attention.BWD_LAUNCHES = 0
+    attention.BSHD_LAUNCHES = attention.BSHD_BWD_LAUNCHES = 0
     layernorm.LAUNCHES = layernorm.BWD_LAUNCHES = 0
     losses, times = [], []
     grads_checked = False
@@ -1517,17 +1848,20 @@ def bert_training_phase(torch, mx, attention, layernorm, seed, card,
                       "%s: gradient %s 0" % (k, "is" if k not in
                                               BERT_UNREACHED else "is not"))
             grads_checked = True
-    launches = (attention.LAUNCHES, attention.BWD_LAUNCHES,
+    launches = (attention.BSHD_LAUNCHES, attention.BSHD_BWD_LAUNCHES,
                 layernorm.LAUNCHES, layernorm.BWD_LAUNCHES)
+    bhtd_launches = (attention.LAUNCHES, attention.BWD_LAUNCHES)
     peak_bytes = torch.cuda.max_memory_allocated()
     n_steps = BERT_TRAIN_WARMUP + BERT_TRAIN_TIMED
     want = (BERT_ATTN_PER_STEP * n_steps,) * 2 + \
         (BERT_LN_PER_STEP * n_steps,) * 2
-    check(launches == want, "launches in %d steps: attention fwd %d bwd %d, "
-          "LayerNorm fwd %d bwd %d (want %d, %d, %d and %d a step)"
+    check(launches == want and bhtd_launches == (0, 0),
+          "launches in %d steps: (B, T, H, D) attention fwd %d bwd %d, "
+          "LayerNorm fwd %d bwd %d (want %d, %d, %d and %d a step), (B, H, "
+          "T, D) attention fwd %d bwd %d (want 0)"
           % ((n_steps,) + launches + (BERT_ATTN_PER_STEP,
                                       BERT_ATTN_PER_STEP, BERT_LN_PER_STEP,
-                                      BERT_LN_PER_STEP)))
+                                      BERT_LN_PER_STEP) + bhtd_launches))
     check(all(onp.isfinite(losses)), "non-finite loss: %r" % losses)
     check(min(losses[-LOSS_WINDOW:]) < losses[0] - BERT_LOSS_FALL,
           "loss did not fall by %g: %r" % (BERT_LOSS_FALL, losses))
@@ -1547,6 +1881,7 @@ def bert_training_phase(torch, mx, attention, layernorm, seed, card,
             "valid_tokens": int(lens.sum()), "peak_bytes": peak_bytes,
             "attention_launches": launches[0],
             "attention_bwd_launches": launches[1],
+            "bhtd_attention_launches": bhtd_launches,
             "layernorm_launches": launches[2],
             "layernorm_bwd_launches": launches[3], "steps": n_steps,
             "parity_loss_rel": loss_rel, "parity_update_rel_l2": update_rel,
@@ -1610,8 +1945,13 @@ def main(argv=None):
                                         args.seed)
     ln_bwd_rows = layernorm_bwd_cases(torch, layernorm, card, flush,
                                       args.seed)
+    bshd_rows = attention_bshd_cases(torch, attention, card, flush,
+                                     args.seed)
+    sublayer = sublayer_side_by_side(torch, attention, card, flush,
+                                     args.seed)
     del flush
     torch.cuda.empty_cache()
+    public = public_op_phase(torch, mx, attention, args.seed, card)
 
     res = serving_phase(torch, mx, fused_norm, args.seed, N_REQUESTS,
                         profile=args.profile)
@@ -1646,8 +1986,9 @@ def main(argv=None):
                       profile=args.profile)
     print("bert: BERT-base bf16 forward, batch %d x %d (%d valid tokens), "
           "%d forwards: %.3f ms median of %d = %.0f tokens/s (%.0f valid "
-          "tokens/s), peak device memory %.2f GiB, launches attention %d "
-          "LayerNorm %d, bf16 vs f32 sequence output rel L2 %.3g (%s)"
+          "tokens/s), peak device memory %.2f GiB, launches (B, T, H, D) "
+          "attention %d LayerNorm %d, bf16 vs f32 sequence output rel L2 "
+          "%.3g (%s)"
           % (BERT_BATCH, BERT_SEQ, bert["valid_tokens"], bert["forwards"],
              bert["forward_ms"], BERT_TIMED, bert["tokens_per_s"],
              bert["valid_tokens_per_s"], bert["peak_bytes"] / 2 ** 30,
@@ -1668,9 +2009,9 @@ def main(argv=None):
           % (BERT_BATCH, BERT_SEQ, btrain["valid_tokens"], BERT_LR,
              btrain["steps"], [round(v, 4) for v in btrain["losses"]]))
     print("bert training: step %.3f ms (median of %d) = %.0f tokens/s (%.0f "
-          "valid tokens/s), peak device memory %.2f GiB, launches attention "
-          "fwd %d bwd %d, LayerNorm fwd %d bwd %d, card vs CPU check %.1f s "
-          "(%s)" % (btrain["step_ms"], BERT_TRAIN_TIMED,
+          "valid tokens/s), peak device memory %.2f GiB, launches (B, T, H, "
+          "D) attention fwd %d bwd %d, LayerNorm fwd %d bwd %d, card vs CPU "
+          "check %.1f s (%s)" % (btrain["step_ms"], BERT_TRAIN_TIMED,
                     btrain["tokens_per_s"], btrain["valid_tokens_per_s"],
                     btrain["peak_bytes"] / 2 ** 30,
                     btrain["attention_launches"],
@@ -1730,15 +2071,19 @@ def main(argv=None):
         source="mxnet_tpu_torch/csrc/flash_attention.cu",
         replaces="mxnet_tpu/ops/pallas_attention.py:313",
         also_replaces="mxnet_tpu/ops/pallas_attention.py:219",
-        launches=bert["attention_launches"],
-        launches_by_path={"bert_forward": bert["attention_launches"],
-                          "bert_training": btrain["attention_launches"]},
+        launches=public["bhtd_fwd"],
+        launches_by_path={"public_op": public["bhtd_fwd"],
+                          "bert_forward": bert["bhtd_attention_launches"],
+                          "bert_training":
+                          btrain["bhtd_attention_launches"][0]},
         max_abs_err=max(r["max_abs_err"] for r in attn_rows),
         bound_by=[r for r in attn_rows if r["case"] == "bert"][0]["bound_by"],
-        per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 forward at "
-            "24 x 512 (12 launches at the case 'bert'); launches: the BERT "
-            "path's %d forwards; library: scaled_dot_product_attention with "
-            "the same boolean mask" % bert["forwards"],
+        per="ms/plain_ms/bound_ms/library_ms: 12 launches at the case "
+            "'bert' (what a BERT-base bf16 forward at 24 x 512 would take "
+            "through this entry; the BERT path runs the (B, T, H, D) entry); "
+            "launches: the public op path (nd.flash_attention under "
+            "autograd); library: scaled_dot_product_attention with the same "
+            "boolean mask",
         short_seq_vs_composed=side_by_side, shapes=attn_rows,
         **{k: per_forward(attn_rows, attn_w, k)
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
@@ -1765,16 +2110,20 @@ def main(argv=None):
         also_replaces=["mxnet_tpu/ops/pallas_attention.py:773",
                        "mxnet_tpu/ops/pallas_attention.py:732",
                        "mxnet_tpu/ops/pallas_attention.py:866"],
-        launches=btrain["attention_bwd_launches"],
+        launches=public["bhtd_bwd"],
+        launches_by_path={"public_op": public["bhtd_bwd"],
+                          "bert_training":
+                          btrain["bhtd_attention_launches"][1]},
         max_abs_err=max(r["max_abs_err"] for r in attn_bwd_rows),
         max_rel_err=max(r["max_rel_err"] for r in attn_bwd_rows),
         bound_by=[r for r in attn_bwd_rows
                   if r["case"] == "bert"][0]["bound_by"],
-        per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 training "
-            "step at 24 x 512 (12 launches at the case 'bert'); launches: "
-            "the BERT training path's %d steps; library: the backward of "
-            "scaled_dot_product_attention with the same boolean mask"
-            % btrain["steps"], shapes=attn_bwd_rows,
+        per="ms/plain_ms/bound_ms/library_ms: 12 launches at the case "
+            "'bert' (what a BERT-base bf16 training step at 24 x 512 would "
+            "take through this entry); launches: the public op path "
+            "(nd.flash_attention under autograd); library: the backward of "
+            "scaled_dot_product_attention with the same boolean mask",
+        shapes=attn_bwd_rows,
         **{k: per_forward(attn_bwd_rows, attn_w, k)
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
     ln_bwd_entry = dict(
@@ -1792,9 +2141,51 @@ def main(argv=None):
         shapes=ln_bwd_rows,
         **{k: per_forward(ln_bwd_rows, ln_w, k)
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
+    bshd_w = {"bert": BERT_ATTN_PER_FWD}
+
+    def bshd_numbers(prefix):
+        return {k: per_forward(bshd_rows, bshd_w, prefix + k)
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    bert_bshd = [r for r in bshd_rows if r["case"] == "bert"][0]
+    bshd_entry = dict(
+        name="flash_attention_bshd_fwd", route="cuda",
+        source="mxnet_tpu_torch/csrc/flash_attention.cu",
+        replaces="mxnet_tpu/ops/pallas_attention.py:566",
+        launches=bert["attention_launches"],
+        launches_by_path={"bert_forward": bert["attention_launches"],
+                          "bert_training": btrain["attention_launches"],
+                          "public_op": public["bshd_fwd"]},
+        max_abs_err=max(r["max_abs_err"] for r in bshd_rows),
+        bound_by=bert_bshd["bound_by"],
+        per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 forward at "
+            "24 x 512 (12 launches at the case 'bert', q, k and v strided "
+            "views of the projection output); launches: the BERT path's %d "
+            "forwards; library: scaled_dot_product_attention on the same "
+            "views with the same boolean mask" % bert["forwards"],
+        sublayer_vs_bhtd=sublayer, shapes=bshd_rows, **bshd_numbers(""))
+    bshd_bwd_entry = dict(
+        name="flash_attention_bshd_bwd", route="cuda",
+        source="mxnet_tpu_torch/csrc/flash_attention.cu",
+        replaces="mxnet_tpu/ops/pallas_attention.py:1136",
+        launches=btrain["attention_bwd_launches"],
+        launches_by_path={"bert_training": btrain["attention_bwd_launches"],
+                          "public_op": public["bshd_bwd"]},
+        max_abs_err=max(r["bwd_max_abs_err"] for r in bshd_rows),
+        max_rel_err=max(r["bwd_max_rel_err"] for r in bshd_rows),
+        bound_by=bert_bshd["bwd_bound_by"],
+        per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 training "
+            "step at 24 x 512 (12 launches at the case 'bert', the gradient "
+            "written into one (B, T, 3 H D) tensor); launches: the BERT "
+            "training path's %d steps; library: the backward of "
+            "scaled_dot_product_attention on the same views"
+            % btrain["steps"], shapes=bshd_rows, **bshd_numbers("bwd_"))
+    print("attention sublayer, the layer's choice: (B, T, H, D) %.4f ms "
+          "against (B, H, T, D) with transposes %.4f ms forward and "
+          "backward  (%s)" % (sublayer["bshd"], sublayer["bhtd"], card))
     print(card)                       # as nvidia-smi prints it
     print(json.dumps({"kernels": [fwd_entry, bwd_entry, attn_entry,
-                                  ln_entry, attn_bwd_entry, ln_bwd_entry]}))
+                                  ln_entry, attn_bwd_entry, ln_bwd_entry,
+                                  bshd_entry, bshd_bwd_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

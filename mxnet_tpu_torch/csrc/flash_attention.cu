@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernels _fwd_kernel_single and _fwd_kernel
 // (mxnet_tpu/ops/pallas_attention.py, launched by pallas_flash_attention and
-// pallas_flash_attention_bshd).  For one (batch * head) row of q (Tq, D) and
+// pallas_flash_attention_bshd).  For one (batch, head) row of q (Tq, D) and
 // k, v (Tk, D) it computes
 //
 //     s = q k^T * scale,  masked to -1e30 where a key is not visible
@@ -24,6 +24,14 @@
 // diagonal, are not visited; the tile that straddles the edge is masked
 // element by element.  The rows and keys past Tq and Tk are masked here, so
 // the caller pads only D (to 64 or 128).
+//
+// Every kernel addresses its operands through strides (Strides below), so
+// one design serves both TPU entries: contiguous (B, H, T, D) operands
+// (pallas_flash_attention and its backward) and (B, T, H, D) ones with
+// heads as column blocks of each row (the _bshd pair), which may be views
+// into a wider row, such as q, k and v as the three column blocks of a fused
+// (B, T, 3 H D) projection output, read and written in place: no transposed
+// or contiguous copy.  The arithmetic does not depend on the layout.
 //
 // bf16 runs on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32
 // accumulate): a 128-thread block of four warps, each warp 16 query rows.
@@ -57,12 +65,25 @@ constexpr float kNegInf = -1e30f;
 constexpr int BQ = 64;   // query rows of a block
 constexpr int BK = 64;   // keys of a K tile
 
+// Where a (batch, head) row of an operand starts and how far apart its T
+// rows lie, in elements: row t of head h of batch b is at b * b + h * h +
+// t * t, its D elements contiguous.  A contiguous (B, H, T, D) operand has
+// {H T D, D, T D}; a (B, T, H, D) one, or a view of heads as column blocks
+// of a wider row (the (B, T, 3 H D) output of a fused projection), has
+// {T ld, ld, D} for a row of ld elements.
+struct Strides {
+  long long b, t, h;
+};
+
+// The operands of contiguous (B, H, T, D) q, k, v and o.  The bf16
+// forward's code, and its speed, depend on this struct's layout: it takes
+// the strides as a kernel argument of their own (FwdStrides).
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
-  float* lse;
+  float* lse;        // (B, H, Tq), contiguous
   const int* lens;   // (B,) valid key lengths, or null
   const int* qseg;   // (B, Tq) segment ids, or null
   const int* kseg;   // (B, Tk) segment ids, or null when qseg is
@@ -70,6 +91,20 @@ struct Params {
   float scale;
   int causal;
 };
+
+struct FwdStrides {
+  Strides sq, sk, sv, so;
+};
+
+// q, k, v and o with their strides
+struct StridedParams : Params, FwdStrides {};
+
+// the first element of (batch b, head h) of an operand with strides s
+template <typename T>
+__device__ __forceinline__ T* head_ptr(T* base, const Strides& s, int b,
+                                       int h) {
+  return base + (size_t)(b * s.b + h * s.h);
+}
 
 // the valid key length of batch row b, clamped to [0, Tk]
 __device__ __forceinline__ int valid_keys(const Params& p, int b) {
@@ -126,9 +161,11 @@ constexpr size_t bf16_smem_bytes() {
 // bf16 on the tensor cores.  Fragment layouts of m16n8k16 (g = lane / 4,
 // t = lane % 4): A holds rows g and g + 8, columns 2t, 2t+1, 2t+8, 2t+9;
 // B holds column g, rows 2t, 2t+1, 2t+8, 2t+9; C holds rows g and g + 8,
-// columns 2t and 2t + 1.
+// columns 2t and 2t + 1.  The operands are read and written through the
+// strides st, whose offsets within one head fit 32 bits (run_fwd checks it).
 template <int D>
-__global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
+__global__ void __launch_bounds__(128) flash_fwd_bf16(Params p,
+                                                      FwdStrides st) {
   constexpr int LDS = D + 8;    // row stride of the Q and K tiles
   constexpr int LDV = BK + 8;   // row stride of the transposed V tile
   constexpr int DC = D / 8;     // 16-byte chunks in a row
@@ -142,15 +179,16 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
   const int bh = blockIdx.x / p.n_qtiles;
   const int q0 = (blockIdx.x % p.n_qtiles) * BQ;
   const int b = bh / p.H;
-  const bf16* q = static_cast<const bf16*>(p.q) + (size_t)bh * p.Tq * D;
-  const bf16* k = static_cast<const bf16*>(p.k) + (size_t)bh * p.Tk * D;
-  const bf16* v = static_cast<const bf16*>(p.v) + (size_t)bh * p.Tk * D;
-
+  const int hd = bh % p.H;
+  const bf16* q = head_ptr(static_cast<const bf16*>(p.q), st.sq, b, hd);
+  const bf16* k = head_ptr(static_cast<const bf16*>(p.k), st.sk, b, hd);
+  const bf16* v = head_ptr(static_cast<const bf16*>(p.v), st.sv, b, hd);
+  const int qst = (int)st.sq.t, kst = (int)st.sk.t, vst = (int)st.sv.t;
   for (int i = tid; i < BQ * DC; i += 128) {
     const int r = i / DC, c = (i % DC) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (q0 + r < p.Tq)
-      val = *reinterpret_cast<const uint4*>(q + (size_t)(q0 + r) * D + c);
+      val = *reinterpret_cast<const uint4*>(q + (size_t)(q0 + r) * qst + c);
     *reinterpret_cast<uint4*>(sQ + r * LDS + c) = val;
   }
   __syncthreads();
@@ -174,25 +212,34 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
 
   const int kvlen = valid_keys(p, b);
   const int n_tiles = key_tiles(p, kvlen, q0);
+  // This thread's share of a K/V tile, as offsets from the tile's first row
+  // computed once a tile: K chunk kc of rows kr0 + KR j (a row's 16-byte
+  // chunks on neighbouring threads); V row vr, chunks vc0 + 16 j, stored
+  // transposed (neighbouring threads take neighbouring keys, so the 2-byte
+  // stores of one column land in consecutive words).
+  constexpr int KR = 128 / DC;
+  const int kr0 = tid / DC, kc = (tid % DC) * 8;
+  const int vr = tid % BK, vc0 = (tid / BK) * 8;
+  const int kstep = KR * kst;
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * BK;
     __syncthreads();                       // the last tile's reads are done
-    for (int i = tid; i < BK * DC; i += 128) {
-      // K: a row's 16-byte chunks on neighbouring threads
-      const int r = i / DC, c = (i % DC) * 8;
+    const bf16* kt = k + ((k0 + kr0) * kst + kc);
+    const bf16* vt = v + ((k0 + vr) * vst + vc0);
+#pragma unroll
+    for (int j = 0; j < BK * DC / 128; ++j) {
+      const int r = kr0 + KR * j;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u);
       if (k0 + r < p.Tk)
-        kv = *reinterpret_cast<const uint4*>(k + (size_t)(k0 + r) * D + c);
-      *reinterpret_cast<uint4*>(sK + r * LDS + c) = kv;
-      // V, transposed: neighbouring threads take neighbouring keys, so the
-      // 2-byte stores of one column land in consecutive words
-      const int rv = i % BK, cv = (i / BK) * 8;
+        kv = *reinterpret_cast<const uint4*>(kt + j * kstep);
+      *reinterpret_cast<uint4*>(sK + r * LDS + kc) = kv;
+      const int cv = vc0 + 16 * j;
       uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + rv < p.Tk)
-        vv = *reinterpret_cast<const uint4*>(v + (size_t)(k0 + rv) * D + cv);
+      if (k0 + vr < p.Tk)
+        vv = *reinterpret_cast<const uint4*>(vt + 16 * j);
       const bf16* vh = reinterpret_cast<const bf16*>(&vv);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sVt[(cv + j) * LDV + rv] = vh[j];
+      for (int e = 0; e < 8; ++e) sVt[(cv + e) * LDV + vr] = vh[e];
     }
     __syncthreads();
 
@@ -269,7 +316,8 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
     }
   }
 
-  bf16* o = static_cast<bf16*>(p.o) + (size_t)bh * p.Tq * D;
+  bf16* o = head_ptr(static_cast<bf16*>(p.o), st.so, b, hd);
+  const int ost = (int)st.so.t;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -279,7 +327,7 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
     const float den = l[h] > 0.f ? l[h] : 1.f;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(o + (size_t)row * D + dt * 8 + 2 * t) =
+      *reinterpret_cast<uint32_t*>(o + (size_t)row * ost + dt * 8 + 2 * t) =
           pack_bf16(acc[dt][2 * h] / den, acc[dt][2 * h + 1] / den);
     }
     if (t == 0)
@@ -298,7 +346,7 @@ constexpr size_t f32_smem_bytes() {
 // by (tid / 16, tid % 16): rows 4 (tid / 16) .. + 3, columns tid % 16 + 16 j;
 // the softmax by (tid / 4, tid % 4): one row, 16 of its keys.
 template <int D>
-__global__ void __launch_bounds__(256) flash_fwd_f32(Params p) {
+__global__ void __launch_bounds__(256) flash_fwd_f32(StridedParams p) {
   constexpr int LQ = D + 1;      // row stride of the Q and K tiles
   constexpr int LS = BK + 1;     // row stride of the score tile
   constexpr int DJ = D / 16;     // output columns a thread holds
@@ -313,14 +361,14 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Params p) {
   const int tid = threadIdx.x;
   const int bh = blockIdx.x / p.n_qtiles;
   const int q0 = (blockIdx.x % p.n_qtiles) * BQ;
-  const int b = bh / p.H;
-  const float* q = static_cast<const float*>(p.q) + (size_t)bh * p.Tq * D;
-  const float* k = static_cast<const float*>(p.k) + (size_t)bh * p.Tk * D;
-  const float* v = static_cast<const float*>(p.v) + (size_t)bh * p.Tk * D;
+  const int b = bh / p.H, hd = bh % p.H;
+  const float* q = head_ptr(static_cast<const float*>(p.q), p.sq, b, hd);
+  const float* k = head_ptr(static_cast<const float*>(p.k), p.sk, b, hd);
+  const float* v = head_ptr(static_cast<const float*>(p.v), p.sv, b, hd);
 
   for (int i = tid; i < BQ * D; i += 256) {
     const int r = i / D, c = i % D;
-    sQ[r * LQ + c] = q0 + r < p.Tq ? q[(size_t)(q0 + r) * D + c] : 0.f;
+    sQ[r * LQ + c] = q0 + r < p.Tq ? q[(size_t)(q0 + r) * p.sq.t + c] : 0.f;
   }
   const int tr = tid / 16, tc = tid % 16;    // score and output tiles
   const int sr = tid / 4, sp = tid % 4;      // softmax: row, quarter
@@ -339,8 +387,8 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Params p) {
     for (int i = tid; i < BK * D; i += 256) {
       const int r = i / D, c = i % D;
       const bool in = k0 + r < p.Tk;
-      sK[r * LQ + c] = in ? k[(size_t)(k0 + r) * D + c] : 0.f;
-      sV[r * D + c] = in ? v[(size_t)(k0 + r) * D + c] : 0.f;
+      sK[r * LQ + c] = in ? k[(size_t)(k0 + r) * p.sk.t + c] : 0.f;
+      sV[r * D + c] = in ? v[(size_t)(k0 + r) * p.sv.t + c] : 0.f;
     }
     __syncthreads();
 
@@ -420,7 +468,7 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Params p) {
     p.lse[(size_t)bh * p.Tq + q0 + sr] =
         l_part > 0.f ? m_run + logf(l_part) : 0.f;
   __syncthreads();
-  float* o = static_cast<float*>(p.o) + (size_t)bh * p.Tq * D;
+  float* o = head_ptr(static_cast<float*>(p.o), p.so, b, hd);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = tr * 4 + i;
@@ -428,18 +476,20 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Params p) {
     const float den = sL[r] > 0.f ? sL[r] : 1.f;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      o[(size_t)(q0 + r) * D + tc + 16 * j] = acc[i][j] / den;
+      o[(size_t)(q0 + r) * p.so.t + tc + 16 * j] = acc[i][j] / den;
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, const Params& p, int BH, int threads, size_t smem,
-           cudaStream_t s) {
-  // above 48 KB only as dynamic shared memory, after this opt-in
+// `blocks` blocks of `kernel` with `smem` bytes of dynamic shared memory
+// (above 48 KB only after the opt-in below) on stream s
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, long long blocks, int threads, size_t smem,
+           cudaStream_t s, const Args&... args) {
+  if (blocks == 0) return 0;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)((long long)BH * p.n_qtiles), threads, smem, s>>>(p);
+  kernel<<<(unsigned)blocks, threads, smem, s>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -479,8 +529,9 @@ int launch(Kernel kernel, const Params& p, int BH, int threads, size_t smem,
 // The bf16 design (flash_bwd_kv_hopper, flash_bwd_q_hopper), one
 // warpgroup (four warps, 128 threads) a block:
 // - Asynchronous tile loads in a ring.  Thread 0 issues TMA loads
-//   (cp.async.bulk.tensor with a 3-d tensor map over (D, T, B*H), whose
-//   zero fill past T covers the ragged last tile; lse2 and delta by
+//   (cp.async.bulk.tensor with a 4-d tensor map over (D, T, H, B) built
+//   from the operand's strides, whose zero fill past T covers the ragged
+//   last tile of each head; lse2 and delta by
 //   cp.async.bulk from their padded arrays) of the resident tile once and
 //   of the streamed tiles into a ring of STAGES buffers.  Each buffer has a
 //   "full" mbarrier (the TMA's bytes) and an "empty" one (one arrival per
@@ -540,32 +591,38 @@ int launch(Kernel kernel, const Params& p, int BH, int threads, size_t smem,
 // f32 (flash_bwd_kv_f32, flash_bwd_q_f32) runs scalar FMAs (TF32 off) with
 // synchronous staging; it is not on the BERT path.
 
-struct BwdParams : Params {
-  const void* dout;    // dO: BH x Tq x D
-  const float* delta;  // f32: rowsum(dO * O), BH x Tq
-  void* dq;
-  void* dk;
-  void* dv;
+struct BwdParams : StridedParams {
+  const void* dout;    // dO, the shape of o
+  const float* delta;  // f32: rowsum(dO * O), (B, H, Tq) contiguous
+  void* dq;            // the shape of q
+  void* dk;            // the shape of k
+  void* dv;            // the shape of v
+  Strides sdo, sdq, sdk, sdv;
   int n_ktiles;
 };
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// f32: delta[r] = sum_d dO[r, d] * O[r, d] in fp32, a warp a row (the bf16
-// kernels compute delta in the dQ kernel)
+// f32: delta[bh, t] = sum_d dO[bh, t, d] * O[bh, t, d] in fp32, a warp a
+// row (the bf16 kernels compute delta in the dQ kernel)
 __global__ void __launch_bounds__(128)
-flash_bwd_delta_f32(const float* __restrict__ o,
-                    const float* __restrict__ dout,
-                    float* __restrict__ delta, long long rows, int D) {
+flash_bwd_delta_f32(const BwdParams p, long long rows, int D) {
   const long long row = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
+  const int bh = (int)(row / p.Tq), t = (int)(row % p.Tq);
+  const int b = bh / p.H, hd = bh % p.H;
+  const float* o = head_ptr(static_cast<const float*>(p.o), p.so, b, hd) +
+                   (size_t)t * p.so.t;
+  const float* dout =
+      head_ptr(static_cast<const float*>(p.dout), p.sdo, b, hd) +
+      (size_t)t * p.sdo.t;
   float s = 0.f;
-  for (int d = lane; d < D; d += 32) s += o[row * D + d] * dout[row * D + d];
+  for (int d = lane; d < D; d += 32) s += o[d] * dout[d];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) delta[row] = s;
+  if (lane == 0) const_cast<float*>(p.delta)[row] = s;
 }
 
 // the first Q tile of `rows` rows that sees any key of the K tile at k0
@@ -622,17 +679,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// one (64 x rows) box of a 3-d tensor map at (c0, c1, c2) into shared memory,
-// its bytes counted on `bar`
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+// one (64 x rows) box of a 4-d tensor map (D, T, H, B) at column c0, row
+// t0 of head h of batch b into shared memory, its bytes counted on `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
                                             const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
+                                            uint32_t bar, int c0, int t0,
+                                            int h, int b) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(t0),
+      "r"(h), "r"(b)
       : "memory");
 }
 
@@ -760,8 +817,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// the operands of the bf16 backward kernels: 3-d tensor maps (D, T, B*H)
-// of q, k, v and dO, boxes of 64 columns by the kernel's tile rows
+// the operands of the bf16 backward kernels: 4-d tensor maps (D, T, H, B)
+// of q, k, v and dO over their strides, boxes of 64 columns by the
+// kernel's tile rows of one head
 struct HopperBwd {
   CUtensorMap tq, tk, tv, tdo;
   BwdParams p;
@@ -805,7 +863,7 @@ flash_bwd_kv_hopper(const __grid_constant__ HopperBwd hp) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.x / p.n_ktiles;
   const int k0 = (blockIdx.x % p.n_ktiles) * 64;
-  const int b = bh / p.H;
+  const int b = bh / p.H, hd = bh % p.H;
   const int kvlen = valid_keys(p, b);
   const int it0 = first_query_tile(p, k0, BR);
   // keys at or past the valid length see nothing: dK = dV = 0
@@ -833,9 +891,9 @@ flash_bwd_kv_hopper(const __grid_constant__ HopperBwd hp) {
     const uint32_t sq = base + L::Q + s * 2 * L::qTile;
 #pragma unroll
     for (int h = 0; h < D / 64; ++h) {
-      tma_load_3d(sq + h * BR * 128, &hp.tq, fb, h * 64, it * BR, bh);
-      tma_load_3d(sq + L::qTile + h * BR * 128, &hp.tdo, fb, h * 64, it * BR,
-                  bh);
+      tma_load_4d(sq + h * BR * 128, &hp.tq, fb, h * 64, it * BR, hd, b);
+      tma_load_4d(sq + L::qTile + h * BR * 128, &hp.tdo, fb, h * 64, it * BR,
+                  hd, b);
     }
     const size_t row = (size_t)bh * hp.tq_pad + (size_t)it * BR;
     const uint32_t sl = base + L::LSE + s * 2 * BR * 4;
@@ -846,8 +904,10 @@ flash_bwd_kv_hopper(const __grid_constant__ HopperBwd hp) {
     mbar_expect_tx(kvbar, 2 * L::kTile);
 #pragma unroll
     for (int h = 0; h < D / 64; ++h) {
-      tma_load_3d(base + L::K + h * 64 * 128, &hp.tk, kvbar, h * 64, k0, bh);
-      tma_load_3d(base + L::V + h * 64 * 128, &hp.tv, kvbar, h * 64, k0, bh);
+      tma_load_4d(base + L::K + h * 64 * 128, &hp.tk, kvbar, h * 64, k0, hd,
+                  b);
+      tma_load_4d(base + L::V + h * 64 * 128, &hp.tv, kvbar, h * 64, k0, hd,
+                  b);
     }
     for (int n = 0; n < n_tiles && n < STAGES; ++n) load_tile(n);
   }
@@ -985,19 +1045,20 @@ flash_bwd_kv_hopper(const __grid_constant__ HopperBwd hp) {
     if (lane == 0) mbar_arrive(empty0 + 8 * s);
   }
 
-  bf16* dkp = static_cast<bf16*>(p.dk) + (size_t)bh * p.Tk * D;
-  bf16* dvp = static_cast<bf16*>(p.dv) + (size_t)bh * p.Tk * D;
+  bf16* dkp = head_ptr(static_cast<bf16*>(p.dk), p.sdk, b, hd);
+  bf16* dvp = head_ptr(static_cast<bf16*>(p.dv), p.sdv, b, hd);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = key0 + h * 8;
     if (key >= p.Tk) continue;
+    bf16* dkr = dkp + (size_t)key * p.sdk.t + 2 * t;
+    bf16* dvr = dvp + (size_t)key * p.sdv.t + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
-      const size_t at = (size_t)key * D + dt * 8 + 2 * t;
       const float* k2 = &dk[dt >> 3][4 * (dt & 7) + 2 * h];
       const float* v2 = &dv[dt >> 3][4 * (dt & 7) + 2 * h];
-      *reinterpret_cast<uint32_t*>(dkp + at) = pack_bf16(k2[0], k2[1]);
-      *reinterpret_cast<uint32_t*>(dvp + at) = pack_bf16(v2[0], v2[1]);
+      *reinterpret_cast<uint32_t*>(dkr + dt * 8) = pack_bf16(k2[0], k2[1]);
+      *reinterpret_cast<uint32_t*>(dvr + dt * 8) = pack_bf16(v2[0], v2[1]);
     }
   }
 }
@@ -1028,7 +1089,7 @@ flash_bwd_q_hopper(const __grid_constant__ HopperBwd hp) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.x / p.n_qtiles;
   const int q0 = (blockIdx.x % p.n_qtiles) * 64;
-  const int b = bh / p.H;
+  const int b = bh / p.H, hd = bh % p.H;
   const int kvlen = valid_keys(p, b);
   const int n_tiles = key_tiles(p, kvlen, q0);
   const uint32_t full0 = smem_addr(&bars[0]);
@@ -1053,17 +1114,19 @@ flash_bwd_q_hopper(const __grid_constant__ HopperBwd hp) {
     const uint32_t sk = base + L::K + s * 2 * L::tile;
 #pragma unroll
     for (int h = 0; h < D / 64; ++h) {
-      tma_load_3d(sk + h * 64 * 128, &hp.tk, fb, h * 64, it * 64, bh);
-      tma_load_3d(sk + L::tile + h * 64 * 128, &hp.tv, fb, h * 64, it * 64,
-                  bh);
+      tma_load_4d(sk + h * 64 * 128, &hp.tk, fb, h * 64, it * 64, hd, b);
+      tma_load_4d(sk + L::tile + h * 64 * 128, &hp.tv, fb, h * 64, it * 64,
+                  hd, b);
     }
   };
   if (tid == 0 && n_tiles > 0) {
     mbar_expect_tx(qbar, 2 * L::tile);
 #pragma unroll
     for (int h = 0; h < D / 64; ++h) {
-      tma_load_3d(base + L::Q + h * 64 * 128, &hp.tq, qbar, h * 64, q0, bh);
-      tma_load_3d(base + L::DO + h * 64 * 128, &hp.tdo, qbar, h * 64, q0, bh);
+      tma_load_4d(base + L::Q + h * 64 * 128, &hp.tq, qbar, h * 64, q0, hd,
+                  b);
+      tma_load_4d(base + L::DO + h * 64 * 128, &hp.tdo, qbar, h * 64, q0, hd,
+                  b);
     }
     for (int it = 0; it < n_tiles && it < STAGES; ++it) load_tile(it);
   }
@@ -1079,11 +1142,13 @@ flash_bwd_q_hopper(const __grid_constant__ HopperBwd hp) {
     const int r = tid >> 1, row = q0 + r;
     float sum = 0.f;
     if (row < p.Tq) {
-      const size_t at = ((size_t)bh * p.Tq + row) * D + (tid & 1) * (D / 2);
+      const int c0 = (tid & 1) * (D / 2);
       const uint4* o4 = reinterpret_cast<const uint4*>(
-          static_cast<const bf16*>(p.o) + at);
+          head_ptr(static_cast<const bf16*>(p.o), p.so, b, hd) +
+          (size_t)row * p.so.t + c0);
       const uint4* d4 = reinterpret_cast<const uint4*>(
-          static_cast<const bf16*>(p.dout) + at);
+          head_ptr(static_cast<const bf16*>(p.dout), p.sdo, b, hd) +
+          (size_t)row * p.sdo.t + c0);
 #pragma unroll
       for (int c = 0; c < D / 16; ++c) {
         const uint4 ov = o4[c], dv = d4[c];
@@ -1209,29 +1274,30 @@ flash_bwd_q_hopper(const __grid_constant__ HopperBwd hp) {
     if (lane == 0) mbar_arrive(empty0 + 8 * s);
   }
 
-  bf16* dqp = static_cast<bf16*>(p.dq) + (size_t)bh * p.Tq * D;
+  bf16* dqp = head_ptr(static_cast<bf16*>(p.dq), p.sdq, b, hd);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + h * 8;
     if (row >= p.Tq) continue;
+    bf16* dqr = dqp + (size_t)row * p.sdq.t + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<uint32_t*>(dqp + (size_t)row * D + dt * 8 + 2 * t) =
+      *reinterpret_cast<uint32_t*>(dqr + dt * 8) =
           pack_bf16(dq[dt >> 3][4 * (dt & 7) + 2 * h],
                     dq[dt >> 3][4 * (dt & 7) + 2 * h + 1]);
   }
 }
 
-// a 64-row tile of a float (rows x D) array into shared memory with row
-// stride D + 1, zeros past `rows_valid`
+// a 64-row tile of a float array with rows `ld` elements apart into
+// shared memory with row stride D + 1, zeros past `rows_valid`
 template <int D>
 __device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
-                                               int r0, int rows_valid,
-                                               int tid) {
+                                               long long ld, int r0,
+                                               int rows_valid, int tid) {
   for (int i = tid; i < 64 * D; i += 256) {
     const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = r0 + r < rows_valid ? src[(size_t)(r0 + r) * D + c]
-                                               : 0.f;
+    dst[r * (D + 1) + c] =
+        r0 + r < rows_valid ? src[(size_t)(r0 + r) * ld + c] : 0.f;
   }
 }
 
@@ -1263,17 +1329,17 @@ __global__ void __launch_bounds__(256) flash_bwd_kv_f32(BwdParams p) {
   const int tr = tid / 16, tc = tid % 16;
   const int bh = blockIdx.x / p.n_ktiles;
   const int k0 = (blockIdx.x % p.n_ktiles) * BK;
-  const int b = bh / p.H;
-  const float* q = static_cast<const float*>(p.q) + (size_t)bh * p.Tq * D;
-  const float* k = static_cast<const float*>(p.k) + (size_t)bh * p.Tk * D;
-  const float* v = static_cast<const float*>(p.v) + (size_t)bh * p.Tk * D;
+  const int b = bh / p.H, hd = bh % p.H;
+  const float* q = head_ptr(static_cast<const float*>(p.q), p.sq, b, hd);
+  const float* k = head_ptr(static_cast<const float*>(p.k), p.sk, b, hd);
+  const float* v = head_ptr(static_cast<const float*>(p.v), p.sv, b, hd);
   const float* dout =
-      static_cast<const float*>(p.dout) + (size_t)bh * p.Tq * D;
+      head_ptr(static_cast<const float*>(p.dout), p.sdo, b, hd);
   const float* lse = p.lse + (size_t)bh * p.Tq;
   const float* delta = p.delta + (size_t)bh * p.Tq;
 
-  stage_rows_f32<D>(sK, k, k0, p.Tk, tid);
-  stage_rows_f32<D>(sV, v, k0, p.Tk, tid);
+  stage_rows_f32<D>(sK, k, p.sk.t, k0, p.Tk, tid);
+  stage_rows_f32<D>(sV, v, p.sv.t, k0, p.Tk, tid);
   float dk[4][DJ], dv[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -1285,8 +1351,8 @@ __global__ void __launch_bounds__(256) flash_bwd_kv_f32(BwdParams p) {
   for (int it = first_query_tile(p, k0); it < it_end; ++it) {
     const int q0 = it * BQ;
     __syncthreads();
-    stage_rows_f32<D>(sQ, q, q0, p.Tq, tid);
-    stage_rows_f32<D>(sdO, dout, q0, p.Tq, tid);
+    stage_rows_f32<D>(sQ, q, p.sq.t, q0, p.Tq, tid);
+    stage_rows_f32<D>(sdO, dout, p.sdo.t, q0, p.Tq, tid);
     for (int i = tid; i < BQ; i += 256) {
       const bool in = q0 + i < p.Tq;
       sLse[i] = in ? lse[q0 + i] : 0.f;
@@ -1356,16 +1422,16 @@ __global__ void __launch_bounds__(256) flash_bwd_kv_f32(BwdParams p) {
     }
   }
 
-  float* dkp = static_cast<float*>(p.dk) + (size_t)bh * p.Tk * D;
-  float* dvp = static_cast<float*>(p.dv) + (size_t)bh * p.Tk * D;
+  float* dkp = head_ptr(static_cast<float*>(p.dk), p.sdk, b, hd);
+  float* dvp = head_ptr(static_cast<float*>(p.dv), p.sdv, b, hd);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + tr * 4 + i;
     if (key >= p.Tk) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      dkp[(size_t)key * D + tc + 16 * j] = dk[i][j];
-      dvp[(size_t)key * D + tc + 16 * j] = dv[i][j];
+      dkp[(size_t)key * p.sdk.t + tc + 16 * j] = dk[i][j];
+      dvp[(size_t)key * p.sdv.t + tc + 16 * j] = dv[i][j];
     }
   }
 }
@@ -1396,15 +1462,15 @@ __global__ void __launch_bounds__(256) flash_bwd_q_f32(BwdParams p) {
   const int tr = tid / 16, tc = tid % 16;
   const int bh = blockIdx.x / p.n_qtiles;
   const int q0 = (blockIdx.x % p.n_qtiles) * BQ;
-  const int b = bh / p.H;
-  const float* q = static_cast<const float*>(p.q) + (size_t)bh * p.Tq * D;
-  const float* k = static_cast<const float*>(p.k) + (size_t)bh * p.Tk * D;
-  const float* v = static_cast<const float*>(p.v) + (size_t)bh * p.Tk * D;
+  const int b = bh / p.H, hd = bh % p.H;
+  const float* q = head_ptr(static_cast<const float*>(p.q), p.sq, b, hd);
+  const float* k = head_ptr(static_cast<const float*>(p.k), p.sk, b, hd);
+  const float* v = head_ptr(static_cast<const float*>(p.v), p.sv, b, hd);
   const float* dout =
-      static_cast<const float*>(p.dout) + (size_t)bh * p.Tq * D;
+      head_ptr(static_cast<const float*>(p.dout), p.sdo, b, hd);
 
-  stage_rows_f32<D>(sQ, q, q0, p.Tq, tid);
-  stage_rows_f32<D>(sdO, dout, q0, p.Tq, tid);
+  stage_rows_f32<D>(sQ, q, p.sq.t, q0, p.Tq, tid);
+  stage_rows_f32<D>(sdO, dout, p.sdo.t, q0, p.Tq, tid);
   for (int i = tid; i < BQ; i += 256) {
     const bool in = q0 + i < p.Tq;
     sLse[i] = in ? p.lse[(size_t)bh * p.Tq + q0 + i] : 0.f;
@@ -1421,8 +1487,8 @@ __global__ void __launch_bounds__(256) flash_bwd_q_f32(BwdParams p) {
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * BK;
     __syncthreads();
-    stage_rows_f32<D>(sK, k, k0, p.Tk, tid);
-    stage_rows_f32<D>(sV, v, k0, p.Tk, tid);
+    stage_rows_f32<D>(sK, k, p.sk.t, k0, p.Tk, tid);
+    stage_rows_f32<D>(sV, v, p.sv.t, k0, p.Tk, tid);
     __syncthreads();
 
     float sc[4][4], dps[4][4];
@@ -1476,35 +1542,24 @@ __global__ void __launch_bounds__(256) flash_bwd_q_f32(BwdParams p) {
     }
   }
 
-  float* dq = static_cast<float*>(p.dq) + (size_t)bh * p.Tq * D;
+  float* dq = head_ptr(static_cast<float*>(p.dq), p.sdq, b, hd);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + tr * 4 + i;
     if (row >= p.Tq) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      dq[(size_t)row * D + tc + 16 * j] = acc[i][j];
+      dq[(size_t)row * p.sdq.t + tc + 16 * j] = acc[i][j];
   }
-}
-
-template <typename Kernel, typename P>
-int launch_bwd(Kernel kernel, const P& p, long long blocks, int threads,
-               size_t smem, cudaStream_t s) {
-  if (blocks == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, threads, smem, s>>>(p);
-  return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_bwd_f32(const BwdParams& p, int BH, cudaStream_t s) {
-  int rc = launch_bwd(flash_bwd_q_f32<D>, p, (long long)BH * p.n_qtiles,
-                      256, bwd_q_f32_smem_bytes<D>(), s);
+  int rc = launch(flash_bwd_q_f32<D>, (long long)BH * p.n_qtiles, 256,
+                  bwd_q_f32_smem_bytes<D>(), s, p);
   if (rc != 0) return rc;
-  return launch_bwd(flash_bwd_kv_f32<D>, p, (long long)BH * p.n_ktiles,
-                    256, bwd_kv_f32_smem_bytes<D>(), s);
+  return launch(flash_bwd_kv_f32<D>, (long long)BH * p.n_ktiles, 256,
+                bwd_kv_f32_smem_bytes<D>(), s, p);
 }
 
 // cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
@@ -1529,20 +1584,23 @@ EncodeTiledFn tensor_map_encoder() {
   return fn;
 }
 
-// the (D, T, BH) bf16 tensor at `ptr` as a tensor map with boxes of 64
-// columns by `rows` rows, 128-byte swizzled, zeros past T
-int make_map(CUtensorMap* map, const void* ptr, int T, int BH, int D,
-             int rows) {
+// the bf16 operand at `ptr` with strides s as a 4-d tensor map (D, T, H,
+// B) with boxes of 64 columns by `rows` rows of one head, 128-byte
+// swizzled, zeros past T.  T is a dimension of its own, so the ragged last
+// tile of a head reads zeros, never the next batch's first rows.  TMA takes
+// strides in any order, multiples of 16 bytes (the caller checks them).
+int make_map(CUtensorMap* map, const void* ptr, const Strides& s, int T,
+             int H, int B, int D, int rows) {
   EncodeTiledFn encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)(T > 0 ? T : 1),
-                              (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)(T > 0 ? T : 1) * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)(T > 0 ? T : 1),
+                              (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s.t * 2, (cuuint64_t)s.h * 2,
+                                 (cuuint64_t)s.b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       strides, box, elem,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1589,19 +1647,26 @@ int launch_bwd_bf16(const BwdParams& p, float* delta, float* lse2,
   hp.lse2 = lse2;
   hp.tq_pad = tq_pad;
   hp.scale_log2 = p.scale * kLog2e;
-  int rc = make_map(&hp.tq, p.q, p.Tq, BH, D, 64);
-  if (rc == 0) rc = make_map(&hp.tdo, p.dout, p.Tq, BH, D, 64);
-  if (rc == 0) rc = make_map(&hp.tk, p.k, p.Tk, BH, D, 64);
-  if (rc == 0) rc = make_map(&hp.tv, p.v, p.Tk, BH, D, 64);
+  const int B = BH / p.H;
+  // The tensor maps are encoded through the driver, which needs the
+  // device's context current on this thread.  Autograd runs a backward on
+  // a thread of its own, where nothing may have bound the context yet
+  // (PyTorch avoids binding it on its own), so bind it here.
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc == 0) rc = (int)cudaSetDevice(dev);
+  if (rc == 0) rc = make_map(&hp.tq, p.q, p.sq, p.Tq, p.H, B, D, 64);
+  if (rc == 0) rc = make_map(&hp.tdo, p.dout, p.sdo, p.Tq, p.H, B, D, 64);
+  if (rc == 0) rc = make_map(&hp.tk, p.k, p.sk, p.Tk, p.H, B, D, 64);
+  if (rc == 0) rc = make_map(&hp.tv, p.v, p.sv, p.Tk, p.H, B, D, 64);
   if (rc == 0)
-    rc = launch_bwd(K::q, hp, (long long)BH * p.n_qtiles, 128, K::q_smem, s);
+    rc = launch(K::q, (long long)BH * p.n_qtiles, 128, K::q_smem, s, hp);
   if (rc == 0 && BR != 64) {
-    rc = make_map(&hp.tq, p.q, p.Tq, BH, D, BR);
-    if (rc == 0) rc = make_map(&hp.tdo, p.dout, p.Tq, BH, D, BR);
+    rc = make_map(&hp.tq, p.q, p.sq, p.Tq, p.H, B, D, BR);
+    if (rc == 0) rc = make_map(&hp.tdo, p.dout, p.sdo, p.Tq, p.H, B, D, BR);
   }
   if (rc == 0)
-    rc = launch_bwd(K::kv, hp, (long long)BH * p.n_ktiles, 128, K::kv_smem,
-                    s);
+    rc = launch(K::kv, (long long)BH * p.n_ktiles, 128, K::kv_smem, s, hp);
   return rc;
 }
 
@@ -1613,6 +1678,90 @@ int occupancy(Kernel kernel, size_t smem, int* blocks) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, 128,
                                                         smem);
   return (int)err;
+}
+
+// The forward over operands with strides (B H of them, B = BH / H), D =
+// 64 or 128, of `dtype` (0 = float32, 1 = bfloat16); the caller checks that
+// every stride is a multiple of 16 bytes and every pointer 16-byte
+// aligned.
+int run_fwd(StridedParams& p, int BH, int D, int dtype, cudaStream_t s) {
+  // the bf16 kernel takes offsets within one head's rows as 32-bit ints
+  const long long lim = 1ll << 31;
+  if ((p.Tq + (long long)BQ) * max(p.sq.t, p.so.t) >= lim ||
+      (p.Tk + (long long)BK) * max(p.sk.t, p.sv.t) >= lim)
+    return (int)cudaErrorInvalidValue;
+  p.n_qtiles = (p.Tq + BQ - 1) / BQ;
+  const long long blocks = (long long)BH * p.n_qtiles;
+  if (dtype == 1) {
+    const Params& c = p;
+    const FwdStrides& st = p;
+    if (D == 64)
+      return launch(flash_fwd_bf16<64>, blocks, 128, bf16_smem_bytes<64>(),
+                    s, c, st);
+    return launch(flash_fwd_bf16<128>, blocks, 128, bf16_smem_bytes<128>(), s,
+                  c, st);
+  }
+  if (D == 64)
+    return launch(flash_fwd_f32<64>, blocks, 256, f32_smem_bytes<64>(), s, p);
+  return launch(flash_fwd_f32<128>, blocks, 256, f32_smem_bytes<128>(), s, p);
+}
+
+// The backward, as run_fwd; delta: scratch of 2 x BH x Tq_pad floats.
+int run_bwd(BwdParams& p, int BH, int D, int dtype, void* delta,
+            cudaStream_t s) {
+  p.n_qtiles = (p.Tq + BQ - 1) / BQ;
+  p.n_ktiles = (p.Tk + BK - 1) / BK;
+  p.delta = static_cast<const float*>(delta);
+  if (dtype == 1) {
+    // delta and lse * log2(e), padded to whole 64-row tiles for the dK/dV
+    // kernel's bulk copies, are written by the dQ kernel
+    const int pad = (p.Tq + 63) / 64 * 64;
+    float* dl = static_cast<float*>(delta);
+    float* lse2 = dl + (size_t)BH * pad;
+    return D == 64 ? launch_bwd_bf16<64>(p, dl, lse2, pad, BH, s)
+                   : launch_bwd_bf16<128>(p, dl, lse2, pad, BH, s);
+  }
+  const long long rows = (long long)BH * p.Tq;
+  if (rows > 0) {
+    flash_bwd_delta_f32<<<(unsigned)((rows + 3) / 4), 128, 0, s>>>(p, rows,
+                                                                   D);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  return D == 64 ? launch_bwd_f32<64>(p, BH, s) : launch_bwd_f32<128>(p, BH, s);
+}
+
+bool bad_args(int BH, int H, int Tq, int Tk, int D, int dtype) {
+  return BH < 0 || H <= 0 || BH % H != 0 || Tq < 0 || Tk < 0 ||
+         (D != 64 && D != 128) || dtype < 0 || dtype > 1;
+}
+
+// the strides of a contiguous (B, H, T, D) operand
+Strides bhtd(int H, int T, int D) {
+  return Strides{(long long)H * T * D, D, (long long)T * D};
+}
+
+// the strides of operand i of a (b, t, h) stride triple array
+Strides strides_of(const long long* st, int i) {
+  return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+}
+
+void fill(Params& p, const void* q, const void* k, const void* v,
+          const void* o, const void* lse, const void* lens, int H, int Tq,
+          int Tk, float scale, int causal) {
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = const_cast<void*>(o);
+  p.lse = static_cast<float*>(const_cast<void*>(lse));
+  p.lens = static_cast<const int*>(lens);
+  p.qseg = nullptr;
+  p.kseg = nullptr;
+  p.H = H;
+  p.Tq = Tq;
+  p.Tk = Tk;
+  p.scale = scale;
+  p.causal = causal;
 }
 
 }  // namespace
@@ -1628,35 +1777,16 @@ extern "C" int mx_flash_attention_fwd(const void* q, const void* k,
                                       const void* kseg, int BH, int H, int Tq,
                                       int Tk, int D, float scale, int causal,
                                       int dtype, void* stream) {
-  if (BH < 0 || H <= 0 || BH % H != 0 || Tq < 0 || Tk < 0 ||
-      (D != 64 && D != 128) || dtype < 0 || dtype > 1 ||
-      (qseg == nullptr) != (kseg == nullptr))
+  if (bad_args(BH, H, Tq, Tk, D, dtype) || (qseg == nullptr) != (kseg == nullptr))
     return (int)cudaErrorInvalidValue;
   if (BH == 0 || Tq == 0) return 0;
-  Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = const_cast<void*>(o);
-  p.lse = static_cast<float*>(lse);
-  p.lens = static_cast<const int*>(lens);
+  StridedParams p;
+  fill(p, q, k, v, o, lse, lens, H, Tq, Tk, scale, causal);
   p.qseg = static_cast<const int*>(qseg);
   p.kseg = static_cast<const int*>(kseg);
-  p.H = H;
-  p.Tq = Tq;
-  p.Tk = Tk;
-  p.n_qtiles = (Tq + BQ - 1) / BQ;
-  p.scale = scale;
-  p.causal = causal;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (D == 64)
-      return launch(flash_fwd_bf16<64>, p, BH, 128, bf16_smem_bytes<64>(), s);
-    return launch(flash_fwd_bf16<128>, p, BH, 128, bf16_smem_bytes<128>(), s);
-  }
-  if (D == 64)
-    return launch(flash_fwd_f32<64>, p, BH, 256, f32_smem_bytes<64>(), s);
-  return launch(flash_fwd_f32<128>, p, BH, 256, f32_smem_bytes<128>(), s);
+  p.sq = p.so = bhtd(H, Tq, D);
+  p.sk = p.sv = bhtd(H, Tk, D);
+  return run_fwd(p, BH, D, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // The backward of mx_flash_attention_fwd.  q, o and dout: BH x Tq x D; k and
@@ -1678,51 +1808,77 @@ extern "C" int mx_flash_attention_bwd(const void* q, const void* k,
                                       int BH, int H, int Tq, int Tk, int D,
                                       float scale, int causal, int dtype,
                                       void* stream) {
-  if (BH < 0 || H <= 0 || BH % H != 0 || Tq < 0 || Tk < 0 ||
-      (D != 64 && D != 128) || dtype < 0 || dtype > 1 ||
-      (qseg == nullptr) != (kseg == nullptr))
+  if (bad_args(BH, H, Tq, Tk, D, dtype) || (qseg == nullptr) != (kseg == nullptr))
     return (int)cudaErrorInvalidValue;
   if (BH == 0) return 0;
   BwdParams p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = const_cast<void*>(o);
-  p.lse = static_cast<float*>(const_cast<void*>(lse));
-  p.lens = static_cast<const int*>(lens);
+  fill(p, q, k, v, o, lse, lens, H, Tq, Tk, scale, causal);
   p.qseg = static_cast<const int*>(qseg);
   p.kseg = static_cast<const int*>(kseg);
-  p.H = H;
-  p.Tq = Tq;
-  p.Tk = Tk;
-  p.n_qtiles = (Tq + BQ - 1) / BQ;
-  p.scale = scale;
-  p.causal = causal;
   p.dout = dout;
-  p.delta = static_cast<const float*>(delta);
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
-  p.n_ktiles = (Tk + BK - 1) / BK;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    // delta and lse * log2(e), padded to whole 64-row tiles for the dK/dV
-    // kernel's bulk copies, are written by the dQ kernel
-    const int pad = (Tq + 63) / 64 * 64;
-    float* dl = static_cast<float*>(delta);
-    float* lse2 = dl + (size_t)BH * pad;
-    return D == 64 ? launch_bwd_bf16<64>(p, dl, lse2, pad, BH, s)
-                   : launch_bwd_bf16<128>(p, dl, lse2, pad, BH, s);
-  }
-  const long long rows = (long long)BH * Tq;
-  if (rows > 0) {
-    flash_bwd_delta_f32<<<(unsigned)((rows + 3) / 4), 128, 0, s>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dout),
-        static_cast<float*>(delta), rows, D);
-    const int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-  }
-  return D == 64 ? launch_bwd_f32<64>(p, BH, s) : launch_bwd_f32<128>(p, BH, s);
+  p.sq = p.so = p.sdo = p.sdq = bhtd(H, Tq, D);
+  p.sk = p.sv = p.sdk = p.sdv = bhtd(H, Tk, D);
+  return run_bwd(p, BH, D, dtype, delta, static_cast<cudaStream_t>(stream));
+}
+
+// Replaces pallas_flash_attention_bshd (mxnet_tpu/ops/pallas_attention.py):
+// the forward of mx_flash_attention_fwd over (B, T, H, D) operands addressed
+// in place through their strides, without segment ids.  strides: 12
+// elements, (batch, row, head) for q, k, v and o in turn, each a multiple
+// of 16 bytes; D contiguous; the pointers 16-byte aligned.  lse: B x H x Tq
+// floats, contiguous.  Returns a cudaError_t as int (0 = ok).
+extern "C" int mx_flash_attention_bshd_fwd(const void* q, const void* k,
+                                           const void* v, void* o, void* lse,
+                                           const void* lens, int B, int H,
+                                           int Tq, int Tk, int D,
+                                           const long long* strides,
+                                           float scale, int causal,
+                                           int dtype, void* stream) {
+  if (B < 0 || bad_args(B * H, H, Tq, Tk, D, dtype))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || Tq == 0) return 0;
+  StridedParams p;
+  fill(p, q, k, v, o, lse, lens, H, Tq, Tk, scale, causal);
+  p.sq = strides_of(strides, 0);
+  p.sk = strides_of(strides, 1);
+  p.sv = strides_of(strides, 2);
+  p.so = strides_of(strides, 3);
+  return run_fwd(p, B * H, D, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// Replaces pallas_flash_attention_bwd_bshd: the backward of
+// mx_flash_attention_bshd_fwd, as mx_flash_attention_bwd over strided
+// operands.  strides: 24 elements, (batch, row, head) for q, k, v, o, dout,
+// dq, dk and dv in turn.  dq, dk and dv are written through their strides
+// (the columns of one (B, T, 3 H D) gradient, say); the scratch delta is
+// 2 x B x H x Tq_pad floats.  Returns a cudaError_t as int (0 = ok).
+extern "C" int mx_flash_attention_bshd_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* delta, void* dq, void* dk,
+    void* dv, const void* lens, int B, int H, int Tq, int Tk, int D,
+    const long long* strides, float scale, int causal, int dtype,
+    void* stream) {
+  if (B < 0 || bad_args(B * H, H, Tq, Tk, D, dtype))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  BwdParams p;
+  fill(p, q, k, v, o, lse, lens, H, Tq, Tk, scale, causal);
+  p.dout = dout;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.sq = strides_of(strides, 0);
+  p.sk = strides_of(strides, 1);
+  p.sv = strides_of(strides, 2);
+  p.so = strides_of(strides, 3);
+  p.sdo = strides_of(strides, 4);
+  p.sdq = strides_of(strides, 5);
+  p.sdk = strides_of(strides, 6);
+  p.sdv = strides_of(strides, 7);
+  return run_bwd(p, B * H, D, dtype, delta, static_cast<cudaStream_t>(stream));
 }
 
 // The resources of the bf16 backward kernels at head dim D (64 or 128), for

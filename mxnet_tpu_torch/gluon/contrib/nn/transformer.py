@@ -2,14 +2,22 @@
 
 Counterpart of ``mxnet_tpu/gluon/contrib/nn/transformer.py``: the same
 blocks, parameters and structural names.  Layers are batch-major
-(batch, seq, units).  Self-attention runs through ``F.flash_attention``
-(``ops/attention.py``: the hand-written kernel on the card), with padding
-masks (``valid_length``) applied inside it; only an arbitrary additive
-``mask`` takes the composed dense path.  Attention dropout applies to the
-attention output, as in the JAX package.
+(batch, seq, units).  Self-attention runs through the (B, T, H, D)
+flash-attention kernels (``ops/attention.py:self_attention_bshd``: the
+hand-written kernels on the card), which read q, k and v in place as the
+column blocks of the fused qkv projection's (B, L, 3E) output and write
+o as (B, L, E), so no head transpose is made either way; padding masks
+(``valid_length``) apply inside them.  The JAX package's layer keeps the
+(B, H, T, D) entry, which the TPU ran faster; both compute the same
+function.  Only an arbitrary additive ``mask`` takes the composed dense
+path.  Attention dropout applies to the attention output, as in the JAX
+package.
 """
 from __future__ import annotations
 
+from .... import autograd
+from ....ndarray.ndarray import _wrap
+from ....ops.attention import self_attention_bshd
 from ...block import HybridBlock
 from ...nn import Dense, Dropout, LayerNorm
 
@@ -46,12 +54,13 @@ class MultiHeadAttention(HybridBlock):
     def hybrid_forward(self, F, x, mask=None, valid_length=None):
         b, l = x.shape[0], x.shape[1]
         qkv = self.qkv(x)                          # (B, L, 3E)
-        q, k, v = (self._heads_split(part)
-                   for part in F.split(qkv, num_outputs=3, axis=-1))
         if mask is None:
-            out = F.flash_attention(q, k, v, kv_lens=valid_length,
-                                    causal=self._causal)
+            lens = None if valid_length is None else valid_length._data
+            out = _wrap(autograd.call_op(self_attention_bshd, qkv._data,
+                                         self._heads, self._causal, lens))
         else:
+            q, k, v = (self._heads_split(part)
+                       for part in F.split(qkv, num_outputs=3, axis=-1))
             d = self._units // self._heads
             scores = F.batch_dot(q.reshape(-1, l, d),
                                  k.reshape(-1, l, d),
@@ -65,8 +74,8 @@ class MultiHeadAttention(HybridBlock):
                     F.broadcast_greater_equal(col, vl) * -1e30
             probs = F.softmax(scores, axis=-1)
             out = F.batch_dot(probs.reshape(-1, l, l), v.reshape(-1, l, d))
-            out = out.reshape(b, self._heads, l, d)
-        out = out.transpose(axes=(0, 2, 1, 3)).reshape(b, l, self._units)
+            out = out.reshape(b, self._heads, l, d) \
+                .transpose(axes=(0, 2, 1, 3)).reshape(b, l, self._units)
         out = self.proj(out)
         if self.drop is not None:
             out = self.drop(out)

@@ -5,8 +5,9 @@ parameters and structural names.  ``BERTModel(...)`` returns the sequence
 output, then the pooled [CLS] output when ``use_pooler``, then the
 masked-LM logits when ``use_decoder`` (decoded only at
 ``masked_positions`` when they are given).  Attention runs through the
-flash-attention kernel and, with ``MXNET_FUSED_LAYERNORM=1``, LayerNorm
-through its kernel.
+(B, T, H, D) flash-attention kernels, with ``valid_length`` as their
+``kv_lens``, and, with ``MXNET_FUSED_LAYERNORM=1``, LayerNorm through its
+kernel.
 """
 from __future__ import annotations
 

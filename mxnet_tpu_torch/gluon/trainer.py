@@ -107,7 +107,7 @@ class Trainer:
             grads.append(param.grad())
             weights.append(data)
         if indices:
-            self._updater(indices, grads, weights)
+            self._updater._trainer_update(indices, grads, weights)
         for w in weights:
             w._fresh_grad = False
 

@@ -3,8 +3,9 @@
 Counterpart of ``mxnet_tpu/ndarray/ndarray.py``, carrying over what the
 Gluon layers, the serving path and the training loop use: ``asnumpy``,
 ``asscalar``, ``shape``, ``dtype``, ``context``, ``astype``, arithmetic,
-basic indexing, ``reshape`` with MXNet's special codes (``Flatten`` uses
-it), placement (``copyto``, ``as_in_context``), the autograd surface
+basic indexing, ``len`` (the first axis), the ``sum`` and ``mean``
+reductions (the registered ops of ``ops/reduce.py``), ``reshape`` with
+MXNet's special codes (``Flatten`` uses it), placement (``copyto``, ``as_in_context``), the autograd surface
 (``attach_grad``, ``grad``, ``backward``, ``detach``), ``transpose``, the
 ``array``/``zeros``/``ones``/``arange`` constructors and ``split``.  The
 tensor lives on the context's device; its context is read from the
@@ -138,19 +139,26 @@ class NDArray:
                           else None, retain_graph=retain_graph,
                           train_mode=train_mode)
 
-    # -- reductions -----------------------------------------------------
-    def _reduce(self, fn, axis, keepdims):
-        dims = tuple(range(self._data.dim())) if axis is None else axis
+    # -- reductions: the registered ops of ops/reduce.py ----------------
+    def _reduce(self, name, axis, keepdims, exclude):
+        from ..ops.registry import get_op
         with autograd.op_scope():
-            return _wrap(fn(self._data, dim=dims, keepdim=keepdims))
+            return _wrap(get_op(name).fn(self._data, axis=axis,
+                                         keepdims=keepdims, exclude=exclude))
 
-    def sum(self, axis=None, keepdims=False) -> "NDArray":
-        return self._reduce(torch.sum, axis, keepdims)
+    def sum(self, axis=None, keepdims=False, exclude=False) -> "NDArray":
+        return self._reduce("sum", axis, keepdims, exclude)
 
-    def mean(self, axis=None, keepdims=False) -> "NDArray":
-        return self._reduce(torch.mean, axis, keepdims)
+    def mean(self, axis=None, keepdims=False, exclude=False) -> "NDArray":
+        return self._reduce("mean", axis, keepdims, exclude)
 
     # -- indexing -------------------------------------------------------
+    def __len__(self):
+        """The size of the first axis."""
+        if self._data.dim() == 0:
+            raise TypeError("len() of unsized object")
+        return self._data.shape[0]
+
     def __getitem__(self, key):
         """Basic indexing: integers, slices, ``None`` and ``...``."""
         parts = key if isinstance(key, tuple) else (key,)
@@ -251,16 +259,21 @@ class NDArray:
         self._data = torch.from_numpy(onp.array(state["data"]))
 
 
+_NARROW = {onp.dtype(onp.float64): onp.dtype(onp.float32),
+           onp.dtype(onp.int64): onp.dtype(onp.int32)}
+
+
 def _to_tensor(data, ctx: Context, dtype=None) -> torch.Tensor:
     device = ctx.torch_device
     dt = torch_dtype(dtype) if dtype is not None else None
     if isinstance(data, torch.Tensor):
         return data.to(device=device, dtype=dt)
     if dt is None:
-        # like the JAX package, whose arrays are at most 32-bit: a float64
-        # numpy source becomes float32 unless float64 is asked for
-        dt = torch_dtype(data.dtype) if isinstance(data, onp.ndarray) \
-            and data.dtype != onp.float64 else torch.float32
+        # like the JAX package, whose arrays are at most 32-bit: a 64-bit
+        # numpy source becomes its 32-bit kind (float64 float32, int64
+        # int32) unless the 64-bit type is asked for
+        dt = torch_dtype(_NARROW.get(data.dtype, data.dtype)) \
+            if isinstance(data, onp.ndarray) else torch.float32
     arr = onp.asarray(data)
     if dt != torch.bfloat16:
         arr = arr.astype(str(dt).replace("torch.", ""), copy=False)

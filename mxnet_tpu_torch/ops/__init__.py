@@ -7,3 +7,4 @@ from . import attention  # noqa: F401
 from . import nn  # noqa: F401
 from . import matrix  # noqa: F401
 from . import elemwise  # noqa: F401
+from . import reduce  # noqa: F401

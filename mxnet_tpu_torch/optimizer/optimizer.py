@@ -156,17 +156,25 @@ class Optimizer:
 
     # -- updates --------------------------------------------------------
     def update(self, index, weight, grad, state):
-        """Update one weight (or, given lists, several) with its state."""
+        """Update one weight (or, given lists, several) with its state, as
+        the JAX package's ``Updater`` does: one eager operation after
+        another."""
         indices, weights, grads, states = _as_lists(index, weight, grad,
                                                     state)
         self._update_count(indices)
         self._run(indices, [w._data for w in weights],
-                  [g._data for g in grads], states)
+                  [g._data for g in grads], states, False)
 
     def update_multi_precision(self, index, weight, grad, state):
         """As :meth:`update`; a half-width weight under ``multi_precision``
         is updated through its fp32 master (state leaf 0) and then set to
         the master's value."""
+        self._update_multi_precision(index, weight, grad, state, False)
+
+    def _update_multi_precision(self, index, weight, grad, state, fused):
+        """:meth:`update_multi_precision`; ``fused``: as the JAX package's
+        ``Trainer.step`` updates, through the optimizer's jitted step (see
+        :meth:`_step`)."""
         indices, weights, grads, states = _as_lists(index, weight, grad,
                                                     state)
         self._update_count(indices)
@@ -177,42 +185,49 @@ class Optimizer:
             self._run([indices[k] for k in full],
                       [weights[k]._data for k in full],
                       [grads[k]._data for k in full],
-                      [states[k] for k in full])
+                      [states[k] for k in full], fused)
         mp = [k for k, h in enumerate(half) if h]
         if mp:
             masters = [states[k][0]._data for k in mp]
             self._run([indices[k] for k in mp], masters,
                       [grads[k]._data.float() for k in mp],
-                      [states[k][1] for k in mp])
+                      [states[k][1] for k in mp], fused)
             with torch.no_grad():
                 for k, m in zip(mp, masters):
                     weights[k]._data.copy_(m)
 
-    def _run(self, indices, ws, gs, states):
+    def _run(self, indices, ws, gs, states, fused):
         leaves = [_leaves(s) for s in states]
         slots = [list(col) for col in zip(*leaves)] if leaves and leaves[0] \
             else []
         counts = [self._index_update_count[i] for i in indices]
         with torch.no_grad():
             self._step(ws, gs, slots, self._get_lrs(indices),
-                       self._get_wds(indices), counts)
+                       self._get_wds(indices), counts, fused)
 
-    def _step(self, ws, gs, slots, lrs, wds, counts):
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused):
         """Update the weight tensors ``ws`` and the state tensors (one list
-        per state slot) in place."""
+        per state slot) in place.
+
+        Every hyperparameter is rounded to its weight's dtype before it
+        meets a tensor, and every operation rounds in that dtype, as the
+        JAX package's weak-typed Python floats make its bf16 updates do.
+        ``fused`` (``Trainer.step``) changes only Adam's step: see
+        :meth:`Adam._step`."""
         raise NotImplementedError
 
     def _preprocess(self, gs, ws, wds):
         """New gradient tensors ``g * rescale_grad``, clipped to
         ``clip_gradient``, plus ``wd * w`` where ``wd`` is not 0."""
-        g = torch._foreach_mul(gs, self.rescale_grad)
+        g = torch._foreach_mul(gs, _scalars(self.rescale_grad, gs))
         if self.clip_gradient is not None:
-            torch._foreach_clamp_min_(g, -self.clip_gradient)
-            torch._foreach_clamp_max_(g, self.clip_gradient)
+            torch._foreach_clamp_min_(g, _scalars(-self.clip_gradient, g))
+            torch._foreach_clamp_max_(g, _scalars(self.clip_gradient, g))
         decay = [k for k, wd in enumerate(wds) if wd]
         if decay:
+            dws = [ws[k] for k in decay]
             torch._foreach_add_([g[k] for k in decay], torch._foreach_mul(
-                [ws[k] for k in decay], [wds[k] for k in decay]))
+                dws, _rounded([wds[k] for k in decay], dws)))
         return g
 
     def __getstate__(self):
@@ -248,8 +263,31 @@ def _zeros_like(weight: NDArray) -> NDArray:
     return _wrap(torch.zeros_like(weight._data.detach()))
 
 
+def _in_dtype(value, dtype):
+    """``value`` rounded to ``dtype``, as a Python float."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def _rounded(values, tensors):
+    """Each value rounded to its tensor's dtype, as the ``scalars``
+    argument of a ``torch._foreach_*`` op: one float where they all agree,
+    so that one launch covers as many tensors as a scalar allows."""
+    rounded = {}
+    for v, t in zip(values, tensors):
+        if (v, t.dtype) not in rounded:
+            rounded[v, t.dtype] = _in_dtype(v, t.dtype)
+    out = [rounded[v, t.dtype] for v, t in zip(values, tensors)]
+    return out[0] if len(set(out)) == 1 else out
+
+
+def _scalars(value, tensors):
+    """``value`` rounded to each tensor's dtype (see :func:`_rounded`)."""
+    return _rounded([value] * len(tensors), tensors)
+
+
 def _sgd_step(ws, g, lrs):
-    torch._foreach_add_(ws, torch._foreach_mul(g, [-lr for lr in lrs]))
+    torch._foreach_add_(ws, torch._foreach_mul(
+        g, _rounded([-lr for lr in lrs], ws)))
 
 
 @register
@@ -268,14 +306,14 @@ class SGD(Optimizer):
             return None
         return _zeros_like(weight)
 
-    def _step(self, ws, gs, slots, lrs, wds, counts):
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused):
         g = self._preprocess(gs, ws, wds)
         if not slots:
             _sgd_step(ws, g, lrs)
             return
         (moms,) = slots
-        torch._foreach_mul_(moms, self.momentum)
-        torch._foreach_sub_(moms, torch._foreach_mul(g, lrs))
+        torch._foreach_mul_(moms, _scalars(self.momentum, ws))
+        torch._foreach_sub_(moms, torch._foreach_mul(g, _rounded(lrs, ws)))
         torch._foreach_add_(ws, moms)
 
 
@@ -293,23 +331,32 @@ class NAG(Optimizer):
             return None
         return _zeros_like(weight)
 
-    def _step(self, ws, gs, slots, lrs, wds, counts):
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused):
         g = self._preprocess(gs, ws, wds)
         if not slots:
             _sgd_step(ws, g, lrs)
             return
         (moms,) = slots
-        torch._foreach_mul_(moms, self.momentum)
+        mom = _scalars(self.momentum, ws)
+        torch._foreach_mul_(moms, mom)
         torch._foreach_add_(moms, g)
-        step = torch._foreach_mul(moms, self.momentum)
+        step = torch._foreach_mul(moms, mom)
         torch._foreach_add_(step, g)
-        torch._foreach_mul_(step, lrs)
+        torch._foreach_mul_(step, _rounded(lrs, ws))
         torch._foreach_sub_(ws, step)
 
 
-def _in_dtype(value, dtype):
-    """``value`` rounded to ``dtype``, as a Python float."""
-    return torch.tensor(value, dtype=dtype).item()
+def _fused_lr_t(lr, t, b1, b2, dtype):
+    """Adam's step size as the JAX package's jitted step computes it, as
+    a Python float: lr rounded to fp32 and then to the weight's dtype,
+    times ``sqrt(1 - b2^t) / (1 - b1^t)`` in fp32 (its step count is a
+    traced int32, which makes the bias correction fp32)."""
+    f32 = torch.float32
+    one = torch.tensor(1.0, dtype=f32)
+    lr = torch.tensor(lr, dtype=f32).to(dtype).to(f32)
+    c2 = one - torch.tensor(b2, dtype=f32) ** t
+    c1 = one - torch.tensor(b1, dtype=f32) ** t
+    return (lr * torch.sqrt(c2) / c1).item()
 
 
 @register
@@ -318,11 +365,13 @@ class Adam(Optimizer):
     ``lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t)``,
     ``w = w - lr_t * m / (sqrt(v) + epsilon)``; the state is (m, v).
 
-    The moments are updated in the weight's dtype.  For a half-width
-    weight (bfloat16 without ``multi_precision``) the rest follows the
-    JAX package's jitted step: lr is rounded to the weight's dtype, the
-    step ``lr_t * m / (sqrt(v) + epsilon)`` and ``w`` minus it are
-    computed in fp32, and the new weight is rounded once to its dtype
+    The moments and ``sqrt(v)`` are computed in the weight's dtype.  The
+    rest follows the JAX package's two paths, which differ for a
+    half-width weight without ``multi_precision``: its ``Updater`` (and
+    ``update``) computes ``lr_t`` in Python and every operation in the
+    weight's dtype; its ``Trainer.step`` (``fused``) jits the step, where
+    ``lr_t`` is fp32, so ``sqrt(v) + epsilon``, the step and ``w`` minus
+    it are fp32 and the new weight is rounded once to its dtype
     (``pin_update_dtypes``)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
@@ -336,27 +385,37 @@ class Adam(Optimizer):
     def create_state(self, index, weight):
         return (_zeros_like(weight), _zeros_like(weight))
 
-    def _step(self, ws, gs, slots, lrs, wds, counts):
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused):
         b1, b2 = self.beta1, self.beta2
         g = self._preprocess(gs, ws, wds)
         means, variances = slots
-        torch._foreach_mul_(means, b1)
-        torch._foreach_add_(means, torch._foreach_mul(g, 1 - b1))
-        sq = torch._foreach_mul(g, 1 - b2)
+        torch._foreach_mul_(means, _scalars(b1, ws))
+        torch._foreach_add_(means, torch._foreach_mul(g, _scalars(1 - b1,
+                                                                  ws)))
+        sq = torch._foreach_mul(g, _scalars(1 - b2, ws))
         torch._foreach_mul_(sq, g)
-        torch._foreach_mul_(variances, b2)
+        torch._foreach_mul_(variances, _scalars(b2, ws))
         torch._foreach_add_(variances, sq)
-        rounded = {}
-        for lr, w in zip(lrs, ws):
-            if (lr, w.dtype) not in rounded:
-                rounded[lr, w.dtype] = _in_dtype(lr, w.dtype)
-        lr_ts = [rounded[lr, w.dtype] * math.sqrt(1.0 - b2 ** t)
-                 / (1.0 - b1 ** t) for lr, t, w in zip(lrs, counts, ws)]
         den = torch._foreach_sqrt(variances)
-        torch._foreach_add_(den, self.epsilon)
+        if not fused:
+            lr_ts = _rounded([lr * math.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
+                              for lr, t in zip(lrs, counts)], ws)
+            torch._foreach_add_(den, _scalars(self.epsilon, ws))
+            step = torch._foreach_mul(means, lr_ts)
+            torch._foreach_div_(step, den)
+            torch._foreach_sub_(ws, step)
+            return
+        rounded = {}
+        for lr, t, w in zip(lrs, counts, ws):
+            if (lr, t, w.dtype) not in rounded:
+                rounded[lr, t, w.dtype] = _fused_lr_t(lr, t, b1, b2, w.dtype)
+        lr_ts = [rounded[lr, t, w.dtype] for lr, t, w in zip(lrs, counts, ws)]
+        lr_ts = lr_ts[0] if len(set(lr_ts)) == 1 else lr_ts
         # fp32 from here: a no-op for fp32 tensors, a copy for half ones
+        den = [d.float() for d in den]
+        torch._foreach_add_(den, self.epsilon)
         step = torch._foreach_mul([m.float() for m in means], lr_ts)
-        torch._foreach_div_(step, [d.float() for d in den])
+        torch._foreach_div_(step, den)
         new = [w.float() for w in ws]
         torch._foreach_sub_(new, step)
         for w, n in zip(ws, new):
@@ -437,6 +496,14 @@ class Updater:
 
     def __call__(self, index, grad, weight):
         """Update one weight, or lists of them in one pass."""
+        self._update(index, grad, weight, False)
+
+    def _trainer_update(self, index, grad, weight):
+        """As a call, in the arithmetic of the JAX package's
+        ``Trainer.step`` (see :meth:`Optimizer._update_multi_precision`)."""
+        self._update(index, grad, weight, True)
+
+    def _update(self, index, grad, weight, fused):
         if isinstance(index, (list, tuple)):
             indices, grads, weights = list(index), list(grad), list(weight)
         else:
@@ -450,8 +517,13 @@ class Updater:
                 self.states[i] = self.sync_state_context(self.states[i],
                                                          w.context)
                 self.states_synced[i] = True
-        self.optimizer.update_multi_precision(
-            indices, weights, grads, [self.states[i] for i in indices])
+        states = [self.states[i] for i in indices]
+        if fused:
+            self.optimizer._update_multi_precision(indices, weights, grads,
+                                                   states, True)
+        else:
+            self.optimizer.update_multi_precision(indices, weights, grads,
+                                                  states)
 
     def sync_state_context(self, state, context):
         if isinstance(state, NDArray):

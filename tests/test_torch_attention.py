@@ -11,7 +11,8 @@ order); bfloat16 o within 2e-2 of the largest |o| (P is rounded to bf16
 before P·V, relative to the running max in the streaming kernel and to the
 row max here), lse within 1e-5 (fp32 scores from bf16 inputs).  The public
 op against the JAX package's on the CPU, where the JAX package composes
-the attention: float32 within 2e-5.  And the
+the attention: float32 within 2e-5, and bfloat16 without masks within
+one bf16 ulp of the largest |o|.  And the
 per-shape dispatcher's labels against the JAX package's.
 """
 import numpy as onp
@@ -128,6 +129,24 @@ def test_public_op_matches_jax(T, causal, lens):
             mxt.nd.array(v, dtype=dtype), causal=causal,
             kv_lens=mxt.nd.array(onp.array(lens, "int32"), dtype="int32"))
     _check(got.astorch(), want, dtype, "public op")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_unmasked_bf16_composed_attention_matches_jax(causal):
+    """Without kv_lens and segments the JAX package composes short
+    attention blockwise: fp32 scores, the unnormalised probabilities
+    rounded to bf16 for p·v, one division at the end.  Within one bf16
+    ulp of the largest |o|."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(11, 2, 2, 64, 64, 64))
+    want = JA.flash_attention(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)),
+        causal)
+    got = TA.flash_attention(q, k, v, causal)
+    assert got.dtype == torch.bfloat16
+    want = onp.asarray(jnp.asarray(want, jnp.float32))
+    ulp = 2.0 ** (onp.floor(onp.log2(onp.abs(want).max())) - 7)
+    assert onp.abs(got.float().numpy() - want).max() <= ulp
 
 
 # (Tq, Tk, D): shapes where both packages give the same label

@@ -359,8 +359,8 @@ def test_layernorm_bwd_kernel_matches_plain_on_cuda():
 def test_bert_small_train_step_on_cuda(monkeypatch):
     """On the card: one masked-LM Adam step of a small BERT through
     autograd.record, backward and gluon.Trainer, bf16, with the fused
-    LayerNorm route: one attention launch a layer and one LayerNorm launch
-    per norm, forward and backward each; finite loss and gradients; bf16
+    LayerNorm route: one (B, T, H, D) attention launch a layer and one
+    LayerNorm launch per norm, forward and backward each; finite loss and gradients; bf16
     weights, gradients and Adam state."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -387,14 +387,16 @@ def test_bert_small_train_step_on_cuda(monkeypatch):
     trainer = mx.gluon.Trainer(net.collect_params(), "adam",
                                {"learning_rate": 1e-4})
     ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
-    counts = (TA.LAUNCHES, TA.BWD_LAUNCHES, TL.LAUNCHES, TL.BWD_LAUNCHES)
+    counts = (TA.BSHD_LAUNCHES, TA.BSHD_BWD_LAUNCHES, TL.LAUNCHES,
+              TL.BWD_LAUNCHES)
     with mx.autograd.record():
         _, logits = net(x, None, None, vl, mp)
         loss = ce(logits.reshape(-1, vocab), y.reshape(-1)).mean()
     loss.backward()
     trainer.step(1, ignore_stale_grad=True)
     torch.cuda.synchronize()
-    after = (TA.LAUNCHES, TA.BWD_LAUNCHES, TL.LAUNCHES, TL.BWD_LAUNCHES)
+    after = (TA.BSHD_LAUNCHES, TA.BSHD_BWD_LAUNCHES, TL.LAUNCHES,
+             TL.BWD_LAUNCHES)
     n_ln = 2 * layers + 2
     assert [a - b for a, b in zip(after, counts)] == [layers, layers, n_ln,
                                                       n_ln]
@@ -406,3 +408,132 @@ def test_bert_small_train_step_on_cuda(monkeypatch):
         assert bool(g.any()) == (k != "type_embed.weight"), k
     for state in trainer._updater.states.values():
         assert all(s.astorch().dtype == torch.bfloat16 for s in state)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bshd_kernels_match_plain_on_cuda():
+    """On the card: the (B, T, H, D) forward and backward kernels against
+    their plain versions, on strided views (q, k and v as the column
+    blocks of one (B, T, 3 H D) buffer, the backward writing into views of
+    one such gradient) and on contiguous operands: the forward as the
+    (B, H, T, D) kernel is held (f32 o within 2e-5, bf16 within 2e-2 of
+    the largest |o|, lse within 1e-5), the backward within 1e-5 (f32) and
+    1e-2 (bf16) of the largest |plain gradient|, the same bits twice,
+    exact zeros past the valid lengths; at BERT's head layout scaled down,
+    causal D 128, f32, D 80 (padded), Tk 65 and 129, kv_lens 0 and on a
+    tile edge; counted as BSHD launches; misaligned strides refused; and
+    the public op's Function against the same Function on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(6)
+    bf = torch.bfloat16
+    for B, Tq, Tk, H, D, dtype, causal, lens, packed in [
+            (4, 256, 256, 12, 64, bf, False, (256, 200, 130, 64), True),
+            (1, 512, 512, 4, 128, bf, True, None, False),
+            (2, 256, 256, 2, 128, torch.float32, False, (256, 100), True),
+            (2, 200, 200, 3, 80, bf, False, (200, 64), False),
+            (2, 100, 65, 3, 64, bf, False, (64, 0), False),
+            (2, 130, 129, 3, 64, bf, True, (128, 129), False)]:
+        if packed:
+            buf = torch.randn((B, Tq, 3 * H * D), device=dev,
+                              generator=g).to(dtype)
+            q, k, v = TA._qkv_heads(buf, H)
+        else:
+            q, k, v = (torch.randn((B, T, H, D), device=dev, generator=g)
+                       .to(dtype) for T in (Tq, Tk, Tk))
+        do = torch.randn((B, Tq, H, D), device=dev, generator=g).to(dtype)
+        kw = dict(causal=causal)
+        if lens is not None:
+            kw["kv_lens"] = torch.tensor(lens, device=dev, dtype=torch.int32)
+        before = (TA.BSHD_LAUNCHES, TA.BSHD_BWD_LAUNCHES)
+        o, lse = TA.flash_attention_bshd_fwd(q, k, v, **kw)
+        if packed:
+            grad = torch.full_like(buf, float("nan"))
+            got = TA.flash_attention_bshd_bwd(q, k, v, o, lse, do, **kw,
+                                              out=TA._qkv_heads(grad, H))
+        else:
+            got = TA.flash_attention_bshd_bwd(q, k, v, o, lse, do, **kw)
+        again = TA.flash_attention_bshd_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        assert (TA.BSHD_LAUNCHES, TA.BSHD_BWD_LAUNCHES) == \
+            (before[0] + 1, before[1] + 2)
+        want_o, want_lse = TA._flash_attention_bshd_plain(q, k, v, **kw)
+        assert o.shape == want_o.shape and o.dtype == dtype
+        assert (lse - want_lse).abs().max().item() <= 1e-5
+        assert _bf16_close(o, want_o, 2e-5 if dtype == torch.float32
+                           else 2e-2)
+        want = TA._flash_attention_bshd_bwd_plain(q, k, v, o, lse, do, **kw)
+        rel = 1e-5 if dtype == torch.float32 else 1e-2
+        for a, b, c in zip(got, again, want):
+            assert torch.equal(a, b)
+            assert a.dtype == dtype and a.shape == c.shape
+            assert _bf16_close(a, c, rel)
+        if packed:
+            assert not torch.isnan(grad).any()
+        for b, n in enumerate(lens or ()):
+            assert not got[1][b, n:].any() and not got[2][b, n:].any()
+    x = torch.zeros((1, 128, 2, 64), device=dev, dtype=bf)
+    wide = torch.zeros((1, 128, 2 * 64 + 4), device=dev, dtype=bf)
+    odd = wide[..., :128].unflatten(-1, (2, 64))     # a 264-byte row
+    with pytest.raises(MXNetError, match="16-byte aligned strides"):
+        TA.flash_attention_bshd_fwd(odd, x, x)
+    qkv = [torch.randn((2, 128, 2, 32), device=dev, generator=g)
+           .requires_grad_() for _ in range(3)]
+    lens = torch.tensor([128, 40], device=dev)
+    fwd, bwd = TA.BSHD_LAUNCHES, TA.BSHD_BWD_LAUNCHES
+    TA.flash_attention_bshd(*qkv, causal=True, kv_lens=lens).square().sum() \
+        .backward()
+    assert (TA.BSHD_LAUNCHES, TA.BSHD_BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    cpu = [t.detach().cpu().requires_grad_() for t in qkv]
+    TA.flash_attention_bshd(*cpu, causal=True, kv_lens=lens.cpu()).square() \
+        .sum().backward()
+    for a, b in zip(qkv, cpu):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_launch_from_a_fresh_thread():
+    """A thread that has made no CUDA call yet (autograd runs a backward
+    on a thread of its own) launches both backward entries, whose tensor
+    maps need the device's context bound on the calling thread, and gets
+    the main thread's bits; and the fused self-attention's backward
+    through autograd, D 64, against the same on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import threading
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, do = (torch.randn((2, 3, 128, 64), device=dev, generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = TA.flash_attention_fwd(q, k, v)
+    bq, bk, bv, bdo, bo = (t.transpose(1, 2) for t in (q, k, v, do, o))
+    results = {}
+
+    def run():
+        try:
+            results["bhtd"] = TA.flash_attention_bwd(q, k, v, o, lse, do)
+            results["bshd"] = TA.flash_attention_bshd_bwd(
+                bq, bk, bv, bo.contiguous(), lse, bdo.contiguous())
+            torch.cuda.synchronize()
+        except Exception as e:          # reported below, on the test's thread
+            results["error"] = e
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in results, results.get("error")
+    want = TA.flash_attention_bwd(q, k, v, o, lse, do)
+    for a, b, c in zip(results["bhtd"], results["bshd"], want):
+        assert torch.equal(a, c) and torch.equal(b.transpose(1, 2), c)
+    qkv = torch.randn((2, 128, 3 * 128), device=dev, generator=g) \
+        .requires_grad_()
+    lens = torch.tensor([128, 50], device=dev, dtype=torch.int32)
+    dout = torch.randn((2, 128, 128), device=dev, generator=g)
+    got = torch.autograd.grad(TA.self_attention_bshd(qkv, 2, False, lens),
+                              qkv, dout)[0]
+    cpu = qkv.detach().cpu().requires_grad_()
+    ref = torch.autograd.grad(TA.self_attention_bshd(cpu, 2, False,
+                                                     lens.cpu()),
+                              cpu, dout.cpu())[0]
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-5)

@@ -189,3 +189,16 @@ def test_speedometer_logs_speed_and_metric(caplog):
     lines = [r.getMessage() for r in caplog.records]
     assert len(lines) == 2 and "samples/sec" in lines[0]
     assert "loss=2.000000" in lines[0] and sp.speed > 0
+
+
+def test_array_dataset_of_an_ndarray_matches_jax():
+    """An NDArray in an ArrayDataset: its length is its first axis, and a
+    sample holds its row."""
+    labels = onp.arange(4)
+    jds = mx.gluon.data.ArrayDataset(mx.nd.zeros((4, 2)), labels)
+    with mxt.cpu():
+        tds = mxt.gluon.data.ArrayDataset(mxt.nd.zeros((4, 2)), labels)
+        assert len(mxt.nd.zeros((3, 5))) == 3
+    assert len(tds) == len(jds) == 4
+    assert tds[1][0].shape == jds[1][0].shape == (2,)
+    assert int(tds[1][1]) == int(jds[1][1]) == 1

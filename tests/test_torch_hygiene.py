@@ -67,6 +67,14 @@ def test_every_module_of_the_bert_slice_is_checked():
         assert name in rel, name
 
 
+def test_every_module_of_the_bshd_slice_is_checked():
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("ops/attention.py", "ops/reduce.py",
+                 "gluon/contrib/nn/transformer.py",
+                 "optimizer/optimizer.py", "ndarray/ndarray.py"):
+        assert name in rel, name
+
+
 def test_kernel_wrappers_have_no_fallback_try():
     """A module that loads a kernel library launches its kernel or raises:
     no ``try`` around a launch that could run something else."""

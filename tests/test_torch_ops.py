@@ -148,3 +148,22 @@ def test_array_dtype_follows_jax_package(src):
     want = mx.nd.array(src).dtype
     got = mxt.nd.array(src, ctx=mxt.cpu()).dtype
     assert onp.dtype(got) == onp.dtype(want)
+
+
+def test_integer_arrays_are_int32_as_in_jax_package():
+    """An int64 numpy source becomes int32 (the JAX package's arrays are
+    at most 32-bit), in ``nd.array`` and in the batches a DataLoader
+    stacks from an integer dataset."""
+    src = onp.arange(3)
+    assert src.dtype == onp.int64
+    assert onp.dtype(mx.nd.array(src).dtype) == onp.int32
+    assert onp.dtype(mxt.nd.array(src, ctx=mxt.cpu()).dtype) == onp.int32
+    labels = onp.arange(4)
+    data = onp.zeros((4, 2), "float32")
+    want = [lb.dtype for _, lb in mx.gluon.data.DataLoader(
+        mx.gluon.data.ArrayDataset(data, labels), batch_size=2)]
+    with mxt.cpu():
+        got = [lb.dtype for _, lb in mxt.gluon.data.DataLoader(
+            mxt.gluon.data.ArrayDataset(data, labels), batch_size=2)]
+    assert [onp.dtype(d) for d in got] == [onp.dtype(d) for d in want] \
+        == [onp.int32] * 2

@@ -423,3 +423,72 @@ def test_asnumpy_is_a_copy_of_a_parameter_updated_in_place(mlp_setup):
     for k, w in weights.items():
         onp.testing.assert_array_equal(before[k], w)
     assert not onp.array_equal(_params(tnet)["0.weight"], before["0.weight"])
+
+
+HALF_STEPS = [("sgd", {"learning_rate": 0.1}),
+              ("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+              ("nag", {"learning_rate": 0.1, "momentum": 0.9}),
+              ("adam", {"learning_rate": 0.01})]
+
+
+def _half_step(pkg, name, params, path, w, g):
+    """One update of a bf16 (64, 64) weight without master weights,
+    through the Updater or through ``Trainer.step``: the new weight and
+    every state leaf, as float32 numpy arrays."""
+    kw = {"ctx": mxt.cpu()} if pkg is mxt else {}
+    if path == "updater":
+        upd = pkg.optimizer.get_updater(pkg.optimizer.create(name, **params))
+        weight = pkg.nd.array(w, **kw).astype("bfloat16")
+        upd(0, pkg.nd.array(g, **kw).astype("bfloat16"), weight)
+        state = upd.states[0]
+    else:
+        p = pkg.gluon.Parameter("w", shape=w.shape, dtype="bfloat16")
+        p.initialize(init=pkg.init.Zero(), **kw)
+        p.set_data(pkg.nd.array(w, **kw).astype("bfloat16"))
+        trainer = pkg.gluon.Trainer([p], name, dict(params))
+        if pkg is mxt:
+            p.grad().astorch().copy_(torch.from_numpy(g).bfloat16())
+            p.data()._fresh_grad = True
+            trainer.step(1)
+            state = trainer._updater.states[0]
+        else:
+            p.grad()[:] = mx.nd.array(g).astype("bfloat16")
+            trainer.step(1)
+            state = _jax_states(trainer)[0]
+        weight = p.data()
+    leaves = [] if state is None else \
+        list(state) if isinstance(state, (tuple, list)) else [state]
+    return [a.astype("float32").asnumpy() for a in [weight] + leaves]
+
+
+@pytest.mark.parametrize("path", ["updater", "trainer"])
+@pytest.mark.parametrize("name,params", HALF_STEPS,
+                         ids=["sgd", "sgd_momentum", "nag", "adam"])
+def test_half_width_update_matches_jax_bits(name, params, path):
+    """A bf16 weight without ``multi_precision``: the JAX package rounds
+    every hyperparameter to bf16 (its weak-typed Python floats) and every
+    operation in bf16; its Trainer's jitted Adam step takes ``lr_t`` in
+    fp32.  Exact: the JAX package's bits for the weight and every state."""
+    rng = onp.random.RandomState(3)
+    w = (rng.randn(64, 64) * 0.5).astype("float32")
+    g = (rng.randn(64, 64) * 0.3).astype("float32")
+    want = _half_step(mx, name, params, path, w, g)
+    got = _half_step(mxt, name, params, path, w, g)
+    assert len(got) == len(want) == {"sgd": 1 + ("momentum" in params),
+                                     "nag": 2, "adam": 3}[name]
+    for t, j in zip(got, want):
+        onp.testing.assert_array_equal(t, j)
+
+
+@pytest.mark.parametrize("owner,method", [
+    ("Optimizer", "update"), ("Optimizer", "update_multi_precision"),
+    ("Updater", "__call__")])
+def test_update_entries_keep_the_jax_signatures(owner, method):
+    """The Trainer's choice of arithmetic stays inside the package: the
+    public update entries take the JAX package's parameters, no more."""
+    import inspect
+
+    def params(pkg):
+        fn = getattr(getattr(pkg.optimizer, owner), method)
+        return list(inspect.signature(fn).parameters)
+    assert params(mxt) == params(mx)
