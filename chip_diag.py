@@ -5,7 +5,8 @@
     python3 chip_diag.py parity [--seed 0]
     python3 chip_diag.py ab --parent DIR [--pairs 2]
     python3 chip_diag.py bwd
-    python3 chip_diag.py fwd --other FILE [--pairs 2]
+    python3 chip_diag.py fwd [--other FILE ...] [--pairs 2]
+    python3 chip_diag.py ln [--other FILE ...] [--pairs 2]
 
 ``parity``: the gradients of one batch-2 ResNet-50 v1 training step from
 the same Xavier weights (those of ``chip_smoke.py``'s training phase),
@@ -35,16 +36,30 @@ sums over the blocks for warp 0 -- once as the kernel is, and once with
 every tile sent through the general masked exponential loop (a mask test
 an element), which the kernel keeps for causal and segment masks.
 
-``fwd``: the bf16 flash-attention forward of another version of
-``csrc/flash_attention.cu`` (``--other``, e.g. the parent commit's file)
-against this checkout's, both built side by side and called through their
-(B, H, T, D) C entry ``mx_flash_attention_fwd`` on the same operands, at
-BERT-base's shape (24, 12, 512, 512, 64) with ``bench.py``'s valid lengths
-and at (1, 12, 2048, 2048, 64): whether the two give the same bits, then
-their times in turns (other, this, this, other for ``--pairs 2``) as
-``chip_smoke.py`` times a kernel, and each build's forward registers.
+``fwd``: the bf16 flash-attention forward of this checkout's
+``csrc/flash_attention.cu`` beside other versions of it (``--other``,
+given once for each: e.g. the parent commit's file, or a copy with
+another tiling of the forward kernel), all built side by side and called
+through their C entries on the same operands: at BERT-base's (B, S, H, D)
+views (q, k and v strided views of one (24, 512, 3 x 768) projection
+output, ``bench.py``'s valid lengths), at its (B, H, T, D) shape (24, 12,
+512, 512, 64) and at (1, 12, 2048, 2048, 64).  It prints each build's
+error against the plain version, whether each ``--other`` gives the same
+bits as this one, each build's forward registers, and their times in
+turns (each build in order, then in reverse, for ``--pairs 2``) as
+``chip_smoke.py`` times a kernel.
 
-All four need a CUDA card and exit non-zero without one.
+``ln``: the bf16 LayerNorm backward at (12288, 768) and (1824, 768) --
+BERT-base's rows and its masked-LM head's -- of this checkout's
+``csrc/layernorm.cu`` and, with ``--other``, other versions of it (e.g.
+the parent commit's), built side by side and called through their C
+entry on the same operands: whether they give the same bits, their times
+in turns (events, L2 flushed), and each build's device time by kernel
+under torch.profiler (the rows kernel and the column fold separately; a
+kernel launched as a programmatic dependent counts the time it waits for
+the one before it), beside the bytes bound.
+
+All five need a CUDA card and exit non-zero without one.
 """
 from __future__ import annotations
 
@@ -361,14 +376,16 @@ def bwd():
     return 0
 
 
-def _build_side_by_side(sources):
+def _build_side_by_side(sources, what="fwd", kernel_prefix="flash_fwd"):
     """Build {name: .cu path} in parallel into ``_build/``; {name: (library,
-    the forward kernels' ptxas lines)}."""
+    the ptxas lines of the kernels whose names start with
+    ``kernel_prefix``)}."""
     from mxnet_tpu_torch import kernels
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)
     procs = {}
     for name, src in sources.items():
-        lib = os.path.join(kernels.BUILD_DIR, "libdiag_fwd_%s.so" % name)
+        lib = os.path.join(kernels.BUILD_DIR, "libdiag_%s_%s.so"
+                           % (what, name))
         procs[name] = (subprocess.Popen(
             [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
@@ -376,73 +393,233 @@ def _build_side_by_side(sources):
     for name, (proc, lib) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise SystemExit("chip_diag fwd: build of %s failed\n%s"
-                             % (name, log[-3000:]))
+            raise SystemExit("chip_diag %s: build of %s failed\n%s"
+                             % (what, name, log[-3000:]))
         out[name] = (lib, [r for r in kernels.ptxas_report(log)
-                           if r["kernel"].startswith("flash_fwd")])
+                           if r["kernel"].startswith(kernel_prefix)])
     return out
 
 
-def fwd(other, pairs):
+def _order(names, pairs):
+    """The builds' turns: ``names`` in order, then in reverse, ``pairs``
+    times."""
+    order = []
+    for i in range(pairs):
+        order += names if i % 2 == 0 else names[::-1]
+    return order
+
+
+def _other_sources(this, others):
+    """{name: .cu path}: this checkout's source as ``this`` and each of
+    ``others`` as ``other``, ``other2``, ..."""
+    sources = {"this": this}
+    for i, path in enumerate(others):
+        sources["other" if i == 0 else "other%d" % (i + 1)] = path
+    return sources
+
+
+def _compare(outs):
+    """For each build but ``this``, whether its outputs are the same bits
+    as ``outs["this"]``, else the largest |difference| of each output."""
+    import torch
+    out = {}
+    for name, other in outs.items():
+        if name == "this":
+            continue
+        pairs = list(zip(other, outs["this"]))
+        out[name] = "same bits" if all(torch.equal(a, b) for a, b in pairs) \
+            else "max |%s - this| %s" % (name, [
+                float("%.3g" % (a.float() - b.float()).abs().max().item())
+                for a, b in pairs])
+    return "; ".join("%s: %s" % kv for kv in out.items())
+
+
+def fwd(others, pairs):
     import ctypes
     import torch
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.ops import attention as TA
     card = cs.card_line()
     print("card: %s" % card)
-    builds = _build_side_by_side({
-        "other": other,
-        "this": os.path.join(kernels.CSRC_DIR, "flash_attention.cu")})
+    sources = _other_sources(
+        os.path.join(kernels.CSRC_DIR, "flash_attention.cu"), others)
+    builds = _build_side_by_side(sources)
     fns = {}
     for name, (lib, report) in builds.items():
         for r in report:
             print("ptxas %s: %s: %s registers, spill %d/%d bytes" % (
                 name, r["kernel"], r["registers"], r["spill_stores"],
                 r["spill_loads"]))
-        fn = ctypes.CDLL(lib).mx_flash_attention_fwd
+        dll = ctypes.CDLL(lib)
+        fn = dll.mx_flash_attention_fwd
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
             [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        fns[name] = fn
-    order = []
-    for i in range(pairs):
-        order += ["other", "this"] if i % 2 == 0 else ["this", "other"]
+        bfn = dll.mx_flash_attention_bshd_fwd
+        bfn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
+            [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p]
+        bfn.restype = ctypes.c_int
+        fns[name] = (fn, bfn)
+    names = list(fns)
+    order = _order(names, pairs)
     cases = {c[0]: c for c in cs.ATTN_CASES}
     _, bench_lens, _ = cs.bert_inputs(0)
     gen = torch.Generator(device="cuda").manual_seed(7)
     flush = torch.empty(cs.L2_FLUSH_BYTES // 4, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    for label in ("bert", "t2048"):
-        _, B, H, Tq, Tk, D, _, causal, _, _ = cases[label]
-        q, k, v, _, kw = cs._attention_operands(torch, gen, cases[label],
-                                                bench_lens)
+    for label in ("bert_bshd", "bert", "t2048"):
+        if label == "bert_bshd":
+            # BERT's layer: q, k and v strided views of one (B, T, 3 H D)
+            # projection output, o (B, T, H, D)
+            case = [c for c in cs.ATTN_BSHD_CASES if c[0] == "bert"][0]
+            _, B, Tq, Tk, H, D, _, causal, _, _ = case
+            q, k, v, _, kw, _ = cs._bshd_operands(torch, TA, gen, case,
+                                                  bench_lens)
+            o = torch.empty((B, Tq, H, D), dtype=q.dtype, device="cuda")
+            strides = TA._bshd_strides("chip_diag fwd", (q, k, v, o))
+            po, plse = TA._flash_attention_bshd_plain(q, k, v, **kw)
+        else:
+            _, B, H, Tq, Tk, D, _, causal, _, _ = cases[label]
+            q, k, v, _, kw = cs._attention_operands(torch, gen, cases[label],
+                                                    bench_lens)
+            o = torch.empty_like(q)
+            po, plse = TA._flash_attention_plain(q, k, v, **kw)
         lens = kw.get("kv_lens")
-        o = torch.empty_like(q)
         lse = torch.empty((B, H, Tq), device="cuda")
 
         def call(name):
-            rc = fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           o.data_ptr(), lse.data_ptr(),
-                           None if lens is None else lens.data_ptr(), None,
-                           None, B * H, H, Tq, Tk, D, D ** -0.5, int(causal),
-                           1, stream)
+            fn, bfn = fns[name]
+            lp = None if lens is None else lens.data_ptr()
+            if label == "bert_bshd":
+                rc = bfn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), lse.data_ptr(), lp, B, H, Tq, Tk, D,
+                         strides, D ** -0.5, int(causal), 1, stream)
+            else:
+                rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), lse.data_ptr(), lp, None, None, B * H,
+                        H, Tq, Tk, D, D ** -0.5, int(causal), 1, stream)
             cs.check(rc == 0, "chip_diag fwd: %s returned %d" % (name, rc))
-        outs = {}
-        for name in fns:
+        outs, errs = {}, {}
+        for name in names:
+            o.zero_()
             call(name)
             torch.cuda.synchronize()
             outs[name] = (o.clone(), lse.clone())
-        same = all(torch.equal(a, b) for a, b in zip(outs["other"],
-                                                     outs["this"]))
+            errs[name] = [float("%.3g" % e) for e in (
+                (o.float() - po.float()).abs().max().item()
+                / po.float().abs().max().item(),
+                (lse - plse).abs().max().item())]
+        times = {name: [] for name in names}
+        for name in order:
+            times[name].append(cs.time_cuda(torch, lambda: call(name),
+                                            flush))
+        print("fwd %s %s: o rel err and lse abs err against the plain "
+              "version %s; %s; ms in turns %s  (%s)" % (
+                  label, (B, H, Tq, Tk, D), json.dumps(errs),
+                  _compare(outs),
+                  json.dumps({n: t for n, t in times.items()}), card))
+        del q, k, v, o, lse, outs, po, plse
+        torch.cuda.empty_cache()
+    return 0
+
+
+LN_SHAPES = ((12288, 768), (1824, 768))
+
+
+def ln(others, pairs):
+    import ctypes
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.ops import layernorm as TL
+    card = cs.card_line()
+    print("card: %s" % card)
+    sources = _other_sources(os.path.join(kernels.CSRC_DIR, "layernorm.cu"),
+                             others)
+    builds = _build_side_by_side(sources, "ln", "ln_bwd")
+    fns = {}
+    for name, (lib, report) in builds.items():
+        for r in report:
+            print("ptxas %s: %s: %s registers, spill %d/%d bytes" % (
+                name, r["kernel"], r["registers"], r["spill_stores"],
+                r["spill_loads"]))
+        dll = ctypes.CDLL(lib)
+        fn = dll.mx_layer_norm_bwd
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong,
+                                               ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        blocks = dll.mx_layer_norm_bwd_blocks
+        blocks.argtypes = [ctypes.c_longlong]
+        blocks.restype = ctypes.c_longlong
+        fns[name] = (fn, blocks)
+    order = _order(list(fns), pairs)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    flush = torch.empty(cs.L2_FLUSH_BYTES // 4, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    bw = cs.memory_bytes_per_s(card)
+    for N, C in LN_SHAPES:
+        x = (torch.randn((N, C), device="cuda", generator=gen) * 2 + 0.5) \
+            .to(torch.bfloat16)
+        g = (torch.rand(C, device="cuda", generator=gen) + 0.5) \
+            .to(torch.bfloat16)
+        b = (torch.rand(C, device="cuda", generator=gen) - 0.5) \
+            .to(torch.bfloat16)
+        y, mu, rstd = TL._layer_norm_fwd_plain(x, g, b, 1e-12)
+        ct = torch.randn((N, C), device="cuda", generator=gen).to(y.dtype)
+        bufs = {}
+        for name, (fn, blocks) in fns.items():
+            bufs[name] = (torch.empty_like(x),
+                          torch.empty((blocks(N), 2, C), device="cuda"),
+                          torch.empty(C, device="cuda"),
+                          torch.empty(C, device="cuda"))
+
+        def call(name):
+            fn = fns[name][0]
+            dx, ws, dg, db = bufs[name]
+            rc = fn(x.data_ptr(), g.data_ptr(), mu.data_ptr(),
+                    rstd.data_ptr(), ct.data_ptr(), dx.data_ptr(),
+                    ws.data_ptr(), dg.data_ptr(), db.data_ptr(), N, C, 1, 1,
+                    stream)
+            cs.check(rc == 0, "chip_diag ln: %s returned %d" % (name, rc))
+        for name in fns:
+            call(name)
+        torch.cuda.synchronize()
+        outs = {name: (bufs[name][0], bufs[name][2], bufs[name][3])
+                for name in fns}
+        compared = _compare(outs)
         times = {name: [] for name in fns}
         for name in order:
             times[name].append(cs.time_cuda(torch, lambda: call(name),
                                             flush))
-        print("fwd %s %s: same bits %s; ms in turns %s  (%s)" % (
-            label, (B, H, Tq, Tk, D), same,
-            json.dumps({n: t for n, t in times.items()}), card))
-        del q, k, v, o, lse, outs
+        # device time by kernel, under the profiler
+        split = {}
+        for name in fns:
+            for _ in range(3):
+                call(name)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    flush.sum()
+                    call(name)
+                torch.cuda.synchronize()
+            split[name] = {}
+            for e in prof.key_averages():
+                m = re.search(r"\bln_\w+", e.key)
+                if m and e.device_time_total > 0:
+                    split[name][m.group()] = \
+                        e.device_time_total / e.count / 1e3
+        nbytes = N * C * 6 + 8 * N + C * 10
+        print("ln bwd (%d, %d) bf16: %s; ms in turns %s; device ms a call "
+              "by kernel %s; bound %.4f ms  (%s)" % (
+                  N, C, compared, json.dumps(times), json.dumps(split),
+                  nbytes / bw * 1e3, card))
+        del x, ct, bufs, outs
         torch.cuda.empty_cache()
     return 0
 
@@ -457,8 +634,11 @@ def main(argv=None):
     a.add_argument("--pairs", type=int, default=2)
     sub.add_parser("bwd")
     f = sub.add_parser("fwd")
-    f.add_argument("--other", required=True)
+    f.add_argument("--other", action="append", default=[])
     f.add_argument("--pairs", type=int, default=2)
+    n = sub.add_parser("ln")
+    n.add_argument("--other", action="append", default=[])
+    n.add_argument("--pairs", type=int, default=2)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -468,8 +648,9 @@ def main(argv=None):
         return parity(args.seed)
     if args.cmd == "bwd":
         return bwd()
-    if args.cmd == "fwd":
-        return fwd(os.path.abspath(args.other), args.pairs)
+    if args.cmd in ("fwd", "ln"):
+        others = [os.path.abspath(o) for o in args.other]
+        return (fwd if args.cmd == "fwd" else ln)(others, args.pairs)
     return ab(os.path.abspath(args.parent), args.pairs)
 
 

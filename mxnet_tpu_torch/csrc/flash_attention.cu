@@ -33,25 +33,47 @@
 // (B, T, 3 H D) projection output, read and written in place: no transposed
 // or contiguous copy.  The arithmetic does not depend on the layout.
 //
-// bf16 runs on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32
-// accumulate): a 128-thread block of four warps, each warp 16 query rows.
-// The Q fragments stay in registers for the whole loop; K is staged row
-// major, V transposed, each row padded by 8 elements so that the fragment
-// reads are free of bank conflicts.  The score fragments become the A
-// fragments of the P.V product in registers, with P rounded to bf16 first
-// and the normaliser summed from the unrounded fp32 P, as the TPU kernels
-// round it.  f32 has no tensor-core path with TF32 off, so it runs scalar
-// fp32 FMAs: a 256-thread block computes the 64 x 64 score tile into shared
-// memory (4 x 4 per thread), four threads a row take the online softmax,
-// and each thread accumulates a 4 x (D/16) slice of the output.
+// bf16 (flash_fwd_hopper) runs on Hopper's asynchronous units, with one
+// warpgroup (128 threads) a block owning 64 query rows:
+// - Loads.  Thread 0 issues TMA loads (cp.async.bulk.tensor over a 4-d
+//   tensor map (D, T, H, B) built from the operand's strides, with the
+//   128-byte swizzle and zero fill past T for the ragged last tile) of the
+//   Q tile once and of the K and V tiles of 64 keys into a ring of STAGES
+//   buffers, each with a "full" mbarrier (the TMA's bytes) and an "empty"
+//   one (one arrival per warp once its products on the buffer are done).
+//   Thread 0 refills a buffer one tile after its warps released it, so the
+//   loads of the next tiles are in flight while the warps compute.
+// - Products on wgmma (m64nNk16, bf16 in, fp32 accumulate).  S = Q K^T
+//   takes both operands K-major from shared memory; O += P V takes P from
+//   registers (the fp32 scores, exponentiated and rounded to bf16, are the
+//   A fragments) and V MN-major with the transpose bit from the same
+//   swizzled buffer, one 64-column half at a time: no transposed V is
+//   staged.
+// - The exponentials overlap the tensor cores: each tile's S = Q K^T is
+//   issued together with the previous tile's P V, and the tile's softmax
+//   runs while that P V does (FlashAttention-3's order inside one
+//   warpgroup).  exp2 runs on the special-function unit
+//   (ex2.approx) with log2(e) folded into the scale.  A tile with no
+//   masked pair runs the softmax without mask tests, one masked only by
+//   the valid length with one test a key, and only causal and segment
+//   tiles test each element.
+// - O is divided by the normaliser, rounded once to bf16, written into the
+//   Q tile's buffer in the swizzled layout and stored by TMA, which clips
+//   the rows past Tq; lse = m + log(l) goes out from registers.
+// f32 has no tensor-core path with TF32 off, so it runs scalar fp32 FMAs: a
+// 256-thread block computes the 64 x 64 score tile into shared memory (4 x
+// 4 per thread), four threads a row take the online softmax, and each
+// thread accumulates a 4 x (D/16) slice of the output.
 //
 // What bounds it at BERT-base (B 24, H 12, T 512, D 64, bf16): bytes,
 // narrowly.  4 B H T^2 D = 19.3 GFLOP a layer is 19.5 us at 989 TFLOP/s; q,
 // k, v and o are 75.5 MB, 22.5 us at 3.35 TB/s.  With bench.py's valid
 // lengths the keys past them are skipped: 14.5 GFLOP (14.7 us) against 66 MB
-// (19.8 us).  This first design is simple, not fast: no cp.async or TMA
-// pipelining of the K and V tiles, no wgmma, and the tiles are synchronised
-// each step.
+// (19.8 us).  Inside a 64 x 64 tile at D 64 the 4,096 exponentials take as
+// long on the special-function unit (16 a cycle an SM) as the tile's two
+// products on the tensor cores, so the design overlaps the two and keeps
+// several blocks on each SM (Bf16Fwd below); every Q tile of a head reads
+// the head's K and V, from L2 after the first.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,9 +97,7 @@ struct Strides {
   long long b, t, h;
 };
 
-// The operands of contiguous (B, H, T, D) q, k, v and o.  The bf16
-// forward's code, and its speed, depend on this struct's layout: it takes
-// the strides as a kernel argument of their own (FwdStrides).
+// The operands and masks of one call, without their strides.
 struct Params {
   const void* q;
   const void* k;
@@ -92,12 +112,10 @@ struct Params {
   int causal;
 };
 
-struct FwdStrides {
+// q, k, v and o with their strides
+struct StridedParams : Params {
   Strides sq, sk, sv, so;
 };
-
-// q, k, v and o with their strides
-struct StridedParams : Params, FwdStrides {};
 
 // the first element of (batch b, head h) of an operand with strides s
 template <typename T>
@@ -112,10 +130,11 @@ __device__ __forceinline__ int valid_keys(const Params& p, int b) {
   return min(max(p.lens[b], 0), p.Tk);
 }
 
-// how many K tiles the Q tile starting at q0 visits
+// how many K tiles the Q tile of ROWS rows starting at q0 visits
+template <int ROWS = BQ>
 __device__ __forceinline__ int key_tiles(const Params& p, int kvlen, int q0) {
   int end = kvlen;
-  if (p.causal) end = min(end, min(q0 + BQ, p.Tq));
+  if (p.causal) end = min(end, min(q0 + ROWS, p.Tq));
   return end > 0 ? (end + BK - 1) / BK : 0;
 }
 
@@ -141,199 +160,6 @@ __device__ __forceinline__ bool visible(const Params& p, int b, int kvlen,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int D>
-constexpr size_t bf16_smem_bytes() {
-  return ((size_t)BQ * (D + 8) + (size_t)BK * (D + 8) +
-          (size_t)D * (BK + 8)) * sizeof(bf16);
-}
-
-// bf16 on the tensor cores.  Fragment layouts of m16n8k16 (g = lane / 4,
-// t = lane % 4): A holds rows g and g + 8, columns 2t, 2t+1, 2t+8, 2t+9;
-// B holds column g, rows 2t, 2t+1, 2t+8, 2t+9; C holds rows g and g + 8,
-// columns 2t and 2t + 1.  The operands are read and written through the
-// strides st, whose offsets within one head fit 32 bits (run_fwd checks it).
-template <int D>
-__global__ void __launch_bounds__(128) flash_fwd_bf16(Params p,
-                                                      FwdStrides st) {
-  constexpr int LDS = D + 8;    // row stride of the Q and K tiles
-  constexpr int LDV = BK + 8;   // row stride of the transposed V tile
-  constexpr int DC = D / 8;     // 16-byte chunks in a row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BQ * LDS;
-  bf16* sVt = sK + BK * LDS;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.x / p.n_qtiles;
-  const int q0 = (blockIdx.x % p.n_qtiles) * BQ;
-  const int b = bh / p.H;
-  const int hd = bh % p.H;
-  const bf16* q = head_ptr(static_cast<const bf16*>(p.q), st.sq, b, hd);
-  const bf16* k = head_ptr(static_cast<const bf16*>(p.k), st.sk, b, hd);
-  const bf16* v = head_ptr(static_cast<const bf16*>(p.v), st.sv, b, hd);
-  const int qst = (int)st.sq.t, kst = (int)st.sk.t, vst = (int)st.sv.t;
-  for (int i = tid; i < BQ * DC; i += 128) {
-    const int r = i / DC, c = (i % DC) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < p.Tq)
-      val = *reinterpret_cast<const uint4*>(q + (size_t)(q0 + r) * qst + c);
-    *reinterpret_cast<uint4*>(sQ + r * LDS + c) = val;
-  }
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* base = sQ + (warp * 16 + g) * LDS + kk * 16 + 2 * t;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(base);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * LDS);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * LDS + 8);
-  }
-
-  const int row0 = q0 + warp * 16 + g;     // this thread's rows: row0, +8
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};                 // this thread's share of the sum
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  const int kvlen = valid_keys(p, b);
-  const int n_tiles = key_tiles(p, kvlen, q0);
-  // This thread's share of a K/V tile, as offsets from the tile's first row
-  // computed once a tile: K chunk kc of rows kr0 + KR j (a row's 16-byte
-  // chunks on neighbouring threads); V row vr, chunks vc0 + 16 j, stored
-  // transposed (neighbouring threads take neighbouring keys, so the 2-byte
-  // stores of one column land in consecutive words).
-  constexpr int KR = 128 / DC;
-  const int kr0 = tid / DC, kc = (tid % DC) * 8;
-  const int vr = tid % BK, vc0 = (tid / BK) * 8;
-  const int kstep = KR * kst;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * BK;
-    __syncthreads();                       // the last tile's reads are done
-    const bf16* kt = k + ((k0 + kr0) * kst + kc);
-    const bf16* vt = v + ((k0 + vr) * vst + vc0);
-#pragma unroll
-    for (int j = 0; j < BK * DC / 128; ++j) {
-      const int r = kr0 + KR * j;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < p.Tk)
-        kv = *reinterpret_cast<const uint4*>(kt + j * kstep);
-      *reinterpret_cast<uint4*>(sK + r * LDS + kc) = kv;
-      const int cv = vc0 + 16 * j;
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + vr < p.Tk)
-        vv = *reinterpret_cast<const uint4*>(vt + 16 * j);
-      const bf16* vh = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sVt[(cv + e) * LDV + vr] = vh[e];
-    }
-    __syncthreads();
-
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const bf16* kb = sK + (nt * 8 + g) * LDS + kk * 16 + 2 * t;
-        mma_bf16(s[nt], qf[kk], *reinterpret_cast<const uint32_t*>(kb),
-                 *reinterpret_cast<const uint32_t*>(kb + 8));
-      }
-    }
-
-    const bool full = tile_unmasked(p, kvlen, q0, k0);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = s[nt][i] * p.scale;
-        if (!full && !visible(p, b, kvlen, row0 + (i >> 1) * 8,
-                              k0 + nt * 8 + 2 * t + (i & 1)))
-          x = kNegInf;
-        s[nt][i] = x;
-        mx[i >> 1] = fmaxf(mx[i >> 1], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
-      corr[h] = expf(m[h] - m_new);
-      m[h] = m_new;
-      l[h] *= corr[h];
-    }
-    // p = exp(s - m); a masked entry is 0 also in a row that sees nothing
-    // yet, where m is still -1e30
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float x = s[nt][i];
-        const float pv = x == kNegInf ? 0.f : expf(x - m[i >> 1]);
-        l[i >> 1] += pv;
-        s[nt][i] = pv;
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= corr[0];
-      acc[dt][1] *= corr[0];
-      acc[dt][2] *= corr[1];
-      acc[dt][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const bf16* vb = sVt + (dt * 8 + g) * LDV + kk * 16 + 2 * t;
-        mma_bf16(acc[dt], pf, *reinterpret_cast<const uint32_t*>(vb),
-                 *reinterpret_cast<const uint32_t*>(vb + 8));
-      }
-    }
-  }
-
-  bf16* o = head_ptr(static_cast<bf16*>(p.o), st.so, b, hd);
-  const int ost = (int)st.so.t;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const int row = row0 + h * 8;
-    if (row >= p.Tq) continue;
-    const float den = l[h] > 0.f ? l[h] : 1.f;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(o + (size_t)row * ost + dt * 8 + 2 * t) =
-          pack_bf16(acc[dt][2 * h] / den, acc[dt][2 * h + 1] / den);
-    }
-    if (t == 0)
-      p.lse[(size_t)bh * p.Tq + row] =
-          l[h] > 0.f ? m[h] + logf(l[h]) : 0.f;
-  }
 }
 
 template <int D>
@@ -816,6 +642,292 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+// one (64 x 64) box of shared memory at src to column c0, row t0 of head h
+// of batch b of a 4-d tensor map, rows past T clipped
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int t0,
+                                             int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(t0), "r"(h), "r"(b)
+      : "memory");
+}
+
+// commit the stores issued so far and wait until they have read shared
+// memory
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+// ---- the bf16 forward ------------------------------------------------------
+
+// the operands of flash_fwd_hopper: 4-d tensor maps (D, T, H, B) of q, k, v
+// and o over their strides, boxes of 64 columns by 64 rows of one head
+struct HopperFwd {
+  CUtensorMap tq, tk, tv, to;
+  StridedParams p;
+  float scale_log2;    // scale * log2(e)
+};
+
+// shared memory of flash_fwd_hopper, byte offsets from a 1024-byte aligned
+// base: the Q tile of 64 x D (reused for the O tile on the way out), then
+// STAGES x (K, V) tiles of 64 x D.  The mbarriers go in the alignment
+// slack before the base, or after the tiles.
+template <int D, int STAGES>
+struct FwdSmem {
+  static constexpr int tile = 64 * D * 2;
+  static constexpr int Q = 0;
+  static constexpr int K = tile;                       // + s * 2 tile
+  static constexpr int BYTES = K + STAGES * 2 * tile;
+  static constexpr int BARS = 8 * (2 * STAGES + 1);
+};
+
+// o and lse of the 64 query rows q0 .. q0 + 63, one warpgroup a block.
+// Per K tile j: S = Q K^T, x = S scale log2(e) (-1e30 where masked), the
+// running row max m (in those units) and normaliser l, P = exp2(x - m), O
+// = O exp2(m_old - m) + bf16(P) V.  Accumulator element 4 j + i of a
+// thread: row row0 + 8 ((i >> 1) & 1), key (or column) 8 j + 2 t + (i &
+// 1).
+template <int D, int STAGES, int MINB>
+__global__ void __launch_bounds__(128, MINB)
+flash_fwd_hopper(const __grid_constant__ HopperFwd hf) {
+  using L = FwdSmem<D, STAGES>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw);
+  const uint32_t bars = base - raw >= (uint32_t)L::BARS ? raw
+                                                        : base + L::BYTES;
+  const StridedParams& p = hf.p;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x / p.n_qtiles;
+  const int q0 = (blockIdx.x % p.n_qtiles) * 64;
+  const int b = bh / p.H, hd = bh % p.H;
+  const int kvlen = valid_keys(p, b);
+  const int n_tiles = key_tiles(p, kvlen, q0);
+  const uint32_t full0 = bars;
+  const uint32_t empty0 = bars + 8 * STAGES;
+  const uint32_t qbar = bars + 16 * STAGES;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4);    // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 issues the loads: the Q tile and the first STAGES K/V tiles
+  // here, each later tile in refill below
+  auto load_tile = [&](int j) {
+    const int s = j % STAGES;
+    const uint32_t fb = full0 + 8 * s;
+    mbar_expect_tx(fb, 2 * L::tile);
+    const uint32_t sk = base + L::K + s * 2 * L::tile;
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) {
+      tma_load_4d(sk + h * 64 * 128, &hf.tk, fb, h * 64, j * 64, hd, b);
+      tma_load_4d(sk + L::tile + h * 64 * 128, &hf.tv, fb, h * 64, j * 64,
+                  hd, b);
+    }
+  };
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect_tx(qbar, L::tile);
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h)
+      tma_load_4d(base + L::Q + h * 64 * 128, &hf.tq, qbar, h * 64, q0, hd,
+                  b);
+    for (int j = 0; j < n_tiles && j < STAGES; ++j) load_tile(j);
+  }
+  // thread 0 refills the buffer of tile m, which every warp released in
+  // iteration m + 1, with tile m + STAGES; it does so in iteration m + 2,
+  // once every warp has issued that iteration's first product, so the
+  // arrivals are in and the refill costs the warpgroup nothing
+  auto refill = [&](int m) {
+    if (tid == 0 && m >= 0 && m + STAGES < n_tiles) {
+      mbar_wait(empty0 + 8 * (m % STAGES), (m / STAGES) & 1);
+      load_tile(m + STAGES);
+    }
+  };
+
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;       // this thread's rows: row0, +8
+  const uint32_t sq = base + L::Q;
+  const float c = hf.scale_log2;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};                   // this thread's share of the sum
+  float o[D / 64][32];                       // by 64-column half
+#pragma unroll
+  for (int h = 0; h < D / 64; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[h][i] = 0.f;
+  uint32_t pf[4][4];                         // bf16(P), 16 keys a slice
+
+  // S = Q K^T of tile j into s, as one commit group
+  auto issue_s = [&](float (&s)[32], int j) {
+    const int st = j % STAGES;
+    mbar_wait(full0 + 8 * st, (j / STAGES) & 1);
+    const uint32_t sk = base + L::K + st * 2 * L::tile;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, sw_k(sq, 64, kk), sw_k(sk, 64, kk), kk > 0);
+    wgmma_commit();
+  };
+
+  // the softmax of tile j: x = S scale log2(e) (-1e30 where masked), the
+  // new running max, corr = exp2(m_old - m_new) and P = exp2(x - m_new)
+  // into sc, and l = l corr + rowsum(P)
+  auto softmax = [&](float (&sc)[32], int j, float (&corr)[2]) {
+    const int k0 = j * 64;
+    float mx[2] = {kNegInf, kNegInf};
+    // a tile with no masked pair takes the loop without mask tests, one
+    // masked only by the valid length a loop with a test a key
+    if (k0 + 64 <= kvlen && p.qseg == nullptr &&
+        (!p.causal || q0 >= k0 + 63)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sc[i] *= c;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+    } else if (!p.causal && p.qseg == nullptr) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        sc[i] = key < kvlen ? sc[i] * c : kNegInf;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        sc[i] = visible(p, b, kvlen, row0 + 8 * ((i >> 1) & 1), key)
+                    ? sc[i] * c
+                    : kNegInf;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+    }
+    // the new row max over the row's four threads; a row that has seen no
+    // key yet subtracts 0, so its masked entries give exp2(-1e30) = 0
+    float sub[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      sub[h] = m_new == kNegInf ? 0.f : m_new;
+      corr[h] = fast_exp2(m[h] - sub[h]);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = fast_exp2(sc[i] - sub[(i >> 1) & 1]);
+      l[(i >> 1) & 1] += sc[i];
+    }
+  };
+  // O = O corr + bf16(P) V of tile j, as one commit group
+  auto issue_pv = [&](int j, const float (&corr)[2]) {
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[h][i] *= corr[(i >> 1) & 1];
+    const uint32_t sv = base + L::K + (j % STAGES) * 2 * L::tile + L::tile;
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) fence_regs(o[h]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < D / 64; ++h)
+        wgmma_rs(o[h], pf[kk], sw_mn(sv + h * 64 * 128, kk));
+    wgmma_commit();
+  };
+
+  // Tile 0's softmax, then per tile j > 0: S_j and P V of tile j - 1 in
+  // flight together, tile j's softmax under P V_{j-1}; every group is done
+  // by the end of the iteration, so that ptxas sees no accumulator in
+  // flight across the loop's edges (it serialises the products where it
+  // cannot tell that one is not touched before its group ends)
+  float corr[2] = {1.f, 1.f};
+  if (n_tiles > 0) {
+    mbar_wait(qbar, 0);
+    float s0[32];
+    issue_s(s0, 0);
+    wgmma_wait<0>();
+    fence_regs(s0);
+    softmax(s0, 0, corr);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      acc_to_a(pf[kk], &s0[8 * kk], &s0[8 * kk + 4]);
+  }
+  for (int j = 1; j < n_tiles; ++j) {
+    float sc[32];
+    issue_s(sc, j);
+    issue_pv(j - 1, corr);
+    refill(j - 2);
+    wgmma_wait<1>();                         // S_j is done
+    fence_regs(sc);
+    softmax(sc, j, corr);
+    wgmma_wait<0>();                         // P V_{j-1} is done
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) fence_regs(o[h]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * ((j - 1) % STAGES));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      acc_to_a(pf[kk], &sc[8 * kk], &sc[8 * kk + 4]);
+  }
+  if (n_tiles > 0) {
+    issue_pv(n_tiles - 1, corr);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) fence_regs(o[h]);
+  }
+
+  // O = acc / l rounded once to bf16, written into the Q buffer as the
+  // 128-byte swizzle lays it out (16-byte chunk c of row r at c ^ (r % 8),
+  // and r % 8 = g) and stored by TMA; a row that sees no key gives o = 0
+  // and lse = 0
+  __syncthreads();                           // every read of Q is done
+  unsigned char* so = sbase + L::Q;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float den = l[h] > 0.f ? l[h] : 1.f;
+    const int r = warp * 16 + g + 8 * h;
+#pragma unroll
+    for (int hh = 0; hh < D / 64; ++hh)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(so + hh * 64 * 128 + r * 128 +
+                                     ((j ^ g) << 4) + 4 * t) =
+            pack_bf16(o[hh][4 * j + 2 * h] / den,
+                      o[hh][4 * j + 2 * h + 1] / den);
+    const int row = row0 + 8 * h;
+    if (t == 0 && row < p.Tq)
+      p.lse[(size_t)bh * p.Tq + row] =
+          l[h] > 0.f ? m[h] * kLn2 + logf(l[h]) : 0.f;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (tid == 0 && q0 < p.Tq) {
+#pragma unroll
+    for (int hh = 0; hh < D / 64; ++hh)
+      tma_store_4d(&hf.to, sq + hh * 64 * 128, hh * 64, q0, hd, b);
+    tma_store_wait();
+  }
+}
+
+// ---- the bf16 backward ------------------------------------------------------
 
 // the operands of the bf16 backward kernels: 4-d tensor maps (D, T, H, B)
 // of q, k, v and dO over their strides, boxes of 64 columns by the
@@ -1670,13 +1782,63 @@ int launch_bwd_bf16(const BwdParams& p, float* delta, float* lse2,
   return rc;
 }
 
+// The ring stages and register bounds of the bf16 forward at head dim D:
+// one warpgroup of 64 query rows a block with STAGES K/V buffers, compiled
+// for MINB blocks an SM, which bounds the registers to 65536 / (128 MINB).
+// In iteration j the ring holds tile j - 1 (in P V), tile j (in S = Q K^T)
+// and the released tile j - 2 until its refill, so STAGES - 3 tiles are
+// loaded ahead of use and the refilled one is in flight.  Two warpgroups a
+// block (128 query rows sharing each K/V tile) measured 4% faster at
+// BERT-base's shape and 20% slower at (1, 12, 2048, 2048, 64), where the
+// grid of 128-row tiles leaves SMs empty (PERF.md), so one it is.
+template <int D>
+struct Bf16Fwd;
+template <>
+struct Bf16Fwd<64> {
+  static constexpr int STAGES = 4, MINB = 3;
+};
+template <>
+struct Bf16Fwd<128> {
+  static constexpr int STAGES = 3, MINB = 2;
+};
+
+template <int D>
+struct Bf16FwdKernel {
+  using C = Bf16Fwd<D>;
+  static constexpr auto kernel = flash_fwd_hopper<D, C::STAGES, C::MINB>;
+  static constexpr size_t smem = FwdSmem<D, C::STAGES>::BYTES + 1024;
+};
+
+template <int D>
+int launch_fwd_bf16(const StridedParams& p, int BH, cudaStream_t s) {
+  using K = Bf16FwdKernel<D>;
+  HopperFwd hf;
+  hf.p = p;
+  hf.p.n_qtiles = (p.Tq + 63) / 64;
+  hf.scale_log2 = p.scale * kLog2e;
+  const int B = BH / p.H;
+  // the tensor maps need the device's context on this thread (as in
+  // launch_bwd_bf16)
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc == 0) rc = (int)cudaSetDevice(dev);
+  if (rc == 0) rc = make_map(&hf.tq, p.q, p.sq, p.Tq, p.H, B, D, 64);
+  if (rc == 0) rc = make_map(&hf.tk, p.k, p.sk, p.Tk, p.H, B, D, 64);
+  if (rc == 0) rc = make_map(&hf.tv, p.v, p.sv, p.Tk, p.H, B, D, 64);
+  if (rc == 0) rc = make_map(&hf.to, p.o, p.so, p.Tq, p.H, B, D, 64);
+  if (rc == 0)
+    rc = launch(K::kernel, (long long)BH * hf.p.n_qtiles, 128, K::smem, s,
+                hf);
+  return rc;
+}
+
 template <typename Kernel>
-int occupancy(Kernel kernel, size_t smem, int* blocks) {
+int occupancy(Kernel kernel, int threads, size_t smem, int* blocks) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, 128,
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                        threads, smem);
   return (int)err;
 }
 
@@ -1685,22 +1847,11 @@ int occupancy(Kernel kernel, size_t smem, int* blocks) {
 // every stride is a multiple of 16 bytes and every pointer 16-byte
 // aligned.
 int run_fwd(StridedParams& p, int BH, int D, int dtype, cudaStream_t s) {
-  // the bf16 kernel takes offsets within one head's rows as 32-bit ints
-  const long long lim = 1ll << 31;
-  if ((p.Tq + (long long)BQ) * max(p.sq.t, p.so.t) >= lim ||
-      (p.Tk + (long long)BK) * max(p.sk.t, p.sv.t) >= lim)
-    return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return D == 64 ? launch_fwd_bf16<64>(p, BH, s)
+                   : launch_fwd_bf16<128>(p, BH, s);
   p.n_qtiles = (p.Tq + BQ - 1) / BQ;
   const long long blocks = (long long)BH * p.n_qtiles;
-  if (dtype == 1) {
-    const Params& c = p;
-    const FwdStrides& st = p;
-    if (D == 64)
-      return launch(flash_fwd_bf16<64>, blocks, 128, bf16_smem_bytes<64>(),
-                    s, c, st);
-    return launch(flash_fwd_bf16<128>, blocks, 128, bf16_smem_bytes<128>(), s,
-                  c, st);
-  }
   if (D == 64)
     return launch(flash_fwd_f32<64>, blocks, 256, f32_smem_bytes<64>(), s, p);
   return launch(flash_fwd_f32<128>, blocks, 256, f32_smem_bytes<128>(), s, p);
@@ -1892,14 +2043,29 @@ extern "C" int mx_flash_attention_bwd_occupancy(int D, int* out) {
     using K = Bf16BwdKernels<64>;
     out[1] = (int)K::q_smem;
     out[3] = (int)K::kv_smem;
-    rc = occupancy(K::q, K::q_smem, &out[0]);
-    if (rc == 0) rc = occupancy(K::kv, K::kv_smem, &out[2]);
+    rc = occupancy(K::q, 128, K::q_smem, &out[0]);
+    if (rc == 0) rc = occupancy(K::kv, 128, K::kv_smem, &out[2]);
   } else {
     using K = Bf16BwdKernels<128>;
     out[1] = (int)K::q_smem;
     out[3] = (int)K::kv_smem;
-    rc = occupancy(K::q, K::q_smem, &out[0]);
-    if (rc == 0) rc = occupancy(K::kv, K::kv_smem, &out[2]);
+    rc = occupancy(K::q, 128, K::q_smem, &out[0]);
+    if (rc == 0) rc = occupancy(K::kv, 128, K::kv_smem, &out[2]);
   }
   return rc;
+}
+
+// The resources of the bf16 forward kernel at head dim D (64 or 128), for
+// the build report: out[0..1] = blocks an SM of 128 threads and dynamic
+// shared memory bytes a block.  Returns a cudaError_t as int (0 = ok).
+extern "C" int mx_flash_attention_fwd_occupancy(int D, int* out) {
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (D == 64) {
+    using K = Bf16FwdKernel<64>;
+    out[1] = (int)K::smem;
+    return occupancy(K::kernel, 128, K::smem, &out[0]);
+  }
+  using K = Bf16FwdKernel<128>;
+  out[1] = (int)K::smem;
+  return occupancy(K::kernel, 128, K::smem, &out[0]);
 }

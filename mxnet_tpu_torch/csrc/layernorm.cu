@@ -177,66 +177,137 @@ void launch(const void* x, const void* g, const void* b, void* y, float* mu,
 // written once (6 B an element in bf16, 12 in f32); at BERT-base's
 // (12288, 768) bf16 that is 57 MB, 17 us at 3.35 TB/s.
 //
-// Design: eight rows a warp, four warps a block.  Each warp keeps its
-// row's x-hat and cotangent in registers, folds the two row means by
-// shuffles and writes dx; it adds its rows' ct * x-hat and ct into its own
-// fp32 column sums in shared memory.  A lane owns fixed columns, so no two
-// lanes touch one sum, and the sums are laid out lane-minor (the sum of
-// element i of a lane's chunk j at (j * VEC + i) * 32 + lane), so a warp's
-// 32 updates land in 32 banks.  The block then writes the four warps' sums,
-// folded in warp order, as one row of the fp32 workspace; ln_bwd_finish
-// sums the workspace's rows column by column in block order.  No atomics:
-// two runs give the same bits.  MPL, the values a lane holds per row, is
-// 32 for C <= 1024 and 64 up to 2048: it sizes the register arrays.
-constexpr int kBwdWarps = 4;
-constexpr int kBwdRowsPerBlock = 8 * kBwdWarps;
+// Design: a grid of one block of eight warps an SM (ln_bwd_grid), each
+// block a contiguous range of rows, each warp every eighth row of it.  A
+// lane owns fixed columns (chunks j * 32 + lane of VEC elements).  For C
+// <= 1024 (MPL <= 32 values a lane), while a warp reduces one row the next
+// row's x, ct, mu and rstd are already in flight, loaded as raw bits into
+// registers one row ahead and converted where they are used, so the loads
+// overlap the row's shuffles and stores; the column sums live in the
+// lane's registers.  Wider rows are loaded as they are reached and summed
+// into the warp's shared memory.  The warp folds the row's two means by
+// shuffles and writes dx, and adds the row's ct * x-hat and ct into its
+// column sums.  At the end the block folds its eight warps' sums in warp
+// order into one row of the fp32 workspace, and ln_bwd_fold sums the
+// workspace's rows column by column in block order: 16 row slices a
+// column, each summed in order, then the slices in order.  No atomics: two
+// runs on one card give the same bits.
+constexpr int kBwdWarps = 8;
+constexpr int kFoldSlices = 16;
+// the workspace's rows: an upper bound on the grid (ln_bwd_grid)
+constexpr long long kMaxBwdBlocks = 512;
 
 // the columns a warp's sums cover: C rounded up to whole 32-lane chunks
 __host__ __device__ __forceinline__ int bwd_cols(int C, int vec) {
   return (C + 32 * vec - 1) / (32 * vec) * 32 * vec;
 }
 
+// VEC elements of T as raw 32-bit words, loaded with 16-byte loads when
+// they span whole 16 bytes and converted to fp32 only where they are used
+template <typename T, int VEC>
+struct RawVec {
+  static constexpr int W = (VEC * (int)sizeof(T) + 3) / 4;
+  uint32_t w[W];
+
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr ((VEC * sizeof(T)) % 16 == 0) {
+#pragma unroll
+      for (int i = 0; i < W / 4; ++i) {
+        const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+        w[4 * i] = v.x;
+        w[4 * i + 1] = v.y;
+        w[4 * i + 2] = v.z;
+        w[4 * i + 3] = v.w;
+      }
+    } else {
+      static_assert(VEC == 1, "unaligned chunks are single elements");
+      if constexpr (sizeof(T) == 2)
+        w[0] = *reinterpret_cast<const unsigned short*>(p);
+      else
+        w[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
+  }
+
+  __device__ __forceinline__ float get(int i) const {
+    if constexpr (sizeof(T) == 4) {
+      return __uint_as_float(w[i]);
+    } else {
+      const uint32_t word = w[i >> 1];
+      return __uint_as_float((i & 1) ? (word & 0xffff0000u) : (word << 16));
+    }
+  }
+};
+
 template <typename TX, typename TG, typename TC, int VEC, int MPL>
-__global__ void __launch_bounds__(32 * kBwdWarps)
+__global__ void __launch_bounds__(32 * kBwdWarps, 1)
 ln_bwd(const TX* __restrict__ x, const TG* __restrict__ gamma,
        const float* __restrict__ mu, const float* __restrict__ rstd,
        const TC* __restrict__ ct, TX* __restrict__ dx,
        float* __restrict__ ws, long long N, int C) {
   constexpr int kChunks = MPL / VEC;
+  constexpr bool kRegSums = MPL <= 32;
+  // ln_bwd_fold, launched after this grid, may be scheduled now: it waits
+  // for this grid to finish before it reads the workspace
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   extern __shared__ float sacc[];            // [warp][dgamma, dbeta][cols]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int cols = bwd_cols(C, VEC);
   float* accg = sacc + (size_t)warp * 2 * cols;
   float* accb = accg + cols;
-  for (int c = lane; c < cols; c += 32) accg[c] = accb[c] = 0.f;
-  __syncwarp();
-  const long long row0 = (long long)blockIdx.x * kBwdRowsPerBlock;
-  const long long row_end =
-      row0 + kBwdRowsPerBlock < N ? row0 + kBwdRowsPerBlock : N;
-  for (long long row = row0 + warp; row < row_end; row += kBwdWarps) {
-    const float m = mu[row], rs = rstd[row];
-    float xh[kChunks][VEC], cg[kChunks][VEC];
+  float sg[kRegSums ? kChunks : 1][VEC], sb[kRegSums ? kChunks : 1][VEC];
+  if constexpr (kRegSums) {
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) sg[j][i] = sb[j][i] = 0.f;
+  } else {
+    for (int c = lane; c < cols; c += 32) accg[c] = accb[c] = 0.f;
+    __syncwarp();
+  }
+  const long long row_begin = (long long)blockIdx.x * N / gridDim.x;
+  const long long row_end = (long long)(blockIdx.x + 1) * N / gridDim.x;
+
+  RawVec<TX, VEC> nx[kChunks];
+  RawVec<TC, VEC> nc[kChunks];
+  float nm = 0.f, nr = 0.f;
+  auto fetch = [&](long long row) {
+    nm = mu[row];
+    nr = rstd[row];
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int c0 = (j * 32 + lane) * VEC;
+      if (c0 < C) {
+        nx[j].load(x + row * C + c0);
+        nc[j].load(ct + row * C + c0);
+      }
+    }
+  };
+  // dx of one row from its raw bits, its sums into the column sums
+  auto row_pass = [&](const RawVec<TX, VEC> (&cx)[kChunks],
+                      const RawVec<TC, VEC> (&cc)[kChunks], float m,
+                      float rs, long long row) {
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int j = 0; j < kChunks; ++j) {
       const int c0 = (j * 32 + lane) * VEC;
       if (c0 < C) {
         float g[VEC];
-        load_vec<TX, VEC>(x + row * C + c0, xh[j]);
-        load_vec<TC, VEC>(ct + row * C + c0, cg[j]);
         load_vec<TG, VEC>(gamma + c0, g);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
-          const float h = (xh[j][i] - m) * rs;
-          const float c = cg[j][i];
-          const int slot = (j * VEC + i) * 32 + lane;
-          accg[slot] += c * h;
-          accb[slot] += c;
+          const float h = (cx[j].get(i) - m) * rs;
+          const float c = cc[j].get(i);
+          if constexpr (kRegSums) {
+            sg[j][i] += c * h;
+            sb[j][i] += c;
+          } else {
+            const int slot = (j * VEC + i) * 32 + lane;
+            accg[slot] += c * h;
+            accb[slot] += c;
+          }
           const float cgv = c * g[i];
           s1 += cgv;
           s2 += cgv * h;
-          xh[j][i] = h;
-          cg[j][i] = cgv;
         }
       }
     }
@@ -246,75 +317,136 @@ ln_bwd(const TX* __restrict__ x, const TG* __restrict__ gamma,
     for (int j = 0; j < kChunks; ++j) {
       const int c0 = (j * 32 + lane) * VEC;
       if (c0 < C) {
-        float out[VEC];
+        float g[VEC], out[VEC];
+        load_vec<TG, VEC>(gamma + c0, g);
 #pragma unroll
-        for (int i = 0; i < VEC; ++i)
-          out[i] = (cg[j][i] - m1 - xh[j][i] * m2) * rs;
+        for (int i = 0; i < VEC; ++i) {
+          const float h = (cx[j].get(i) - m) * rs;
+          const float cgv = cc[j].get(i) * g[i];
+          out[i] = (cgv - m1 - h * m2) * rs;
+        }
         store_vec<TX, VEC>(dx + row * C + c0, out);
       }
     }
+  };
+  // the next row is fetched a row ahead where the sums live in registers;
+  // above 32 values a lane two rows' raw bits would not fit beside them
+  long long row = row_begin + warp;
+  if constexpr (kRegSums) {
+    if (row < row_end) fetch(row);
+    for (; row < row_end; row += kBwdWarps) {
+      RawVec<TX, VEC> cx[kChunks];
+      RawVec<TC, VEC> cc[kChunks];
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j) {
+        cx[j] = nx[j];
+        cc[j] = nc[j];
+      }
+      const float m = nm, rs = nr;
+      if (row + kBwdWarps < row_end) fetch(row + kBwdWarps);
+      row_pass(cx, cc, m, rs, row);
+    }
+  } else {
+    for (; row < row_end; row += kBwdWarps) {
+      fetch(row);
+      row_pass(nx, nc, nm, nr, row);
+    }
+  }
+  if constexpr (kRegSums) {
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const int slot = (j * VEC + i) * 32 + lane;
+        if (slot < cols) {
+          accg[slot] = sg[j][i];
+          accb[slot] = sb[j][i];
+        }
+      }
   }
   __syncthreads();
   float* wsg = ws + (size_t)blockIdx.x * 2 * C;
   for (int c = threadIdx.x; c < C; c += 32 * kBwdWarps) {
     const int slot =
         ((c / (32 * VEC)) * VEC + c % VEC) * 32 + (c / VEC) % 32;
-    float sg = 0.f, sb = 0.f;
+    float tg = 0.f, tb = 0.f;
 #pragma unroll
     for (int w = 0; w < kBwdWarps; ++w) {
-      sg += sacc[(size_t)w * 2 * cols + slot];
-      sb += sacc[(size_t)w * 2 * cols + cols + slot];
+      tg += sacc[(size_t)w * 2 * cols + slot];
+      tb += sacc[(size_t)w * 2 * cols + cols + slot];
     }
-    wsg[c] = sg;
-    wsg[C + c] = sb;
+    wsg[c] = tg;
+    wsg[C + c] = tb;
   }
 }
 
-// dgamma[c] and dbeta[c]: the workspace's `blocks` rows summed in a fixed
-// order.  A block takes 32 columns; its 8 warps sum every 8th row each,
-// in order, and the first warp folds the 8 partial sums in order.
-constexpr int kFinishSlices = 8;
-
-__global__ void __launch_bounds__(32 * kFinishSlices)
-ln_bwd_finish(const float* __restrict__ ws, float* __restrict__ dgamma,
-              float* __restrict__ dbeta, int blocks, int C) {
-  __shared__ float part[2][kFinishSlices][32];
+// dgamma and dbeta: the workspace's `blocks` rows of 2 C floats summed
+// column by column in a fixed order.  A block takes 32 of the 2 C columns;
+// its kFoldSlices warps each sum every kFoldSlices-th row in order (four
+// loads in flight), and the first warp adds the slices in order.
+__global__ void __launch_bounds__(32 * kFoldSlices)
+ln_bwd_fold(const float* __restrict__ ws, float* __restrict__ dgamma,
+            float* __restrict__ dbeta, int blocks, int C) {
+  __shared__ float part[kFoldSlices][32];
+  // launched as a programmatic dependent of ln_bwd: wait until that grid
+  // has finished and its workspace rows are visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int c = blockIdx.x * 32 + tx;
-  float sg = 0.f, sb = 0.f;
-  if (c < C) {
-    for (int b = ty; b < blocks; b += kFinishSlices) {
-      sg += ws[(size_t)b * 2 * C + c];
-      sb += ws[(size_t)b * 2 * C + C + c];
+  float sum = 0.f;
+  if (c < 2 * C) {
+    int b = ty;
+    for (; b + 3 * kFoldSlices < blocks; b += 4 * kFoldSlices) {
+      const float v0 = ws[(size_t)b * 2 * C + c];
+      const float v1 = ws[(size_t)(b + kFoldSlices) * 2 * C + c];
+      const float v2 = ws[(size_t)(b + 2 * kFoldSlices) * 2 * C + c];
+      const float v3 = ws[(size_t)(b + 3 * kFoldSlices) * 2 * C + c];
+      sum += v0;
+      sum += v1;
+      sum += v2;
+      sum += v3;
     }
+    for (; b < blocks; b += kFoldSlices) sum += ws[(size_t)b * 2 * C + c];
   }
-  part[0][ty][tx] = sg;
-  part[1][ty][tx] = sb;
+  part[ty][tx] = sum;
   __syncthreads();
-  if (ty == 0 && c < C) {
-    sg = sb = 0.f;
+  if (ty == 0 && c < 2 * C) {
+    sum = 0.f;
 #pragma unroll
-    for (int y = 0; y < kFinishSlices; ++y) {
-      sg += part[0][y][tx];
-      sb += part[1][y][tx];
-    }
-    dgamma[c] = sg;
-    dbeta[c] = sb;
+    for (int y = 0; y < kFoldSlices; ++y) sum += part[y][tx];
+    if (c < C)
+      dgamma[c] = sum;
+    else
+      dbeta[c - C] = sum;
   }
+}
+
+// the grid of ln_bwd for N rows: one block an SM of the current device, at
+// least kBwdWarps rows a block, at most kMaxBwdBlocks blocks
+int ln_bwd_grid(long long N, int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  long long g = (N + kBwdWarps - 1) / kBwdWarps;
+  if (g > sms) g = sms;
+  if (g > kMaxBwdBlocks) g = kMaxBwdBlocks;
+  *grid = (int)(g > 0 ? g : 1);
+  return 0;
 }
 
 template <typename TX, typename TG, typename TC, int VEC, int MPL>
 int launch_bwd_rows(const void* x, const void* g, const float* mu,
                     const float* rstd, const void* ct, void* dx, float* ws,
-                    long long N, int C, cudaStream_t s) {
-  const long long blocks = (N + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock;
+                    long long N, int C, int grid, cudaStream_t s) {
   const size_t smem = (size_t)kBwdWarps * 2 * bwd_cols(C, VEC) *
                       sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       ln_bwd<TX, TG, TC, VEC, MPL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ln_bwd<TX, TG, TC, VEC, MPL><<<blocks, 32 * kBwdWarps, smem, s>>>(
+  ln_bwd<TX, TG, TC, VEC, MPL><<<grid, 32 * kBwdWarps, smem, s>>>(
       (const TX*)x, (const TG*)g, mu, rstd, (const TC*)ct, (TX*)dx, ws, N,
       C);
   return (int)cudaGetLastError();
@@ -328,25 +460,41 @@ int launch_bwd(const void* x, const void* g, const float* mu,
   const bool aligned =
       C % VEC == 0 && ((uintptr_t)x | (uintptr_t)g | (uintptr_t)ct |
                        (uintptr_t)dx) % 16 == 0;
-  const bool narrow = C <= 32 * 32;
-  int rc;
-  if (aligned && narrow)
+  int grid = 0;
+  int rc = ln_bwd_grid(N, &grid);
+  if (rc != 0) return rc;
+  // the values a lane holds: MPL = 24, 32 or 64 (C <= 768, 1024, 2048)
+  // where the chunks are 16-byte vectors, 32 or 64 otherwise
+  if (aligned && C <= 32 * 24)
+    rc = launch_bwd_rows<TX, TG, TC, VEC, 24>(x, g, mu, rstd, ct, dx, ws, N,
+                                              C, grid, s);
+  else if (aligned && C <= 32 * 32)
     rc = launch_bwd_rows<TX, TG, TC, VEC, 32>(x, g, mu, rstd, ct, dx, ws, N,
-                                              C, s);
+                                              C, grid, s);
   else if (aligned)
     rc = launch_bwd_rows<TX, TG, TC, VEC, 64>(x, g, mu, rstd, ct, dx, ws, N,
-                                              C, s);
-  else if (narrow)
+                                              C, grid, s);
+  else if (C <= 32 * 32)
     rc = launch_bwd_rows<TX, TG, TC, 1, 32>(x, g, mu, rstd, ct, dx, ws, N,
-                                            C, s);
+                                            C, grid, s);
   else
     rc = launch_bwd_rows<TX, TG, TC, 1, 64>(x, g, mu, rstd, ct, dx, ws, N,
-                                            C, s);
+                                            C, grid, s);
   if (rc != 0) return rc;
-  const int blocks = (int)((N + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock);
-  ln_bwd_finish<<<(C + 31) / 32, 32 * kFinishSlices, 0, s>>>(ws, dg, db,
-                                                            blocks, C);
-  return (int)cudaGetLastError();
+  // the fold as a programmatic dependent launch: its launch overlaps the
+  // rows kernel's tail instead of following it
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((2 * C + 31) / 32);
+  cfg.blockDim = dim3(32 * kFoldSlices);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, ln_bwd_fold, (const float*)ws, dg, db,
+                                 grid, C);
 }
 
 }  // namespace
@@ -381,9 +529,10 @@ extern "C" int mx_layer_norm_fwd(const void* x, const void* gamma,
 }
 
 // Rows of fp32 workspace mx_layer_norm_bwd needs for N rows (each of 2 C
-// floats).
+// floats): at least its grid on any device.
 extern "C" long long mx_layer_norm_bwd_blocks(long long N) {
-  return (N + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock;
+  const long long g = (N + kBwdWarps - 1) / kBwdWarps;
+  return g < 1 ? 1 : (g > kMaxBwdBlocks ? kMaxBwdBlocks : g);
 }
 
 // The backward of mx_layer_norm_fwd.  x: N rows of C elements of x_dtype;

@@ -107,6 +107,9 @@ def _kernel_fn(name="fwd"):
         occ = lib.mx_flash_attention_bwd_occupancy
         occ.argtypes = [ctypes.c_int, ctypes.c_void_p]
         occ.restype = ctypes.c_int
+        focc = lib.mx_flash_attention_fwd_occupancy
+        focc.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        focc.restype = ctypes.c_int
         strides = ctypes.POINTER(ctypes.c_longlong)
         bfwd = lib.mx_flash_attention_bshd_fwd
         bfwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
@@ -118,8 +121,8 @@ def _kernel_fn(name="fwd"):
             [strides, ctypes.c_float, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
         bbwd.restype = ctypes.c_int
-        _FNS.update(fwd=fn, bwd=bwd, bwd_occupancy=occ, bshd_fwd=bfwd,
-                    bshd_bwd=bbwd)
+        _FNS.update(fwd=fn, bwd=bwd, bwd_occupancy=occ,
+                    fwd_occupancy=focc, bshd_fwd=bfwd, bshd_bwd=bbwd)
     return _FNS[name]
 
 

@@ -111,7 +111,9 @@ def test_flash_attention_kernel_matches_plain_on_cuda():
     """On the card: the flash-attention kernel against the plain version,
     f32 o within 2e-5 and lse within 1e-5, bf16 o within 2e-2 of the
     largest |o| (P rounded to bf16 against the running max in the kernel,
-    the row max in the plain version); masks, padded D and Tq != Tk;
+    the row max in the plain version); masks, padded D and Tq != Tk, and
+    the edges of the bf16 kernel's tile ring (Tk of 1, 63 and 129, kv_lens
+    on a tile edge and 0, causal with Tq != Tk, D 128 at T 1024, D 80);
     counted as launches, also where q requires grad; bad operands
     refused."""
     if not torch.cuda.is_available():
@@ -122,7 +124,15 @@ def test_flash_attention_kernel_matches_plain_on_cuda():
         (2, 3, 200, 200, 64, torch.bfloat16, False, (0, 500), False),
         (2, 3, 130, 70, 32, torch.float32, True, None, False),
         (1, 2, 96, 160, 128, torch.bfloat16, False, None, True),
-        (2, 2, 128, 128, 64, torch.float32, True, (100, 128), True)]
+        (2, 2, 128, 128, 64, torch.float32, True, (100, 128), True),
+        (2, 3, 64, 1, 64, torch.bfloat16, False, None, False),
+        (2, 3, 100, 63, 64, torch.bfloat16, False, None, False),
+        (2, 3, 130, 129, 64, torch.bfloat16, False, (128, 129), False),
+        (3, 4, 256, 256, 64, torch.bfloat16, False, (64, 128, 0), False),
+        (2, 3, 96, 200, 64, torch.bfloat16, True, None, False),
+        (2, 3, 200, 96, 64, torch.bfloat16, True, (96, 50), False),
+        (1, 12, 1024, 1024, 128, torch.bfloat16, False, None, False),
+        (2, 3, 256, 256, 80, torch.bfloat16, False, (256, 100), False)]
     for B, H, Tq, Tk, D, dtype, causal, lens, seg in cases:
         q = (torch.rand((B, H, Tq, D), device=dev, generator=g) * 4 - 2)
         k = (torch.rand((B, H, Tk, D), device=dev, generator=g) * 4 - 2)
@@ -148,8 +158,9 @@ def test_flash_attention_kernel_matches_plain_on_cuda():
             assert err <= 2e-5, err
         else:
             assert err <= 2e-2 * want_o.float().abs().max().item(), err
-        if lens is not None and lens[0] == 0:
-            assert not o[0].any() and not lse[0].any()
+        for b, n in enumerate(lens or ()):
+            if n == 0:
+                assert not o[b].any() and not lse[b].any()
     q = torch.zeros((1, 1, 128, 64), device=dev, requires_grad=True)
     before = TA.LAUNCHES
     TA.flash_attention_fwd(q, q, q)          # a recorded gradient runs too
@@ -298,8 +309,11 @@ def test_layernorm_bwd_kernel_matches_plain_on_cuda():
     backward, dx in f32 within 1e-5 and in bf16 within 1e-5 plus one bf16
     ulp of the larger value, dgamma and dbeta within rel 1e-5 of their
     largest entry, the same bits on a second run; vectorised, ragged,
-    unaligned and wide rows; counted as launches; and the autograd
-    Function through both kernels against the same Function on the CPU."""
+    unaligned and wide rows, and the edges of the kernel's grid (one row,
+    one past a block of eight, one past eight on each of 132 SMs, C 2048
+    with the sums in shared memory, C 1001 one element a load); counted
+    as launches; and the autograd Function through both kernels against
+    the same Function on the CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -315,6 +329,16 @@ def test_layernorm_bwd_kernel_matches_plain_on_cuda():
                                   ((5, 768), torch.float32, torch.float32,
                                    1),
                                   ((33, 2048), torch.bfloat16,
+                                   torch.bfloat16, 0),
+                                  ((1, 768), torch.bfloat16, torch.bfloat16,
+                                   0),
+                                  ((9, 768), torch.bfloat16, torch.bfloat16,
+                                   0),
+                                  ((1057, 768), torch.bfloat16,
+                                   torch.bfloat16, 0),
+                                  ((4096, 2048), torch.bfloat16,
+                                   torch.bfloat16, 0),
+                                  ((64, 1001), torch.bfloat16,
                                    torch.bfloat16, 0)]:
         x = torch.randn(N * C + off, device=dev, generator=gen) * 3 + 1
         x = x.to(xdt)[off:].view(N, C)
@@ -537,3 +561,38 @@ def test_backward_kernels_launch_from_a_fresh_thread():
                                                      lens.cpu()),
                               cpu, dout.cpu())[0]
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_forward_kernels_launch_from_a_fresh_thread():
+    """A thread that has made no CUDA call yet launches both bf16 forward
+    entries, whose tensor maps need the device's context bound on the
+    calling thread, and gets the main thread's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import threading
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn((2, 3, 200, 64), device=dev, generator=g)
+               .to(torch.bfloat16) for _ in range(3))
+    lens = torch.tensor([200, 70], device=dev, dtype=torch.int32)
+    bq, bk, bv = (t.transpose(1, 2) for t in (q, k, v))
+    results = {}
+
+    def run():
+        try:
+            results["bhtd"] = TA.flash_attention_fwd(q, k, v, kv_lens=lens)
+            results["bshd"] = TA.flash_attention_bshd_fwd(bq, bk, bv,
+                                                          kv_lens=lens)
+            torch.cuda.synchronize()
+        except Exception as e:          # reported below, on the test's thread
+            results["error"] = e
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in results, results.get("error")
+    o, lse = TA.flash_attention_fwd(q, k, v, kv_lens=lens)
+    assert torch.equal(results["bhtd"][0], o)
+    assert torch.equal(results["bhtd"][1], lse)
+    assert torch.equal(results["bshd"][0].transpose(1, 2), o)
+    assert torch.equal(results["bshd"][1], lse)
