@@ -91,7 +91,27 @@ and PyTorch built for CUDA.  It:
    for every one the batch reaches), and one f32 step on the card against
    the same step on the CPU (batch 2, S 128, same weights), with the
    CPU's own 1-thread-vs-N-thread floor printed beside it;
-11. prints one JSON line describing each kernel, then as its last line
+11. data-parallel phase (``dp_phases``; it joins a one-rank NCCL group
+   with ``mx.parallel.initialize()``, the only group one card allows, and
+   leaves it at the end): one f32 ``parallel.DataParallelStep`` of a
+   2-layer BERT (BERT-base's widths) on the card against the same step on
+   the CPU (batch 2, S 128, the BERT training tolerances, the CPU's
+   1-thread floor printed beside them); then BERT-base built as
+   ``bench.py:_build_bert_step`` builds it (Xavier weights and deferred
+   shapes on the host, bf16, ``reset_ctx`` onto the card) trained through
+   ``DataParallelStep`` (Adam, lr 1e-4, the masked-LM loss) at 24 x 512: 3
+   warm-up and 10 timed steps without a mesh, then the same from the same
+   weights on the NCCL mesh with ``shard_optimizer=True``, which must give
+   the same bits; 12 (B, T, H, D) attention and 26 LayerNorm launches a
+   step each way in both, falling losses; then ResNet-50 v1 at batch 32 as
+   ``bench.py`` builds it (SGD with ``rescale_grad = 1/32``) through
+   ``DataParallelStep``, and from the same weights through
+   ``Trainer(kvstore="nccl")``, 16 forward and 16 backward epilogue
+   launches a step each.  It prints step ms, tokens or images/s, peak
+   memory and the optimizer state's bytes beside the Trainer-driven steps
+   of the same run, and, under ``--profile``, the device time of the NCCL
+   kernels a step;
+12. prints one JSON line describing each kernel, then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero without the ``ok``
@@ -1947,14 +1967,414 @@ def bert_training_phase(torch, mx, attention, layernorm, seed, card,
             "profiles": profiles}
 
 
+# ---------------------------------------------------------------------------
+# data-parallel training: DataParallelStep and Trainer(kvstore="nccl")
+# ---------------------------------------------------------------------------
+
+# One f32 DataParallelStep of BERT at DP_PARITY_LAYERS layers on the card
+# against the same step on the CPU (batch 2, S 128, the same weights), held
+# to the BERT training phase's tolerances (BERT_TRAIN_PARITY_*), with the
+# CPU's 1-thread floor printed beside them.
+DP_PARITY_LAYERS = 2
+# ResNet-50 through DataParallelStep as bench.py builds it: SGD with
+# rescale_grad = 1 / batch on top of the step's mean loss, an effective
+# rate of 0.1 / 32, so the loss is only held to fall (the lowest of the
+# last five steps below the first)
+DP_RESNET_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+                 "rescale_grad": 1.0 / TRAIN_BATCH}
+
+
+def _mlm_loss(gluon):
+    class MLMLoss(gluon.loss.Loss):
+        """bench.py's MLMLoss: softmax cross entropy over the masked
+        positions' logits, one value a masked row."""
+
+        def __init__(self):
+            super().__init__(weight=None, batch_axis=0)
+            self._ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def hybrid_forward(self, F, outputs, lab):
+            _, logits = outputs
+            return self._ce(logits.reshape(-1, BERT_VOCAB), lab.reshape(-1))
+    return MLMLoss()
+
+
+def _nccl_device_ms(torch, fn, calls=3):
+    """torch.profiler over ``calls`` calls of ``fn``: the device time a
+    call of the kernels and copies whose names say NCCL, and their
+    names."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+    avgs = prof.key_averages()
+    key = "self_device_time_total" if hasattr(
+        avgs[0], "self_device_time_total") else "self_cuda_time_total"
+    nccl = [a for a in avgs if "nccl" in a.key.lower()
+            and getattr(a, key) > 0]
+    return (sum(getattr(a, key) for a in nccl) / 1e3 / calls,
+            sorted({a.key[:60] for a in nccl}))
+
+
+def dp_bert_card_vs_cpu(torch, mx, seed):
+    """One f32 DataParallelStep (no mesh) of BERT at DP_PARITY_LAYERS
+    layers, batch 2, S 128, from the same weights on the card and on the
+    CPU, and the CPU again on one thread: the loss rel error and the update
+    errors of the card and of the floor."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
+    from mxnet_tpu_torch.gluon.utils import load_jax_params
+    rs = onp.random.RandomState(seed + 5)
+    S = BERT_PARITY_SEQ
+    tokens = rs.randint(0, BERT_VOCAB, (2, S)).astype("float32")
+    lens = onp.array(BERT_PARITY_LENS, "int32")
+    pos = onp.sort(onp.stack([rs.choice(min(BERT_PARITY_LENS),
+                                        BERT_PARITY_PRED, replace=False)
+                              for _ in range(2)]), 1).astype("int32")
+    labels = rs.randint(0, BERT_VOCAB, (2, BERT_PARITY_PRED)) \
+        .astype("float32")
+
+    def build(ctx):
+        net = BERTModel(vocab_size=BERT_VOCAB, units=BERT_UNITS,
+                        hidden_size=4 * BERT_UNITS,
+                        num_layers=DP_PARITY_LAYERS, num_heads=BERT_HEADS,
+                        max_length=BERT_SEQ, dropout=0.0, use_pooler=False,
+                        use_decoder=True)
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        with mx.autograd.predict_mode():
+            net(mx.nd.array(tokens, ctx=ctx))
+        return net
+
+    def step(net, ctx):
+        dp = mx.parallel.DataParallelStep(
+            net, _mlm_loss(gluon), mx.optimizer.Adam(learning_rate=BERT_LR))
+        loss = dp((mx.nd.array(tokens, ctx=ctx), None, None,
+                   mx.nd.array(lens, ctx=ctx, dtype="int32"),
+                   mx.nd.array(pos, ctx=ctx, dtype="int32")),
+                  mx.nd.array(labels, ctx=ctx))
+        return float(loss.asnumpy()), _param_arrays(net)
+    mx.random.seed(seed)
+    gnet = build(mx.gpu(0))
+    w0 = _param_arrays(gnet)
+    gpu_loss, w1_gpu = step(gnet, mx.gpu(0))
+    del gnet
+    with mx.cpu():
+        cnet = build(mx.cpu())
+
+        def cpu_step():
+            load_jax_params(cnet, w0)
+            return step(cnet, mx.cpu())
+        cpu_loss, w1_cpu = cpu_step()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        _, w1_cpu1 = cpu_step()
+        torch.set_num_threads(threads)
+    return (abs(gpu_loss - cpu_loss) / abs(cpu_loss),
+            _update_errors(w0, w1_gpu, w1_cpu),
+            _update_errors(w0, w1_cpu1, w1_cpu))
+
+
+def _reset_counts(attention, layernorm):
+    attention.LAUNCHES = attention.BWD_LAUNCHES = 0
+    attention.BSHD_LAUNCHES = attention.BSHD_BWD_LAUNCHES = 0
+    layernorm.LAUNCHES = layernorm.BWD_LAUNCHES = 0
+
+
+def _bert_counts(attention, layernorm):
+    return ((attention.BSHD_LAUNCHES, attention.BSHD_BWD_LAUNCHES,
+             layernorm.LAUNCHES, layernorm.BWD_LAUNCHES),
+            (attention.LAUNCHES, attention.BWD_LAUNCHES))
+
+
+def dp_bert_phase(torch, mx, attention, layernorm, seed, card, mesh,
+                  profile=False):
+    """BERT-base pretraining through ``parallel.DataParallelStep``, built as
+    bench.py's ``_build_bert_step`` builds it (Xavier weights on the host,
+    deferred shapes settled there, cast to bf16, ``reset_ctx`` onto the
+    card; Adam, lr 1e-4, the masked-LM loss), at 24 x 512: 3 warm-up and
+    10 timed steps without a mesh, then the same steps from the same
+    weights (set again) and a fresh Adam on the one-rank NCCL ``mesh``
+    with ``shard_optimizer=True``, which must give the same bits.  The
+    card-vs-CPU step runs first."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    os.environ["MXNET_FUSED_LAYERNORM"] = "1"
+    t0 = time.perf_counter()
+    loss_rel, (update_rel, per_param), (floor_rel, floor_param) = \
+        dp_bert_card_vs_cpu(torch, mx, seed)
+    parity_s = time.perf_counter() - t0
+    print("dp bert: card vs CPU, one f32 DataParallelStep of a %d-layer "
+          "BERT at batch 2, S %d: loss rel err %.3g, update rel L2 err %.3g "
+          "over all parameters (floor, CPU on 1 thread vs %d: %.3g); worst "
+          "parameters %s" % (DP_PARITY_LAYERS, BERT_PARITY_SEQ, loss_rel,
+                             update_rel, torch.get_num_threads(), floor_rel,
+                             ", ".join("%s %.3g" % (k, e)
+                                       for e, k in per_param[:4])))
+    check(loss_rel <= BERT_TRAIN_PARITY_LOSS_RTOL,
+          "DP BERT card vs CPU loss rel err %.3g > %g"
+          % (loss_rel, BERT_TRAIN_PARITY_LOSS_RTOL))
+    check(update_rel <= BERT_TRAIN_PARITY_UPDATE_REL_L2,
+          "DP BERT card vs CPU update: rel L2 err %.3g > %g"
+          % (update_rel, BERT_TRAIN_PARITY_UPDATE_REL_L2))
+    check(per_param[0][0] <= BERT_TRAIN_PARITY_PARAM_REL_L2,
+          "DP BERT card vs CPU update of %s: rel L2 err %.3g > %g"
+          % (per_param[0][1], per_param[0][0],
+             BERT_TRAIN_PARITY_PARAM_REL_L2))
+
+    tokens, lens, pos = bert_inputs(seed)
+    labels = onp.random.RandomState(seed + 2).randint(
+        0, BERT_VOCAB, (BERT_BATCH, BERT_PRED)).astype("float32")
+    gpu = mx.gpu(0)
+    x = mx.nd.array(tokens, ctx=gpu)
+    vl = mx.nd.array(lens, ctx=gpu, dtype="int32")
+    mp = mx.nd.array(pos, ctx=gpu, dtype="int32")
+    y = mx.nd.array(labels, ctx=gpu)
+
+    def build():
+        mx.random.seed(seed)
+        net = _bert(mx, use_pooler=False)
+        with mx.cpu():
+            net.initialize(mx.init.Xavier())
+            with mx.autograd.predict_mode():   # deferred shapes, on the host
+                net(mx.nd.array(tokens[:1, :8]), None, None,
+                    mx.nd.array([8], dtype="int32"),
+                    mx.nd.array([[0, 1]], dtype="int32"))
+        net.cast("bfloat16")
+        net.collect_params().reset_ctx(gpu)
+        return net
+
+    def train(net, mesh, shard):
+        step = mx.parallel.DataParallelStep(
+            net, _mlm_loss(gluon), mx.optimizer.Adam(learning_rate=BERT_LR),
+            mesh=mesh, shard_optimizer=shard)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: counts from 0 just before, read just after
+        _reset_counts(attention, layernorm)
+        losses, times = [], []
+        for _ in range(BERT_TRAIN_WARMUP + BERT_TRAIN_TIMED):
+            t = time.perf_counter()
+            losses.append(step((x, None, None, vl, mp), y).astorch())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        counts = _bert_counts(attention, layernorm)
+        run = {"losses": [float(v.float()) for v in losses],
+               "loss_bits": torch.stack(losses),
+               "step_ms": statistics.median(times[BERT_TRAIN_WARMUP:]) * 1e3,
+               "step_ms_all": [t * 1e3 for t in times],
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "state_bytes": step.optimizer_state_bytes(per_chip=True),
+               "state_bytes_total": step.optimizer_state_bytes(
+                   per_chip=False),
+               "launches": counts[0], "bhtd_launches": counts[1],
+               "weights": [p.data().astorch().clone() for _, p in
+                           sorted(net.collect_params().items())]}
+        n_steps = len(losses)
+        want = (BERT_ATTN_PER_STEP * n_steps,) * 2 + \
+            (BERT_LN_PER_STEP * n_steps,) * 2
+        check(counts[0] == want and counts[1] == (0, 0),
+              "DP BERT launches in %d steps: (B, T, H, D) attention fwd %d "
+              "bwd %d, LayerNorm fwd %d bwd %d (want %d, %d, %d and %d a "
+              "step), (B, H, T, D) attention fwd %d bwd %d (want 0)"
+              % ((n_steps,) + counts[0] + (BERT_ATTN_PER_STEP,
+                                           BERT_ATTN_PER_STEP,
+                                           BERT_LN_PER_STEP,
+                                           BERT_LN_PER_STEP) + counts[1]))
+        check(all(onp.isfinite(run["losses"])),
+              "non-finite DP loss: %r" % run["losses"])
+        check(all(w.dtype == torch.bfloat16 for w in run["weights"]),
+              "a weight left bf16")
+        if profile:
+            def one():
+                return step((x, None, None, vl, mp), y) \
+                    .astype("float32").asscalar()
+            run["profile"] = profile_calls(
+                torch, one, "BERT-base DataParallelStep (%s)" % (
+                    "one-rank NCCL mesh, ZeRO" if shard else "no mesh"),
+                calls=3)
+            run["nccl_ms"], run["nccl_kernels"] = _nccl_device_ms(torch, one)
+        return run
+
+    net = build()
+    w0 = [p.data().astorch().clone()
+          for _, p in sorted(net.collect_params().items())]
+    plain = train(net, None, False)
+    for (_, p), w in zip(sorted(net.collect_params().items()), w0):
+        p.set_data(w)                   # the ZeRO run starts where it did
+    del w0
+    torch.cuda.empty_cache()
+    zero = train(net, mesh, True)
+    del net
+    torch.cuda.empty_cache()
+    check(torch.equal(plain["loss_bits"], zero["loss_bits"])
+          and all(torch.equal(a, b) for a, b in zip(plain["weights"],
+                                                    zero["weights"])),
+          "the one-rank NCCL ZeRO step and the step without a mesh differ")
+    for run in (plain, zero):
+        losses = run["losses"]
+        check(min(losses[-LOSS_WINDOW:]) < losses[0] - BERT_LOSS_FALL,
+              "DP loss did not fall by %g: %r" % (BERT_LOSS_FALL, losses))
+        del run["weights"], run["loss_bits"]
+    del os.environ["MXNET_FUSED_LAYERNORM"]
+    n_tokens = BERT_BATCH * BERT_SEQ
+    for run in (plain, zero):
+        run["tokens_per_s"] = n_tokens * 1e3 / run["step_ms"]
+    return {"plain": plain, "zero": zero, "steps": len(plain["losses"]),
+            "parity_loss_rel": loss_rel, "parity_update_rel_l2": update_rel,
+            "parity_worst_params": per_param[:4],
+            "parity_floor_rel_l2": floor_rel,
+            "parity_floor_worst": floor_param[:4], "parity_s": parity_s}
+
+
+def dp_resnet_phase(torch, mx, fused_norm, seed, card, profile=False):
+    """ResNet-50 v1 at batch 32 through ``parallel.DataParallelStep``, as
+    bench.py builds it (Xavier weights and deferred shapes on the host,
+    ``reset_ctx`` onto the card, SGD with ``rescale_grad = 1/32``, no
+    mesh): 3 warm-up and 10 timed steps; then the same net, from the same
+    weights, through ``Trainer(kvstore="nccl")`` on the one-rank NCCL
+    group (SGD as the training phase's), as many steps.
+    Each counts 16 forward and 16 backward epilogue launches a step."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    gpu = mx.gpu(0)
+    mx.random.seed(seed)
+    net = resnet50_v1()
+    with mx.cpu():
+        net.initialize(mx.init.Xavier())
+        with mx.autograd.predict_mode():
+            net(mx.nd.zeros((1, 3, IMAGE_SIZE, IMAGE_SIZE)))
+    net.collect_params().reset_ctx(gpu)
+    rs = onp.random.RandomState(seed)
+    x = mx.nd.array(rs.uniform(size=(TRAIN_BATCH, 3, IMAGE_SIZE,
+                                     IMAGE_SIZE)).astype("float32"), ctx=gpu)
+    y = mx.nd.array(rs.randint(0, 1000, (TRAIN_BATCH,)).astype("float32"),
+                    ctx=gpu)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    params = net._collect_params_with_prefix()
+    w0 = {k: p.data().astorch().clone() for k, p in params.items()}
+    step = mx.parallel.DataParallelStep(
+        net, ce, mx.optimizer.SGD(**DP_RESNET_SGD), mesh=None)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(SGD_PARAMS),
+                            kvstore="nccl")
+
+    def trainer_step():
+        with mx.autograd.record():
+            loss = ce(net(x), y)
+        loss.backward()
+        trainer.step(TRAIN_BATCH)
+        return loss.mean().astorch()
+
+    def run(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: counts from 0 just before, read just after
+        fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
+        losses, times = [], []
+        for _ in range(WARMUP_STEPS + TIMED_STEPS):
+            t = time.perf_counter()
+            losses.append(fn())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        n = len(losses)
+        launches = (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES)
+        losses = [float(v) for v in losses]
+        check(launches == (16 * n, 16 * n),
+              "%d forward and %d backward epilogue launches in %d steps "
+              "(want 16 each a step)" % (launches + (n,)))
+        check(all(onp.isfinite(losses)), "non-finite loss: %r" % losses)
+        step_ms = statistics.median(times[WARMUP_STEPS:]) * 1e3
+        return {"losses": losses, "step_ms": step_ms,
+                "step_ms_all": [t * 1e3 for t in times],
+                "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "fwd_launches": launches[0], "bwd_launches": launches[1],
+                "steps": n}
+    dp = run(lambda: step(x, y).astorch())
+    check(min(dp["losses"][-LOSS_WINDOW:]) < dp["losses"][0],
+          "DP ResNet loss did not fall: %r" % dp["losses"])
+    dp["state_bytes"] = step.optimizer_state_bytes(per_chip=True)
+    if profile:
+        dp["profile"] = profile_calls(torch, lambda: step(x, y).asscalar(),
+                                      "ResNet-50 DataParallelStep", calls=3)
+    for k, p in params.items():          # the Trainer starts where it did
+        p.set_data(w0[k])
+    kv = run(trainer_step)
+    check(trainer._kvstore.type == "nccl"
+          and trainer._kvstore.num_workers == 1,
+          "the Trainer's store is not the one-rank NCCL store")
+    check(min(kv["losses"][-LOSS_WINDOW:]) < kv["losses"][0],
+          "Trainer(kvstore='nccl') loss did not fall: %r" % kv["losses"])
+    return {"dp": dp, "trainer_nccl": kv}
+
+
+def dp_phases(torch, mx, attention, layernorm, fused_norm, seed, card,
+              btrain, train, profile):
+    """The data-parallel phases on the joined one-rank NCCL group, their
+    lines printed; returns their numbers."""
+    mesh = mx.parallel.device_mesh()
+    check((mesh.size, mesh.backend) == (1, "nccl"),
+          "the process group is %r, not one NCCL rank" % (mesh,))
+    print("dp: joined a %s group of %d rank(s)" % (mesh.backend, mesh.size))
+    dpb = dp_bert_phase(torch, mx, attention, layernorm, seed, card, mesh,
+                        profile=profile)
+    for name, what in (("plain", "no mesh"),
+                       ("zero", "one-rank NCCL mesh, shard_optimizer=True")):
+        r = dpb[name]
+        print("dp bert: DataParallelStep, %s: BERT-base bf16 MLM at %d x %d, "
+              "Adam lr %g, %d steps, losses %s" % (
+                  what, BERT_BATCH, BERT_SEQ, BERT_LR, dpb["steps"],
+                  [round(v, 4) for v in r["losses"]]))
+        print("dp bert: %s: step %.3f ms (median of %d) = %.0f tokens/s, "
+              "peak device memory %.2f GiB, optimizer state %d bytes a rank "
+              "(%d in all), launches (B, T, H, D) attention fwd %d bwd %d, "
+              "LayerNorm fwd %d bwd %d; the Trainer-driven step above %.3f "
+              "ms (%s)" % (name, r["step_ms"], BERT_TRAIN_TIMED,
+                           r["tokens_per_s"], r["peak_bytes"] / 2 ** 30,
+                           r["state_bytes"], r["state_bytes_total"],
+                           *r["launches"], btrain["step_ms"], card))
+        print("dp bert: %s: step ms %s" % (
+            name, [round(v, 3) for v in r["step_ms_all"]]))
+        if "profile" in r:
+            print_profiles([r["profile"]], card)
+            print("dp bert: %s: NCCL device time %.3f ms a step (%s) (%s)"
+                  % (name, r["nccl_ms"], ", ".join(r["nccl_kernels"])
+                     or "no NCCL kernel in the trace", card))
+    print("dp bert: the one-rank NCCL ZeRO steps and the steps without a "
+          "mesh gave the same bits (losses and weights)")
+    torch.cuda.empty_cache()
+    dpr = dp_resnet_phase(torch, mx, fused_norm, seed, card,
+                          profile=profile)
+    for name, what in (("dp", "DataParallelStep, no mesh, bench.py's SGD"),
+                       ("trainer_nccl", "Trainer(kvstore='nccl'), one rank")):
+        r = dpr[name]
+        print("dp resnet: %s: ResNet-50 v1 batch %d, %d steps, losses %s"
+              % (what, TRAIN_BATCH, r["steps"],
+                 [round(v, 4) for v in r["losses"]]))
+        print("dp resnet: %s: step %.3f ms (median of %d) = %.1f images/s, "
+              "peak device memory %.2f GiB, epilogue launches fwd %d bwd %d; "
+              "the Trainer-driven step above %.3f ms (%s)"
+              % (name, r["step_ms"], TIMED_STEPS, r["images_per_s"],
+                 r["peak_bytes"] / 2 ** 30, r["fwd_launches"],
+                 r["bwd_launches"], train["step_ms"], card))
+        if "profile" in r:
+            print_profiles([r["profile"]], card)
+    print("dp resnet: optimizer state %d bytes" % dpr["dp"]["state_bytes"])
+    return dpb, dpr
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace bucket-1 and bucket-8 model calls, "
-                         "ResNet training steps, BERT forwards and BERT "
-                         "training steps with torch.profiler and print where "
-                         "the device time goes")
+                         "ResNet training steps, BERT forwards, BERT "
+                         "training steps and the data-parallel steps with "
+                         "torch.profiler and print where the device time "
+                         "goes")
     args = ap.parse_args(argv)
 
     import torch
@@ -1992,6 +2412,14 @@ def main(argv=None):
     hopper_occupancy(torch, attention)
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    clock = [("build", time.perf_counter() - t0)]
+    t_phase = time.perf_counter()
+
+    def mark(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        clock.append((name, now - t_phase))
+        t_phase = now
     rows = kernel_phase(torch, fused_norm, card, flush)
     attn_rows = attention_cases(torch, attention, card, flush, args.seed)
     side_by_side = short_seq_side_by_side(torch, attention, card, flush,
@@ -2008,6 +2436,7 @@ def main(argv=None):
     del flush
     torch.cuda.empty_cache()
     public = public_op_phase(torch, mx, attention, args.seed, card)
+    mark("kernels")
 
     res = serving_phase(torch, mx, fused_norm, args.seed, N_REQUESTS,
                         profile=args.profile)
@@ -2024,6 +2453,7 @@ def main(argv=None):
              res["first_latencies_ms"]))
     print_profiles(res["profiles"], card)
 
+    mark("serving")
     train = training_phase(torch, mx, fused_norm, args.seed, card,
                            profile=args.profile)
     print("training: ResNet-50 v1 batch %d, %d steps, losses %s"
@@ -2038,6 +2468,7 @@ def main(argv=None):
     print("training: step ms %s" % [round(v, 3) for v in train["step_ms_all"]])
     print_profiles(train["profiles"], card)
 
+    mark("training")
     bert = bert_phase(torch, mx, attention, layernorm, args.seed, card,
                       profile=args.profile)
     print("bert: BERT-base bf16 forward, batch %d x %d (%d valid tokens), "
@@ -2058,6 +2489,7 @@ def main(argv=None):
     print_profiles(bert["profiles"], card)
     torch.cuda.empty_cache()
 
+    mark("bert")
     btrain = bert_training_phase(torch, mx, attention, layernorm, args.seed,
                                  card, profile=args.profile)
     print("bert training: BERT-base bf16 MLM step, batch %d x %d (%d valid "
@@ -2078,6 +2510,20 @@ def main(argv=None):
     print("bert training: step ms %s" % [round(v, 3)
                                          for v in btrain["step_ms_all"]])
     print_profiles(btrain["profiles"], card)
+    torch.cuda.empty_cache()
+
+    # data-parallel training: one rank, NCCL (the card has no peer here)
+    import torch.distributed as dist
+    mark("bert training")
+    mx.parallel.initialize()
+    try:
+        dpb, dpr = dp_phases(torch, mx, attention, layernorm, fused_norm,
+                             args.seed, card, btrain, train, args.profile)
+    finally:
+        dist.destroy_process_group()
+    mark("data parallel")
+    print("phase seconds: %s" % ", ".join("%s %.1f" % c for c in clock))
+
 
     def per_pass(direction, path, key):
         return sum(r[key] * r["launches_per_pass"] for r in rows[direction]
@@ -2096,7 +2542,10 @@ def main(argv=None):
         max_abs_err=max(r["max_abs_err"] for r in rows["fwd"]),
         bound_by="bytes", library_ms=None,
         launches_by_path={"serving": res["launches"],
-                          "training": train["fwd_launches"]},
+                          "training": train["fwd_launches"],
+                          "dp_resnet": dpr["dp"]["fwd_launches"],
+                          "dp_resnet_trainer_nccl":
+                          dpr["trainer_nccl"]["fwd_launches"]},
         serving=numbers("fwd", "serve"),
         per="ms/plain_ms/bound_ms: one batch-32 ResNet-50 training step (16 "
             "launches at the train shapes below); serving: one bucket-8 "
@@ -2111,6 +2560,10 @@ def main(argv=None):
         max_abs_err=max(r["max_abs_err"] for r in rows["bwd"]),
         max_rel_err_sums=max(r["max_rel_err_sums"] for r in rows["bwd"]),
         bound_by="bytes", library_ms=None,
+        launches_by_path={"training": train["bwd_launches"],
+                          "dp_resnet": dpr["dp"]["bwd_launches"],
+                          "dp_resnet_trainer_nccl":
+                          dpr["trainer_nccl"]["bwd_launches"]},
         per="ms/plain_ms/bound_ms: one batch-32 ResNet-50 training step (16 "
             "launches at the train shapes below); launches: the training "
             "path's %d steps; library: %s" % (train["steps"], no_library),
@@ -2149,7 +2602,9 @@ def main(argv=None):
         replaces="mxnet_tpu/ops/pallas_layernorm.py:34",
         launches=bert["layernorm_launches"],
         launches_by_path={"bert_forward": bert["layernorm_launches"],
-                          "bert_training": btrain["layernorm_launches"]},
+                          "bert_training": btrain["layernorm_launches"],
+                          "dp_bert": dpb["plain"]["launches"][2],
+                          "dp_bert_zero_nccl": dpb["zero"]["launches"][2]},
         max_abs_err=max(r["max_abs_err"] for r in ln_rows),
         bound_by="bytes",
         per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 forward "
@@ -2187,6 +2642,9 @@ def main(argv=None):
         source="mxnet_tpu_torch/csrc/layernorm.cu",
         replaces="mxnet_tpu/ops/pallas_layernorm.py:47",
         launches=btrain["layernorm_bwd_launches"],
+        launches_by_path={"bert_training": btrain["layernorm_bwd_launches"],
+                          "dp_bert": dpb["plain"]["launches"][3],
+                          "dp_bert_zero_nccl": dpb["zero"]["launches"][3]},
         max_abs_err=max(r["max_abs_err"] for r in ln_bwd_rows),
         sums_max_rel_err=max(r["sums_max_rel_err"] for r in ln_bwd_rows),
         bound_by="bytes",
@@ -2210,7 +2668,9 @@ def main(argv=None):
         launches=bert["attention_launches"],
         launches_by_path={"bert_forward": bert["attention_launches"],
                           "bert_training": btrain["attention_launches"],
-                          "public_op": public["bshd_fwd"]},
+                          "public_op": public["bshd_fwd"],
+                          "dp_bert": dpb["plain"]["launches"][0],
+                          "dp_bert_zero_nccl": dpb["zero"]["launches"][0]},
         max_abs_err=max(r["max_abs_err"] for r in bshd_rows),
         bound_by=bert_bshd["bound_by"],
         per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 forward at "
@@ -2225,7 +2685,9 @@ def main(argv=None):
         replaces="mxnet_tpu/ops/pallas_attention.py:1136",
         launches=btrain["attention_bwd_launches"],
         launches_by_path={"bert_training": btrain["attention_bwd_launches"],
-                          "public_op": public["bshd_bwd"]},
+                          "public_op": public["bshd_bwd"],
+                          "dp_bert": dpb["plain"]["launches"][1],
+                          "dp_bert_zero_nccl": dpb["zero"]["launches"][1]},
         max_abs_err=max(r["bwd_max_abs_err"] for r in bshd_rows),
         max_rel_err=max(r["bwd_max_rel_err"] for r in bshd_rows),
         bound_by=bert_bshd["bwd_bound_by"],

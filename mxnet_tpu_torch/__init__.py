@@ -4,12 +4,16 @@ The port of ``mxnet_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
 kept in the same module layout and public names: ``mx.nd``,
 ``mx.autograd``, ``mx.gluon``, ``mx.init``, ``mx.random``,
 ``mx.optimizer``, ``mx.lr_scheduler``, ``mx.metric``, ``mx.io``,
-``mx.callback`` and ``mx.serve``.
+``mx.callback``, ``mx.kv``, ``mx.parallel`` and ``mx.serve``.
 Its default context is the card (``mx.gpu(0)``); the CPU runs only when
-the caller asks for ``mx.cpu()``.  Hand-written CUDA kernels live in
+the caller asks for ``mx.cpu()``.  When ``MXNET_TPU_COORDINATOR_ADDRESS``
+is set, importing the package joins the process group
+(``parallel.initialize``), as the JAX package joins its coordinator.  Hand-written CUDA kernels live in
 ``csrc/`` and are built at first use (``kernels.py``).  This package
 imports neither JAX nor ``mxnet_tpu``.
 """
+import os as _os
+
 from . import base  # noqa: F401
 from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, current_context, gpu  # noqa: F401
@@ -27,5 +31,13 @@ from . import metric  # noqa: F401
 from . import io  # noqa: F401
 from . import callback  # noqa: F401
 from . import gluon  # noqa: F401
+from . import kvstore  # noqa: F401
+from . import kvstore as kv  # noqa: F401
+from . import parallel  # noqa: F401
 from . import serve  # noqa: F401
 from .base import __version__  # noqa: F401
+
+if _os.environ.get("MXNET_TPU_COORDINATOR_ADDRESS"):
+    # launched as one rank of several: join before anything runs, and let a
+    # failure raise (one process alone would train on 1/N of the data)
+    parallel.initialize()

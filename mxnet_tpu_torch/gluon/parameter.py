@@ -9,7 +9,7 @@ generator and then placed on the parameter's context.  A parameter whose
 buffer (``grad()``) that each ``backward`` writes (``'write'``) or adds to
 (``'add'``); ``set_data`` updates the value in place, so the variable
 stays one.  ``lr_mult`` and ``wd_mult`` scale the optimizer's rates;
-``cast`` changes the dtype.
+``cast`` changes the dtype and ``reset_ctx`` the device.
 """
 from __future__ import annotations
 
@@ -217,6 +217,19 @@ class Parameter:
         with torch.no_grad():
             self._data._data.copy_(data.detach())
 
+    def reset_ctx(self, ctx):
+        """Move the value to ``ctx`` (the first of a list), where it is a
+        variable again with a zero gradient; a deferred parameter will be
+        allocated there."""
+        ctx = ctx[0] if isinstance(ctx, (list, tuple)) else ctx
+        if self._data is not None:
+            self._data = self._data.as_in_context(ctx)
+            if self._grad_req != "null":
+                self._init_grad()
+        elif self._deferred_init:
+            init, _, default_init = self._deferred_init
+            self._deferred_init = (init, ctx, default_init)
+
     def cast(self, dtype):
         """Change the dtype of the value and of the gradient buffer (the
         variable stays one); a parameter not allocated yet takes ``dtype``
@@ -345,6 +358,11 @@ class ParameterDict:
     def zero_grad(self):
         for v in self.values():
             v.zero_grad()
+
+    def reset_ctx(self, ctx):
+        """Move every parameter to ``ctx``."""
+        for v in self.values():
+            v.reset_ctx(ctx)
 
     def setattr(self, name, value):
         """Set one attribute (``grad_req``, ``lr_mult``, ``wd_mult``...) on

@@ -17,9 +17,12 @@ kernel.  Every op is differentiable through torch's autograd.
 """
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..base import MXNetError, torch_dtype
@@ -30,7 +33,8 @@ from .registry import register
 
 __all__ = ["fully_connected", "convolution", "pooling", "activation",
            "flatten", "batch_norm", "batch_norm_add_relu", "layer_norm",
-           "leaky_relu", "softmax", "dropout", "embedding"]
+           "leaky_relu", "softmax", "dropout", "embedding",
+           "cross_rank_batch_stats"]
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
@@ -118,12 +122,57 @@ def flatten(data):
     return data.reshape(data.shape[0], -1)
 
 
+class _StatsGroup(threading.local):
+    def __init__(self):
+        self.group, self.size = None, 1
+
+
+_STATS = _StatsGroup()
+
+
+@contextlib.contextmanager
+def cross_rank_batch_stats(group, size):
+    """Within the scope, BatchNorm's training statistics are averaged over
+    the ``size`` ranks of the process ``group`` (a no-op for one rank)."""
+    prev = (_STATS.group, _STATS.size)
+    _STATS.group, _STATS.size = group, int(size)
+    try:
+        yield
+    finally:
+        _STATS.group, _STATS.size = prev
+
+
+class _RankMean(torch.autograd.Function):
+    """The mean over the ranks of a group, differentiable: its backward
+    is the mean over the ranks of the incoming gradient, since every
+    rank's loss reads the mean."""
+
+    @staticmethod
+    def forward(ctx, x, group, size):
+        ctx.group, ctx.size = group, size
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out / size
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.group)
+        return out / ctx.size, None, None
+
+
 def _batch_stats(data, axis):
     """One-pass fp32 batch statistics ``E[x]`` and ``E[x²]−E[x]²``
-    (clamped at 0), cast to the data dtype, as the JAX ops compute them."""
+    (clamped at 0), cast to the data dtype, as the JAX ops compute them.
+    Under :func:`cross_rank_batch_stats` over N > 1 ranks the fp32 means
+    ``E[x]`` and ``E[x²]`` are averaged over the ranks first (each rank
+    holds as many rows)."""
     dims = tuple(i for i in range(data.dim()) if i != axis % data.dim())
     mean = torch.mean(data, dim=dims, dtype=torch.float32)
     sq = torch.mean(torch.square(data), dim=dims, dtype=torch.float32)
+    if _STATS.size > 1:
+        mean, sq = _RankMean.apply(torch.stack([mean, sq]), _STATS.group,
+                                   _STATS.size).unbind(0)
     var = torch.clamp_min(sq - torch.square(mean), 0.0)
     return mean.to(data.dtype), var.to(data.dtype)
 

@@ -14,6 +14,15 @@ over lists of tensors with ``torch._foreach_*`` operations, in place under
 The order of the floating-point operations is the JAX package's, so the
 two agree to rounding.
 
+The JAX package's ``Trainer.step`` and ``DataParallelStep`` run the same
+rules jitted, where XLA's CPU backend computes some of them otherwise than
+one operation after another: a float32 ``a * b + c`` is one fused
+multiply-add (the first product of a sum of two), and a half-width value
+that an fp32 operation reads keeps its fp32 precision.  ``fused=True``
+(:meth:`Optimizer._step`) follows that arithmetic, and ``make_step``
+returns it as a pure function of tensors, as the JAX package's does;
+``pin_update_dtypes`` casts a step's results back to the carry dtypes.
+
 Attribute names match the JAX package's, and ``Updater.get_states`` and
 ``set_states`` read and write the JAX package's pickle format, so a
 ``Trainer.save_states`` file of either package loads in the other.
@@ -26,6 +35,7 @@ import math
 import pickle
 from typing import Dict
 
+import numpy as onp
 import torch
 
 from ..context import cpu
@@ -33,7 +43,17 @@ from ..ndarray import NDArray
 from ..ndarray.ndarray import _wrap
 
 __all__ = ["Optimizer", "Updater", "get_updater", "create", "register",
-           "SGD", "NAG", "Adam"]
+           "SGD", "NAG", "Adam", "pin_update_dtypes"]
+
+
+def pin_update_dtypes(res, weight, state_leaves):
+    """Cast a ``make_step`` result back to the carry dtypes: the new
+    weight to ``weight``'s and each new state to its leaf's.  Returns
+    ``(new_weight, new_state_list)``."""
+    new_w = res[0].to(weight.dtype)
+    new_s = [r.to(s.dtype) if isinstance(r, torch.Tensor) else r
+             for r, s in zip(res[1:], state_leaves)]
+    return new_w, new_s
 
 
 class Optimizer:
@@ -90,6 +110,14 @@ class Optimizer:
     @staticmethod
     def _is_half(dtype):
         return dtype in (torch.float16, torch.bfloat16)
+
+    def create_state_flat(self, index, weight):
+        """State of a weight given in the flat zero-padded shard layout of
+        the ZeRO-sharded update (a 1-D tensor): every leaf must have that
+        flat shape, so that each rank holds and updates its slice.  The
+        elementwise rules here create it as :meth:`create_state` does; a
+        caller keeps a weight whose leaves are not flat replicated."""
+        return self.create_state(index, weight)
 
     def create_state_multi_precision(self, index, weight):
         """Half-width weights get an fp32 master copy as state leaf 0."""
@@ -154,6 +182,31 @@ class Optimizer:
         return [self.wd * self._multiplier_for(i, self.wd_mult, "wd_mult")
                 for i in indices]
 
+    def make_step(self, index):
+        """A pure update ``fn(w, g, t, lr, *states) -> (w', *states')`` of
+        weight ``index`` on tensors, in the arithmetic of the JAX
+        package's jitted step (``fused``, see :meth:`_step`): ``t`` is the
+        step count (an int, 1 at the first update) and ``lr`` the learning
+        rate (a float, rounded to fp32 and then to ``w``'s dtype as the JAX
+        step rounds its fp32 rate).  ``w`` and the states are left as they
+        are; the results may need :func:`pin_update_dtypes`.  Rules without
+        one (NAG, as in the JAX package) raise ``NotImplementedError``."""
+        if not self._has_step:
+            raise NotImplementedError(
+                "%s has no jit-pure step; Trainer will update eagerly"
+                % type(self).__name__)
+        wd = self._get_wds([index])[0]
+
+        def step(w, g, t, lr, *states):
+            new = [w.detach().clone()] + [s.detach().clone() for s in states]
+            with torch.no_grad():
+                self._step(new[:1], [g.detach()], [[s] for s in new[1:]],
+                           [_f32(lr)], [wd], [int(t)], True)
+            return tuple(new)
+        return step
+
+    _has_step = False
+
     # -- updates --------------------------------------------------------
     def update(self, index, weight, grad, state):
         """Update one weight (or, given lists, several) with its state, as
@@ -189,9 +242,10 @@ class Optimizer:
         mp = [k for k, h in enumerate(half) if h]
         if mp:
             masters = [states[k][0]._data for k in mp]
+            # the jitted step widens the gradient itself
             self._run([indices[k] for k in mp], masters,
-                      [grads[k]._data.float() for k in mp],
-                      [states[k][1] for k in mp], fused)
+                      [grads[k]._data if fused else grads[k]._data.float()
+                       for k in mp], [states[k][1] for k in mp], fused)
             with torch.no_grad():
                 for k, m in zip(mp, masters):
                     weights[k]._data.copy_(m)
@@ -201,9 +255,13 @@ class Optimizer:
         slots = [list(col) for col in zip(*leaves)] if leaves and leaves[0] \
             else []
         counts = [self._index_update_count[i] for i in indices]
+        lrs = self._get_lrs(indices)
+        if fused:
+            # the jitted step takes its rates as one fp32 vector
+            lrs = [_f32(lr) for lr in lrs]
         with torch.no_grad():
-            self._step(ws, gs, slots, self._get_lrs(indices),
-                       self._get_wds(indices), counts, fused)
+            self._step(ws, gs, slots, lrs, self._get_wds(indices), counts,
+                       fused)
 
     def _step(self, ws, gs, slots, lrs, wds, counts, fused):
         """Update the weight tensors ``ws`` and the state tensors (one list
@@ -212,13 +270,20 @@ class Optimizer:
         Every hyperparameter is rounded to its weight's dtype before it
         meets a tensor, and every operation rounds in that dtype, as the
         JAX package's weak-typed Python floats make its bf16 updates do.
-        ``fused`` (``Trainer.step``) changes only Adam's step: see
-        :meth:`Adam._step`."""
+        ``fused`` (``Trainer.step``, ``make_step``) takes the arithmetic of
+        the JAX package's jitted step instead: fp32 ``a * b + c`` rounded
+        once (:func:`_muladd`), and Adam's step as :meth:`Adam._step` says;
+        an fp32 weight (a master) may then come with a half-width gradient,
+        which the step widens, as the jitted step does."""
         raise NotImplementedError
 
-    def _preprocess(self, gs, ws, wds):
+    def _preprocess(self, gs, ws, wds, fused=False):
         """New gradient tensors ``g * rescale_grad``, clipped to
-        ``clip_gradient``, plus ``wd * w`` where ``wd`` is not 0."""
+        ``clip_gradient``, plus ``wd * w`` where ``wd`` is not 0.  With
+        ``fused`` an fp32 ``g * rescale_grad + wd * w`` is one fused
+        multiply-add (``wd * w + g`` after a clip), as the jitted step's."""
+        if fused:
+            return self._preprocess_fused(gs, ws, wds)
         g = torch._foreach_mul(gs, _scalars(self.rescale_grad, gs))
         if self.clip_gradient is not None:
             torch._foreach_clamp_min_(g, _scalars(-self.clip_gradient, g))
@@ -229,6 +294,38 @@ class Optimizer:
             torch._foreach_add_([g[k] for k in decay], torch._foreach_mul(
                 dws, _rounded([wds[k] for k in decay], dws)))
         return g
+
+    def _preprocess_fused(self, gs, ws, wds):
+        # a half-width gradient of an fp32 weight (the master's) is widened
+        # here, as the jitted step widens it inside the update; there XLA
+        # fuses ``wd * w`` into the multiply-add instead of ``g * rescale``
+        widened = [g.dtype != w.dtype for g, w in zip(gs, ws)]
+        gs = [g.to(w.dtype) if wide else g
+              for g, w, wide in zip(gs, ws, widened)]
+        clip = self.clip_gradient is not None
+        out = [None] * len(gs)
+        for group in _width_groups(gs):
+            decay = [] if clip else [k for k in group
+                                     if wds[k] and not widened[k]]
+            if decay:
+                dws = _pick(ws, decay)
+                wdw = torch._foreach_mul(dws, _rounded(_pick(wds, decay),
+                                                       dws))
+                for k, v in zip(decay, _muladd_all(_pick(gs, decay),
+                                                   self.rescale_grad, wdw)):
+                    out[k] = v
+            rest = [k for k in group if out[k] is None]
+            if not rest:
+                continue
+            g = torch._foreach_mul(_pick(gs, rest),
+                                   _scalars(self.rescale_grad,
+                                            _pick(gs, rest)))
+            if clip:
+                torch._foreach_clamp_min_(g, _scalars(-self.clip_gradient, g))
+                torch._foreach_clamp_max_(g, _scalars(self.clip_gradient, g))
+            for k, v in zip(rest, g):
+                out[k] = _muladd(ws[k], wds[k], v) if wds[k] else v
+        return out
 
     def __getstate__(self):
         # the Gluon parameters hold device tensors; whoever loads the
@@ -252,11 +349,13 @@ def _as_lists(index, weight, grad, state):
 
 
 def _leaves(state):
+    """The tensors of a state (an NDArray, None or nested tuples of them,
+    an fp32 master first), in order."""
     if state is None:
         return []
     if isinstance(state, NDArray):
         return [state._data]
-    return [s._data for s in state]
+    return [t for s in state for t in _leaves(s)]
 
 
 def _zeros_like(weight: NDArray) -> NDArray:
@@ -285,6 +384,59 @@ def _scalars(value, tensors):
     return _rounded([value] * len(tensors), tensors)
 
 
+def _f32(value):
+    """``value`` rounded to fp32, as a Python float."""
+    return float(onp.float32(value))
+
+
+def _muladd(a, scale, c):
+    """``a * scale + c`` (``scale`` a float) rounded once for fp32 tensors,
+    as XLA's CPU backend contracts it into a fused multiply-add (torch's
+    ``add`` with ``alpha`` is one); one operation after another, each
+    rounded, for half-width tensors, which XLA computes that way."""
+    if a.dtype == torch.float32:
+        return torch.add(c, a, alpha=_f32(scale))
+    return a * _in_dtype(scale, a.dtype) + c
+
+
+def _muladd_all(tensors, scale, addends):
+    """:func:`_muladd` of every tensor (one width class) by one ``scale``
+    with its addend, in one multi-tensor operation."""
+    if tensors[0].dtype == torch.float32:
+        return torch._foreach_add(addends, tensors, alpha=_f32(scale))
+    return torch._foreach_add(
+        torch._foreach_mul(tensors, _scalars(scale, tensors)), addends)
+
+
+def _add_scaled_(ws, g, scales):
+    """``w += scale * g`` for every tensor of one width class, a fused
+    multiply-add in fp32 (one launch where every scale agrees), one
+    rounding after another in half width."""
+    if ws[0].dtype == torch.float32 and len(set(scales)) == 1:
+        torch._foreach_add_(ws, g, alpha=_f32(scales[0]))
+    elif ws[0].dtype == torch.float32:
+        for w, gg, sc in zip(ws, g, scales):
+            w.add_(gg, alpha=_f32(sc))
+    else:
+        torch._foreach_add_(ws, torch._foreach_mul(g, _rounded(scales, ws)))
+
+
+def _width_groups(tensors):
+    """Indices of the fp32 tensors and of the others, each non-empty."""
+    full = [k for k, t in enumerate(tensors) if t.dtype == torch.float32]
+    half = [k for k, t in enumerate(tensors) if t.dtype != torch.float32]
+    return [k for k in (full, half) if k]
+
+
+def _pick(items, indices):
+    return [items[k] for k in indices]
+
+
+def _pow32(base, t):
+    """``base ** t`` in fp32 as the jitted step computes it (``powf``)."""
+    return onp.power(onp.float32(base), onp.float32(t))
+
+
 def _sgd_step(ws, g, lrs):
     torch._foreach_add_(ws, torch._foreach_mul(
         g, _rounded([-lr for lr in lrs], ws)))
@@ -306,14 +458,33 @@ class SGD(Optimizer):
             return None
         return _zeros_like(weight)
 
+    _has_step = True
+
     def _step(self, ws, gs, slots, lrs, wds, counts, fused):
-        g = self._preprocess(gs, ws, wds)
+        g = self._preprocess(gs, ws, wds, fused)
+        if fused:
+            for k in _width_groups(ws):
+                self._jitted(_pick(ws, k), _pick(g, k),
+                             [_pick(s, k) for s in slots], _pick(lrs, k))
+            return
         if not slots:
             _sgd_step(ws, g, lrs)
             return
         (moms,) = slots
         torch._foreach_mul_(moms, _scalars(self.momentum, ws))
         torch._foreach_sub_(moms, torch._foreach_mul(g, _rounded(lrs, ws)))
+        torch._foreach_add_(ws, moms)
+
+    def _jitted(self, ws, g, slots, lrs):
+        """One width class: ``w - lr * g`` and ``momentum * m - lr * g``
+        each one fused multiply-add in fp32."""
+        neg = [-lr for lr in lrs]
+        if not slots:
+            _add_scaled_(ws, g, neg)
+            return
+        (moms,) = slots
+        step = torch._foreach_mul(g, _rounded(neg, ws))
+        torch._foreach_copy_(moms, _muladd_all(moms, self.momentum, step))
         torch._foreach_add_(ws, moms)
 
 
@@ -348,15 +519,14 @@ class NAG(Optimizer):
 
 def _fused_lr_t(lr, t, b1, b2, dtype):
     """Adam's step size as the JAX package's jitted step computes it, as
-    a Python float: lr rounded to fp32 and then to the weight's dtype,
+    a Python float: lr (an fp32 value) rounded to the weight's dtype,
     times ``sqrt(1 - b2^t) / (1 - b1^t)`` in fp32 (its step count is a
     traced int32, which makes the bias correction fp32)."""
-    f32 = torch.float32
-    one = torch.tensor(1.0, dtype=f32)
-    lr = torch.tensor(lr, dtype=f32).to(dtype).to(f32)
-    c2 = one - torch.tensor(b2, dtype=f32) ** t
-    c1 = one - torch.tensor(b1, dtype=f32) ** t
-    return (lr * torch.sqrt(c2) / c1).item()
+    one = onp.float32(1.0)
+    lr = onp.float32(_in_dtype(lr, dtype))
+    c2 = one - _pow32(b2, t)
+    c1 = one - _pow32(b1, t)
+    return float(lr * onp.sqrt(c2) / c1)
 
 
 @register
@@ -385,10 +555,18 @@ class Adam(Optimizer):
     def create_state(self, index, weight):
         return (_zeros_like(weight), _zeros_like(weight))
 
+    _has_step = True
+
     def _step(self, ws, gs, slots, lrs, wds, counts, fused):
         b1, b2 = self.beta1, self.beta2
-        g = self._preprocess(gs, ws, wds)
+        g = self._preprocess(gs, ws, wds, fused)
         means, variances = slots
+        if fused:
+            for k in _width_groups(ws):
+                self._jitted(_pick(ws, k), _pick(g, k), _pick(means, k),
+                             _pick(variances, k), _pick(lrs, k),
+                             _pick(counts, k))
+            return
         torch._foreach_mul_(means, _scalars(b1, ws))
         torch._foreach_add_(means, torch._foreach_mul(g, _scalars(1 - b1,
                                                                   ws)))
@@ -397,30 +575,51 @@ class Adam(Optimizer):
         torch._foreach_mul_(variances, _scalars(b2, ws))
         torch._foreach_add_(variances, sq)
         den = torch._foreach_sqrt(variances)
-        if not fused:
-            lr_ts = _rounded([lr * math.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
-                              for lr, t in zip(lrs, counts)], ws)
-            torch._foreach_add_(den, _scalars(self.epsilon, ws))
-            step = torch._foreach_mul(means, lr_ts)
-            torch._foreach_div_(step, den)
-            torch._foreach_sub_(ws, step)
-            return
+        lr_ts = _rounded([lr * math.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
+                          for lr, t in zip(lrs, counts)], ws)
+        torch._foreach_add_(den, _scalars(self.epsilon, ws))
+        step = torch._foreach_mul(means, lr_ts)
+        torch._foreach_div_(step, den)
+        torch._foreach_sub_(ws, step)
+
+    def _jitted(self, ws, g, means, variances, lrs, counts):
+        """One width class in the jitted step's arithmetic.  fp32: the two
+        moments each one fused multiply-add.  Half width: each operation
+        rounds in the weight's dtype, but the fp32 step reads the new mean
+        before its rounding (the sum of its two rounded products).  Then,
+        in fp32, ``lr_t * m / (sqrt(v) + epsilon)`` with ``sqrt(v)``
+        rounded to the weight's dtype, and ``w`` minus it rounded once."""
+        b1, b2 = self.beta1, self.beta2
+        full = ws[0].dtype == torch.float32
+        gm = torch._foreach_mul(g, _scalars(1 - b1, ws))
+        if full:
+            m32 = new_m = _muladd_all(means, b1, gm)
+        else:
+            mb = torch._foreach_mul(means, _scalars(b1, ws))
+            m32 = torch._foreach_add([x.float() for x in mb],
+                                     [x.float() for x in gm])
+            new_m = [x.to(w.dtype) for x, w in zip(m32, ws)]
+        gv = torch._foreach_mul(g, _scalars(1 - b2, ws))
+        torch._foreach_mul_(gv, g)
+        new_v = _muladd_all(variances, b2, gv)
+        torch._foreach_copy_(means, new_m)
+        torch._foreach_copy_(variances, new_v)
         rounded = {}
         for lr, t, w in zip(lrs, counts, ws):
             if (lr, t, w.dtype) not in rounded:
                 rounded[lr, t, w.dtype] = _fused_lr_t(lr, t, b1, b2, w.dtype)
         lr_ts = [rounded[lr, t, w.dtype] for lr, t, w in zip(lrs, counts, ws)]
         lr_ts = lr_ts[0] if len(set(lr_ts)) == 1 else lr_ts
-        # fp32 from here: a no-op for fp32 tensors, a copy for half ones
-        den = [d.float() for d in den]
+        den = [d.float() for d in torch._foreach_sqrt(variances)]
         torch._foreach_add_(den, self.epsilon)
-        step = torch._foreach_mul([m.float() for m in means], lr_ts)
+        step = torch._foreach_mul(m32, lr_ts)
         torch._foreach_div_(step, den)
+        if full:
+            torch._foreach_sub_(ws, step)
+            return
         new = [w.float() for w in ws]
         torch._foreach_sub_(new, step)
-        for w, n in zip(ws, new):
-            if n is not w:
-                w.copy_(n)
+        torch._foreach_copy_(ws, new)
 
 
 # ---------------------------------------------------------------------------

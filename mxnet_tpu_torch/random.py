@@ -5,14 +5,18 @@ stream behind ``mx.random.seed``.  Here the state is one
 ``torch.Generator`` per device, created on first use and seeded from the
 last ``seed()`` (0 before any).  The two packages draw different numbers
 from the same seed; tests that compare them carry weights across.
+``generator_scope`` lends one generator to the ops of a scope (the
+data-parallel step's per-step dropout stream), and ``draw_seed`` takes a
+seed for it from the host generator.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "generator_scope", "draw_seed"]
 
 
 class _RngState:
@@ -23,6 +27,14 @@ class _RngState:
 
 
 _STATE = _RngState()
+
+
+class _Lent(threading.local):
+    def __init__(self):
+        self.generator = None
+
+
+_LENT = _Lent()
 
 
 def seed(seed_state: int, ctx="all") -> None:
@@ -41,6 +53,9 @@ def generator(device) -> torch.Generator:
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
+    lent = _LENT.generator
+    if lent is not None and lent.device == device:
+        return lent
     with _STATE.lock:
         g = _STATE.generators.get(device)
         if g is None:
@@ -48,3 +63,19 @@ def generator(device) -> torch.Generator:
             g.manual_seed(_STATE.seed)
             _STATE.generators[device] = g
         return g
+
+
+@contextlib.contextmanager
+def generator_scope(gen: torch.Generator):
+    """Within the scope, ``generator`` of ``gen``'s device returns ``gen``
+    on this thread."""
+    prev, _LENT.generator = _LENT.generator, gen
+    try:
+        yield gen
+    finally:
+        _LENT.generator = prev
+
+
+def draw_seed() -> int:
+    """A seed drawn from the host generator (no device is touched)."""
+    return int(torch.randint(0, 2 ** 62, (), generator=generator("cpu")))

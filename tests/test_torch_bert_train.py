@@ -12,6 +12,9 @@ logits of the masked positions, the mean over their rows taken as
 through the kernels' autograd Functions (their plain versions on the
 CPU); the JAX package composes both on the CPU.
 
+The port's ``parallel.DataParallelStep`` (no mesh) takes the same step as
+the JAX package's, in one call, with the tolerances below.
+
 float32: the loss within rel 1e-5; each parameter's gradient, read from
 Adam's first moment (``(1 - beta1) * g`` after one step), within a
 relative L2 error of 1e-4 (the same arithmetic summed in another order
@@ -63,9 +66,19 @@ class _JaxMLMLoss(jgluon.loss.Loss):
         return self._ce(logits.reshape(-1, VOCAB), lab.reshape(-1))
 
 
+_JAX_STEPS = {}
+
+
 def _jax_step(dtype, inputs):
     """The JAX net, its weights before the step, and after one step: the
-    loss, the weights and each parameter's Adam state (m, v), by name."""
+    loss, the weights and each parameter's Adam state (m, v), by name
+    (computed once a dtype: the inputs are a dtype's own)."""
+    if dtype not in _JAX_STEPS:
+        _JAX_STEPS[dtype] = _jax_step_uncached(dtype, inputs)
+    return _JAX_STEPS[dtype]
+
+
+def _jax_step_uncached(dtype, inputs):
     tokens, lens, pos, labels = inputs
     mx.random.seed(3)
     net = jbert.bert_small(**CFG)
@@ -111,6 +124,36 @@ def _port_step(dtype, w0, inputs, monkeypatch):
         loss.backward()
         trainer.step(1, ignore_stale_grad=True)
     return loss, net, trainer
+
+
+class _PortMLMLoss(tgluon.loss.Loss):
+    """bench.py's MLMLoss, in the port."""
+
+    def __init__(self):
+        super().__init__(weight=None, batch_axis=0)
+        self._ce = tgluon.loss.SoftmaxCrossEntropyLoss()
+
+    def hybrid_forward(self, F, outputs, lab):
+        _, logits = outputs
+        return self._ce(logits.reshape(-1, VOCAB), lab.reshape(-1))
+
+
+def _port_dp_step(w0, inputs, monkeypatch):
+    """The same step through the port's DataParallelStep (no mesh): the
+    loss, the net and the step."""
+    tokens, lens, pos, labels = inputs
+    monkeypatch.setenv("MXNET_FUSED_LAYERNORM", "1")
+    net = tbert.bert_small(**CFG)
+    with mxt.cpu():
+        net.initialize()
+        load_jax_params(net, w0)
+        step = mxt.parallel.DataParallelStep(
+            net, _PortMLMLoss(), mxt.optimizer.Adam(learning_rate=LR))
+        loss = step((mxt.nd.array(tokens), None, None,
+                     mxt.nd.array(lens, dtype="int32"),
+                     mxt.nd.array(pos, dtype="int32")),
+                    mxt.nd.array(labels))
+    return loss, net, step
 
 
 def _dt(dtype):
@@ -172,3 +215,33 @@ def test_bert_train_step_dtypes_match_jax_bf16(monkeypatch):
         if k in states:
             assert [_dt(s.dtype) for s in states[k]] == \
                 [_dt(s.dtype) for s in jstates[k]] == [want_dt] * 2, k
+
+
+def test_bert_data_parallel_step_matches_jax_f32(monkeypatch):
+    """The port's DataParallelStep against the JAX package's: the loss,
+    each parameter's Adam first moment and the updated weights, with the
+    tolerances of the Trainer's test above; the parameters' gradient
+    buffers stay untouched, as the JAX step leaves them."""
+    inputs = _inputs(0)
+    w0, jloss, jw1, jstates = _jax_step("float32", inputs)
+    loss, net, step = _port_dp_step(w0, inputs, monkeypatch)
+    assert loss.shape == () and loss.context == mxt.cpu()
+    want = float(jloss.asnumpy())
+    assert abs(float(loss.asnumpy()) - want) <= 1e-5 * abs(want)
+    params = net._collect_params_with_prefix()
+    names = {id(p): k for k, p in params.items()}
+    states = {names[id(step._params[i])]: step._opt_states[slot]
+              for slot, i in enumerate(step._trainable)}
+    assert set(states) == set(jstates)
+    for k, (m, v) in states.items():
+        assert not params[k].grad().asnumpy().any(), k
+        jm = onp.asarray(jstates[k][0])
+        if k in UNREACHED:
+            assert not m.any() and not jm.any(), k
+            onp.testing.assert_array_equal(params[k].data().asnumpy(), w0[k])
+            continue
+        err = onp.linalg.norm(m.numpy() - jm) / onp.linalg.norm(jm)
+        assert err <= 1e-4, (k, err)
+        onp.testing.assert_allclose(params[k].data().asnumpy(),
+                                    jw1[k].asnumpy(), rtol=0, atol=LR / 50,
+                                    err_msg=k)

@@ -596,3 +596,54 @@ def test_forward_kernels_launch_from_a_fresh_thread():
     assert torch.equal(results["bhtd"][1], lse)
     assert torch.equal(results["bshd"][0].transpose(1, 2), o)
     assert torch.equal(results["bshd"][1], lse)
+
+
+@pytest.mark.cuda
+def test_nccl_one_rank_zero_step_gives_the_bits_of_no_mesh():
+    """On the card: a DataParallelStep over a one-rank NCCL group with
+    ``shard_optimizer=True`` (ZeRO's degenerate layout: reduce-scatter and
+    all-gather over one rank) gives the bits of the same step without a
+    mesh, weights and losses, over 3 Adam steps of a bf16 MLP."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as onp
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    gpu = mx.gpu(0)
+    rs = onp.random.RandomState(3)
+    x = mx.nd.array(rs.randn(16, 12).astype("float32"), ctx=gpu) \
+        .astype("bfloat16")
+    y = mx.nd.array(rs.randint(0, 5, 16).astype("float32"), ctx=gpu)
+
+    def net():
+        mx.random.seed(4)
+        n = mx.gluon.nn.HybridSequential(prefix="ncclmlp_")
+        with n.name_scope():
+            n.add(mx.gluon.nn.Dense(33, activation="relu", in_units=12),
+                  mx.gluon.nn.Dense(5, in_units=33))
+        n.initialize(mx.init.Xavier(), ctx=gpu)
+        n.cast("bfloat16")
+        return n
+
+    def train(mesh, shard):
+        n = net()
+        ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        step = mx.parallel.DataParallelStep(
+            n, lambda o, l: ce(o, l), mx.optimizer.Adam(learning_rate=0.01),
+            mesh=mesh, shard_optimizer=shard)
+        losses = [step(x, y).astorch() for _ in range(3)]
+        return losses, [p.data().astorch().clone()
+                        for _, p in sorted(n.collect_params().items())]
+    want_losses, want = train(None, False)
+    assert not dist.is_initialized()
+    mx.parallel.initialize()
+    try:
+        mesh = mx.parallel.device_mesh()
+        assert (mesh.size, mesh.backend) == (1, "nccl")
+        losses, got = train(mesh, True)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(losses, want_losses):
+        assert torch.equal(a, b)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)

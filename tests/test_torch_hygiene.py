@@ -75,6 +75,15 @@ def test_every_module_of_the_bshd_slice_is_checked():
         assert name in rel, name
 
 
+def test_every_module_of_the_data_parallel_slice_is_checked():
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("kvstore.py", "parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/collectives.py", "parallel/data_parallel.py",
+                 "gluon/trainer.py", "gluon/parameter.py",
+                 "optimizer/optimizer.py", "ops/nn.py"):
+        assert name in rel, name
+
+
 def test_kernel_wrappers_have_no_fallback_try():
     """A module that loads a kernel library launches its kernel or raises:
     no ``try`` around a launch that could run something else."""
@@ -130,3 +139,32 @@ def test_gpu_entry_points_raise_without_cuda(no_cuda):
         mxt.io.NDArrayIter(onp.zeros((4, 2), "float32"), batch_size=2).next()
     # the CPU only when asked for
     assert mxt.nd.zeros((2,), ctx=mxt.cpu()).context == mxt.cpu()
+
+
+def test_data_parallel_entry_points_raise_without_cuda(no_cuda):
+    """The process group joins over NCCL, the card's, unless the caller
+    asks for the CPU; without CUDA it raises, and nothing falls back to
+    gloo or to one process."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    with pytest.raises(mxt.MXNetError, match="CUDA"):
+        mxt.parallel.initialize()
+    with pytest.raises(mxt.MXNetError, match="CUDA"):
+        mxt.kv.create("nccl")
+    with pytest.raises(mxt.MXNetError, match="CUDA"):
+        mxt.parallel.initialize(num_processes=2, process_id=0,
+                                coordinator_address="localhost:1")
+    assert not dist.is_initialized()
+    net = mxt.gluon.nn.Dense(3, in_units=4)
+    with pytest.raises(mxt.MXNetError, match="CUDA"):
+        net.initialize()                  # card parameters
+        mxt.parallel.DataParallelStep(net, mxt.gluon.loss.L2Loss(),
+                                      mxt.optimizer.SGD())
+    # the CPU only when asked for: a step on CPU parameters runs
+    with mxt.cpu():
+        net.initialize(force_reinit=True)
+        L = mxt.gluon.loss.L2Loss()
+        step = mxt.parallel.DataParallelStep(
+            net, lambda o, l: L(o, l), mxt.optimizer.SGD())
+        loss = step(onp.ones((2, 4), "float32"), onp.zeros((2, 3), "float32"))
+    assert loss.context == mxt.cpu() and loss.shape == ()
