@@ -111,7 +111,27 @@ and PyTorch built for CUDA.  It:
    memory and the optimizer state's bytes beside the Trainer-driven steps
    of the same run, and, under ``--profile``, the device time of the NCCL
    kernels a step;
-12. prints one JSON line describing each kernel, then as its last line
+12. LSTM LM phase (``lstm_lm_phase``, after the group is left): one f32
+   ``DataParallelStep`` of a narrow 2-layer LSTM LM on the card (cuDNN's
+   LSTM, TF32 off) against the same step on the CPU (torch's native
+   cells), updates within a relative L2 error of 1e-3; then
+   ``BASELINE.json`` config 4 built as ``bench.py:bench_lstm_lm`` builds it
+   (``Embedding(10000, 650)``, a 2-layer NTC LSTM of 650, ``Dense(10000)``,
+   softmax cross entropy, SGD lr 1.0 with ``rescale_grad = 1/32``; Xavier
+   weights on the host, ``cast`` for bf16, ``reset_ctx`` onto the card)
+   trained through ``DataParallelStep`` at 32 x 35 tokens in float32 and
+   bfloat16 (cuDNN's LSTM both, ``ops/rnn.py:backend``): 6 warm-up and 20
+   timed steps each, the step ms, tokens/s and samples/s printed, the
+   float32 cross entropy of the logits falling in both and the float32
+   step losses falling, and the device and host time of cuDNN's weight
+   compaction a call;
+   then the word-LM example's model (tied, dropout 0.2, SGD lr 20 with
+   ``clip_gradient`` 0.25, its default sizes) on its synthetic corpus
+   through ``LanguageModelDataset`` for 60 steps, its loss falling.
+   ``--profile`` adds the step's device busy and idle share and the RNN
+   kernels that ran, which must be cuDNN's where ``backend`` says cuDNN
+   and torch's native cells' where it says native;
+13. prints one JSON line describing each kernel, then as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero without the ``ok``
@@ -493,7 +513,8 @@ def profile_calls(torch, fn, label, calls=5):
     of their spans in the trace, so a kernel launched as a programmatic
     dependent, whose span starts while the one before it still runs, is
     not counted twice), the spans' sum beside it, and the kernels that
-    take the time (each its spans summed)."""
+    take the time (each its spans summed): the first 16 under ``top``,
+    names cut to 90 characters, and all of them under ``kernels``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     with profile(activities=[ProfilerActivity.CPU,
@@ -512,12 +533,13 @@ def profile_calls(torch, fn, label, calls=5):
     busy_ms = covered_ms(
         (e.time_range.start, e.time_range.end) for e in prof.events()
         if "CUDA" in str(getattr(e, "device_type", None))) / calls
-    top = sorted(device, key=lambda a: -getattr(a, key))[:16]
+    every = [(a.key, getattr(a, key) / 1e3 / calls, a.count // calls)
+             for a in sorted(device, key=lambda a: -getattr(a, key))]
     return {"label": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_span_sum_ms": sum_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "top": [(a.key[:90], getattr(a, key) / 1e3 / calls, a.count // calls)
-                    for a in top]}
+            "top": [(n[:90], ms, k) for n, ms, k in every[:16]],
+            "kernels": every}
 
 
 def serving_phase(torch, mx, fused_norm, seed, n_requests, profile=False):
@@ -1983,6 +2005,44 @@ DP_PARITY_LAYERS = 2
 DP_RESNET_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
                  "rescale_grad": 1.0 / TRAIN_BATCH}
 
+# BASELINE.json config 4, the LSTM LM, as bench.py:bench_lstm_lm builds it:
+# Embedding(10000, 650), a 2-layer NTC LSTM of 650, Dense(10000), softmax
+# cross entropy, SGD lr 1.0 with rescale_grad = 1/32, batch 32 x bptt 35,
+# 6 warm-up and 20 timed steps, float32 and bfloat16
+LM_VOCAB, LM_HIDDEN, LM_LAYERS = 10000, 650, 2
+LM_BATCH, LM_BPTT = 32, 35
+LM_WARMUP, LM_TIMED = 6, 20
+# The loss must fall.  At bench.py's rate (1/32 a step) 26 steps move the
+# loss by about 1e-3, below one bf16 ulp of the loss (0.0625 at 9.2), and
+# most bf16 weight updates round away (bf16 has no master weights here, as
+# in the JAX package), so the fall is read on the cross entropy of the
+# model's logits taken in float32, before the first step and after the
+# last, for both dtypes; the float32 step losses must fall too.
+# One f32 step of a narrow 2-layer LM on the card (cuDNN's LSTM, TF32 off)
+# against the CPU (torch's native cells), from the same weights: the loss
+# within rel 1e-5, the updates w1 - w0 within a relative L2 error of 1e-3
+# over all parameters and 1e-2 for any one (the BERT step's tolerances);
+# the CPU's 1-thread-vs-N floor is printed beside them.
+LM_PARITY = {"vocab": 1000, "hidden": 128, "layers": 2, "batch": 8,
+             "bptt": 35}
+LM_PARITY_LOSS_RTOL = 1e-5
+LM_PARITY_UPDATE_REL_L2 = 1e-3
+LM_PARITY_PARAM_REL_L2 = 1e-2
+# The word-LM example's model (example/rnn/word_lm/train.py) at its
+# defaults: embedding = hidden 200, 2 layers, dropout 0.2, tied weights,
+# SGD lr 20 with clip_gradient 0.25, batch 32 x bptt 35, on its synthetic
+# corpus (30000 tokens over 200 words); the mean loss of the last 10 of
+# WORD_LM_STEPS steps must be below that of the first 10.  At that rate the
+# loss sits near ln(vocab) for about 100 steps, falling by about 0.02, then
+# drops; past about 130 steps some seeds diverge, in the JAX package's
+# example too (``--synthetic --tied --seed 2``: perplexity 181 in epoch 3,
+# 2.7e6 in epoch 4, on the CPU).  So the phase takes 60 steps, where each
+# of seeds 0-2 fell by 0.02 on the CPU and none diverged.
+WORD_LM = {"embed": 200, "hidden": 200, "layers": 2, "dropout": 0.2,
+           "lr": 20.0, "clip": 0.25, "batch": 32, "bptt": 35}
+WORD_LM_STEPS = 60
+WORD_LM_WINDOW = 10
+
 
 def _mlm_loss(gluon):
     class MLMLoss(gluon.loss.Loss):
@@ -2366,15 +2426,308 @@ def dp_phases(torch, mx, attention, layernorm, fused_norm, seed, card,
     return dpb, dpr
 
 
+def _lm_net(mx, vocab, hidden, layers, seed, dtype="float32", ctx=None):
+    """bench.py's LSTM LM: Xavier weights and deferred shapes on the host,
+    ``cast`` for bf16, then ``reset_ctx`` onto ``ctx`` (the card)."""
+    from mxnet_tpu_torch.gluon.model_zoo.lm import LSTMLM
+    mx.random.seed(seed)
+    net = LSTMLM(vocab, hidden, layers)
+    with mx.cpu():
+        net.initialize(mx.init.Xavier())
+        net(mx.nd.zeros((1, 2)))
+    if dtype != "float32":
+        net.cast(dtype)
+    net.collect_params().reset_ctx(ctx or mx.gpu(0))
+    return net
+
+
+def _lm_step(mx, net, batch):
+    """bench.py's step: softmax cross entropy, SGD lr 1.0 with
+    ``rescale_grad = 1 / batch``, no mesh."""
+    from mxnet_tpu_torch import gluon
+    return mx.parallel.DataParallelStep(
+        net, gluon.loss.SoftmaxCrossEntropyLoss(),
+        mx.optimizer.SGD(learning_rate=1.0, rescale_grad=1.0 / batch),
+        mesh=None)
+
+
+def lstm_lm_card_vs_cpu(torch, mx, seed):
+    """One f32 DataParallelStep of a narrow LSTM LM (LM_PARITY) from the
+    same weights on the card and on the CPU, and the CPU again on one
+    thread: the loss rel error and the update errors of the card and of
+    the floor."""
+    import numpy as onp
+    from mxnet_tpu_torch.gluon.utils import load_jax_params
+    c = LM_PARITY
+    rs = onp.random.RandomState(seed + 7)
+    x = rs.randint(0, c["vocab"], (c["batch"], c["bptt"])).astype("float32")
+    y = rs.randint(0, c["vocab"], (c["batch"], c["bptt"])).astype("float32")
+
+    def step(net, ctx):
+        loss = _lm_step(mx, net, c["batch"])(mx.nd.array(x, ctx=ctx),
+                                             mx.nd.array(y, ctx=ctx))
+        return float(loss.asnumpy()), _param_arrays(net)
+    gnet = _lm_net(mx, c["vocab"], c["hidden"], c["layers"], seed)
+    w0 = _param_arrays(gnet)
+    gpu_loss, w1_gpu = step(gnet, mx.gpu(0))
+    with mx.cpu():
+        cnet = _lm_net(mx, c["vocab"], c["hidden"], c["layers"], seed,
+                       ctx=mx.cpu())
+
+        def cpu_step():
+            load_jax_params(cnet, w0)
+            return step(cnet, mx.cpu())
+        cpu_loss, w1_cpu = cpu_step()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        _, w1_cpu1 = cpu_step()
+        torch.set_num_threads(threads)
+    return (abs(gpu_loss - cpu_loss) / abs(cpu_loss),
+            _update_errors(w0, w1_gpu, w1_cpu),
+            _update_errors(w0, w1_cpu1, w1_cpu))
+
+
+def cudnn_compaction(torch, net, flush):
+    """One compaction of the LSTM's weights into cuDNN's buffer
+    (``torch._cudnn_rnn_flatten_weight``: what cuDNN's RNN does on every
+    call when, as here, the weights are not views of its buffer): device
+    ms (L2 flushed, the host held off by a spin kernel), host µs a call,
+    and the bytes it copies."""
+    lstm = net.lstm
+    ws = []
+    for p in lstm._cell_prefixes():
+        ws += [getattr(lstm, p + k).data().astorch().detach()
+               for k in ("i2h_weight", "h2h_weight", "i2h_bias",
+                         "h2h_bias")]
+    from torch.backends.cudnn import rnn as cudnn_rnn
+    mode = cudnn_rnn.get_cudnn_mode("LSTM")
+
+    def flatten():
+        return torch._cudnn_rnn_flatten_weight(
+            ws, 4, LM_HIDDEN, mode, LM_HIDDEN, 0, LM_LAYERS, False, False)
+    return (time_cuda(torch, flatten, flush), host_us(torch, flatten),
+            sum(w.numel() * w.element_size() for w in ws))
+
+
+def _rnn_kernels(prof, backend):
+    """The device kernels of a profile whose names say RNN, LSTM or GRU,
+    checked against ``backend``: cuDNN's (their names carry cuDNN's types)
+    or torch's native cells' (``lstm_cell_forward`` and the like), and
+    none of the other."""
+    found = [(n, ms, k) for n, ms, k in prof["kernels"]
+             if any(w in n.lower() for w in ("rnn", "lstm", "gru"))]
+    cudnn = [n for n, _, _ in found if "cudnn" in n.lower()]
+    native = [n for n, _, _ in found if "_cell_" in n.lower()]
+    check(found, "%s: no RNN kernel in the profile" % prof["label"])
+    check(bool(cudnn) == (backend == "cudnn")
+          and bool(native) == (backend == "native"),
+          "%s: backend %s, but the RNN kernels that ran are %s"
+          % (prof["label"], backend, [n[:80] for n, _, _ in found]))
+    return found
+
+
+def _synthetic_corpus(path, n_tokens=30000, vocab=200, seed=0):
+    """The word-LM example's synthetic corpus
+    (``example/rnn/word_lm/train.py:_synthetic_corpus``): a Zipf-ish
+    random walk over ``vocab`` words with sentence ends, so that a model
+    can learn it."""
+    import numpy as onp
+    rs = onp.random.RandomState(seed)
+    words = ["w%d" % i for i in range(vocab)]
+    toks, state = [], 0
+    for _ in range(n_tokens):
+        state = (state * 31 + rs.randint(0, 7)) % vocab
+        toks.append(words[state])
+        if rs.rand() < 0.05:
+            toks.append(".")
+    with open(path, "w") as f:
+        f.write(" ".join(toks))
+
+
+def word_lm_phase(torch, mx, seed):
+    """The word-LM example's model trained through DataParallelStep on the
+    card for WORD_LM_STEPS steps of its synthetic corpus; the losses."""
+    import tempfile
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.contrib.data.text import LanguageModelDataset
+    from mxnet_tpu_torch.gluon.model_zoo.lm import RNNModel, SeqCELoss
+    c = WORD_LM
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "corpus.txt")
+        _synthetic_corpus(path, seed=seed)
+        data = LanguageModelDataset(path, seq_len=c["bptt"])
+    vocab = len(data.vocabulary)
+    mx.random.seed(seed)
+    net = RNNModel(vocab, c["embed"], c["hidden"], c["layers"],
+                   dropout=c["dropout"], tied=True)
+    with mx.cpu():
+        net.initialize(mx.init.Xavier())
+        net(mx.nd.zeros((c["batch"], c["bptt"])))
+    net.collect_params().reset_ctx(mx.gpu(0))
+    step = mx.parallel.DataParallelStep(
+        net, SeqCELoss(vocab), mx.optimizer.SGD(
+            learning_rate=c["lr"], clip_gradient=c["clip"]), mesh=None)
+    losses = []
+    while len(losses) < WORD_LM_STEPS:
+        with mx.cpu():
+            loader = gluon.data.DataLoader(data, batch_size=c["batch"],
+                                           shuffle=True,
+                                           last_batch="discard")
+            batches = list(loader)
+        for d, l in batches[:WORD_LM_STEPS - len(losses)]:
+            losses.append(step(d.as_in_context(mx.gpu(0)),
+                               l.as_in_context(mx.gpu(0))).astorch())
+    losses = [float(v) for v in losses]
+    check(all(onp.isfinite(losses)), "word LM: non-finite loss %r" % losses)
+    first, last = (statistics.mean(losses[:WORD_LM_WINDOW]),
+                   statistics.mean(losses[-WORD_LM_WINDOW:]))
+    check(last < first, "word LM: the loss did not fall: %r" % losses)
+    return {"losses": losses, "vocab": vocab, "samples": len(data),
+            "first_mean": first, "last_mean": last}
+
+
+def lstm_lm_phase(torch, mx, seed, card, profile=False):
+    """Config 4's LSTM LM through DataParallelStep on the card, float32 and
+    bfloat16, after the narrow card-vs-CPU step; then the word-LM model.
+    Returns the numbers."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.ops import rnn as rnn_ops
+    t0 = time.perf_counter()
+    loss_rel, (update_rel, per_param), (floor_rel, _) = \
+        lstm_lm_card_vs_cpu(torch, mx, seed)
+    parity = {"loss_rel": loss_rel, "update_rel_l2": update_rel,
+              "worst": per_param[:3], "floor_rel_l2": floor_rel,
+              "seconds": time.perf_counter() - t0}
+    check(loss_rel <= LM_PARITY_LOSS_RTOL,
+          "LSTM LM card vs CPU loss rel err %.3g > %g"
+          % (loss_rel, LM_PARITY_LOSS_RTOL))
+    check(update_rel <= LM_PARITY_UPDATE_REL_L2,
+          "LSTM LM card vs CPU update rel L2 err %.3g > %g"
+          % (update_rel, LM_PARITY_UPDATE_REL_L2))
+    check(per_param[0][0] <= LM_PARITY_PARAM_REL_L2,
+          "LSTM LM card vs CPU update of %s: rel L2 err %.3g > %g"
+          % (per_param[0][1], per_param[0][0], LM_PARITY_PARAM_REL_L2))
+
+    rs = onp.random.RandomState(seed)
+    gpu = mx.gpu(0)
+    x = mx.nd.array(rs.randint(0, LM_VOCAB, (LM_BATCH, LM_BPTT))
+                    .astype("float32"), ctx=gpu)
+    y = mx.nd.array(rs.randint(0, LM_VOCAB, (LM_BATCH, LM_BPTT))
+                    .astype("float32"), ctx=gpu)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def f32_ce(net):
+        with mx.autograd.predict_mode():
+            logits = net(x).astype("float32")
+            return float(ce(logits, y).mean().asnumpy())
+    out = {"parity": parity}
+    for dtype in ("float32", "bfloat16"):
+        net = _lm_net(mx, LM_VOCAB, LM_HIDDEN, LM_LAYERS, seed, dtype)
+        # the LSTM's input is the embedding's output: its dtype and device
+        backend = rnn_ops.backend(net.embed.weight.data().astorch())
+        r = {"backend": backend, "ce_before": f32_ce(net)}
+        if backend == "cudnn":
+            flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+            r["compaction_ms"], r["compaction_host_us"], \
+                r["compaction_bytes"] = cudnn_compaction(torch, net, flush)
+            del flush
+        step = _lm_step(mx, net, LM_BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(LM_WARMUP + LM_TIMED):
+            t = time.perf_counter()
+            losses.append(step(x, y).astorch())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        r["losses"] = [float(v.float()) for v in losses]
+        r["ce_after"] = f32_ce(net)
+        check(all(onp.isfinite(r["losses"])),
+              "LSTM LM %s: non-finite loss %r" % (dtype, r["losses"]))
+        check(r["ce_after"] < r["ce_before"],
+              "LSTM LM %s: the float32 cross entropy of the logits did not "
+              "fall: %.7g -> %.7g" % (dtype, r["ce_before"], r["ce_after"]))
+        if dtype == "float32":
+            check(r["losses"][-1] < r["losses"][0],
+                  "LSTM LM float32: the loss did not fall: %r" % r["losses"])
+        r["step_ms"] = statistics.median(times[LM_WARMUP:]) * 1e3
+        r["step_ms_all"] = [t * 1e3 for t in times]
+        r["tokens_per_s"] = LM_BATCH * LM_BPTT * 1e3 / r["step_ms"]
+        r["samples_per_s"] = LM_BATCH * 1e3 / r["step_ms"]
+        if profile:
+            r["profile"] = profile_calls(
+                torch, lambda: step(x, y).astype("float32").asnumpy(),
+                "LSTM LM %s DataParallelStep" % dtype, calls=3)
+            r["rnn_kernels"] = _rnn_kernels(r["profile"], backend)
+        out[dtype] = r
+        del net, step
+        torch.cuda.empty_cache()
+    out["word_lm"] = word_lm_phase(torch, mx, seed)
+    return out
+
+
+def print_lstm_lm(lm, card):
+    p = lm["parity"]
+    print("lstm lm: card vs CPU, one f32 DataParallelStep of a %d-layer LSTM "
+          "LM (vocab %d, hidden %d, batch %d x %d; cuDNN on the card, "
+          "torch's native cells on the CPU, TF32 off): loss rel err %.3g, "
+          "update rel L2 err %.3g over all parameters (floor, CPU on 1 "
+          "thread vs N: %.3g); worst parameters %s (%.1f s)"
+          % (LM_PARITY["layers"], LM_PARITY["vocab"], LM_PARITY["hidden"],
+             LM_PARITY["batch"], LM_PARITY["bptt"], p["loss_rel"],
+             p["update_rel_l2"], p["floor_rel_l2"],
+             ", ".join("%s %.3g" % (k, e) for e, k in p["worst"]),
+             p["seconds"]))
+    for dtype in ("float32", "bfloat16"):
+        r = lm[dtype]
+        print("lstm lm: config 4 %s (Embedding(%d, %d), %d-layer NTC LSTM, "
+              "Dense(%d), SGD lr 1.0 rescale 1/%d) through "
+              "DataParallelStep at %d x %d, RNN backend %s: step %.3f ms "
+              "(median of %d after %d warm-up) = %.1f tokens/s = %.2f "
+              "samples/s, peak device memory %.2f GiB (%s)"
+              % (dtype, LM_VOCAB, LM_HIDDEN, LM_LAYERS, LM_VOCAB, LM_BATCH,
+                 LM_BATCH, LM_BPTT, r["backend"], r["step_ms"], LM_TIMED,
+                 LM_WARMUP, r["tokens_per_s"], r["samples_per_s"],
+                 r["peak_bytes"] / 2 ** 30, card))
+        print("lstm lm: %s: loss first %.6g last %.6g; float32 cross "
+              "entropy of the logits before %.7g after %.7g; step ms %s"
+              % (dtype, r["losses"][0], r["losses"][-1], r["ce_before"],
+                 r["ce_after"], [round(v, 3) for v in r["step_ms_all"]]))
+        if "compaction_ms" in r:
+            print("lstm lm: %s: cuDNN weight compaction (the layer's %d "
+                  "tensors copied into cuDNN's buffer, %.1f MB, on every "
+                  "call): device %.4f ms, host %.1f us a call (%s)"
+                  % (dtype, 4 * LM_LAYERS, r["compaction_bytes"] / 1e6,
+                     r["compaction_ms"], r["compaction_host_us"], card))
+        if "profile" in r:
+            print_profiles([r["profile"]], card)
+            print("lstm lm: %s: RNN kernels that ran (expected backend %s): "
+                  "%s" % (dtype, r["backend"], "; ".join(
+                      "%s %.3f ms/call x%d" % k for k in r["rnn_kernels"])))
+    w = lm["word_lm"]
+    print("lstm lm: word-LM example model (tied, dropout %g, SGD lr %g, "
+          "clip %g, embed = hidden %d, %d layers, batch %d x %d, vocab %d, "
+          "%d samples): %d steps, mean loss of the first %d %.4f, of the "
+          "last %d %.4f; losses %s"
+          % (WORD_LM["dropout"], WORD_LM["lr"], WORD_LM["clip"],
+             WORD_LM["hidden"], WORD_LM["layers"], WORD_LM["batch"],
+             WORD_LM["bptt"], w["vocab"], w["samples"], len(w["losses"]),
+             WORD_LM_WINDOW, w["first_mean"], WORD_LM_WINDOW, w["last_mean"],
+             [round(v, 3) for v in w["losses"]]))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace bucket-1 and bucket-8 model calls, "
                          "ResNet training steps, BERT forwards, BERT "
-                         "training steps and the data-parallel steps with "
-                         "torch.profiler and print where the device time "
-                         "goes")
+                         "training steps, the data-parallel steps and the "
+                         "LSTM LM steps with torch.profiler and print where "
+                         "the device time goes")
     args = ap.parse_args(argv)
 
     import torch
@@ -2522,6 +2875,21 @@ def main(argv=None):
     finally:
         dist.destroy_process_group()
     mark("data parallel")
+    # the LSTM LM path: counts from 0 just before, read just after; no TPU
+    # kernel of the repo lies on it (its recurrence is cuDNN's)
+    _reset_counts(attention, layernorm)
+    fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
+    lm = lstm_lm_phase(torch, mx, args.seed, card, profile=args.profile)
+    lm_launches = {
+        "fused_norm": (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES),
+        "attention": (attention.LAUNCHES, attention.BWD_LAUNCHES),
+        "attention_bshd": (attention.BSHD_LAUNCHES,
+                           attention.BSHD_BWD_LAUNCHES),
+        "layernorm": (layernorm.LAUNCHES, layernorm.BWD_LAUNCHES)}
+    print_lstm_lm(lm, card)
+    print("lstm lm: hand-written kernel launches on the path (forward, "
+          "backward): %s" % lm_launches)
+    mark("lstm lm")
     print("phase seconds: %s" % ", ".join("%s %.1f" % c for c in clock))
 
 
@@ -2545,7 +2913,8 @@ def main(argv=None):
                           "training": train["fwd_launches"],
                           "dp_resnet": dpr["dp"]["fwd_launches"],
                           "dp_resnet_trainer_nccl":
-                          dpr["trainer_nccl"]["fwd_launches"]},
+                          dpr["trainer_nccl"]["fwd_launches"],
+                          "lstm_lm": lm_launches["fused_norm"][0]},
         serving=numbers("fwd", "serve"),
         per="ms/plain_ms/bound_ms: one batch-32 ResNet-50 training step (16 "
             "launches at the train shapes below); serving: one bucket-8 "
@@ -2563,7 +2932,8 @@ def main(argv=None):
         launches_by_path={"training": train["bwd_launches"],
                           "dp_resnet": dpr["dp"]["bwd_launches"],
                           "dp_resnet_trainer_nccl":
-                          dpr["trainer_nccl"]["bwd_launches"]},
+                          dpr["trainer_nccl"]["bwd_launches"],
+                          "lstm_lm": lm_launches["fused_norm"][1]},
         per="ms/plain_ms/bound_ms: one batch-32 ResNet-50 training step (16 "
             "launches at the train shapes below); launches: the training "
             "path's %d steps; library: %s" % (train["steps"], no_library),
@@ -2584,7 +2954,8 @@ def main(argv=None):
         launches_by_path={"public_op": public["bhtd_fwd"],
                           "bert_forward": bert["bhtd_attention_launches"],
                           "bert_training":
-                          btrain["bhtd_attention_launches"][0]},
+                          btrain["bhtd_attention_launches"][0],
+                          "lstm_lm": lm_launches["attention"][0]},
         max_abs_err=max(r["max_abs_err"] for r in attn_rows),
         bound_by=[r for r in attn_rows if r["case"] == "bert"][0]["bound_by"],
         per="ms/plain_ms/bound_ms/library_ms: 12 launches at the case "
@@ -2604,7 +2975,8 @@ def main(argv=None):
         launches_by_path={"bert_forward": bert["layernorm_launches"],
                           "bert_training": btrain["layernorm_launches"],
                           "dp_bert": dpb["plain"]["launches"][2],
-                          "dp_bert_zero_nccl": dpb["zero"]["launches"][2]},
+                          "dp_bert_zero_nccl": dpb["zero"]["launches"][2],
+                          "lstm_lm": lm_launches["layernorm"][0]},
         max_abs_err=max(r["max_abs_err"] for r in ln_rows),
         bound_by="bytes",
         per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 forward "
@@ -2624,7 +2996,8 @@ def main(argv=None):
         launches=public["bhtd_bwd"],
         launches_by_path={"public_op": public["bhtd_bwd"],
                           "bert_training":
-                          btrain["bhtd_attention_launches"][1]},
+                          btrain["bhtd_attention_launches"][1],
+                          "lstm_lm": lm_launches["attention"][1]},
         max_abs_err=max(r["max_abs_err"] for r in attn_bwd_rows),
         max_rel_err=max(r["max_rel_err"] for r in attn_bwd_rows),
         bound_by=[r for r in attn_bwd_rows
@@ -2644,7 +3017,8 @@ def main(argv=None):
         launches=btrain["layernorm_bwd_launches"],
         launches_by_path={"bert_training": btrain["layernorm_bwd_launches"],
                           "dp_bert": dpb["plain"]["launches"][3],
-                          "dp_bert_zero_nccl": dpb["zero"]["launches"][3]},
+                          "dp_bert_zero_nccl": dpb["zero"]["launches"][3],
+                          "lstm_lm": lm_launches["layernorm"][1]},
         max_abs_err=max(r["max_abs_err"] for r in ln_bwd_rows),
         sums_max_rel_err=max(r["sums_max_rel_err"] for r in ln_bwd_rows),
         bound_by="bytes",
@@ -2670,7 +3044,8 @@ def main(argv=None):
                           "bert_training": btrain["attention_launches"],
                           "public_op": public["bshd_fwd"],
                           "dp_bert": dpb["plain"]["launches"][0],
-                          "dp_bert_zero_nccl": dpb["zero"]["launches"][0]},
+                          "dp_bert_zero_nccl": dpb["zero"]["launches"][0],
+                          "lstm_lm": lm_launches["attention_bshd"][0]},
         max_abs_err=max(r["max_abs_err"] for r in bshd_rows),
         bound_by=bert_bshd["bound_by"],
         per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 forward at "
@@ -2687,7 +3062,8 @@ def main(argv=None):
         launches_by_path={"bert_training": btrain["attention_bwd_launches"],
                           "public_op": public["bshd_bwd"],
                           "dp_bert": dpb["plain"]["launches"][1],
-                          "dp_bert_zero_nccl": dpb["zero"]["launches"][1]},
+                          "dp_bert_zero_nccl": dpb["zero"]["launches"][1],
+                          "lstm_lm": lm_launches["attention_bshd"][1]},
         max_abs_err=max(r["bwd_max_abs_err"] for r in bshd_rows),
         max_rel_err=max(r["bwd_max_rel_err"] for r in bshd_rows),
         bound_by=bert_bshd["bwd_bound_by"],

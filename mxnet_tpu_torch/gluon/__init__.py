@@ -1,7 +1,10 @@
 """Gluon (counterpart of ``mxnet_tpu/gluon``): blocks, parameters, layers,
-losses, the Trainer, the data API, the transformer blocks (``contrib``),
-the ResNet v1 and BERT model zoo and the JAX-weight loader."""
+the recurrent layers and cells (``rnn``), losses, the Trainer, the data
+API, the transformer blocks, recurrent cells and text datasets
+(``contrib``), the ResNet v1 and BERT model zoo and the JAX-weight
+loader."""
 from . import nn  # noqa: F401
+from . import rnn  # noqa: F401
 from . import contrib  # noqa: F401
 from . import utils  # noqa: F401
 from . import model_zoo  # noqa: F401
@@ -12,6 +15,7 @@ from .parameter import (  # noqa: F401
     DeferredInitializationError, Parameter, ParameterDict)
 from .trainer import Trainer  # noqa: F401
 
-__all__ = ["nn", "contrib", "utils", "model_zoo", "loss", "data", "Block",
+__all__ = ["nn", "rnn", "contrib", "utils", "model_zoo", "loss", "data",
+           "Block",
            "HybridBlock", "Parameter", "ParameterDict",
            "DeferredInitializationError", "Trainer"]

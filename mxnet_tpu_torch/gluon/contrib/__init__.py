@@ -1,4 +1,7 @@
 """Gluon contrib (counterpart of ``mxnet_tpu/gluon/contrib``): the
-transformer blocks.  The contrib CNN, RNN, data and estimator modules
-wait."""
+transformer blocks (``nn``), the variational-dropout and LSTMP cells
+(``rnn``) and the text datasets and interval sampler (``data``).  The
+contrib CNN and estimator modules and the convolutional cells wait."""
 from . import nn  # noqa: F401
+from . import rnn  # noqa: F401
+from . import data  # noqa: F401

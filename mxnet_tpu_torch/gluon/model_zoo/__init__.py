@@ -1,7 +1,9 @@
 """Gluon model zoo (counterpart of ``mxnet_tpu/gluon/model_zoo``): the
-ResNet v1 family and the BERT encoders; the other vision nets come with
-later slices."""
+ResNet v1 family, the BERT encoders and the LSTM language models of
+``lm`` (which the JAX package keeps in ``bench.py`` and ``example/``); the
+other vision nets come with later slices."""
 from . import vision  # noqa: F401
+from . import lm  # noqa: F401
 from .bert import BERTModel, bert_base, bert_small  # noqa: F401
 
-__all__ = ["vision", "BERTModel", "bert_base", "bert_small"]
+__all__ = ["vision", "lm", "BERTModel", "bert_base", "bert_small"]

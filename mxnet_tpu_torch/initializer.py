@@ -1,9 +1,9 @@
 """Weight initializers.
 
 Counterpart of ``mxnet_tpu/initializer.py``: ``Uniform`` (the
-``Block.initialize`` default), ``Normal``, ``Xavier``, ``Zero``, ``One``
-and ``Constant``, dispatched on the parameter's name suffix as in MXNet
-(``*weight`` gets the initializer's draw, ``*bias``/``*beta``/
+``Block.initialize`` default), ``Normal``, ``Xavier``, ``Zero``, ``One``,
+``Constant`` and ``LSTMBias``, dispatched on the parameter's name suffix
+as in MXNet (``*weight`` gets the initializer's draw, ``*bias``/``*beta``/
 ``*running_mean`` zeros, ``*gamma``/``*running_var`` ones).  An
 initializer fills an NDArray in place; random draws come from the port's
 generator of that array's device (``mx.random``), so they follow
@@ -22,7 +22,7 @@ from . import random as _random
 from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "register", "Zero", "One", "Constant",
-           "Uniform", "Normal", "Xavier", "create"]
+           "Uniform", "Normal", "Xavier", "LSTMBias", "create"]
 
 _INIT_REGISTRY: Dict[str, Type["Initializer"]] = {}
 
@@ -192,6 +192,21 @@ class Xavier(Initializer):
             self._fill(arr, self._normal(arr, scale))
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class LSTMBias(Initializer):
+    """A zero bias with the forget gate's quarter (gates [i, f, g, o]) set
+    to ``forget_bias``."""
+
+    def __init__(self, forget_bias=1.0):
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = torch.zeros(arr.shape)
+        n = arr.shape[0] // 4
+        b[n:2 * n] = self.forget_bias
+        self._fill(arr, b)
 
 
 def create(init, **kwargs):

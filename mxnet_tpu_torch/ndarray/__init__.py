@@ -14,8 +14,9 @@ from .. import autograd as _ag
 from .. import ops as _ops  # noqa: F401  (registers the ops)
 from ..ops.registry import get_op, list_ops
 from .ndarray import (  # noqa: F401
-    NDArray, array, zeros, ones, arange, split, _wrap)
+    NDArray, array, zeros, ones, arange, split, concat, stack, _wrap)
 from .utils import save, load  # noqa: F401
+from . import contrib  # noqa: F401
 
 _FUNC_CACHE = {}
 

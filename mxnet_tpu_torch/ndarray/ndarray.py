@@ -7,11 +7,14 @@ basic indexing, ``len`` (the first axis), the ``sum`` and ``mean``
 reductions (the registered ops of ``ops/reduce.py``), ``reshape`` with
 MXNet's special codes (``Flatten`` uses it), placement (``copyto``, ``as_in_context``), the autograd surface
 (``attach_grad``, ``grad``, ``backward``, ``detach``), ``transpose``, the
-``array``/``zeros``/``ones``/``arange`` constructors and ``split``.  The
-tensor lives on the context's device; its context is read from the
-tensor.  Arithmetic rebinds the wrapped tensor (``self._data = new``) as
-the JAX package does; every operation runs in :func:`autograd.op_scope`,
-so it builds a graph only inside ``autograd.record()``.
+``array``/``zeros``/``ones``/``arange`` constructors, ``split``,
+``concat`` and ``stack``, and the ordered comparisons (``<``, ``<=``,
+``>``, ``>=``: 1 where true, 0 where false, in the left operand's
+dtype, as in the JAX package).  The tensor lives on the context's device;
+its context is read from the tensor.  Arithmetic rebinds the wrapped
+tensor (``self._data = new``) as the JAX package does; every operation
+runs in :func:`autograd.op_scope`, so it builds a graph only inside
+``autograd.record()``.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ from .. import autograd
 from ..base import MXNetError, numeric_types, torch_dtype
 from ..context import Context, current_context
 
-__all__ = ["NDArray", "array", "zeros", "ones", "arange", "split"]
+__all__ = ["NDArray", "array", "zeros", "ones", "arange", "split", "concat",
+           "stack"]
 
 
 class NDArray:
@@ -242,6 +246,14 @@ class NDArray:
             self._data.copy_(res._data)
         return self
 
+    def _compare(self, other, fn):
+        return self._binop(other, lambda a, b: fn(a, b).to(self._data.dtype))
+
+    def __gt__(self, o): return self._compare(o, torch.gt)
+    def __ge__(self, o): return self._compare(o, torch.ge)
+    def __lt__(self, o): return self._compare(o, torch.lt)
+    def __le__(self, o): return self._compare(o, torch.le)
+
     def __iadd__(self, o): return self._inplace(self.__add__(o))
     def __isub__(self, o): return self._inplace(self.__sub__(o))
     def __imul__(self, o): return self._inplace(self.__mul__(o))
@@ -388,3 +400,24 @@ def split(data, num_outputs: int, axis: int = 1, squeeze_axis: bool = False):
             parts = [p.squeeze(axis) for p in parts]
         out = [_wrap(p) for p in parts]
     return out[0] if num_outputs == 1 else out
+
+
+def _tensors(data):
+    """The tensors of ``data``: NDArrays, or one list or tuple of them."""
+    if len(data) == 1 and isinstance(data[0], (list, tuple)):
+        data = data[0]
+    return [d._data for d in data]
+
+
+def concat(*data, dim: int = 1, **kw) -> NDArray:
+    """The arrays (or one list of them) joined along the axis ``dim``."""
+    from ..ops import matrix
+    with autograd.op_scope():
+        return _wrap(matrix.concat(*_tensors(data), dim=dim))
+
+
+def stack(*data, axis: int = 0, **kw) -> NDArray:
+    """The arrays (or one list of them) joined along a new axis ``axis``."""
+    from ..ops import matrix
+    with autograd.op_scope():
+        return _wrap(matrix.stack(*_tensors(data), axis=axis))

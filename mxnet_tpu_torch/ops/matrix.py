@@ -1,9 +1,12 @@
 """Shape, slicing and gather operators on torch tensors.
 
-Counterpart of the part of ``mxnet_tpu/ops/matrix.py`` the BERT path uses:
-``batch_dot``, ``transpose``, ``slice_axis``, ``_contrib_gather_positions``
-and ``Cast``.  ``Flatten`` lives in ``ops/nn.py``; the rest of the JAX
-module waits.
+Counterpart of the part of ``mxnet_tpu/ops/matrix.py`` the BERT and
+LSTM paths use: ``batch_dot``, ``transpose``, ``swapaxes``,
+``slice_axis``, ``_contrib_gather_positions``, ``Cast``, ``zeros_like``
+and ``ones_like``, and the list-signature ``concat`` and ``stack`` of
+``mxnet_tpu/ndarray/ndarray.py`` (``nd.concat``/``nd.stack`` there).  Mixed
+input dtypes promote as ``jnp.concatenate``/``jnp.stack`` promote them.
+``Flatten`` lives in ``ops/nn.py``; the rest of the JAX module waits.
 """
 from __future__ import annotations
 
@@ -12,7 +15,9 @@ import torch
 from ..base import torch_dtype
 from .registry import register
 
-__all__ = ["batch_dot", "transpose", "slice_axis", "gather_positions", "cast"]
+__all__ = ["batch_dot", "transpose", "swapaxes", "slice_axis",
+           "gather_positions", "cast", "zeros_like", "ones_like", "concat",
+           "stack"]
 
 
 @register("batch_dot")
@@ -29,6 +34,11 @@ def transpose(data, axes=None):
     if axes is None or len(tuple(axes)) == 0:
         axes = tuple(reversed(range(data.dim())))
     return data.permute(*axes)
+
+
+@register("swapaxes", aliases=("SwapAxis",))
+def swapaxes(data, dim1: int = 0, dim2: int = 0):
+    return data.transpose(dim1, dim2)
 
 
 @register("slice_axis")
@@ -50,3 +60,25 @@ def gather_positions(data, positions):
 @register("Cast", aliases=("cast",))
 def cast(data, dtype="float32"):
     return data.to(torch_dtype(dtype))
+
+
+@register("zeros_like")
+def zeros_like(data):
+    return torch.zeros_like(data)
+
+
+@register("ones_like")
+def ones_like(data):
+    return torch.ones_like(data)
+
+
+@register("concat", aliases=("Concat",))
+def concat(*data, dim: int = 1):
+    """The inputs joined along the existing axis ``dim``."""
+    return torch.cat(data, dim=dim)
+
+
+@register("stack")
+def stack(*data, axis: int = 0):
+    """The inputs joined along a new axis ``axis``."""
+    return torch.stack(data, dim=axis)

@@ -3,8 +3,8 @@
 Counterpart of ``mxnet_tpu/ops/nn.py`` for the ops the ResNet v1 and BERT
 paths use: ``FullyConnected``, ``Convolution``, ``Pooling``,
 ``Activation``, ``BatchNorm``, ``_contrib_BatchNormAddRelu``,
-``LayerNorm``, ``LeakyReLU``, ``softmax``, ``Dropout`` and ``Embedding``,
-plus ``Flatten`` (``mxnet_tpu/ops/matrix.py`` there).  Convolutions and dense
+``LayerNorm``, ``LeakyReLU``, ``softmax``, ``Dropout``, ``Embedding`` and
+``SequenceLast`` (the recurrent cells' ``unroll``), plus ``Flatten`` (``mxnet_tpu/ops/matrix.py`` there).  Convolutions and dense
 layers are ``torch.nn.functional`` calls (cuDNN and cuBLAS on the card,
 as XLA's own lowering was on the TPU).  The BatchNorm ops reproduce the
 JAX package's numerics exactly: one-pass fp32 batch statistics, and the
@@ -33,7 +33,7 @@ from .registry import register
 
 __all__ = ["fully_connected", "convolution", "pooling", "activation",
            "flatten", "batch_norm", "batch_norm_add_relu", "layer_norm",
-           "leaky_relu", "softmax", "dropout", "embedding",
+           "leaky_relu", "softmax", "dropout", "embedding", "sequence_last",
            "cross_rank_batch_stats"]
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -334,3 +334,19 @@ def embedding(data, weight, input_dim: int = 0, output_dim: int = 0,
         raise MXNetError("Embedding: sparse_grad is not ported")
     idx = torch.clamp(data.to(torch.int32), 0, weight.shape[0] - 1)
     return F.embedding(idx.long(), weight)
+
+
+@register("SequenceLast")
+def sequence_last(data, sequence_length=None,
+                  use_sequence_length: bool = False, axis: int = 0):
+    """The last step of each sequence along ``axis`` (0: (T, N, ...), 1:
+    (N, T, ...)): step ``sequence_length - 1`` of each row with
+    ``use_sequence_length``, else the last step."""
+    if not use_sequence_length or sequence_length is None:
+        return data.select(axis, -1)
+    last = sequence_length.to(torch.int64) - 1
+    if axis == 0:
+        idx = last.reshape((1, -1) + (1,) * (data.dim() - 2))
+        return torch.take_along_dim(data, idx, dim=0)[0]
+    idx = last.reshape((-1, 1) + (1,) * (data.dim() - 2))
+    return torch.take_along_dim(data, idx, dim=1)[:, 0]

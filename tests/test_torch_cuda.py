@@ -647,3 +647,72 @@ def test_nccl_one_rank_zero_step_gives_the_bits_of_no_mesh():
         assert torch.equal(a, b)
     for a, b in zip(got, want):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_lstm_and_gru_layers_on_cuda_match_cpu():
+    """On the card: 2-layer LSTM and bidirectional GRU layers, float32
+    with TF32 off, forward and backward (under ``record(train_mode=
+    False)``, which records gradients outside training mode, so cuDNN's
+    forward must still run in its training mode) against the same layers
+    on the CPU (torch's native cells): outputs and states within rtol 1e-5,
+    atol 1e-5, gradients within rtol 1e-3, atol 5e-5.  cuDNN sums the gate
+    products and the steps' gradients in another order, and the gradients
+    sum over every step of both directions: on an H100 the reverse
+    direction's input weights of the bidirectional GRU came out of
+    rtol 1e-4, atol 1e-5.  cuDNN runs bfloat16 too on an H100, within 4
+    bf16 ulps of values in [0.5, 1) of float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as onp
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import rnn as TR
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = onp.random.RandomState(0)
+    x = rs.uniform(-1, 1, (4, 7, 24)).astype("float32")
+    try:
+        for kind in ("lstm", "gru"):
+            runs = {}
+            for ctx in (mx.cpu(), mx.gpu(0)):
+                mx.random.seed(1)
+                layer = (mx.gluon.rnn.LSTM(32, num_layers=2, layout="NTC")
+                         if kind == "lstm" else
+                         mx.gluon.rnn.GRU(32, num_layers=2, layout="NTC",
+                                          bidirectional=True))
+                with mx.cpu():
+                    layer.initialize(mx.init.Xavier())
+                    layer(mx.nd.array(x))
+                layer.collect_params().reset_ctx(ctx)
+                xs = mx.nd.array(x, ctx=ctx)
+                xs.attach_grad()
+                with mx.autograd.record(train_mode=False):
+                    out, states = layer(xs, layer.begin_state(4, ctx=ctx))
+                    loss = (out * out).sum() + sum(
+                        (s * s).sum() for s in states)
+                loss.backward()
+                runs[ctx.device_type] = [out.asnumpy()] + [
+                    s.asnumpy() for s in states] + [xs.grad.asnumpy()] + [
+                    p.grad().asnumpy() for _, p in
+                    sorted(layer._collect_params_with_prefix().items())]
+                if ctx.device_type == "gpu":
+                    assert TR.backend(xs.astorch()) == "cudnn"
+                    layer.cast("bfloat16")
+                    with mx.autograd.predict_mode():
+                        half = layer(xs.astype("bfloat16"))
+                    assert TR.backend(xs.astorch().bfloat16()) == "cudnn"
+                    onp.testing.assert_allclose(
+                        half.astype("float32").asnumpy(), runs["gpu"][0],
+                        rtol=0, atol=4 * 2.0 ** -8)
+            n_fwd = 3 if kind == "lstm" else 2
+            for i, (g, c) in enumerate(zip(runs["gpu"], runs["cpu"])):
+                fwd = i < n_fwd
+                onp.testing.assert_allclose(
+                    g, c, rtol=1e-5 if fwd else 1e-3,
+                    atol=1e-5 if fwd else 5e-5,
+                    err_msg="%s output %d" % (kind, i))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags

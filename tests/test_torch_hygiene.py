@@ -55,7 +55,16 @@ def test_every_module_of_the_training_slice_is_checked():
                  "callback.py", "optimizer/optimizer.py", "io/io.py",
                  "gluon/loss.py", "gluon/trainer.py", "gluon/utils.py",
                  "gluon/data/dataset.py", "gluon/data/sampler.py",
-                 "gluon/data/dataloader.py"):
+                 "gluon/data/dataloader.py", "ops/rnn.py",
+                 "ops/control_flow.py", "ndarray/contrib.py",
+                 "gluon/rnn/__init__.py", "gluon/rnn/rnn_layer.py",
+                 "gluon/rnn/rnn_cell.py", "gluon/contrib/rnn/__init__.py",
+                 "gluon/contrib/rnn/rnn_cell.py",
+                 "gluon/contrib/data/__init__.py",
+                 "gluon/contrib/data/text.py",
+                 "gluon/contrib/data/sampler.py", "contrib/__init__.py",
+                 "contrib/text/__init__.py", "contrib/text/vocab.py",
+                 "contrib/text/utils.py", "gluon/model_zoo/lm.py"):
         assert name in rel, name
 
 
@@ -102,6 +111,16 @@ def test_kernel_wrappers_have_no_fallback_try():
         assert "mxnet_tpu_torch/ops/%s.py" % name in wrappers
 
 
+def test_rnn_path_has_no_try():
+    """The RNN op and the recurrent layers run torch's RNN on the tensor's
+    device or raise: no ``try`` that could run something else."""
+    for name in ("ops/rnn.py", "gluon/rnn/rnn_layer.py",
+                 "gluon/rnn/rnn_cell.py", "gluon/model_zoo/lm.py"):
+        with open(os.path.join(PKG, name)) as f:
+            tree = ast.parse(f.read())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), name
+
+
 def test_forbidden_import_check_sees_the_spellings():
     for m in ("jax", "jax.numpy", "jaxlib.xla_client", "mxnet_tpu",
               "mxnet_tpu.ops.nn"):
@@ -135,6 +154,8 @@ def test_gpu_entry_points_raise_without_cuda(no_cuda):
         InferenceServer(lambda x: x, feature_shape=(3,))
     with pytest.raises(mxt.MXNetError, match="CUDA"):
         mxt.nd.arange(0, 4)
+    with pytest.raises(mxt.MXNetError, match="CUDA"):
+        mxt.gluon.rnn.LSTM(4).initialize()
     with pytest.raises(mxt.MXNetError, match="CUDA"):
         mxt.io.NDArrayIter(onp.zeros((4, 2), "float32"), batch_size=2).next()
     # the CPU only when asked for
