@@ -24,7 +24,17 @@ and PyTorch built for CUDA.  It:
    ``serve.InferenceServer`` with buckets (1, 2, 4, 8), submits the
    requests in bursts of 1, 2, 3, 5 and 8, and checks every result
    against a direct batch-1 forward, zero dispatch errors, no quarantine,
-   zero steady-state recompiles and 16 kernel launches per dispatch;
+   zero steady-state recompiles and 16 kernel launches per dispatch.  Each
+   bucket runs as a CUDA graph (``AotModel.compile_all`` captures them on
+   the dispatcher thread), the launches credited per replay; it checks
+   that every bucket was captured and that the bucket-8 graph gives the
+   bits of its body run eagerly, and prints the bucket-8 call graphed
+   beside eager and each capture's seconds.  Then the hybridized forward
+   (``hybrid_forward_phase``): ResNet-50 v1 as ``bench.py:bench_inference``
+   builds it, batch 32, ``hybridize()``: 13 calls through ``_CachedGraph``
+   (one capture reported), 16 epilogue launches a call, every output the
+   bits of the same net's eager forward, two calls never the same tensor;
+   ms graphed beside eager, capture seconds and peak memory;
 5. training phase: ResNet-50 v1 at full width (Xavier weights from
    ``--seed``) trained on ``mx.gpu(0)`` through ``autograd.record``,
    ``backward`` and ``gluon.Trainer`` (SGD, lr 0.1, momentum 0.9, wd 1e-4,
@@ -103,7 +113,14 @@ and PyTorch built for CUDA.  It:
    warm-up and 10 timed steps without a mesh, then the same from the same
    weights on the NCCL mesh with ``shard_optimizer=True``, which must give
    the same bits; 12 (B, T, H, D) attention and 26 LayerNorm launches a
-   step each way in both, falling losses; then ResNet-50 v1 at batch 32 as
+   step each way in both, falling losses; every ``DataParallelStep`` runs
+   as one CUDA graph a key, the launches credited per replay
+   (``graphed_vs_eager``: for BERT without a mesh, BERT with ZeRO on the
+   NCCL mesh, ResNet-50 and the LSTM LM in both dtypes, 4 calls through
+   the graph under a rate that changes every step against 4 calls of the
+   same body run eagerly from the same weights, the same bits, then the
+   step ms each way, the capture's seconds and peak memory with the graph
+   pool); then ResNet-50 v1 at batch 32 as
    ``bench.py`` builds it (SGD with ``rescale_grad = 1/32``) through
    ``DataParallelStep``, and from the same weights through
    ``Trainer(kvstore="nccl")``, 16 forward and 16 backward epilogue
@@ -127,7 +144,9 @@ and PyTorch built for CUDA.  It:
    compaction a call;
    then the word-LM example's model (tied, dropout 0.2, SGD lr 20 with
    ``clip_gradient`` 0.25, its default sizes) on its synthetic corpus
-   through ``LanguageModelDataset`` for 60 steps, its loss falling.
+   through ``LanguageModelDataset`` for 60 steps, its loss falling, and
+   its dropout inside the captured step: two replays from the same weights
+   draw different masks, the same ``mx.random.seed`` draws them again.
    ``--profile`` adds the step's device busy and idle share and the RNN
    kernels that ran, which must be cuDNN's where ``backend`` says cuDNN
    and torch's native cells' where it says native;
@@ -607,6 +626,21 @@ def serving_phase(torch, mx, fused_norm, seed, n_requests, profile=False):
                 times.append(time.perf_counter() - t)
             call_ms[b] = statistics.median(times[2:]) * 1e3
         b8_ms = call_ms[8]
+        model = srv._model
+        check(model.buckets == sorted(BUCKETS)
+              and all(g.graphed for g in model._graphs.values()),
+              "not every bucket was captured: %r" % model._graphs)
+        x8 = torch.as_tensor(inputs[:8])
+        eager8 = model._graphs[8].run_eager([x8])[0]
+        check(torch.equal(model.run(8, inputs[:8]), eager8),
+              "the bucket-8 graph and its body run eagerly differ")
+        times = []
+        for _ in range(12):
+            t = time.perf_counter()
+            model._graphs[8].run_eager([x8])[0].cpu()
+            times.append(time.perf_counter() - t)
+        b8_eager_ms = statistics.median(times[2:]) * 1e3
+        capture_s = {b: g.capture_s for b, g in sorted(model._graphs.items())}
         profiles = [profile_calls(
             torch, lambda b=b: srv._model.run(b, inputs[:b]).cpu(),
             "serving bucket %d" % b) for b in (1, 8)] if profile else []
@@ -627,6 +661,7 @@ def serving_phase(torch, mx, fused_norm, seed, n_requests, profile=False):
             "dispatches": dispatches, "p50_ms": float(onp.percentile(lat, 50)),
             "p99_ms": float(onp.percentile(lat, 99)),
             "bucket8_ms": b8_ms, "bucket8_images_per_s": 8e3 / b8_ms,
+            "bucket8_eager_ms": b8_eager_ms, "capture_s": capture_s,
             "call_ms": call_ms, "first_latencies_ms": first,
             "profiles": profiles,
             "max_rel_err": worst, "requests": len(handles)}
@@ -2267,12 +2302,30 @@ def dp_bert_phase(torch, mx, attention, layernorm, seed, card, mesh,
     del w0
     torch.cuda.empty_cache()
     zero = train(net, mesh, True)
-    del net
     torch.cuda.empty_cache()
     check(torch.equal(plain["loss_bits"], zero["loss_bits"])
           and all(torch.equal(a, b) for a, b in zip(plain["weights"],
                                                     zero["weights"])),
           "the one-rank NCCL ZeRO step and the step without a mesh differ")
+
+    def counts(reset=False):
+        if reset:
+            _reset_counts(attention, layernorm)
+        return _bert_counts(attention, layernorm)[0]
+    graphs = [graphed_vs_eager(
+        torch, mx, net, lambda m=m, shard=shard:
+        mx.parallel.DataParallelStep(
+            net, _mlm_loss(gluon), _scheduled(mx, mx.optimizer.Adam, BERT_LR),
+            mesh=m, shard_optimizer=shard),
+        (x, None, None, vl, mp), y, seed, what, counts=counts,
+        per_step=(BERT_ATTN_PER_STEP,) * 2 + (BERT_LN_PER_STEP,) * 2,
+        profile_as="bert" if profile else None)
+        for m, shard, what in (
+            (None, False, "BERT-base DataParallelStep, no mesh"),
+            (mesh, True, "BERT-base DataParallelStep, one-rank NCCL mesh, "
+                         "ZeRO"))]
+    del net
+    torch.cuda.empty_cache()
     for run in (plain, zero):
         losses = run["losses"]
         check(min(losses[-LOSS_WINDOW:]) < losses[0] - BERT_LOSS_FALL,
@@ -2283,6 +2336,7 @@ def dp_bert_phase(torch, mx, attention, layernorm, seed, card, mesh,
     for run in (plain, zero):
         run["tokens_per_s"] = n_tokens * 1e3 / run["step_ms"]
     return {"plain": plain, "zero": zero, "steps": len(plain["losses"]),
+            "graphs": graphs,
             "parity_loss_rel": loss_rel, "parity_update_rel_l2": update_rel,
             "parity_worst_params": per_param[:4],
             "parity_floor_rel_l2": floor_rel,
@@ -2360,6 +2414,21 @@ def dp_resnet_phase(torch, mx, fused_norm, seed, card, profile=False):
     if profile:
         dp["profile"] = profile_calls(torch, lambda: step(x, y).asscalar(),
                                       "ResNet-50 DataParallelStep", calls=3)
+    del step
+    torch.cuda.empty_cache()
+
+    def counts(reset=False):
+        if reset:
+            fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
+        return (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES)
+    sgd = dict(DP_RESNET_SGD)
+    lr = sgd.pop("learning_rate")
+    graphed = graphed_vs_eager(
+        torch, mx, net, lambda: mx.parallel.DataParallelStep(
+            net, ce, _scheduled(mx, mx.optimizer.SGD, lr, **sgd), mesh=None),
+        x, y, seed, "ResNet-50 DataParallelStep, SGD momentum",
+        counts=counts, per_step=(16, 16),
+        profile_as="resnet_step" if profile else None, deterministic=True)
     for k, p in params.items():          # the Trainer starts where it did
         p.set_data(w0[k])
     kv = run(trainer_step)
@@ -2368,7 +2437,7 @@ def dp_resnet_phase(torch, mx, fused_norm, seed, card, profile=False):
           "the Trainer's store is not the one-rank NCCL store")
     check(min(kv["losses"][-LOSS_WINDOW:]) < kv["losses"][0],
           "Trainer(kvstore='nccl') loss did not fall: %r" % kv["losses"])
-    return {"dp": dp, "trainer_nccl": kv}
+    return {"dp": dp, "trainer_nccl": kv, "graphs": [graphed]}
 
 
 def dp_phases(torch, mx, attention, layernorm, fused_norm, seed, card,
@@ -2405,6 +2474,8 @@ def dp_phases(torch, mx, attention, layernorm, fused_norm, seed, card,
                      or "no NCCL kernel in the trace", card))
     print("dp bert: the one-rank NCCL ZeRO steps and the steps without a "
           "mesh gave the same bits (losses and weights)")
+    for r in dpb["graphs"]:
+        print_graphed(r, card)
     torch.cuda.empty_cache()
     dpr = dp_resnet_phase(torch, mx, fused_norm, seed, card,
                           profile=profile)
@@ -2423,6 +2494,8 @@ def dp_phases(torch, mx, attention, layernorm, fused_norm, seed, card,
         if "profile" in r:
             print_profiles([r["profile"]], card)
     print("dp resnet: optimizer state %d bytes" % dpr["dp"]["state_bytes"])
+    for r in dpr["graphs"]:
+        print_graphed(r, card)
     return dpb, dpr
 
 
@@ -2583,8 +2656,10 @@ def word_lm_phase(torch, mx, seed):
     first, last = (statistics.mean(losses[:WORD_LM_WINDOW]),
                    statistics.mean(losses[-WORD_LM_WINDOW:]))
     check(last < first, "word LM: the loss did not fall: %r" % losses)
+    drop = dropout_replays(torch, mx, net, step, d.as_in_context(mx.gpu(0)),
+                           l.as_in_context(mx.gpu(0)), seed)
     return {"losses": losses, "vocab": vocab, "samples": len(data),
-            "first_mean": first, "last_mean": last}
+            "first_mean": first, "last_mean": last, "dropout": drop}
 
 
 def lstm_lm_phase(torch, mx, seed, card, profile=False):
@@ -2662,11 +2737,276 @@ def lstm_lm_phase(torch, mx, seed, card, profile=False):
                 torch, lambda: step(x, y).astype("float32").asnumpy(),
                 "LSTM LM %s DataParallelStep" % dtype, calls=3)
             r["rnn_kernels"] = _rnn_kernels(r["profile"], backend)
+        del step
+        torch.cuda.empty_cache()
+        r["graphs"] = graphed_vs_eager(
+            torch, mx, net, lambda: mx.parallel.DataParallelStep(
+                net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                _scheduled(mx, mx.optimizer.SGD, 1.0,
+                           rescale_grad=1.0 / LM_BATCH), mesh=None),
+            x, y, seed, "LSTM LM config 4 %s DataParallelStep, SGD" % dtype)
         out[dtype] = r
-        del net, step
+        del net
         torch.cuda.empty_cache()
     out["word_lm"] = word_lm_phase(torch, mx, seed)
     return out
+
+
+# Captured execution (CUDA graphs).  Each DataParallelStep path runs
+# GRAPH_STEPS calls through its graph (the first warms up and captures, the
+# rest replay) under a FactorScheduler that changes the rate every step,
+# and the same calls from the same weights, seed and fresh optimizer
+# through the same body run eagerly (``DataParallelStep._run_eagerly``):
+# the same bits, losses and every weight and state the nets carry (the
+# graph replays the kernels the eager body launches, on the same
+# addresses' values).  Then GRAPH_TIMED calls each way, timed.
+GRAPH_STEPS = 4
+GRAPH_TIMED = 10
+GRAPH_LR_FACTOR = 0.9
+# the hybridized ResNet-50 forward, as bench.py:bench_inference builds it
+HYBRID_BATCH = 32
+HYBRID_CALLS = 13
+# names in a replay's profile that show the hand kernels ran inside it
+PROFILE_KERNELS = {
+    "bert": ("flash_fwd_hopper", "flash_bwd_", "ln_bwd"),
+    "resnet_step": ("epi_fwd_kernel", "epi_bwd_"),
+    "resnet_forward": ("epi_fwd_kernel",)}
+
+
+def _scheduled(mx, opt_cls, lr, **kw):
+    """``opt_cls`` with a rate that changes every step."""
+    return opt_cls(learning_rate=lr, lr_scheduler=mx.lr_scheduler
+                   .FactorScheduler(step=1, factor=GRAPH_LR_FACTOR,
+                                    base_lr=lr), **kw)
+
+
+def _kernel_names_check(prof, what):
+    names = [n for n, _, _ in prof["kernels"]]
+    missing = [k for k in PROFILE_KERNELS[what]
+               if not any(k in n for n in names)]
+    check(not missing, "%s: no %s kernel in a replay's profile"
+          % (prof["label"], missing))
+    return [n[:60] for n in names if any(k in n for k in
+                                         PROFILE_KERNELS[what])]
+
+
+def graphed_vs_eager(torch, mx, net, make_step, data, label, seed, what,
+                     counts=None, per_step=None, profile_as=None,
+                     deterministic=False):
+    """``make_step()`` (a fresh DataParallelStep) through its CUDA graph
+    and through the same body eagerly, from the same weights and seed:
+    GRAPH_STEPS calls each held to the same bits, then GRAPH_TIMED calls
+    each timed.  ``counts()`` reads the path's launch counters (reset to 0
+    by ``counts(reset=True)``), ``per_step`` is what each step must add.
+    ``deterministic`` runs both under ``cudnn.deterministic`` (cuDNN's
+    default backward-filter algorithms accumulate in an order that varies
+    from run to run, eager or not).  The net's weights are left as they
+    were."""
+    params = sorted(net.collect_params().items())
+    w0 = [p.data().astorch().detach().clone() for _, p in params]
+    was_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic or was_deterministic
+
+    def run(eager):
+        for (_, p), w in zip(params, w0):
+            p.set_data(w)
+        mx.random.seed(seed)
+        step = make_step()
+        call = step._run_eagerly if eager else step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if counts is not None:
+            counts(reset=True)
+        t = time.perf_counter()
+        losses = [call(data, label).astorch() for _ in range(GRAPH_STEPS)]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        rates = [step._opt.learning_rate]
+        weights = [p.data().astorch().detach().clone() for _, p in params]
+        times = []
+        for _ in range(GRAPH_TIMED):
+            t = time.perf_counter()
+            call(data, label)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        n = GRAPH_STEPS + GRAPH_TIMED
+        r = {"losses": losses, "weights": weights,
+             "step_ms": statistics.median(times) * 1e3,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "first_calls_s": first_s, "rate_last": rates[-1],
+             "graphed": [e.graphed for e, _ in step._cache.values()],
+             "capture_s": [e.capture_s for e, _ in step._cache.values()]}
+        if counts is not None:
+            got = counts()
+            check(got == tuple(c * n for c in per_step),
+                  "%s (%s): launches %r in %d steps, want %r a step"
+                  % (what, "eager" if eager else "graphed", got, n,
+                     per_step))
+            r["launches"] = got
+        if profile_as and not eager:
+            def one():
+                return step(data, label).astype("float32").asscalar()
+            r["profile"] = profile_calls(torch, one, "%s, graphed" % what,
+                                         calls=3)
+            r["profile_kernels"] = _kernel_names_check(r["profile"],
+                                                       profile_as)
+        del step
+        return r
+
+    g = run(False)
+    torch.cuda.empty_cache()
+    e = run(True)
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = was_deterministic
+    for (_, p), w in zip(params, w0):
+        p.set_data(w)
+    check(g["graphed"] == [True] and e["graphed"] == [False],
+          "%s: graphs captured %r (graphed run), %r (eager run)"
+          % (what, g["graphed"], e["graphed"]))
+    same = all(torch.equal(a, b) for a, b in zip(g["losses"], e["losses"])) \
+        and all(torch.equal(a, b) for a, b in zip(g["weights"], e["weights"]))
+    worst = max(float((a.float() - b.float()).norm() / b.float().norm())
+                for a, b in zip(g["weights"], e["weights"]))
+    check(same, "%s: %d steps through the graph and through the same body "
+          "eagerly differ (worst weight rel L2 %.3g; losses %r vs %r)"
+          % (what, GRAPH_STEPS, worst, [float(v.float()) for v in g["losses"]],
+             [float(v.float()) for v in e["losses"]]))
+    losses = [float(v.float()) for v in g["losses"]]
+    check(all(onp_isfinite(v) for v in losses), "%s: non-finite loss %r"
+          % (what, losses))
+    out = {"what": what, "losses": losses, "same_bits": same,
+           "graphed_ms": g["step_ms"], "eager_ms": e["step_ms"],
+           "capture_s": g["capture_s"][0],
+           "graphed_peak_bytes": g["peak_bytes"],
+           "eager_peak_bytes": e["peak_bytes"], "rate_last": g["rate_last"],
+           "launches": g.get("launches"), "deterministic": deterministic}
+    if "profile" in g:
+        out["profile"] = g["profile"]
+        out["profile_kernels"] = g["profile_kernels"]
+    return out
+
+
+def onp_isfinite(v):
+    return v == v and abs(v) != float("inf")
+
+
+def print_graphed(r, card):
+    print("graphs: %s: %d steps through the CUDA graph (1 warm-up and "
+          "capture, %d replays) and through the same body eagerly, rate x%g "
+          "a step (last %.4g)%s: same bits %s, losses %s; step %.3f ms "
+          "graphed, %.3f ms eager (median of %d each); capture %s s; peak "
+          "device memory %.2f GiB graphed (graph pool included), %.2f GiB "
+          "eager; launches %s (%s)"
+          % (r["what"], GRAPH_STEPS, GRAPH_STEPS - 1, GRAPH_LR_FACTOR,
+             r["rate_last"], ", cudnn.deterministic" if r["deterministic"]
+             else "", r["same_bits"],
+             [round(v, 5) for v in r["losses"]], r["graphed_ms"],
+             r["eager_ms"], GRAPH_TIMED, r["capture_s"] and
+             round(r["capture_s"], 3),
+             r["graphed_peak_bytes"] / 2 ** 30,
+             r["eager_peak_bytes"] / 2 ** 30, r["launches"], card))
+    if "profile" in r:
+        print_profiles([r["profile"]], card)
+        print("graphs: %s: the hand kernels in one replay's trace: %s"
+              % (r["what"], sorted(set(r["profile_kernels"]))))
+
+
+def hybrid_forward_phase(torch, mx, fused_norm, seed, card, profile=False):
+    """ResNet-50 v1 as bench.py:bench_inference builds it (Xavier weights
+    and deferred shapes on the host, ``reset_ctx`` onto the card,
+    ``hybridize()``), its eval-mode forward at batch 32: HYBRID_CALLS
+    calls through ``_CachedGraph`` (the first warms up and captures) with
+    16 epilogue launches a call, the replayed outputs the bits of the same
+    net's eager forward, one capture reported; then eager beside graphed,
+    timed."""
+    import numpy as onp
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    gpu = mx.gpu(0)
+    mx.random.seed(seed)
+    net = resnet50_v1()
+    with mx.cpu():
+        net.initialize(mx.init.Xavier())
+        with mx.autograd.predict_mode():
+            net(mx.nd.zeros((1, 3, IMAGE_SIZE, IMAGE_SIZE)))
+    net.collect_params().reset_ctx(gpu)
+    rs = onp.random.RandomState(seed)
+    x = mx.nd.array(rs.uniform(size=(HYBRID_BATCH, 3, IMAGE_SIZE,
+                                     IMAGE_SIZE)).astype("float32"), ctx=gpu)
+
+    def timed(n):
+        times, outs = [], []
+        for _ in range(n):
+            t = time.perf_counter()
+            outs.append(net(x).astorch())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return outs, times
+    with mx.autograd.predict_mode():
+        eager_outs, eager_t = timed(HYBRID_CALLS)
+        net.hybridize()
+        compiles0 = telemetry.compile_counts().get("CachedOp_" + net.name, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_norm.LAUNCHES = 0
+        graph_outs, graph_t = timed(HYBRID_CALLS)
+        launches = fused_norm.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        compiles = telemetry.compile_counts()["CachedOp_" + net.name] \
+            - compiles0
+        entries = list(net._cached_graph._cache.values())
+        prof = profile_calls(torch, lambda: net(x).asnumpy(),
+                             "hybridized ResNet-50 forward, graphed",
+                             calls=3) if profile else None
+    check(len(entries) == 1 and entries[0][0][0].graphed,
+          "the hybridized forward was not captured: %r" % entries)
+    check(compiles == 1, "%d captures reported for one key" % compiles)
+    check(launches == 16 * HYBRID_CALLS,
+          "%d epilogue launches in %d hybridized forwards (want 16 each)"
+          % (launches, HYBRID_CALLS))
+    check(all(torch.equal(o, eager_outs[0]) for o in eager_outs + graph_outs),
+          "the hybridized forward's outputs differ from the eager forward's")
+    check(graph_outs[1].data_ptr() != graph_outs[2].data_ptr(),
+          "two replays returned the same tensor")
+    out = {"graphed_ms": statistics.median(graph_t[3:]) * 1e3,
+           "eager_ms": statistics.median(eager_t[3:]) * 1e3,
+           "capture_s": entries[0][0][0].capture_s, "peak_bytes": peak,
+           "launches": launches, "calls": HYBRID_CALLS}
+    if prof is not None:
+        out["profile"] = prof
+        out["profile_kernels"] = _kernel_names_check(prof, "resnet_forward")
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def dropout_replays(torch, mx, net, step, data, label, seed):
+    """Dropout inside a captured step: from the same weights, two replays
+    draw different masks (different losses), and after the same
+    ``mx.random.seed`` a replay draws the first masks again (the same
+    bits)."""
+    params = sorted(net.collect_params().items())
+    w0 = [p.data().astorch().detach().clone() for _, p in params]
+
+    def once(reseed):
+        for (_, p), w in zip(params, w0):
+            p.set_data(w)
+        if reseed:
+            mx.random.seed(seed)
+        loss = step(data, label).astorch()
+        return loss, [p.data().astorch().detach().clone() for _, p in params]
+    first, w_first = once(True)
+    second, _ = once(False)
+    again, w_again = once(True)
+    check(all(e.graphed for e, _ in step._cache.values()),
+          "the word-LM step is not a graph")
+    check(not torch.equal(first, second),
+          "two replays drew the same dropout masks (loss %r)"
+          % float(first))
+    check(torch.equal(first, again)
+          and all(torch.equal(a, b) for a, b in zip(w_first, w_again)),
+          "the same mx.random.seed did not give the same masks again")
+    return {"losses": [float(first), float(second), float(again)]}
 
 
 def print_lstm_lm(lm, card):
@@ -2707,6 +3047,7 @@ def print_lstm_lm(lm, card):
             print("lstm lm: %s: RNN kernels that ran (expected backend %s): "
                   "%s" % (dtype, r["backend"], "; ".join(
                       "%s %.3f ms/call x%d" % k for k in r["rnn_kernels"])))
+        print_graphed(r["graphs"], card)
     w = lm["word_lm"]
     print("lstm lm: word-LM example model (tied, dropout %g, SGD lr %g, "
           "clip %g, embed = hidden %d, %d layers, batch %d x %d, vocab %d, "
@@ -2717,6 +3058,11 @@ def print_lstm_lm(lm, card):
              WORD_LM["bptt"], w["vocab"], w["samples"], len(w["losses"]),
              WORD_LM_WINDOW, w["first_mean"], WORD_LM_WINDOW, w["last_mean"],
              [round(v, 3) for v in w["losses"]]))
+    print("graphs: word-LM model, dropout %g, through its captured step: "
+          "from the same weights, losses after mx.random.seed, one replay "
+          "later and after the same seed again %s: masks advance across "
+          "replays and restart with the seed" % (WORD_LM["dropout"],
+                                                 w["dropout"]["losses"]))
 
 
 def main(argv=None):
@@ -2724,10 +3070,12 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace bucket-1 and bucket-8 model calls, "
-                         "ResNet training steps, BERT forwards, BERT "
-                         "training steps, the data-parallel steps and the "
-                         "LSTM LM steps with torch.profiler and print where "
-                         "the device time goes")
+                         "the hybridized forward, ResNet training steps, "
+                         "BERT forwards, BERT training steps, the "
+                         "data-parallel steps (graphed) and the LSTM LM "
+                         "steps with torch.profiler and print where the "
+                         "device time goes and which hand kernels ran "
+                         "inside the replays")
     args = ap.parse_args(argv)
 
     import torch
@@ -2804,7 +3152,29 @@ def main(argv=None):
     print("serving: model call ms per bucket %s; first latencies ms %s"
           % ({b: round(v, 3) for b, v in res["call_ms"].items()},
              res["first_latencies_ms"]))
+    print("graphs: serving: one CUDA graph a bucket, captured largest "
+          "first from one pool in %s s; bucket-8 call %.3f ms graphed, %.3f "
+          "ms with the same body run eagerly (host batch in, host logits "
+          "out) (%s)" % ({b: round(v, 3) for b, v in res["capture_s"].items()},
+                         res["bucket8_ms"], res["bucket8_eager_ms"], card))
     print_profiles(res["profiles"], card)
+    for p in res["profiles"]:
+        print("graphs: %s: the hand kernels in one replay's trace: %s"
+              % (p["label"], sorted(set(_kernel_names_check(
+                  p, "resnet_forward")))))
+    hyb = hybrid_forward_phase(torch, mx, fused_norm, args.seed, card,
+                               profile=args.profile)
+    print("graphs: hybridized ResNet-50 v1 forward at batch %d "
+          "(_CachedGraph): %d calls, epilogue launches %d, the eager "
+          "forward's bits; %.3f ms a call graphed, %.3f ms eager (median); "
+          "capture %.3f s; peak device memory %.2f GiB (%s)"
+          % (HYBRID_BATCH, hyb["calls"], hyb["launches"], hyb["graphed_ms"],
+             hyb["eager_ms"], hyb["capture_s"], hyb["peak_bytes"] / 2 ** 30,
+             card))
+    if "profile" in hyb:
+        print_profiles([hyb["profile"]], card)
+        print("graphs: hybridized forward: the hand kernels in one replay's "
+              "trace: %s" % sorted(set(hyb["profile_kernels"])))
 
     mark("serving")
     train = training_phase(torch, mx, fused_norm, args.seed, card,
@@ -2889,6 +3259,9 @@ def main(argv=None):
     print_lstm_lm(lm, card)
     print("lstm lm: hand-written kernel launches on the path (forward, "
           "backward): %s" % lm_launches)
+    print("graphs: every path above ran captured; no module of the port "
+          "is kept eager by a rule (cuDNN's LSTM, its weight compaction "
+          "included, captures from the graph's pool)")
     mark("lstm lm")
     print("phase seconds: %s" % ", ".join("%s %.1f" % c for c in clock))
 
@@ -2910,6 +3283,7 @@ def main(argv=None):
         max_abs_err=max(r["max_abs_err"] for r in rows["fwd"]),
         bound_by="bytes", library_ms=None,
         launches_by_path={"serving": res["launches"],
+                          "hybrid_forward": hyb["launches"],
                           "training": train["fwd_launches"],
                           "dp_resnet": dpr["dp"]["fwd_launches"],
                           "dp_resnet_trainer_nccl":

@@ -7,9 +7,24 @@ as ``features.5.0.body.0.weight``), ``save_parameters`` and
 ``load_parameters`` keyed by structural names, and ``hybrid_forward(F, x,
 **params)`` with ``F`` the ``mx.nd`` namespace.  Child blocks are torch
 submodules (``named_modules()`` sees the tree) and forward hooks are
-torch's.  ``hybridize()`` is accepted and the forward stays eager; the
-JAX package's ``_CachedGraph`` (a ``jax.jit`` cache) and ``SymbolBlock``
-are not ported.
+torch's.
+
+``hybridize()`` turns on compiled execution, as in the JAX package, where
+``_CachedGraph`` is a ``jax.jit`` cache keyed by ``(training, input shapes
+and dtypes)``.  Here ``_CachedGraph`` keeps one CUDA graph per such key
+(``cuda_graph.Captured``), also keyed on the storage of the block's
+parameters, so that a parameter whose tensor was replaced (``reset_ctx``,
+``load_parameters`` onto a new context) is captured again instead of
+read at its old address; ``set_data`` writes in place and needs nothing.
+The forward and its writes of auxiliary state (BatchNorm's running
+statistics) are captured whenever no gradient is recorded.  These calls
+run eagerly, as in the JAX package: a call with keyword arguments, a first
+call that completes deferred shapes, and a child called inside its
+parent's graph (or any captured body), which runs through.  Under
+``autograd.record()`` a hybridized block runs eagerly too (a forward and
+backward pair of graphs waits: ``ROADMAP.md``, queue 1).
+``hybridize(False)`` and ``cast`` drop the graphs.  ``SymbolBlock`` is not
+ported.
 """
 from __future__ import annotations
 
@@ -18,7 +33,11 @@ import threading
 
 import torch
 
+from .. import autograd, telemetry
+from .. import random as _random
 from ..context import cpu
+from ..cuda_graph import Captured, capturing, new_pool, storage_key
+from ..ndarray.ndarray import NDArray, _wrap
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock"]
@@ -177,7 +196,8 @@ class Block(torch.nn.Module):
         self.collect_params().initialize(init, ctx, verbose, force_reinit)
 
     def hybridize(self, active=True, **kwargs):
-        """Accepted for API parity; the forward runs eagerly."""
+        """Turn compiled execution on (or off) for the hybrid blocks of
+        this tree."""
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 
@@ -234,8 +254,135 @@ def _indent(s, num_spaces):
                                        for line in lines[1:])
 
 
+def _flatten_args(args):
+    """Flatten (possibly nested lists of) NDArrays into a list and a
+    template."""
+    arrays = []
+
+    def conv(a):
+        if isinstance(a, NDArray):
+            arrays.append(a)
+            return ("__arr__", len(arrays) - 1)
+        if isinstance(a, (list, tuple)):
+            return ("__list__", [conv(x) for x in a], isinstance(a, tuple))
+        return ("__static__", a)
+
+    template = [conv(a) for a in args]
+    return arrays, template
+
+
+def _rebuild_args(template, arrays):
+    def conv(t):
+        if t[0] == "__arr__":
+            return arrays[t[1]]
+        if t[0] == "__list__":
+            items = [conv(x) for x in t[1]]
+            return tuple(items) if t[2] else items
+        return t[1]
+
+    return [conv(t) for t in template]
+
+
+class _CachedGraph:
+    """The CachedOp counterpart: one captured forward of a block per
+    ``(training, input shapes and dtypes)``, from one memory pool.  The
+    parameter list is fixed for the life of the cache (``hybridize()`` and
+    ``cast`` make a new one), as in the JAX package."""
+
+    def __init__(self, block):
+        self._block = block
+        self._cache = {}
+        self._params = [p for _, p in sorted(block.collect_params().items())
+                        if p._data is not None]
+        self._pool = None
+
+    def clear(self):
+        self._cache.clear()
+
+    def __call__(self, args):
+        arrays, template = _flatten_args(args)
+        training = autograd.is_training()
+        key = (training, tuple((tuple(a.shape), str(a.dtype))
+                               for a in arrays))
+        storage = storage_key([p._data._data for p in self._params])
+        hit = self._cache.get(key)
+        if hit is None or hit[1] != storage:
+            telemetry.record_compile(
+                "CachedOp_%s" % self._block.name,
+                {"training": training,
+                 "inputs": [{"shape": list(a.shape), "dtype": str(a.dtype)}
+                            for a in arrays]})
+            hit = self._cache[key] = (self._build(template, training,
+                                                  arrays), storage)
+        graph, meta = hit[0]
+        outs = [_wrap(o) for o in graph([a._data for a in arrays])]
+        return outs if meta["seq"] else outs[0]
+
+    def _build(self, template, training, arrays):
+        block = self._block
+        meta = {"seq": None}
+
+        def body(inputs):
+            args = _rebuild_args(template, [_wrap(v) for v in inputs])
+            with autograd.pause(train_mode=training):
+                out = block.forward(*args)
+            meta["seq"] = isinstance(out, (list, tuple))
+            return [o._data for o in (out if meta["seq"] else [out])]
+        device = arrays[0]._data.device
+        if self._pool is None:
+            self._pool = new_pool(device)
+        gens = (_random.generator(device),) \
+            if training and device.type == "cuda" else ()
+        return Captured(body, [a._data for a in arrays], pool=self._pool,
+                        generators=gens), meta
+
+
 class HybridBlock(Block):
     """A Block written as ``hybrid_forward(F, x, *args, **params)``."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._cached_graph = None
+
+    def hybridize(self, active=True, **kwargs):
+        """Compiled execution on or off (``static_alloc`` and
+        ``static_shape`` are accepted: a graph's memory is static)."""
+        self._active = active
+        self._clear_cached_op()
+        super().hybridize(active, **kwargs)
+
+    def _clear_cached_op(self):
+        if self._cached_graph is not None:
+            self._cached_graph.clear()
+        self._cached_graph = None
+
+    def cast(self, dtype):
+        self._clear_cached_op()
+        super().cast(dtype)
+
+    def _deferred_params(self):
+        return [p for p in self.collect_params().values() if p._data is None]
+
+    def __call__(self, *args, **kwargs):
+        if not self._active or kwargs or capturing() \
+                or autograd.is_recording() or self._deferred_params():
+            # eager: keyword arguments are not in the key, a parent's graph
+            # runs its children through, a recorded forward waits for a
+            # forward/backward pair, and a first call completes deferred
+            # shapes
+            return super().__call__(*args, **kwargs)
+        arrays, _ = _flatten_args(args)
+        if not arrays:
+            return super().__call__(*args, **kwargs)
+        if self._cached_graph is None:
+            self._cached_graph = _CachedGraph(self)
+        for hook in self._forward_pre_hooks.values():
+            hook(self, args)
+        out = self._cached_graph(args)
+        for hook in self._forward_hooks.values():
+            hook(self, args, out)
+        return out
 
     def infer_shape(self, *args):
         """Complete deferred parameter shapes from the input shapes; layers

@@ -23,6 +23,15 @@ that an fp32 operation reads keeps its fp32 precision.  ``fused=True``
 returns it as a pure function of tensors, as the JAX package's does;
 ``pin_update_dtypes`` casts a step's results back to the carry dtypes.
 
+A fused update reads the values that change from step to step (SGD's
+``-lr``, Adam's bias-corrected ``lr_t``) as one scale a weight, computed
+on the host in the jitted step's fp32 arithmetic (``_fused_scale``).  Given
+as Python numbers, they are the operations' scalar arguments; given as
+:class:`DeviceScales`, a small device tensor written before each step,
+the operations read them there, so that a captured CUDA graph of the
+update serves every step of a schedule (the JAX step passes its rates and
+step count as traced values for the same reason).
+
 Attribute names match the JAX package's, and ``Updater.get_states`` and
 ``set_states`` read and write the JAX package's pickle format, so a
 ``Trainer.save_states`` file of either package loads in the other.
@@ -43,7 +52,7 @@ from ..ndarray import NDArray
 from ..ndarray.ndarray import _wrap
 
 __all__ = ["Optimizer", "Updater", "get_updater", "create", "register",
-           "SGD", "NAG", "Adam", "pin_update_dtypes"]
+           "SGD", "NAG", "Adam", "pin_update_dtypes", "DeviceScales"]
 
 
 def pin_update_dtypes(res, weight, state_leaves):
@@ -188,20 +197,28 @@ class Optimizer:
         package's jitted step (``fused``, see :meth:`_step`): ``t`` is the
         step count (an int, 1 at the first update) and ``lr`` the learning
         rate (a float, rounded to fp32 and then to ``w``'s dtype as the JAX
-        step rounds its fp32 rate).  ``w`` and the states are left as they
-        are; the results may need :func:`pin_update_dtypes`.  Rules without
-        one (NAG, as in the JAX package) raise ``NotImplementedError``."""
+        step rounds its fp32 rate).  ``scale=``, a 0-d fp32 device tensor
+        holding :meth:`_fused_scale` of ``(lr, t, w.dtype)``, replaces
+        ``t`` and ``lr``: the update then reads it on the device.  ``w``
+        and the states are left as they are; the results may need
+        :func:`pin_update_dtypes`.  Rules without one (NAG, as in the JAX
+        package) raise ``NotImplementedError``."""
         if not self._has_step:
             raise NotImplementedError(
                 "%s has no jit-pure step; Trainer will update eagerly"
                 % type(self).__name__)
         wd = self._get_wds([index])[0]
 
-        def step(w, g, t, lr, *states):
+        def step(w, g, t, lr, *states, scale=None):
             new = [w.detach().clone()] + [s.detach().clone() for s in states]
             with torch.no_grad():
-                self._step(new[:1], [g.detach()], [[s] for s in new[1:]],
-                           [_f32(lr)], [wd], [int(t)], True)
+                if scale is None:
+                    self._step(new[:1], [g.detach()], [[s] for s in new[1:]],
+                               [_f32(lr)], [wd], [int(t)], True)
+                else:
+                    self._step(new[:1], [g.detach()], [[s] for s in new[1:]],
+                               None, [wd], None, True,
+                               DeviceScales(scale.reshape(1), [0]))
             return tuple(new)
         return step
 
@@ -263,7 +280,21 @@ class Optimizer:
             self._step(ws, gs, slots, lrs, self._get_wds(indices), counts,
                        fused)
 
-    def _step(self, ws, gs, slots, lrs, wds, counts, fused):
+    def _fused_scale(self, lr, t, dtype):
+        """The one value of a fused update that changes from step to step,
+        for a weight of ``dtype`` at rate ``lr`` (fp32) and step ``t``, as
+        a Python float: what the update multiplies by."""
+        raise NotImplementedError
+
+    def _fused_scales(self, lrs, counts, ws):
+        """:meth:`_fused_scale` of each weight of ``ws``."""
+        memo = {}
+        for lr, t, w in zip(lrs, counts, ws):
+            if (lr, t, w.dtype) not in memo:
+                memo[lr, t, w.dtype] = self._fused_scale(lr, t, w.dtype)
+        return [memo[lr, t, w.dtype] for lr, t, w in zip(lrs, counts, ws)]
+
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
         """Update the weight tensors ``ws`` and the state tensors (one list
         per state slot) in place.
 
@@ -274,7 +305,9 @@ class Optimizer:
         the JAX package's jitted step instead: fp32 ``a * b + c`` rounded
         once (:func:`_muladd`), and Adam's step as :meth:`Adam._step` says;
         an fp32 weight (a master) may then come with a half-width gradient,
-        which the step widens, as the jitted step does."""
+        which the step widens, as the jitted step does.  ``scales`` (fused
+        only; :meth:`_fused_scales` of ``lrs`` and ``counts`` when None) may
+        be :class:`DeviceScales`, and ``lrs`` and ``counts`` None."""
         raise NotImplementedError
 
     def _preprocess(self, gs, ws, wds, fused=False):
@@ -410,15 +443,19 @@ def _muladd_all(tensors, scale, addends):
 
 def _add_scaled_(ws, g, scales):
     """``w += scale * g`` for every tensor of one width class, a fused
-    multiply-add in fp32 (one launch where every scale agrees), one
-    rounding after another in half width."""
-    if ws[0].dtype == torch.float32 and len(set(scales)) == 1:
-        torch._foreach_add_(ws, g, alpha=_f32(scales[0]))
-    elif ws[0].dtype == torch.float32:
-        for w, gg, sc in zip(ws, g, scales):
-            w.add_(gg, alpha=_f32(sc))
+    multiply-add in fp32 (one launch where every scale agrees; with
+    :class:`DeviceScales` ``addcmul``, one a tensor), one rounding after
+    another in half width.  The scales are values of the weights' dtype."""
+    if ws[0].dtype != torch.float32:
+        torch._foreach_add_(ws, _scaled(g, scales))
+    elif isinstance(scales, DeviceScales):
+        for k, (w, gg) in enumerate(zip(ws, g)):
+            w.addcmul_(gg, scales.value(scales.index[k], torch.float32))
+    elif len(set(scales)) == 1:
+        torch._foreach_add_(ws, g, alpha=scales[0])
     else:
-        torch._foreach_add_(ws, torch._foreach_mul(g, _rounded(scales, ws)))
+        for w, gg, sc in zip(ws, g, scales):
+            w.add_(gg, alpha=sc)
 
 
 def _width_groups(tensors):
@@ -429,7 +466,63 @@ def _width_groups(tensors):
 
 
 def _pick(items, indices):
+    if isinstance(items, DeviceScales):
+        return items.pick(indices)
     return [items[k] for k in indices]
+
+
+def _one_or_list(values):
+    """One float where every value agrees (one launch covers as many
+    tensors as a scalar allows), else the list."""
+    return values[0] if len(set(values)) == 1 else values
+
+
+class DeviceScales:
+    """The per-step scales of a fused update, read from a device tensor.
+
+    ``values`` is a 1-D fp32 tensor on the weights' device, written on the
+    host before each step; ``index[k]`` is the entry that weight ``k`` of
+    the update reads.  Each entry holds a value of the dtype it multiplies
+    (a bf16 SGD rate is bf16-exact), so reading it in that dtype is exact,
+    and weights that read one entry share one multi-tensor operation."""
+
+    def __init__(self, values, index):
+        self.values = values
+        self.index = list(index)
+        self._cast = {}
+
+    def pick(self, positions):
+        sub = DeviceScales(self.values, [self.index[k] for k in positions])
+        sub._cast = self._cast
+        return sub
+
+    def value(self, j, dtype):
+        """Entry ``j`` as a 0-d tensor of ``dtype``."""
+        if (j, dtype) not in self._cast:
+            v = self.values[j]
+            self._cast[j, dtype] = v if v.dtype == dtype else v.to(dtype)
+        return self._cast[j, dtype]
+
+    def groups(self):
+        """``(entry, positions)`` of each entry read: the positions of the
+        weights that read it."""
+        out = {}
+        for k, j in enumerate(self.index):
+            out.setdefault(j, []).append(k)
+        return out.items()
+
+
+def _scaled(tensors, scales):
+    """Each tensor times its scale (floats, or :class:`DeviceScales`)."""
+    if not isinstance(scales, DeviceScales):
+        return torch._foreach_mul(tensors, _one_or_list(scales))
+    out = [None] * len(tensors)
+    for j, ks in scales.groups():
+        part = torch._foreach_mul(_pick(tensors, ks),
+                                  scales.value(j, tensors[ks[0]].dtype))
+        for k, v in zip(ks, part):
+            out[k] = v
+    return out
 
 
 def _pow32(base, t):
@@ -460,12 +553,17 @@ class SGD(Optimizer):
 
     _has_step = True
 
-    def _step(self, ws, gs, slots, lrs, wds, counts, fused):
+    def _fused_scale(self, lr, t, dtype):
+        return _in_dtype(-lr, dtype)
+
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
         g = self._preprocess(gs, ws, wds, fused)
         if fused:
+            if scales is None:
+                scales = self._fused_scales(lrs, counts, ws)
             for k in _width_groups(ws):
                 self._jitted(_pick(ws, k), _pick(g, k),
-                             [_pick(s, k) for s in slots], _pick(lrs, k))
+                             [_pick(s, k) for s in slots], _pick(scales, k))
             return
         if not slots:
             _sgd_step(ws, g, lrs)
@@ -475,15 +573,15 @@ class SGD(Optimizer):
         torch._foreach_sub_(moms, torch._foreach_mul(g, _rounded(lrs, ws)))
         torch._foreach_add_(ws, moms)
 
-    def _jitted(self, ws, g, slots, lrs):
+    def _jitted(self, ws, g, slots, scales):
         """One width class: ``w - lr * g`` and ``momentum * m - lr * g``
-        each one fused multiply-add in fp32."""
-        neg = [-lr for lr in lrs]
+        each one fused multiply-add in fp32 (``scales``: ``-lr`` in the
+        weights' dtype)."""
         if not slots:
-            _add_scaled_(ws, g, neg)
+            _add_scaled_(ws, g, scales)
             return
         (moms,) = slots
-        step = torch._foreach_mul(g, _rounded(neg, ws))
+        step = _scaled(g, scales)
         torch._foreach_copy_(moms, _muladd_all(moms, self.momentum, step))
         torch._foreach_add_(ws, moms)
 
@@ -502,7 +600,7 @@ class NAG(Optimizer):
             return None
         return _zeros_like(weight)
 
-    def _step(self, ws, gs, slots, lrs, wds, counts, fused):
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
         g = self._preprocess(gs, ws, wds)
         if not slots:
             _sgd_step(ws, g, lrs)
@@ -557,15 +655,19 @@ class Adam(Optimizer):
 
     _has_step = True
 
-    def _step(self, ws, gs, slots, lrs, wds, counts, fused):
+    def _fused_scale(self, lr, t, dtype):
+        return _fused_lr_t(lr, t, self.beta1, self.beta2, dtype)
+
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
         b1, b2 = self.beta1, self.beta2
         g = self._preprocess(gs, ws, wds, fused)
         means, variances = slots
         if fused:
+            if scales is None:
+                scales = self._fused_scales(lrs, counts, ws)
             for k in _width_groups(ws):
                 self._jitted(_pick(ws, k), _pick(g, k), _pick(means, k),
-                             _pick(variances, k), _pick(lrs, k),
-                             _pick(counts, k))
+                             _pick(variances, k), _pick(scales, k))
             return
         torch._foreach_mul_(means, _scalars(b1, ws))
         torch._foreach_add_(means, torch._foreach_mul(g, _scalars(1 - b1,
@@ -582,8 +684,9 @@ class Adam(Optimizer):
         torch._foreach_div_(step, den)
         torch._foreach_sub_(ws, step)
 
-    def _jitted(self, ws, g, means, variances, lrs, counts):
-        """One width class in the jitted step's arithmetic.  fp32: the two
+    def _jitted(self, ws, g, means, variances, scales):
+        """One width class in the jitted step's arithmetic (``scales``:
+        each weight's ``lr_t``).  fp32: the two
         moments each one fused multiply-add.  Half width: each operation
         rounds in the weight's dtype, but the fp32 step reads the new mean
         before its rounding (the sum of its two rounded products).  Then,
@@ -604,15 +707,9 @@ class Adam(Optimizer):
         new_v = _muladd_all(variances, b2, gv)
         torch._foreach_copy_(means, new_m)
         torch._foreach_copy_(variances, new_v)
-        rounded = {}
-        for lr, t, w in zip(lrs, counts, ws):
-            if (lr, t, w.dtype) not in rounded:
-                rounded[lr, t, w.dtype] = _fused_lr_t(lr, t, b1, b2, w.dtype)
-        lr_ts = [rounded[lr, t, w.dtype] for lr, t, w in zip(lrs, counts, ws)]
-        lr_ts = lr_ts[0] if len(set(lr_ts)) == 1 else lr_ts
         den = [d.float() for d in torch._foreach_sqrt(variances)]
         torch._foreach_add_(den, self.epsilon)
-        step = torch._foreach_mul(m32, lr_ts)
+        step = _scaled(m32, scales)
         torch._foreach_div_(step, den)
         if full:
             torch._foreach_sub_(ws, step)

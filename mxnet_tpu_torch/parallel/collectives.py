@@ -165,7 +165,8 @@ def all_gather_unpad(shard, shape, axis_name: str = "dp", mesh=None):
 
 
 def zero_sharded_update(step_fn, w, g, state_leaves, t, lr, *, shape, mp,
-                        axis_size, mesh=None, average=False, reduce=True):
+                        axis_size, mesh=None, average=False, reduce=True,
+                        scale=None):
     """One weight's ZeRO-sharded optimizer update (arxiv 2004.13336), the
     numerics of the JAX package's: the gradient, flattened and padded, is
     reduce-scattered (summed over ranks, then divided by their number
@@ -178,10 +179,13 @@ def zero_sharded_update(step_fn, w, g, state_leaves, t, lr, *, shape, mp,
     gradient is summed in it.  With ``mp`` the fp32 master, state leaf 0,
     is updated from the fp32 gradient and the half-width weight
     re-quantized from it before the gather.  State leaves arrive and leave
-    as this rank's shards.  Returns ``(new_weight, new_state_leaves)``."""
+    as this rank's shards.  ``scale``, a device tensor, goes to ``step_fn``
+    in place of ``t`` and ``lr`` (see ``Optimizer.make_step``).  Returns
+    ``(new_weight, new_state_leaves)``."""
     from ..optimizer.optimizer import pin_update_dtypes
     m = _mesh(mesh, "dp")
     w, g = _unwrap(w), _unwrap(g)
+    kw = {} if scale is None else {"scale": scale}
 
     def scatter(grad):
         if not reduce:
@@ -192,12 +196,12 @@ def zero_sharded_update(step_fn, w, g, state_leaves, t, lr, *, shape, mp,
     if mp:
         g32 = scatter(g.float())
         master, rest = state_leaves[0], list(state_leaves[1:])
-        res = step_fn(master, g32, t, lr, *rest)
+        res = step_fn(master, g32, t, lr, *rest, **kw)
         new_master, new_rest = pin_update_dtypes(res, master, rest)
         half = all_gather_unpad(new_master.to(w.dtype), shape, mesh=m)
         return half, [new_master] + new_rest
     gg = scatter(g)
     wflat = local_shard(flatten_pad(w.detach(), axis_size), m)
-    res = step_fn(wflat, gg, t, lr, *state_leaves)
+    res = step_fn(wflat, gg, t, lr, *state_leaves, **kw)
     new_wflat, new_st = pin_update_dtypes(res, wflat, state_leaves)
     return all_gather_unpad(new_wflat, shape, mesh=m), new_st

@@ -13,17 +13,35 @@ divides by their number (one ``all_reduce`` a dtype) and updates every
 replicated weight in place in the arithmetic of the optimizer's
 ``make_step``, or, with ``shard_optimizer``, runs each weight's
 ``zero_sharded_update``.  BatchNorm's statistics are the global batch's,
-as on the JAX step's one sharded array (``ops/nn.py``).  Nothing in a step
-reads a value back to the host, so a later change can capture it as a
-CUDA graph; the loss comes back as a 0-d NDArray on the device.
+as on the JAX step's one sharded array (``ops/nn.py``).
+
+Where the JAX step jits all of that once per cache key (``call`` or
+``scan``, the data's and the label's shapes and dtypes), this step
+captures it as one CUDA graph per key (``cuda_graph.Captured``): the
+forward and the loss under ``record``, ``torch.autograd.grad``, the
+all-reduce and the update.  The batch is copied into the graph's static
+inputs.  The values that change from step to step are written into a
+small device tensor before each replay, as the JAX step passes its rates
+and step count traced: the learning rate of each slot and the step count,
+folded on the host into each slot's update scale (``Optimizer.
+_fused_scale``, in the jitted step's fp32 arithmetic), one entry for each
+class of slots that share a rate multiplier and an update dtype.  The
+optimizer states and the fp32 masters are written in place, so the
+graph's addresses stay valid; a parameter whose tensor was replaced
+(``reset_ctx``, ``cast``) is captured again, reported as a recompile.
+Nothing in a step reads a value back to the host; the loss comes back as
+a fresh 0-d NDArray on the device.  On the CPU each call runs the same
+body on the same static buffers, without a graph.
 
 The state is the JAX step's: per trainable parameter, in sorted-name
 order, the optimizer's state leaves (the fp32 master first under
 ``multi_precision``), replicated or in the flat zero-padded layout of
 which each rank holds its ``1/N`` slice; the step count starts at 1 and
-the learning-rate schedule is read on every call.  Dropout draws from a
-generator seeded for each step from ``mx.random`` (its masks are not the
-JAX package's).  ``mirror``, ``donate_batch`` and ``grad_compression``,
+the learning-rate schedule is read on every call.  Dropout draws from the
+step's own generator, which each step (each replay) advances, seeded from
+``mx.random`` at the first call and again after every ``mx.random.seed``,
+as the JAX step draws a new key then (its masks are not the JAX
+package's).  ``mirror``, ``donate_batch`` and ``grad_compression``,
 ``reshard`` and the checkpoint state wait (``ROADMAP.md``, queue 1,
 "Data-parallel waits").
 """
@@ -34,15 +52,16 @@ import os
 
 import torch
 
-from .. import autograd
+from .. import autograd, telemetry
 from .. import random as _random
 from ..base import MXNetError
 from ..context import Context
+from ..cuda_graph import Captured, new_pool, storage_key
 from ..ndarray import NDArray
 from ..ndarray import ndarray as _nd
 from ..ndarray.ndarray import _wrap
 from ..ops.nn import cross_rank_batch_stats
-from ..optimizer.optimizer import _f32, _leaves
+from ..optimizer.optimizer import DeviceScales, _f32, _leaves
 from .collectives import (_sum, flatten_pad, local_shard,
                           zero_sharded_update)
 from .mesh import get_mesh
@@ -100,6 +119,7 @@ class DataParallelStep:
                        for slot in range(len(self._trainable))]
         self._opt_states, self._mp_slots = [], []
         self._shard_slots, self._shard_meta = [], []
+        self._upd_dtypes = []   # the dtype each slot's update runs in
         self._mp_written = {}   # slot -> (weight tensor, its version)
         mp = bool(getattr(optimizer, "multi_precision", False))
         for slot, i in enumerate(self._trainable):
@@ -107,6 +127,7 @@ class DataParallelStep:
             use_mp = mp and w.dtype in _HALF
             self._mp_slots.append(use_mp)
             wdata = w.float() if use_mp else w
+            self._upd_dtypes.append(wdata.dtype)
             self._shard_meta.append(tuple(wdata.shape))
             if self._shard_n:
                 leaves = self._create_sharded_state(optimizer, slot, wdata)
@@ -121,6 +142,10 @@ class DataParallelStep:
             if self._mp_slots[slot]:
                 self._note_written(slot)
         self._t = optimizer.begin_num_update
+        self._cache = {}        # key -> (Captured, the parameters' storage)
+        self._pool = None
+        self._gen = None
+        self._rng_epoch = None
 
     # ------------------------------------------------------------------
     # ZeRO-style sharded weight update (arxiv 2004.13336)
@@ -189,8 +214,8 @@ class DataParallelStep:
             master = w.detach().float()
             if self._shard_slots[slot]:
                 master = local_shard(flatten_pad(master, self._shard_n),
-                                     self._mesh).clone()
-            self._opt_states[slot][0] = master
+                                     self._mesh)
+            self._opt_states[slot][0].copy_(master)
             self._note_written(slot)
 
     # ------------------------------------------------------------------
@@ -232,7 +257,12 @@ class DataParallelStep:
             return shard_batch(val.movedim(1, 0), mesh).movedim(0, 1)
         return shard_batch(val, mesh)
 
-    def _dispatch(self, data, label, scan):
+    def _run_eagerly(self, data, label):
+        """One call's step run eagerly, op by op, on the same static
+        buffers and the same device scales: what a replay is held to."""
+        return self._dispatch(data, label, scan=False, eager=True)
+
+    def _dispatch(self, data, label, scan, eager=False):
         tupled = isinstance(data, (tuple, list))
         dval = tuple(self._prep(d, scan) for d in data) if tupled \
             else self._prep(data, scan)
@@ -251,40 +281,123 @@ class DataParallelStep:
         lrs = [_f32(v) for v in
                self._opt._get_lrs(list(range(len(self._trainable))))]
         self._resync_masters()
-        if not scan:
-            return _wrap(self._one_step(dval, lval, t0, lrs))
-        losses = []
-        for j in range(lead):
-            d = tuple(None if v is None else v[j] for v in dval) if tupled \
-                else dval[j]
-            losses.append(self._one_step(d, lval[j], t0 + j, lrs))
-        return _wrap(torch.stack(losses))
+        self._reseed()
+        index, reps = self._scale_classes()
+        flat = (list(dval) if tupled else [dval]) + [lval]
+        if scan:
+            steps = [[None if v is None else v[j] for v in flat]
+                     for j in range(lead)]
+        else:
+            steps = [flat]
+        entry = self._entry(scan, tupled, dval, lval, index, steps[0])
+        run = entry.run_eager if eager else entry
+        losses = [run(step + [self._scale_values(reps, lrs, t0 + j)])[0]
+                  for j, step in enumerate(steps)]
+        return _wrap(torch.stack(losses) if scan else losses[0])
 
-    def _one_step(self, dval, lval, t, lrs):
+    def _reseed(self):
+        """The step's generator, seeded at the first call and after every
+        ``mx.random.seed`` (each rank its own stream)."""
+        if self._gen is None:
+            self._gen = torch.Generator(device=self._device())
+        epoch = _random.seed_epoch()
+        if epoch != self._rng_epoch:
+            rank = self._mesh.rank if self._mesh is not None else 0
+            self._gen.manual_seed(_random.draw_seed() + rank)
+            self._rng_epoch = epoch
+
+    def _scale_classes(self):
+        """Each slot's entry in the step's device scales, and one slot of
+        each entry: slots that share a rate multiplier and an update dtype
+        share an entry."""
+        opt = self._opt
+        entries, index, reps = {}, [], []
+        for slot, dtype in enumerate(self._upd_dtypes):
+            k = (opt._multiplier_for(slot, opt.lr_mult, "lr_mult"), dtype)
+            if k not in entries:
+                entries[k] = len(reps)
+                reps.append(slot)
+            index.append(entries[k])
+        return tuple(index), reps
+
+    def _scale_values(self, reps, lrs, t):
+        """The device scales' values for step ``t`` (a host tensor)."""
+        return torch.tensor([self._opt._fused_scale(lrs[s], t,
+                                                    self._upd_dtypes[s])
+                             for s in reps], dtype=torch.float32)
+
+    def _entry(self, scan, tupled, dval, lval, index, example):
+        """The captured step of this call's key, made (and reported to the
+        recompile detector) on a miss or after a parameter's tensor was
+        replaced."""
+        sig = lambda v: None if v is None else (tuple(v.shape), str(v.dtype))
+        key = ("scan" if scan else "call",
+               tuple(sig(d) for d in dval) if tupled else sig(dval),
+               sig(lval), index)
+        storage = storage_key([p._data._data for p in self._params])
+        hit = self._cache.get(key)
+        if hit is not None and hit[1] == storage:
+            return hit[0]
+        sig_d = lambda v: None if v is None else {"shape": list(v.shape),
+                                                  "dtype": str(v.dtype)}
+        telemetry.record_compile(
+            "DataParallelStep[%x]" % id(self),
+            {"mode": "scan" if scan else "call",
+             "data": [sig_d(d) for d in dval] if tupled else sig_d(dval),
+             "label": sig_d(lval)})
+        device = self._device()
+        if self._pool is None:
+            self._pool = new_pool(device)
+        n_entries = max(index) + 1 if index else 0
+        scales = torch.empty(n_entries, dtype=torch.float32, device=device)
+
+        def body(inputs):
+            *data, label, values = inputs
+            return [self._one_step(tuple(data) if tupled else data[0], label,
+                                   DeviceScales(values, index))]
+        gens = (self._gen,) if device.type == "cuda" else ()
+        entry = Captured(body, example + [scales], pool=self._pool,
+                         generators=gens)
+        self._cache[key] = (entry, storage)
+        return entry
+
+    def _one_step(self, dval, lval, scales):
         mesh = self._mesh
         n = mesh.size if mesh is not None else 1
         args = [None if d is None else _wrap(d) for d in dval] \
             if isinstance(dval, tuple) else [_wrap(dval)]
-        gen = torch.Generator(device=self._device())
-        gen.manual_seed(_random.draw_seed() + (mesh.rank if mesh else 0))
         stats = cross_rank_batch_stats(mesh.group, n) if n > 1 \
             else contextlib.nullcontext()
-        with autograd.record(), _random.generator_scope(gen), stats:
-            out = self._net(*args)
-            loss = self._loss(out, _wrap(lval))
-            loss_val = loss._data.mean()
-        weights = [self._params[i]._data._data for i in self._trainable]
-        grads = torch.autograd.grad(loss_val, weights, allow_unused=True)
+        holders = [self._params[i]._data for i in self._trainable]
+        weights = [h._data for h in holders]
+        # the forward reads fresh leaves on the weights' storage: their
+        # gradient nodes are made here, on this step's stream, whatever
+        # graph a caller keeps alive around the parameters' own tensors
+        # (a node made on the legacy default stream would make the
+        # backward wait on that stream, which a capture cannot hold)
+        leaves = [w.detach().requires_grad_() for w in weights]
+        for h, leaf in zip(holders, leaves):
+            h._data = leaf
+        try:
+            with autograd.record(), _random.generator_scope(self._gen), \
+                    stats:
+                out = self._net(*args)
+                loss = self._loss(out, _wrap(lval))
+                loss_val = loss._data.mean()
+            grads = torch.autograd.grad(loss_val, leaves, allow_unused=True)
+        finally:
+            for h, w in zip(holders, weights):
+                h._data = w
         grads = [torch.zeros_like(w) if g is None else g
                  for g, w in zip(grads, weights)]
         loss_val = loss_val.detach()
         with torch.no_grad():
-            self._update(weights, grads, t, lrs)
+            self._update(weights, grads, scales)
             if n > 1:
                 loss_val = _sum(loss_val, mesh) / n
         return loss_val
 
-    def _update(self, weights, grads, t, lrs):
+    def _update(self, weights, grads, scales):
         mesh = self._mesh
         n = mesh.size if mesh is not None else 1
         opt = self._opt
@@ -301,8 +414,8 @@ class DataParallelStep:
                   for s in group]
             gs = [grads[s] for s in group]
             slots = [list(c) for c in zip(*states)] if states[0] else []
-            opt._step(ws, gs, slots, [lrs[s] for s in group],
-                      opt._get_wds(group), [t] * len(group), True)
+            opt._step(ws, gs, slots, None, opt._get_wds(group), None, True,
+                      scales.pick(group))
             if mp:
                 for s, master in zip(group, ws):
                     weights[s].copy_(master)
@@ -311,11 +424,14 @@ class DataParallelStep:
             if not self._shard_slots[s]:
                 continue
             new_w, new_st = zero_sharded_update(
-                self._steps[s], weights[s], grads[s], self._opt_states[s], t,
-                lrs[s], shape=self._shard_meta[s], mp=self._mp_slots[s],
-                axis_size=self._shard_n, mesh=mesh, average=True)
+                self._steps[s], weights[s], grads[s], self._opt_states[s],
+                None, None, shape=self._shard_meta[s], mp=self._mp_slots[s],
+                axis_size=self._shard_n, mesh=mesh, average=True,
+                scale=scales.value(scales.index[s], torch.float32))
             weights[s].copy_(new_w)
-            self._opt_states[s] = new_st
+            # in place: a captured step reads and writes these addresses
+            for leaf, new in zip(self._opt_states[s], new_st):
+                leaf.copy_(new)
             if self._mp_slots[s]:
                 self._note_written(s)
 

@@ -6,8 +6,10 @@ stream behind ``mx.random.seed``.  Here the state is one
 last ``seed()`` (0 before any).  The two packages draw different numbers
 from the same seed; tests that compare them carry weights across.
 ``generator_scope`` lends one generator to the ops of a scope (the
-data-parallel step's per-step dropout stream), and ``draw_seed`` takes a
-seed for it from the host generator.
+data-parallel step's dropout stream), ``draw_seed`` takes a seed for it
+from the host generator, and ``seed_epoch`` counts the ``seed()`` calls,
+so that an owner of its own generator reseeds it after a new
+``mx.random.seed``, as the JAX package's step draws a new key then.
 """
 from __future__ import annotations
 
@@ -16,13 +18,15 @@ import threading
 
 import torch
 
-__all__ = ["seed", "generator", "generator_scope", "draw_seed"]
+__all__ = ["seed", "generator", "generator_scope", "draw_seed",
+           "seed_epoch"]
 
 
 class _RngState:
     def __init__(self):
         self.lock = threading.Lock()
         self.seed = 0
+        self.epoch = 0
         self.generators = {}       # torch.device -> torch.Generator
 
 
@@ -40,6 +44,7 @@ _LENT = _Lent()
 def seed(seed_state: int, ctx="all") -> None:
     """Seed every device's generator (``ctx="all"``) or one context's."""
     with _STATE.lock:
+        _STATE.epoch += 1
         if ctx == "all":
             _STATE.seed = int(seed_state)
             for g in _STATE.generators.values():
@@ -79,3 +84,8 @@ def generator_scope(gen: torch.Generator):
 def draw_seed() -> int:
     """A seed drawn from the host generator (no device is touched)."""
     return int(torch.randint(0, 2 ** 62, (), generator=generator("cpu")))
+
+
+def seed_epoch() -> int:
+    """The number of ``seed()`` calls so far."""
+    return _STATE.epoch

@@ -6,12 +6,17 @@ quarantined bucket degrades a batch onto a cover of smaller ones
 (:func:`plan_buckets`); :func:`pad_batch` zero-pads rows up to the
 bucket.  :class:`AotModel` holds the model function and the bucket menu.
 Where the JAX package AOT-compiles one executable per bucket,
-:meth:`AotModel.compile_all` runs one warm-up forward per bucket at
-start, which makes cuDNN pick its algorithms and the allocator settle
-before the first request.  Each warm-up is reported to the telemetry
-recompile detector under ``serve.<name>.b<N>``, so a later warm-up (a
-steady-state "recompile") shows in ``compile_deltas``.  :meth:`run`
-refuses a bucket or a shape outside the warmed menu.
+:meth:`AotModel.compile_all` captures one CUDA graph per bucket
+(``cuda_graph.Captured``: a warm-up forward, then the capture), the
+largest bucket first and all from one memory pool, so that the smaller
+buckets reuse the largest one's memory.  Each capture is reported to the
+telemetry recompile detector under ``serve.<name>.b<N>``, so a later one
+(a steady-state "recompile") shows in ``compile_deltas``.
+:meth:`AotModel.run` copies the padded batch into the bucket's static
+input, replays the graph and returns a fresh output; it refuses a bucket
+or a shape outside the captured menu.  On the CPU each run calls the
+model on the same static input, without a graph.  ``from_exported`` (the
+JAX package's StableHLO artifacts) waits: the port has no such artifact.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 from .. import autograd, telemetry
 from ..base import MXNetError, torch_dtype
 from ..context import Context, current_context
+from ..cuda_graph import Captured, new_pool
 from ..ndarray.ndarray import NDArray, _wrap
 
 __all__ = ["pick_bucket", "plan_buckets", "pad_batch", "AotModel"]
@@ -86,7 +92,8 @@ class AotModel:
     ``fn(x)`` takes a ``(B,) + feature_shape`` tensor on ``ctx``'s device
     and returns a tensor whose first axis is ``B``.  It runs under
     ``torch.inference_mode()`` in predict mode, with ``ctx``'s CUDA device
-    current, on whichever thread calls :meth:`run`.
+    current, on the thread that calls :meth:`compile_all`, where it is
+    captured (on the card; on the CPU it runs on each :meth:`run`).
     """
 
     def __init__(self, fn, feature_shape=(), dtype="float32", name="model",
@@ -97,7 +104,8 @@ class AotModel:
         self.name = _unique_name(str(name))
         self.ctx = ctx if ctx is not None else current_context()
         self.device = self.ctx.torch_device
-        self._warm = set()
+        self._graphs = {}       # bucket -> Captured
+        self._pool = None
 
     @classmethod
     def from_block(cls, net, feature_shape, dtype="float32", name="model"):
@@ -116,18 +124,34 @@ class AotModel:
         return cls(fn, feature_shape=feature_shape, dtype=dtype, name=name,
                    ctx=ctx)
 
+    @classmethod
+    def from_exported(cls, *args, **kwargs):
+        raise MXNetError("AotModel.from_exported reads the JAX package's "
+                         "StableHLO artifacts, which the port has no "
+                         "counterpart of; it waits (ROADMAP.md, queue 1, "
+                         "'Compiled-execution waits')")
+
+    @property
+    def buckets(self):
+        return sorted(self._graphs)
+
     def compile_all(self, buckets: Sequence[int]):
-        """Warm up one forward per bucket (idempotent per bucket) and
-        report each to the recompile detector."""
-        for b in sorted(set(int(b) for b in buckets)):
-            if b in self._warm:
+        """Capture one graph per bucket (idempotent per bucket), the
+        largest first, and report each to the recompile detector."""
+        if self._pool is None:
+            self._pool = new_pool(self.device)
+        for b in sorted(set(int(b) for b in buckets), reverse=True):
+            if b in self._graphs:
                 continue
             t0 = time.perf_counter()
-            x = onp.zeros((b,) + self.feature_shape, self.dtype)
-            self._call(x)
+            shape = (b,) + self.feature_shape
+            graph = Captured(self._body, [torch.empty(
+                shape, dtype=torch_dtype(self.dtype), device=self.device)],
+                pool=self._pool)
+            self._call(graph, onp.zeros(shape, self.dtype))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            self._warm.add(b)
+            self._graphs[b] = graph
             dur_ms = round((time.perf_counter() - t0) * 1e3, 3)
             telemetry.record_compile(
                 "serve.%s.b%d" % (self.name, b),
@@ -137,25 +161,28 @@ class AotModel:
                             model=self.name)
         return self
 
-    def _call(self, x):
-        xt = torch.as_tensor(x).to(self.device,
-                                   dtype=torch_dtype(self.dtype))
+    def _body(self, inputs):
         with torch.inference_mode(), autograd.predict_mode():
-            if self.device.type == "cuda":
-                with torch.cuda.device(self.device):
-                    return self._fn(xt)
-            return self._fn(xt)
+            return [self._fn(inputs[0])]
+
+    def _call(self, graph, x):
+        """Copy the batch (host or device) into ``graph``'s static input
+        and run it; the output tensor."""
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                return graph([torch.as_tensor(x)])[0]
+        return graph([torch.as_tensor(x)])[0]
 
     def run(self, bucket: int, x):
         """Run one padded bucket batch (numpy or tensor) and return the
-        output tensor.  A bucket outside the warmed menu, or a batch of
+        output tensor.  A bucket outside the captured menu, or a batch of
         another shape, is an error."""
         bucket = int(bucket)
-        if bucket not in self._warm:
-            raise MXNetError("AotModel %r: bucket %d was never warmed up"
+        if bucket not in self._graphs:
+            raise MXNetError("AotModel %r: bucket %d was never captured"
                              % (self.name, bucket))
         if tuple(x.shape) != (bucket,) + self.feature_shape:
             raise MXNetError("AotModel %r: batch shape %r is not bucket %d's"
                              " %r" % (self.name, tuple(x.shape), bucket,
                                       (bucket,) + self.feature_shape))
-        return self._call(x)
+        return self._call(self._graphs[bucket], x)

@@ -17,13 +17,16 @@ envelope:
   quarantined, and batches degrade onto smaller buckets.
 * **Health states** ``STARTING -> READY -> DEGRADED -> DRAINING``.
 
-``start()`` warms every bucket up (``AotModel.compile_all``) on the
-dispatcher thread before it admits a request, so neither the first cuDNN
-algorithm choice nor the creation of that thread's cuDNN and cuBLAS
-handles lands inside a request's deadline.  The dispatcher calls the model
-through ``AotModel.run``, which enters ``torch.inference_mode()``,
-predict mode and the model's CUDA device on that thread itself: all three
-are thread-local.  The JAX package's chaos injection points and flight
+``start()`` captures one CUDA graph a bucket (``AotModel.compile_all``:
+a warm-up forward, then the capture) on the dispatcher thread before it
+admits a request, so neither the first cuDNN algorithm choice, nor the
+creation of that thread's cuDNN and cuBLAS handles, nor a capture lands
+inside a request's deadline; the capture is thread-local, so the other
+threads may run meanwhile.  The dispatcher calls the model through
+``AotModel.run``, which copies the batch into the bucket's static input
+and replays its graph with the model's CUDA device current on that
+thread.  A bucket whose replay fails is retried and quarantined like any
+failing model call.  The JAX package's chaos injection points and flight
 recorder dumps are not ported yet.
 """
 from __future__ import annotations

@@ -716,3 +716,179 @@ def test_lstm_and_gru_layers_on_cuda_match_cpu():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _small_bert_step_inputs(mx, vocab, B, S, P):
+    import numpy as onp
+    rs = onp.random.RandomState(0)
+    gpu = mx.gpu(0)
+    x = mx.nd.array(rs.randint(0, vocab, (B, S)).astype("float32"), ctx=gpu)
+    vl = mx.nd.array(onp.array([S, 70], "int32"), ctx=gpu, dtype="int32")
+    mp = mx.nd.array(onp.sort(rs.choice(70, (B, P), replace=False), 1)
+                     .astype("int32"), ctx=gpu, dtype="int32")
+    y = mx.nd.array(rs.randint(0, vocab, (B, P)).astype("float32"), ctx=gpu)
+    return (x, None, None, vl, mp), y
+
+
+@pytest.mark.cuda
+def test_captured_step_matches_eager_and_credits_launches(monkeypatch):
+    """On the card: a small bf16 BERT through DataParallelStep (Adam, a
+    rate halved every step), 4 calls through its CUDA graph (a warm-up
+    and capture, then 3 replays) against 4 calls of the same body run
+    eagerly from the same weights: the same bits, losses and weights; the
+    attention and LayerNorm launches credited per replay, as many as the
+    eager steps launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import bert_small
+    monkeypatch.setenv("MXNET_FUSED_LAYERNORM", "1")
+    layers, vocab, B, S, P = 2, 97, 2, 128, 5
+    data, y = _small_bert_step_inputs(mx, vocab, B, S, P)
+    mx.random.seed(0)
+    net = bert_small(num_layers=layers, units=64, hidden_size=128,
+                     vocab_size=vocab, max_length=S, dropout=0.0,
+                     use_pooler=False, use_decoder=True)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    with mx.autograd.predict_mode():
+        net(*data)
+    net.cast("bfloat16")
+    params = sorted(net.collect_params().items())
+    w0 = [p.data().astorch().clone() for _, p in params]
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loss(out, lab):
+        return ce(out[1].reshape(-1, vocab), lab.reshape(-1))
+
+    def counts():
+        return (TA.BSHD_LAUNCHES, TA.BSHD_BWD_LAUNCHES, TL.LAUNCHES,
+                TL.BWD_LAUNCHES)
+
+    def run(eager):
+        for (_, p), w in zip(params, w0):
+            p.set_data(w)
+        sched = mx.lr_scheduler.FactorScheduler(step=1, factor=0.5)
+        step = mx.parallel.DataParallelStep(
+            net, loss, mx.optimizer.Adam(learning_rate=1e-3,
+                                         lr_scheduler=sched), mesh=None)
+        before = counts()
+        call = step._run_eagerly if eager else step
+        losses = [call(data, y).astorch() for _ in range(4)]
+        torch.cuda.synchronize()
+        after = counts()
+        assert [e.graphed for e, _ in step._cache.values()] == [not eager]
+        return losses, [p.data().astorch().clone() for _, p in params], \
+            [a - b for a, b in zip(after, before)]
+    g_losses, g_w, g_counts = run(False)
+    e_losses, e_w, e_counts = run(True)
+    n_ln = 2 * layers + 2
+    assert g_counts == e_counts == [4 * layers, 4 * layers, 4 * n_ln,
+                                    4 * n_ln]
+    assert len({float(v.float()) for v in g_losses}) > 1
+    for a, b in zip(g_losses, e_losses):
+        assert torch.equal(a, b)
+    for a, b in zip(g_w, e_w):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_captured_bucket_matches_eager_and_credits_launches(monkeypatch):
+    """On the card: an AotModel of a LayerNorm net captured per bucket;
+    a replay gives the bits of its body run eagerly and each replay is
+    credited one LayerNorm launch; outputs are fresh tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as onp
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.serve import AotModel
+    monkeypatch.setenv("MXNET_FUSED_LAYERNORM", "1")
+    nn = mx.gluon.nn
+    net = nn.HybridSequential(prefix="cudagraph_ln_")
+    with net.name_scope():
+        net.add(nn.Dense(64, in_units=32), nn.LayerNorm(in_channels=64),
+                nn.Dense(10, in_units=64))
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    model = AotModel.from_block(net, (32,), name="cudagraph_ln")
+    model.compile_all([1, 4])
+    assert all(g.graphed for g in model._graphs.values())
+    x = onp.random.RandomState(0).randn(4, 32).astype("float32")
+    before = TL.LAUNCHES
+    a, b = model.run(4, x), model.run(4, x)
+    torch.cuda.synchronize()
+    assert TL.LAUNCHES == before + 2
+    assert a.data_ptr() != b.data_ptr() and torch.equal(a, b)
+    want = model._graphs[4].run_eager([torch.as_tensor(x)])[0]
+    assert torch.equal(a, want)
+
+
+@pytest.mark.cuda
+def test_dropout_masks_advance_across_replays_and_restart_with_seed():
+    """On the card: dropout inside a captured step (lr 0, so only the
+    masks move the loss): each replay draws new masks, and after the same
+    mx.random.seed the replays draw the same masks again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as onp
+    import mxnet_tpu_torch as mx
+    nn = mx.gluon.nn
+    x = onp.random.RandomState(0).randn(8, 5).astype("float32")
+    y = onp.random.RandomState(1).randn(8, 5).astype("float32")
+    net = nn.HybridSequential(prefix="cudagraph_drop_")
+    with net.name_scope():
+        net.add(nn.Dense(64, in_units=5), nn.Dropout(0.5),
+                nn.Dense(5, in_units=64))
+    net.initialize(mx.init.One(), ctx=mx.gpu(0))
+    L = mx.gluon.loss.L2Loss()
+    step = mx.parallel.DataParallelStep(
+        net, lambda o, l: L(o, l), mx.optimizer.SGD(learning_rate=0.0))
+    mx.random.seed(3)
+    first = [float(step(x, y).asnumpy()) for _ in range(4)]
+    assert [e.graphed for e, _ in step._cache.values()] == [True]
+    mx.random.seed(3)
+    again = [float(step(x, y).asnumpy()) for _ in range(4)]
+    assert len(set(first)) == 4
+    # the first call warmed up eagerly: the replays after the seed repeat
+    # the first call's masks and the replays' after it
+    assert again == first
+
+
+@pytest.mark.cuda
+def test_device_scale_update_gives_the_bits_of_host_numbers_on_cuda():
+    """On the card: an optimizer step given its per-step scale as a 0-d
+    device tensor (what a captured step reads) gives the bits of the same
+    step given ``t`` and ``lr`` as numbers: SGD without momentum (the fp32
+    ``w + (-lr) g`` a fused multiply-add either way: ``addcmul`` against
+    ``alpha=``), with momentum, and Adam; float32, bfloat16, and bfloat16
+    with fp32 masters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.optimizer.optimizer import _f32, _leaves
+    dev = torch.device("cuda", 0)
+    g0 = torch.Generator(device=dev).manual_seed(5)
+    for name, kw in (("sgd", dict(learning_rate=0.1, wd=1e-4,
+                                  rescale_grad=0.5)),
+                     ("sgd", dict(learning_rate=0.1, momentum=0.9,
+                                  wd=1e-4)),
+                     ("adam", dict(learning_rate=1e-3, wd=1e-4,
+                                   rescale_grad=0.5))):
+        for mode in ("f32", "bf16", "bf16_mp"):
+            o = mx.optimizer.create(name, multi_precision=mode == "bf16_mp",
+                                    **kw)
+            dtype = torch.float32 if mode == "f32" else torch.bfloat16
+            w = torch.randn(1 << 20, device=dev, generator=g0).to(dtype)
+            g = torch.randn(1 << 20, device=dev, generator=g0).to(dtype)
+            state = _leaves(o.create_state_multi_precision(
+                0, mx.nd.array(w, ctx=mx.gpu(0), dtype=w.dtype)))
+            if mode == "bf16_mp":
+                w, g, state = state[0], g.float(), state[1:]
+            step = o.make_step(0)
+            for t, lr in ((1, 0.1), (2, 0.05), (7, 0.0371)):
+                want = step(w, g, t, lr, *state)
+                scale = torch.tensor(o._fused_scale(_f32(lr), t, w.dtype),
+                                     device=dev)
+                got = step(w, g, None, None, *state, scale=scale)
+                for a, b in zip(got, want):
+                    assert a.dtype == b.dtype and torch.equal(a, b), \
+                        (name, mode, t)
+                w, state = want[0], list(want[1:])

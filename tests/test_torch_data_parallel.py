@@ -473,9 +473,10 @@ def test_waiting_knobs_raise_naming_the_roadmap():
 
 
 def test_dropout_draws_a_generator_a_step_from_mx_random():
-    """Dropout inside the step draws from a generator seeded each step
-    from ``mx.random``: the same seed gives the same steps, and the next
-    step draws another mask."""
+    """Dropout inside the step draws from the step's generator, seeded
+    from ``mx.random`` at the first call and after each ``mx.random.seed``
+    and advanced by every step: the same seed gives the same steps, and
+    the next step draws another mask."""
     import mxnet_tpu_torch as mxt
     nn = mxt.gluon.nn
     x = onp.random.RandomState(0).randn(8, 5).astype("float32")
