@@ -247,19 +247,19 @@ _INSTRUMENT = [
      "    fence_regs(st);\n    long long c3 = clock64(); ph[2] += c3 - c2;\n"
      "    wgmma_wait<0>();\n    fence_regs(dpt);\n"
      "    long long c4 = clock64(); ph[3] += c4 - c3;\n"),
-    ("      acc_to_a(dsf[kk], &dpt[8 * kk], &dpt[8 * kk + 4]);\n    }\n",
-     "      acc_to_a(dsf[kk], &dpt[8 * kk], &dpt[8 * kk + 4]);\n    }\n"
+    ("      acc_to_a<DT>(dsf[kk], &dpt[8 * kk], &dpt[8 * kk + 4]);\n    }\n",
+     "      acc_to_a<DT>(dsf[kk], &dpt[8 * kk], &dpt[8 * kk + 4]);\n    }\n"
      "    long long c5 = clock64(); ph[4] += c5 - c4;\n"),
     ("    // this tile's buffer is free once all four warps arrive\n",
      "    long long c6 = clock64(); ph[5] += c6 - c5;\n"
      "    // this tile's buffer is free once all four warps arrive\n"),
-    ("    if (lane == 0) mbar_arrive(empty0 + 8 * s);\n  }\n\n  bf16* dkp",
+    ("    if (lane == 0) mbar_arrive(empty0 + 8 * s);\n  }\n\n  T* dkp",
      "    if (lane == 0) mbar_arrive(empty0 + 8 * s);\n"
      "    ph[6] += clock64() - c6;\n"
      "  }\n  if (tid == 0) {\n    for (int i = 0; i < 7; ++i)\n"
      "      atomicAdd(&g_phase[i], ph[i]);\n"
      "    atomicAdd(&g_phase[7], (unsigned long long)n_tiles);\n  }\n\n"
-     "  bf16* dkp"),
+     "  T* dkp"),
 ]
 _MASKED_LOOP = [("    if (tile_unmasked<BR>(p, kvlen, q0, k0)) {",
                  "    if (false) {"),

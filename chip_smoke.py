@@ -12,7 +12,8 @@ and PyTorch built for CUDA.  It:
    (one ``nvcc`` per source, in parallel), prints the build time and each
    kernel's registers and spills from ``-Xptxas -v`` (a spill in a Hopper
    attention kernel, forward or backward, fails the run), and the blocks
-   an SM and shared memory a block of the bf16 attention kernels;
+   an SM and shared memory a block of the Hopper attention kernels (bf16
+   and f16);
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card and times kernel, plain version and the memory-bandwidth bound with
    CUDA events (L2 flushed between launches): the epilogue forward at the
@@ -51,7 +52,12 @@ and PyTorch built for CUDA.  It:
    T = 2048, float32, and the edges of the bf16 kernel's tile ring: Tk of
    1, 63 and 129, kv_lens on tile edges and 0, causal with Tq != Tk, D 128
    at T 1024, D 80; LayerNorm also at 1, 9 and 1057 rows, C 2048 and C
-   1001), times them beside their bounds and the one PyTorch
+   1001; float16 at BERT's shape, at T 2048 D 128 causal and
+   with segments, ragged T and kv_lens on tile edges, and D 160, 192 and
+   256 in float32, bfloat16 and float16 with the masks and ragged T, and
+   at BERT-base's width as 4 heads of 192 and 3 of 256: ``WIDE_CASES``,
+   for the backward and the (B, T, H, D) entries too), times them beside
+   their bounds and the one PyTorch
    call that computes the same function (scaled_dot_product_attention,
    layer_norm; yardsticks the port never calls), and times the kernel and
    the composed attention side by side at S = 64 and 128;
@@ -88,8 +94,9 @@ and PyTorch built for CUDA.  It:
    views, side by side (the data of the layer's choice); then the public
    ops under autograd (``nd.flash_attention_bshd`` and
    ``nd.flash_attention`` on transposed views, at BERT's shape and at T
-   2048, D 128, causal), each launch counted from 0, the two ops' outputs
-   and gradients held to each other;
+   2048, D 128, causal, in bf16 and in float16, and at D 192 and 256 at
+   BERT-base's width), each variant's launches counted from 0, the two
+   ops' outputs and gradients held to each other;
 10. BERT training phase (``MXNET_FUSED_LAYERNORM=1``): BERT-base as in 7,
    bf16, trained through ``autograd.record``, ``backward`` and
    ``gluon.Trainer`` (Adam, lr 1e-4, bf16 state, as bench.py's config-5
@@ -101,6 +108,22 @@ and PyTorch built for CUDA.  It:
    for every one the batch reaches), and one f32 step on the card against
    the same step on the CPU (batch 2, S 128, same weights), with the
    CPU's own 1-thread-vs-N-thread floor printed beside it;
+10b. mixed-precision phase (``bert_amp_phase``): BERT-base's MLM
+   step under ``contrib.amp``: float32 Xavier weights, ``amp.init``,
+   ``Adam(learning_rate=1e-4)``, ``amp.init_trainer`` and
+   ``amp.scale_loss`` around ``backward``, as GluonNLP's fp16 pretraining
+   runs it, at 24 x 512: 13 steps under ``amp.init("float16")`` (the step
+   ms the median of the last 10; the loss scale after each step and the
+   steps skipped for overflow printed), then 3 under ``"bfloat16"``.  It
+   checks 12 + 12 (B, T, H, D) attention launches a step in the target
+   dtype (a spy reads the dtype the entry gets) and 26 + 26 float32
+   LayerNorm launches, finite and falling losses over the steps taken,
+   float32 weights and Adam state, and one step of a 2-layer BERT on the
+   card against the same step on the CPU (``AMP_PARITY_*``, the CPU's
+   1-thread floor printed beside it).  Then the wide head dims
+   (``wide_encoder_phase``): BERT-base's network with 4 heads of 192 and
+   3 of 256, bf16, 24 x 512, one forward and one Adam step each, every
+   launch count checked and the loss finite;
 11. data-parallel phase (``dp_phases``; it joins a one-rank NCCL group
    with ``mx.parallel.initialize()``, the only group one card allows, and
    leaves it at the end): one f32 ``parallel.DataParallelStep`` of a
@@ -256,8 +279,12 @@ BERT_PARITY_PRED = 19
 # below 1e-5, so an ulp count alone would not do); mu and rstd within 1e-5
 # relative.
 ATTN_F32_O, ATTN_F32_LSE, ATTN_BF16_REL = 2e-5, 1e-5, 2e-2
+# float16 keeps three more bits of mantissa than bf16, so its roundings
+# (the same points) move o an eighth as far: 2e-2 / 4 leaves a factor of 2
+ATTN_F16_REL = 5e-3
 LN_F32_ABS, LN_STAT_REL = 1e-5, 1e-5
-BF16_PEAK_OPS = 989e12                  # H100 SXM tensor cores, dense
+BF16_PEAK_OPS = 989e12                  # H100 SXM tensor cores, dense (bf16
+                                        # and fp16 alike)
 # The backward kernels against their plain versions.  Attention: dq, dk and
 # dv within 1e-5 of the largest |plain value| in f32 (fp32 sums in another
 # order; 1.7e-7 measured) and 1e-2 in bf16 (p and ds are rounded to bf16
@@ -268,6 +295,8 @@ BF16_PEAK_OPS = 989e12                  # H100 SXM tensor cores, dense
 # in another order; 6e-7 measured).  Both kernels must give the same bits
 # on a second run (no atomics).
 ATTN_BWD_F32_REL, ATTN_BWD_BF16_REL, LN_SUM_REL = 1e-5, 1e-2, 1e-5
+# float16: a quarter of bf16's tolerance (its ulp is an eighth)
+ATTN_BWD_F16_REL = 2.5e-3
 # dq and dk with one key a row (0 in exact arithmetic): within this
 # fraction of the largest |dv|
 ATTN_BWD_ONE_KEY_REL = 1e-5
@@ -904,7 +933,55 @@ ATTN_CASES = [
      False),
     ("d128_t1024", 1, 12, 1024, 1024, 128, "bfloat16", False, None, False),
     ("d80", 2, 3, 256, 256, 80, "bfloat16", False, (256, 100), False),
+] + [
+    # float16 on the Hopper kernels; D 160 (padded to 192), 192 and 256 in
+    # every dtype (WIDE_CASES): the Hopper kernels for the 16-bit types, the
+    # scalar ones for float32
+    ("f16_bert", 24, 12, 512, 512, 64, "float16", False, "bench", False),
+    ("f16_t2048_d128_causal", 1, 16, 2048, 2048, 128, "float16", True, None,
+     False),
+    ("f16_segments_ragged", 2, 12, 200, 200, 64, "float16", False, None,
+     True),
+    ("f16_lens_on_tile_edges", 3, 4, 256, 256, 128, "float16", False,
+     (64, 128, 0), False),
 ]
+# The wide head dims at BERT-base's width (768 units as 4 heads of 192 and
+# 3 of 256: the attention layer's work and bytes are BERT-base's), bf16 as
+# the wide encoders run them, then each D in each dtype with the masks and
+# ragged T; the same cases for both entries and both directions
+WIDE_CASES = [
+    ("d192_bert", 24, 4, 512, 512, 192, "bfloat16", False, "bench", False),
+    ("d256_bert", 24, 3, 512, 512, 256, "bfloat16", False, "bench", False),
+] + [
+    ("d%d_%s" % (D, dt), 2, 3, Tq, Tk, D, dt, causal, lens, seg)
+    for dt in ("float32", "bfloat16", "float16")
+    for D, Tq, Tk, causal, lens, seg in (
+        (160, 200, 200, False, (200, 77), False),
+        (192, 130, 129, True, None, True),
+        (256, 100, 190, False, (0, 129), False))
+]
+ATTN_CASES += WIDE_CASES
+
+
+def _o_rel_tol(torch, dtype):
+    """The forward's tolerance on o for a 16-bit dtype, relative to the
+    largest |plain value|."""
+    return ATTN_F16_REL if dtype == torch.float16 else ATTN_BF16_REL
+
+
+def _bwd_rel_tol(torch, dtype):
+    """The backward's tolerance on dq, dk and dv, relative to the largest
+    |plain value|."""
+    return {torch.float32: ATTN_BWD_F32_REL,
+            torch.float16: ATTN_BWD_F16_REL}.get(dtype, ATTN_BWD_BF16_REL)
+
+
+def _peak_ops(torch, dtype, card):
+    """The card's peak rate for operands of ``dtype``: the tensor cores'
+    for bf16 and fp16 (whatever kernel runs), fp32 FMAs for float32 (TF32
+    off)."""
+    return BF16_PEAK_OPS if dtype in (torch.bfloat16, torch.float16) \
+        else fp32_ops_per_s(card)
 
 
 def _bf16_ulp(torch, a, b):
@@ -966,32 +1043,41 @@ ATTN_BWD_CASES = [
      False),
     ("d128_t1024", 1, 12, 1024, 1024, 128, "bfloat16", False, None, False),
     ("d80", 2, 3, 256, 256, 80, "bfloat16", False, (256, 100), False),
-]
+    ("f16_bert", 24, 12, 512, 512, 64, "float16", False, "bench", False),
+    ("f16_t2048_d128_causal", 1, 16, 2048, 2048, 128, "float16", True, None,
+     False),
+    ("f16_segments_ragged", 2, 12, 200, 200, 64, "float16", False, None,
+     True),
+    ("f16_tk65_lens_64_0", 2, 3, 100, 65, 128, "float16", False, (64, 0),
+     False),
+] + WIDE_CASES
 # the Hopper attention kernels, which must not spill registers
 HOPPER_KERNELS = ("flash_fwd_hopper", "flash_bwd_q_hopper",
                   "flash_bwd_kv_hopper")
 
 
 def hopper_occupancy(torch, attention):
-    """Blocks an SM and shared memory a block of the bf16 forward and
-    backward kernels, as the CUDA runtime reports them for the built
-    kernels."""
+    """Blocks an SM and shared memory a block of the Hopper forward and
+    backward kernels (bf16 and f16, D 64 to 256), as the CUDA runtime
+    reports them for the built kernels."""
     import ctypes
     fwd = attention._kernel_fn("fwd_occupancy")
     bwd = attention._kernel_fn("bwd_occupancy")
-    for D in (64, 128):
-        out = (ctypes.c_int * 4)()
-        rc = fwd(D, out)
-        check(rc == 0, "flash_attention_fwd occupancy query failed: CUDA "
-              "error %d" % rc)
-        print("flash_fwd_hopper D %d: %d blocks an SM, %d bytes of shared "
-              "memory a block" % (D, out[0], out[1]))
-        rc = bwd(D, out)
-        check(rc == 0, "flash_attention_bwd occupancy query failed: CUDA "
-              "error %d" % rc)
-        print("flash_bwd_q_hopper D %d: %d blocks an SM, %d bytes of shared "
-              "memory a block; flash_bwd_kv_hopper D %d: %d blocks an SM, %d "
-              "bytes" % (D, out[0], out[1], D, out[2], out[3]))
+    for dt, code in (("bf16", 1), ("f16", 2)):
+        for D in (64, 128, 192, 256):
+            out = (ctypes.c_int * 4)()
+            rc = fwd(D, code, out)
+            check(rc == 0, "flash_attention_fwd occupancy query failed: "
+                  "CUDA error %d" % rc)
+            print("flash_fwd_hopper %s D %d: %d blocks an SM, %d bytes of "
+                  "shared memory a block" % (dt, D, out[0], out[1]))
+            rc = bwd(D, code, out)
+            check(rc == 0, "flash_attention_bwd occupancy query failed: "
+                  "CUDA error %d" % rc)
+            print("flash_bwd_q_hopper %s D %d: %d blocks an SM, %d bytes of "
+                  "shared memory a block; flash_bwd_kv_hopper %s D %d: %d "
+                  "blocks an SM, %d bytes" % (dt, D, out[0], out[1], dt, D,
+                                              out[2], out[3]))
 
 
 def attention_cases(torch, attention, card, flush, seed):
@@ -1028,7 +1114,8 @@ def attention_cases(torch, attention, card, flush, seed):
                                                                  lse_err))
             else:
                 o_rel = err / max(po.float().abs().max().item(), 1e-30)
-                check(o_rel <= ATTN_BF16_REL and lse_err <= ATTN_F32_LSE,
+                check(o_rel <= _o_rel_tol(torch, dtype)
+                      and lse_err <= ATTN_F32_LSE,
                       "%s: o rel err %.3g, max|lse err| %.3g"
                       % (what, o_rel, lse_err))
             if lens is not None and lens != "bench":
@@ -1057,8 +1144,7 @@ def attention_cases(torch, attention, card, flush, seed):
             keys = int(torch.clamp(kw["kv_lens"], 0, Tk).sum().item())
         nbytes = (2 * B * Tq + 2 * keys) * H * D * q.element_size() \
             + B * H * Tq * 4
-        peak = BF16_PEAK_OPS if dtype == torch.bfloat16 \
-            else fp32_ops_per_s(card)
+        peak = _peak_ops(torch, dtype, card)
         bound_ms = max(nbytes / bw, ops / peak) * 1e3
         row = {"case": name, "shape": [B, H, Tq, Tk, D], "dtype": dt,
                "causal": causal, "kv_lens": None if lens is None else
@@ -1218,8 +1304,7 @@ def attention_bwd_cases(torch, attention, card, flush, seed):
             torch.cuda.synchronize()
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   "%s: two runs differ" % what)
-            rel_tol = ATTN_BWD_F32_REL if q.dtype == torch.float32 \
-                else ATTN_BWD_BF16_REL
+            rel_tol = _bwd_rel_tol(torch, q.dtype)
             err = rel = 0.0
             for gname, a, b in zip(("dq", "dk", "dv"), got, want):
                 check(a.shape == b.shape and a.dtype == b.dtype,
@@ -1276,8 +1361,7 @@ def attention_bwd_cases(torch, attention, card, flush, seed):
         # the valid lengths; lse read
         nbytes = (4 * B * Tq + 4 * keys) * H * D * q.element_size() \
             + B * H * Tq * 4
-        peak = BF16_PEAK_OPS if q.dtype == torch.bfloat16 \
-            else fp32_ops_per_s(card)
+        peak = _peak_ops(torch, q.dtype, card)
         bound_ms = max(nbytes / bw, ops / peak) * 1e3
         row = {"case": name, "shape": [B, H, Tq, Tk, D], "dtype": dt,
                "causal": causal, "kv_lens": None if lens is None else
@@ -1393,6 +1477,20 @@ ATTN_BSHD_CASES = [
      False),
     ("lens_on_tile_edges", 3, 256, 256, 4, 64, "bfloat16", False,
      (64, 128, 0), True),
+    # float16 (the AMP path's layer: q, k and v views of the projection);
+    # the wide head dims at BERT-base's width and with the masks
+    ("f16_bert", 24, 512, 512, 12, 64, "float16", False, "bench", True),
+    ("f16_t2048_d128_causal", 1, 2048, 2048, 16, 128, "float16", True, None,
+     False),
+    ("d192_bert", 24, 512, 512, 4, 192, "bfloat16", False, "bench", True),
+    ("d256_bert", 24, 512, 512, 3, 256, "bfloat16", False, "bench", True),
+    ("d160_f16_lens", 2, 200, 200, 3, 160, "float16", False, (200, 77),
+     True),
+    ("d192_f32_causal", 2, 130, 129, 3, 192, "float32", True, None, False),
+    ("d256_f16_lens_0", 2, 100, 190, 3, 256, "float16", False, (0, 129),
+     False),
+    ("d256_f32_causal", 2, 256, 256, 2, 256, "float32", True, (256, 100),
+     True),
 ]
 
 
@@ -1428,8 +1526,7 @@ def _bshd_operands(torch, attention, gen, case, bench_lens):
 def _bwd_errors(torch, what, got, want, dtype):
     """max |got - want| and its ratio to the largest |plain value| over dq,
     dk and dv, checked against the backward's tolerance."""
-    rel_tol = ATTN_BWD_F32_REL if dtype == torch.float32 \
-        else ATTN_BWD_BF16_REL
+    rel_tol = _bwd_rel_tol(torch, dtype)
     err = rel = 0.0
     for gname, a, b in zip(("dq", "dk", "dv"), got, want):
         check(a.shape == b.shape and a.dtype == b.dtype,
@@ -1484,7 +1581,8 @@ def attention_bshd_cases(torch, attention, card, flush, seed):
                 # the scores are fp32 from bf16 inputs on both sides, so
                 # lse is held as in f32
                 o_rel = err / max(po.float().abs().max().item(), 1e-30)
-                check(o_rel <= ATTN_BF16_REL and lse_err <= ATTN_F32_LSE,
+                check(o_rel <= _o_rel_tol(torch, dtype)
+                      and lse_err <= ATTN_F32_LSE,
                       "%s: o rel err %.3g, max|lse err| %.3g" % (what, o_rel,
                                                                 lse_err))
             del po, plse
@@ -1538,8 +1636,7 @@ def attention_bshd_cases(torch, attention, card, flush, seed):
         keys = B * Tk if lens is None else \
             int(torch.clamp(kw["kv_lens"], 0, Tk).sum().item())
         size = q.element_size()
-        peak = BF16_PEAK_OPS if dtype == torch.bfloat16 \
-            else fp32_ops_per_s(card)
+        peak = _peak_ops(torch, dtype, card)
         # the (B, H, T, D) rows' counts: forward q, k, v read and o written
         # (k and v up to the valid lengths) and lse written, two products;
         # backward q, o, do, dq and k, v, dk, dv and lse, five products
@@ -1631,59 +1728,84 @@ def sublayer_side_by_side(torch, attention, card, flush, seed):
     return out
 
 
+# the public ops' cases by variant: (B, T, H, D, causal, kv_lens, dtype);
+# "bench" is bench.py's valid lengths
+PUBLIC_OP_CASES = {
+    "bf16": [(BERT_BATCH, BERT_SEQ, BERT_HEADS, BERT_UNITS // BERT_HEADS,
+              False, "bench", "bfloat16"), PUBLIC_OP_LONG + ("bfloat16",)],
+    "f16": [(BERT_BATCH, BERT_SEQ, BERT_HEADS, BERT_UNITS // BERT_HEADS,
+             False, "bench", "float16"), PUBLIC_OP_LONG + ("float16",)],
+    "d192": [(BERT_BATCH, BERT_SEQ, 4, 192, False, "bench", "bfloat16")],
+    "d256": [(BERT_BATCH, BERT_SEQ, 3, 256, False, "bench", "bfloat16")],
+}
+
+
 def public_op_phase(torch, mx, attention, seed, card):
     """The public attention ops through the user's entry points under
     ``autograd.record``: ``nd.flash_attention_bshd`` on (B, T, H, D)
-    arrays and ``nd.flash_attention`` on the same arrays transposed, at
+    arrays and ``nd.flash_attention`` on the same arrays transposed,
+    forward and backward, for each variant of ``PUBLIC_OP_CASES``: bf16 at
     BERT-base's shape and valid lengths and at (1, 2048, 16, 128) causal,
-    bf16, forward and backward.  The counts start from 0 just before and
-    are read just after; each op launches its own kernels once a case each
-    way, and the two ops' outputs and gradients agree."""
+    the same in float16, and D 192 and 256 at BERT-base's width.  The
+    counts start from 0 just before each variant and are read just after;
+    each op launches its own kernels once a case each way, and the two
+    ops' outputs and gradients agree.  Returns the launches by variant,
+    and the bf16 variant's at the top level."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 14)
     dev = torch.device("cuda", 0)
     gpu = mx.gpu(0)
     _, bench_lens, _ = bert_inputs(seed)
-    cases = [(BERT_BATCH, BERT_SEQ, BERT_HEADS, BERT_UNITS // BERT_HEADS,
-              False, bench_lens), PUBLIC_OP_LONG]
-    attention.LAUNCHES = attention.BWD_LAUNCHES = 0
-    attention.BSHD_LAUNCHES = attention.BSHD_BWD_LAUNCHES = 0
-    for B, T, H, D, causal, lens in cases:
-        what = "public attention ops %s" % ((B, T, H, D),)
-        q, k, v, do = (torch.randn((B, T, H, D), device=dev, generator=gen)
-                       .to(torch.bfloat16) for _ in range(4))
-        vl = None if lens is None else mx.nd.array(lens, ctx=gpu,
-                                                   dtype="int32")
-        results = []
-        for op, layout in ((mx.nd.flash_attention_bshd, lambda t: t),
-                           (mx.nd.flash_attention,
-                            lambda t: t.transpose(1, 2))):
-            args = [mx.nd.array(layout(t).clone(), ctx=gpu)
-                    for t in (q, k, v)]
-            for a in args:
-                a.attach_grad()
-            with mx.autograd.record():
-                out = op(*args, causal=causal, kv_lens=vl)
-            out.backward(mx.nd.array(layout(do), ctx=gpu))
-            results.append([layout(t.astorch()) for t in
-                            [out] + [a.grad for a in args]])
-        torch.cuda.synchronize()
-        for name, a, b in zip(("o", "dq", "dk", "dv"), *results):
-            check(bool(torch.isfinite(a).all()), "%s: non-finite %s"
-                  % (what, name))
-            err = (a.float() - b.float()).abs().max().item()
-            check(err <= ATTN_BWD_BF16_REL * b.float().abs().max().item(),
-                  "%s %s: the two ops differ by %.3g" % (what, name, err))
-        del q, k, v, do, results
-    launches = {"bshd_fwd": attention.BSHD_LAUNCHES,
-                "bshd_bwd": attention.BSHD_BWD_LAUNCHES,
-                "bhtd_fwd": attention.LAUNCHES,
-                "bhtd_bwd": attention.BWD_LAUNCHES}
-    check(set(launches.values()) == {len(cases)}, "public attention ops: "
-          "launches %s, want %d of each" % (launches, len(cases)))
-    print("public attention ops under autograd, %d cases: launches %s  (%s)"
-          % (len(cases), launches, card))
-    torch.cuda.empty_cache()
-    return launches
+    by_variant = {}
+    for variant, cases in PUBLIC_OP_CASES.items():
+        attention.LAUNCHES = attention.BWD_LAUNCHES = 0
+        attention.BSHD_LAUNCHES = attention.BSHD_BWD_LAUNCHES = 0
+        for B, T, H, D, causal, lens, dt in cases:
+            dtype = getattr(torch, dt)
+            what = "public attention ops %s %s" % ((B, T, H, D), dt)
+            q, k, v, do = (torch.randn((B, T, H, D), device=dev,
+                                       generator=gen).to(dtype)
+                           for _ in range(4))
+            vl = None if lens is None else mx.nd.array(
+                bench_lens if lens == "bench" else lens, ctx=gpu,
+                dtype="int32")
+            results = []
+            for op, layout in ((mx.nd.flash_attention_bshd, lambda t: t),
+                               (mx.nd.flash_attention,
+                                lambda t: t.transpose(1, 2))):
+                args = [mx.nd.array(layout(t).clone(), ctx=gpu)
+                        for t in (q, k, v)]
+                for a in args:
+                    a.attach_grad()
+                with mx.autograd.record():
+                    out = op(*args, causal=causal, kv_lens=vl)
+                out.backward(mx.nd.array(layout(do), ctx=gpu))
+                results.append([layout(t.astorch()) for t in
+                                [out] + [a.grad for a in args]])
+            torch.cuda.synchronize()
+            for name, a, b in zip(("o", "dq", "dk", "dv"), *results):
+                check(a.dtype == dtype, "%s: %s is %s" % (what, name,
+                                                          a.dtype))
+                check(bool(torch.isfinite(a).all()), "%s: non-finite %s"
+                      % (what, name))
+                err = (a.float() - b.float()).abs().max().item()
+                check(err <= _bwd_rel_tol(torch, dtype)
+                      * b.float().abs().max().item(),
+                      "%s %s: the two ops differ by %.3g" % (what, name, err))
+            del q, k, v, do, results
+        launches = {"bshd_fwd": attention.BSHD_LAUNCHES,
+                    "bshd_bwd": attention.BSHD_BWD_LAUNCHES,
+                    "bhtd_fwd": attention.LAUNCHES,
+                    "bhtd_bwd": attention.BWD_LAUNCHES}
+        check(set(launches.values()) == {len(cases)}, "public attention ops "
+              "%s: launches %s, want %d of each" % (variant, launches,
+                                                    len(cases)))
+        print("public attention ops under autograd, %s, %d cases: launches "
+              "%s  (%s)" % (variant, len(cases), launches, card))
+        by_variant[variant] = launches
+        torch.cuda.empty_cache()
+    out = dict(by_variant["bf16"])
+    out["by_variant"] = by_variant
+    return out
 
 
 def _bert(mx, use_pooler):
@@ -2025,6 +2147,408 @@ def bert_training_phase(torch, mx, attention, layernorm, seed, card,
 
 
 # ---------------------------------------------------------------------------
+# mixed precision: contrib.amp on BERT-base's pretraining step
+# ---------------------------------------------------------------------------
+
+# BERT-base's MLM step under amp.init(dtype) through gluon.Trainer, as
+# GluonNLP's fp16 pretraining runs it: float32 Xavier weights, Adam lr 1e-4
+# with float32 state, amp.init_trainer and amp.scale_loss around backward.
+# float16: 13 steps, the step ms the median of the last 10; bfloat16: 3.
+AMP_STEPS = {"float16": 13, "bfloat16": 3}
+AMP_TIMED = 10
+# Under float16 a step whose gradients overflow is skipped and the scale
+# halved (the loss itself, the float32 mean of the float16 row losses, does
+# not overflow).  The losses of the steps taken must fall: the lowest of the
+# last AMP_LOSS_WINDOW taken below the first taken by AMP_LOSS_FALL (bf16
+# BERT-base fell 1.4 in 13 steps, PERF.md); with bfloat16's 3 steps, the
+# last below the first.
+AMP_LOSS_WINDOW = 3
+AMP_LOSS_FALL = 0.25
+# One AMP step of a 2-layer BERT (BERT-base widths, batch 2, S 128) on the
+# card against the same step of the port on the CPU, from the same float32
+# weights, at a loss scale of 2**10 on both sides (so that the float16
+# step is taken whatever the first scale would do): the loss, the float32
+# mean of the 16-bit row losses, within 2 ulps of the 16-bit type, relative
+# 2e-3 (1.6e-2 for bf16); the gradients, the float32 buffers of the scaled
+# loss's backward, within a relative L2 error of AMP_PARITY_GRAD_REL_L2
+# over all parameters and AMP_PARITY_PARAM_REL_L2 for any one.  Each side
+# rounds every 16-bit op's output once (torch's CPU and CUDA kernels both
+# sum in fp32), so they differ by the order of summation, which moves a
+# rounding by an ulp (2**-11 relative in float16, 2**-8 in bf16) here and
+# there, through 2 layers and a 30522-word decoder: measured on an H100,
+# 6.6e-4 (float16) and 5.3e-3 (bf16) over all parameters, 9.8e-4 and
+# 7.6e-3 for the worst (PERF.md).  The script prints the CPU's own
+# floor (1 thread against N) beside the card's error.
+AMP_PARITY_LAYERS = 2
+AMP_PARITY_SCALE = 2.0 ** 10
+AMP_PARITY_LOSS_RTOL = {"float16": 2e-3, "bfloat16": 1.6e-2}
+AMP_PARITY_GRAD_REL_L2 = {"float16": 5e-3, "bfloat16": 3e-2}
+AMP_PARITY_PARAM_REL_L2 = {"float16": 2e-2, "bfloat16": 6e-2}
+
+
+def _grad_arrays(net):
+    return {k: p.grad().asnumpy()
+            for k, p in net._collect_params_with_prefix().items()}
+
+
+def _grad_errors(g, g_ref):
+    """Relative L2 error of the gradients ``g`` against ``g_ref``: over all
+    parameters together, and each parameter's own (worst first; a
+    parameter whose reference gradient is 0 must be 0)."""
+    import numpy as onp
+    per_param, err2, ref2 = [], 0.0, 0.0
+    for k, r in g_ref.items():
+        diff = g[k].astype("float64") - r.astype("float64")
+        ref = float(onp.linalg.norm(r.astype("float64")))
+        err2 += float(onp.sum(diff * diff))
+        ref2 += ref * ref
+        if ref == 0.0:
+            check(not g[k].any(), "parity: %s has a gradient on one side "
+                  "only" % k)
+            continue
+        per_param.append((float(onp.linalg.norm(diff)) / ref, k))
+    per_param.sort(reverse=True)
+    return (err2 / ref2) ** 0.5, per_param
+
+
+def _amp_step(mx, net, trainer, ce, x, vl, mp, labels):
+    """One masked-LM step under AMP through the Gluon entry points, as
+    GluonNLP's mixed-precision pretraining takes it: the loss as in
+    ``_mlm_step``, ``amp.scale_loss`` around ``backward``, then
+    ``trainer.step`` (which skips the update on an overflow).  Returns the
+    mean loss (an NDArray in the logits' dtype) and whether the step was
+    skipped."""
+    from mxnet_tpu_torch.contrib import amp
+    with mx.autograd.record():
+        _, logits = net(x, None, None, vl, mp)
+        loss = ce(logits.reshape(-1, BERT_VOCAB), labels.reshape(-1)).mean()
+        with amp.scale_loss(loss, trainer) as scaled:
+            scaled.backward()
+    trainer.step(1, ignore_stale_grad=True)
+    return loss, trainer._amp_loss_scaler._has_overflow
+
+
+def amp_card_vs_cpu(torch, mx, seed, dtype):
+    """One AMP step of a 2-layer BERT (BERT-base widths) at batch 2, S 128
+    from the same float32 weights on the card and on the CPU, and on the
+    CPU again on one thread: the loss rel error and the gradient errors of
+    the card and of the floor."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
+    from mxnet_tpu_torch.gluon.utils import load_jax_params
+    rs = onp.random.RandomState(seed + 6)
+    S = BERT_PARITY_SEQ
+    tokens = rs.randint(0, BERT_VOCAB, (2, S)).astype("float32")
+    lens = onp.array(BERT_PARITY_LENS, "int32")
+    pos = onp.sort(onp.stack([rs.choice(min(BERT_PARITY_LENS),
+                                        BERT_PARITY_PRED, replace=False)
+                              for _ in range(2)]), 1).astype("int32")
+    labels = rs.randint(0, BERT_VOCAB, (2, BERT_PARITY_PRED)) \
+        .astype("float32")
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def build(ctx):
+        net = BERTModel(vocab_size=BERT_VOCAB, units=BERT_UNITS,
+                        hidden_size=4 * BERT_UNITS,
+                        num_layers=AMP_PARITY_LAYERS, num_heads=BERT_HEADS,
+                        max_length=BERT_SEQ, dropout=0.0, use_pooler=False,
+                        use_decoder=True)
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        with mx.autograd.predict_mode():
+            net(mx.nd.array(tokens, ctx=ctx))
+        return net
+
+    def step(net, ctx):
+        trainer = _adam(mx, net)
+        amp.init_trainer(trainer)
+        trainer._amp_loss_scaler.loss_scale = AMP_PARITY_SCALE \
+            if dtype == "float16" else 1.0
+        loss, skipped = _amp_step(
+            mx, net, trainer, ce, mx.nd.array(tokens, ctx=ctx),
+            mx.nd.array(lens, ctx=ctx, dtype="int32"),
+            mx.nd.array(pos, ctx=ctx, dtype="int32"),
+            mx.nd.array(labels, ctx=ctx))
+        check(not skipped, "AMP parity step (%s) overflowed" % dtype)
+        return float(loss.astype("float32").asnumpy()), _grad_arrays(net)
+    mx.random.seed(seed)
+    gnet = build(mx.gpu(0))
+    w0 = _param_arrays(gnet)
+    gpu_loss, g_gpu = step(gnet, mx.gpu(0))
+    del gnet
+    with mx.cpu():
+        cnet = build(mx.cpu())
+
+        def cpu_step():
+            load_jax_params(cnet, w0)
+            return step(cnet, mx.cpu())
+        cpu_loss, g_cpu = cpu_step()
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        _, g_cpu1 = cpu_step()
+        torch.set_num_threads(threads)
+    return (abs(gpu_loss - cpu_loss) / abs(cpu_loss),
+            _grad_errors(g_gpu, g_cpu), _grad_errors(g_cpu1, g_cpu))
+
+
+def _dtype_spy(module, name, seen, arg=0):
+    """Wrap ``module.name`` so that each call records the dtype of its
+    argument ``arg`` in ``seen``; returns the original to put back."""
+    orig = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        seen.add(str(args[arg].dtype).replace("torch.", ""))
+        return orig(*args, **kwargs)
+    setattr(module, name, spy)
+    return orig
+
+
+def bert_amp_phase(torch, mx, attention, layernorm, seed, card, dtype,
+                   profile=False):
+    """BERT-base masked-LM pretraining under ``amp.init(dtype)`` on the
+    card through ``autograd.record``, ``amp.scale_loss``, ``backward`` and
+    ``gluon.Trainer`` (Adam on the float32 weights, ``amp.init_trainer``),
+    batch 24 x 512, the fused LayerNorm route; the card-vs-CPU step runs
+    first.  Returns the numbers; AMP is off again after it."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.contrib import amp
+    os.environ["MXNET_FUSED_LAYERNORM"] = "1"
+    amp.init(dtype)
+    try:
+        t0 = time.perf_counter()
+        loss_rel, (grad_rel, per_param), (floor_rel, floor_param) = \
+            amp_card_vs_cpu(torch, mx, seed, dtype)
+        parity_s = time.perf_counter() - t0
+        print("bert amp %s: card vs CPU, one AMP step of a %d-layer BERT at "
+              "batch 2, S %d: loss rel err %.3g, gradient rel L2 err %.3g "
+              "over all parameters; worst parameters %s"
+              % (dtype, AMP_PARITY_LAYERS, BERT_PARITY_SEQ, loss_rel,
+                 grad_rel, ", ".join("%s %.3g" % (k, e)
+                                     for e, k in per_param[:4])))
+        print("bert amp %s: floor, CPU on 1 thread vs CPU on %d: gradient "
+              "rel L2 err %.3g over all parameters; worst parameters %s"
+              % (dtype, torch.get_num_threads(), floor_rel,
+                 ", ".join("%s %.3g" % (k, e) for e, k in floor_param[:4])))
+        check(loss_rel <= AMP_PARITY_LOSS_RTOL[dtype],
+              "AMP %s card vs CPU loss rel err %.3g > %g"
+              % (dtype, loss_rel, AMP_PARITY_LOSS_RTOL[dtype]))
+        check(grad_rel <= AMP_PARITY_GRAD_REL_L2[dtype],
+              "AMP %s card vs CPU gradients: rel L2 err %.3g > %g"
+              % (dtype, grad_rel, AMP_PARITY_GRAD_REL_L2[dtype]))
+        check(per_param[0][0] <= AMP_PARITY_PARAM_REL_L2[dtype],
+              "AMP %s card vs CPU gradient of %s: rel L2 err %.3g > %g"
+              % (dtype, per_param[0][1], per_param[0][0],
+                 AMP_PARITY_PARAM_REL_L2[dtype]))
+        torch.cuda.empty_cache()
+
+        tokens, lens, pos = bert_inputs(seed)
+        labels = onp.random.RandomState(seed + 2).randint(
+            0, BERT_VOCAB, (BERT_BATCH, BERT_PRED)).astype("float32")
+        gpu = mx.gpu(0)
+        x = mx.nd.array(tokens, ctx=gpu)
+        vl = mx.nd.array(lens, ctx=gpu, dtype="int32")
+        mp = mx.nd.array(pos, ctx=gpu, dtype="int32")
+        y = mx.nd.array(labels, ctx=gpu)
+        mx.random.seed(seed)
+        net = _bert(mx, use_pooler=False)
+        net.initialize(mx.init.Xavier(), ctx=gpu)
+        with mx.autograd.predict_mode():
+            net(x, None, None, vl, mp)          # settles the deferred shapes
+        trainer = _adam(mx, net)
+        amp.init_trainer(trainer)
+        ce = gluon.loss.SoftmaxCrossEntropyLoss()
+        n_steps = AMP_STEPS[dtype]
+        # the dtypes that reach the attention and LayerNorm kernels' entries
+        seen_attn, seen_ln = set(), set()
+        spied = (_dtype_spy(attention, "flash_attention_bshd_fwd",
+                            seen_attn),
+                 _dtype_spy(layernorm, "layer_norm_fwd", seen_ln))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: counts from 0 just before, read just after
+        _reset_counts(attention, layernorm)
+        losses, scales, skipped, times, per_step = [], [], [], [], []
+        try:
+            for _ in range(n_steps):
+                before = _bert_counts(attention, layernorm)[0]
+                t = time.perf_counter()
+                loss, skip = _amp_step(mx, net, trainer, ce, x, vl, mp, y)
+                losses.append(float(loss.astype("float32").asscalar()))
+                times.append(time.perf_counter() - t)
+                scales.append(trainer._amp_loss_scaler.loss_scale)
+                skipped.append(bool(skip))
+                after = _bert_counts(attention, layernorm)[0]
+                per_step.append(tuple(a - b for a, b in zip(after, before)))
+        finally:
+            attention.flash_attention_bshd_fwd, layernorm.layer_norm_fwd = \
+                spied
+        launches, bhtd_launches = _bert_counts(attention, layernorm)
+        peak_bytes = torch.cuda.max_memory_allocated()
+        want = (BERT_ATTN_PER_STEP, BERT_ATTN_PER_STEP, BERT_LN_PER_STEP,
+                BERT_LN_PER_STEP)
+        check(all(c == want for c in per_step) and bhtd_launches == (0, 0),
+              "AMP %s launches a step: (B, T, H, D) attention fwd, bwd, "
+              "LayerNorm fwd, bwd %s (want %s each step), (B, H, T, D) "
+              "attention %s (want 0)" % (dtype, per_step, want,
+                                         bhtd_launches))
+        check(seen_attn == {dtype} and seen_ln == {"float32"},
+              "AMP %s: the attention kernel took %s, LayerNorm %s (want %s "
+              "and float32)" % (dtype, sorted(seen_attn), sorted(seen_ln),
+                                dtype))
+        taken = [l for l, sk in zip(losses, skipped) if not sk]
+        check(len(taken) >= 2 and all(onp.isfinite(taken)),
+              "AMP %s: losses of the steps taken %r (skipped %r)"
+              % (dtype, taken, skipped))
+        if dtype == "float16":
+            check(min(taken[-AMP_LOSS_WINDOW:]) < taken[0] - AMP_LOSS_FALL,
+                  "AMP float16: loss did not fall by %g: %r"
+                  % (AMP_LOSS_FALL, taken))
+        else:
+            check(taken[-1] < taken[0], "AMP bfloat16: loss did not fall: "
+                  "%r" % taken)
+        params = net._collect_params_with_prefix()
+        check(all(p.data().astorch().dtype == torch.float32
+                  for p in params.values())
+              and all(s.astorch().dtype == torch.float32
+                      for st in trainer._updater.states.values()
+                      for s in st),
+              "AMP %s: weights or Adam state not float32" % dtype)
+        timed = times[-AMP_TIMED:]
+        step_ms = statistics.median(timed) * 1e3
+
+        def one_step():
+            loss, _ = _amp_step(mx, net, trainer, ce, x, vl, mp, y)
+            return float(loss.astype("float32").asscalar())
+        profiles = [profile_calls(torch, one_step, "BERT-base AMP %s "
+                                  "training step" % dtype, calls=3)] \
+            if profile else []
+    finally:
+        amp.disable()
+        del os.environ["MXNET_FUSED_LAYERNORM"]
+    n_tokens = BERT_BATCH * BERT_SEQ
+    return {"dtype": dtype, "losses": losses, "loss_scales": scales,
+            "skipped": skipped, "steps": n_steps, "step_ms": step_ms,
+            "timed_steps": len(timed),
+            "step_ms_all": [t * 1e3 for t in times],
+            "tokens_per_s": n_tokens * 1e3 / step_ms,
+            "valid_tokens_per_s": float(lens.sum()) * 1e3 / step_ms,
+            "peak_bytes": peak_bytes, "attention_launches": launches[0],
+            "attention_bwd_launches": launches[1],
+            "layernorm_launches": launches[2],
+            "layernorm_bwd_launches": launches[3],
+            "attention_dtypes": sorted(seen_attn),
+            "layernorm_dtypes": sorted(seen_ln),
+            "parity_loss_rel": loss_rel, "parity_grad_rel_l2": grad_rel,
+            "parity_worst_params": per_param[:4],
+            "parity_floor_rel_l2": floor_rel,
+            "parity_floor_worst": floor_param[:4], "parity_s": parity_s,
+            "profiles": profiles}
+
+
+def print_amp(r, card):
+    print("bert amp %s: BERT-base MLM step under amp.init(%r), batch %d x "
+          "%d, Adam lr %g on float32 weights, %d steps, losses %s, loss "
+          "scale after each step %s, skipped for overflow %s"
+          % (r["dtype"], r["dtype"], BERT_BATCH, BERT_SEQ, BERT_LR,
+             r["steps"], [round(v, 4) for v in r["losses"]],
+             r["loss_scales"], [i for i, sk in enumerate(r["skipped"])
+                                if sk]))
+    print("bert amp %s: step %.3f ms (median of the last %d) = %.0f tokens/s "
+          "(%.0f valid tokens/s), peak device memory %.2f GiB, launches "
+          "(B, T, H, D) attention fwd %d bwd %d (%s), LayerNorm fwd %d bwd "
+          "%d (%s), card vs CPU check %.1f s (%s)"
+          % (r["dtype"], r["step_ms"], r["timed_steps"], r["tokens_per_s"],
+             r["valid_tokens_per_s"], r["peak_bytes"] / 2 ** 30,
+             r["attention_launches"], r["attention_bwd_launches"],
+             "/".join(r["attention_dtypes"]), r["layernorm_launches"],
+             r["layernorm_bwd_launches"], "/".join(r["layernorm_dtypes"]),
+             r["parity_s"], card))
+    print("bert amp %s: step ms %s" % (r["dtype"], [round(v, 3) for v in
+                                                   r["step_ms_all"]]))
+    print_profiles(r["profiles"], card)
+
+
+# BERT encoders at BERT-base's width with the wide head dims: 768 units as 4
+# heads of 192 or 3 of 256 (the attention layer's work and bytes are
+# BERT-base's), 3072 hidden, 12 layers, bf16, 24 x 512, Adam lr 1e-4
+WIDE_HEADS = {192: 4, 256: 3}
+
+
+def wide_encoder_phase(torch, mx, attention, layernorm, seed, card):
+    """For D 192 and 256: BERT-base's network with ``WIDE_HEADS[D]`` heads
+    in bf16 at 24 x 512, one forward, then one Adam step through
+    ``autograd.record``, ``backward`` and ``gluon.Trainer``; the launches
+    of each counted from 0 and checked, the outputs and the loss finite.
+    Returns the numbers by D."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
+    os.environ["MXNET_FUSED_LAYERNORM"] = "1"
+    tokens, lens, pos = bert_inputs(seed)
+    labels = onp.random.RandomState(seed + 2).randint(
+        0, BERT_VOCAB, (BERT_BATCH, BERT_PRED)).astype("float32")
+    gpu = mx.gpu(0)
+    x = mx.nd.array(tokens, ctx=gpu)
+    vl = mx.nd.array(lens, ctx=gpu, dtype="int32")
+    mp = mx.nd.array(pos, ctx=gpu, dtype="int32")
+    y = mx.nd.array(labels, ctx=gpu)
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    out = {}
+    for D, heads in WIDE_HEADS.items():
+        mx.random.seed(seed)
+        net = BERTModel(vocab_size=BERT_VOCAB, units=BERT_UNITS,
+                        hidden_size=4 * BERT_UNITS, num_layers=BERT_LAYERS,
+                        num_heads=heads, max_length=BERT_SEQ, dropout=0.0,
+                        use_pooler=False, use_decoder=True)
+        net.initialize(mx.init.Xavier(), ctx=gpu)
+        with mx.autograd.predict_mode():
+            net(x, None, None, vl, mp)
+        net.cast("bfloat16")
+        trainer = _adam(mx, net)
+        torch.cuda.synchronize()
+        _reset_counts(attention, layernorm)
+        t = time.perf_counter()
+        seq, logits = net(x, None, None, vl, mp)
+        finite = bool(torch.isfinite(seq.astorch()).all()) and \
+            bool(torch.isfinite(logits.astorch()).all())
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t) * 1e3
+        fwd_counts = _bert_counts(attention, layernorm)
+        check(finite and seq.shape == (BERT_BATCH, BERT_SEQ, BERT_UNITS),
+              "D %d encoder: forward gave %s, finite %s" % (D, seq.shape,
+                                                            finite))
+        check(fwd_counts == ((BERT_ATTN_PER_FWD, 0, BERT_LN_PER_FWD, 0),
+                             (0, 0)),
+              "D %d encoder forward: launches %s" % (D, fwd_counts))
+        _reset_counts(attention, layernorm)
+        t = time.perf_counter()
+        rows, _ = _mlm_step(mx, net, trainer, ce, x, vl, mp, y)
+        loss = float(rows.astype("float32").mean().asscalar())
+        step_ms = (time.perf_counter() - t) * 1e3
+        step_counts = _bert_counts(attention, layernorm)
+        check(onp.isfinite(loss), "D %d encoder: loss %r" % (D, loss))
+        check(step_counts == ((BERT_ATTN_PER_STEP, BERT_ATTN_PER_STEP,
+                               BERT_LN_PER_STEP, BERT_LN_PER_STEP), (0, 0)),
+              "D %d encoder step: launches %s" % (D, step_counts))
+        out[D] = {"heads": heads, "forward_ms": fwd_ms, "step_ms": step_ms,
+                  "loss": loss, "forward_launches": fwd_counts[0],
+                  "step_launches": step_counts[0]}
+        print("wide heads: BERT encoder at 768 units, %d heads of D %d, "
+              "bf16, 24 x 512: one forward %.3f ms (attention launches %d, "
+              "LayerNorm %d), one Adam step %.3f ms, loss %.4f (launches "
+              "(B, T, H, D) attention fwd %d bwd %d, LayerNorm fwd %d bwd %d;"
+              " one call each, first-call costs included)  (%s)"
+              % ((heads, D, fwd_ms, fwd_counts[0][0], fwd_counts[0][2],
+                  step_ms, loss) + step_counts[0] + (card,)))
+        del net, trainer, seq, logits, rows
+        torch.cuda.empty_cache()
+    del os.environ["MXNET_FUSED_LAYERNORM"]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # data-parallel training: DataParallelStep and Trainer(kvstore="nccl")
 # ---------------------------------------------------------------------------
 
@@ -2349,7 +2873,13 @@ def dp_resnet_phase(torch, mx, fused_norm, seed, card, profile=False):
     ``reset_ctx`` onto the card, SGD with ``rescale_grad = 1/32``, no
     mesh): 3 warm-up and 10 timed steps; then the same net, from the same
     weights, through ``Trainer(kvstore="nccl")`` on the one-rank NCCL
-    group (SGD as the training phase's), as many steps.
+    group with the training phase's SGD, as many steps, and, as its
+    reference, through a Trainer with no store from the same weights on
+    the same batch.  Both Trainers run under ``cudnn.deterministic``
+    (cuDNN's default backward-filter algorithms sum in an order that
+    varies from run to run, and at this rate the trajectory follows such
+    differences) and are held to the same bits: the first step's update
+    (relative L2 error 0), every loss and the last weights.
     Each counts 16 forward and 16 backward epilogue launches a step."""
     import numpy as onp
     from mxnet_tpu_torch import gluon
@@ -2372,15 +2902,6 @@ def dp_resnet_phase(torch, mx, fused_norm, seed, card, profile=False):
     w0 = {k: p.data().astorch().clone() for k, p in params.items()}
     step = mx.parallel.DataParallelStep(
         net, ce, mx.optimizer.SGD(**DP_RESNET_SGD), mesh=None)
-    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(SGD_PARAMS),
-                            kvstore="nccl")
-
-    def trainer_step():
-        with mx.autograd.record():
-            loss = ce(net(x), y)
-        loss.backward()
-        trainer.step(TRAIN_BATCH)
-        return loss.mean().astorch()
 
     def run(fn):
         torch.cuda.synchronize()
@@ -2429,15 +2950,57 @@ def dp_resnet_phase(torch, mx, fused_norm, seed, card, profile=False):
         x, y, seed, "ResNet-50 DataParallelStep, SGD momentum",
         counts=counts, per_step=(16, 16),
         profile_as="resnet_step" if profile else None, deterministic=True)
-    for k, p in params.items():          # the Trainer starts where it did
-        p.set_data(w0[k])
-    kv = run(trainer_step)
-    check(trainer._kvstore.type == "nccl"
-          and trainer._kvstore.num_workers == 1,
-          "the Trainer's store is not the one-rank NCCL store")
+
+    def trainer_run(store):
+        """The Trainer on ``store`` from ``w0``: run()'s numbers, the
+        weights after the first step and after the last."""
+        for k, p in params.items():
+            p.set_data(w0[k])
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                dict(SGD_PARAMS), kvstore=store)
+        first = {}
+
+        def trainer_step():
+            with mx.autograd.record():
+                loss = ce(net(x), y)
+            loss.backward()
+            trainer.step(TRAIN_BATCH)
+            if not first:
+                first.update((k, p.data().astorch().clone())
+                             for k, p in params.items())
+            return loss.mean().astorch()
+        out = run(trainer_step)
+        last = {k: p.data().astorch().clone() for k, p in params.items()}
+        return out, trainer, first, last
+
+    was_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        kv, trainer, kv_first, kv_last = trainer_run("nccl")
+        check(trainer._kvstore.type == "nccl"
+              and trainer._kvstore.num_workers == 1,
+              "the Trainer's store is not the one-rank NCCL store")
+        ref, trainer, ref_first, ref_last = trainer_run(None)
+        check(trainer._kvstore is None, "the reference Trainer has a store")
+    finally:
+        torch.backends.cudnn.deterministic = was_deterministic
+    err2 = sum(float(((kv_first[k] - ref_first[k]).double() ** 2).sum())
+               for k in w0)
+    ref2 = sum(float(((ref_first[k] - w0[k]).double() ** 2).sum())
+               for k in w0)
+    kv["first_update_rel_l2"] = (err2 / ref2) ** 0.5
+    check(kv["first_update_rel_l2"] == 0.0,
+          "Trainer(kvstore='nccl') vs no store, first step: update rel L2 "
+          "err %.3g, want the same bits" % kv["first_update_rel_l2"])
+    check(kv["losses"] == ref["losses"],
+          "Trainer(kvstore='nccl') vs no store: losses %r and %r"
+          % (kv["losses"], ref["losses"]))
+    check(all(torch.equal(kv_last[k], ref_last[k]) for k in w0),
+          "Trainer(kvstore='nccl') vs no store: the last weights differ")
     check(min(kv["losses"][-LOSS_WINDOW:]) < kv["losses"][0],
           "Trainer(kvstore='nccl') loss did not fall: %r" % kv["losses"])
-    return {"dp": dp, "trainer_nccl": kv, "graphs": [graphed]}
+    return {"dp": dp, "trainer_nccl": kv, "trainer_plain": ref,
+            "graphs": [graphed]}
 
 
 def dp_phases(torch, mx, attention, layernorm, fused_norm, seed, card,
@@ -2480,7 +3043,10 @@ def dp_phases(torch, mx, attention, layernorm, fused_norm, seed, card,
     dpr = dp_resnet_phase(torch, mx, fused_norm, seed, card,
                           profile=profile)
     for name, what in (("dp", "DataParallelStep, no mesh, bench.py's SGD"),
-                       ("trainer_nccl", "Trainer(kvstore='nccl'), one rank")):
+                       ("trainer_nccl", "Trainer(kvstore='nccl'), one rank, "
+                        "the training phase's SGD, cudnn.deterministic"),
+                       ("trainer_plain", "Trainer with no store, the same "
+                        "SGD, cudnn.deterministic")):
         r = dpr[name]
         print("dp resnet: %s: ResNet-50 v1 batch %d, %d steps, losses %s"
               % (what, TRAIN_BATCH, r["steps"],
@@ -2493,6 +3059,10 @@ def dp_phases(torch, mx, attention, layernorm, fused_norm, seed, card,
                  r["bwd_launches"], train["step_ms"], card))
         if "profile" in r:
             print_profiles([r["profile"]], card)
+    print("dp resnet: Trainer(kvstore='nccl') and the Trainer with no store "
+          "from the same weights: the same bits (first update rel L2 err "
+          "%g, every loss, the last weights)"
+          % dpr["trainer_nccl"]["first_update_rel_l2"])
     print("dp resnet: optimizer state %d bytes" % dpr["dp"]["state_bytes"])
     for r in dpr["graphs"]:
         print_graphed(r, card)
@@ -3071,7 +3641,8 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also trace bucket-1 and bucket-8 model calls, "
                          "the hybridized forward, ResNet training steps, "
-                         "BERT forwards, BERT training steps, the "
+                         "BERT forwards, BERT training steps, the AMP "
+                         "steps (float16 and bfloat16), the "
                          "data-parallel steps (graphed) and the LSTM LM "
                          "steps with torch.profiler and print where the "
                          "device time goes and which hand kernels ran "
@@ -3235,9 +3806,24 @@ def main(argv=None):
     print_profiles(btrain["profiles"], card)
     torch.cuda.empty_cache()
 
+    # mixed precision: BERT-base's step under amp.init, float16 then
+    # bfloat16; then the wide head dims' encoders
+    mark("bert training")
+    amp16 = bert_amp_phase(torch, mx, attention, layernorm, args.seed, card,
+                           "float16", profile=args.profile)
+    print_amp(amp16, card)
+    torch.cuda.empty_cache()
+    amp_bf16 = bert_amp_phase(torch, mx, attention, layernorm, args.seed,
+                              card, "bfloat16", profile=args.profile)
+    print_amp(amp_bf16, card)
+    torch.cuda.empty_cache()
+    mark("amp")
+    wide = wide_encoder_phase(torch, mx, attention, layernorm, args.seed,
+                              card)
+    mark("wide heads")
+
     # data-parallel training: one rank, NCCL (the card has no peer here)
     import torch.distributed as dist
-    mark("bert training")
     mx.parallel.initialize()
     try:
         dpb, dpr = dp_phases(torch, mx, attention, layernorm, fused_norm,
@@ -3312,35 +3898,24 @@ def main(argv=None):
             "launches at the train shapes below); launches: the training "
             "path's %d steps; library: %s" % (train["steps"], no_library),
         shapes=rows["bwd"], **numbers("bwd", "train"))
+
     def per_forward(rows_, weights, key):
         return sum(r[key] * weights.get(r["case"], 0) for r in rows_)
 
-    # a BERT-base forward: 12 attention launches at the "bert" case; 25
-    # LayerNorm launches on 24 x 512 rows and one on the 24 x 76 masked rows
-    attn_w = {"bert": BERT_ATTN_PER_FWD}
+    def variant_of(row):
+        """The kernel variant a case runs: f32 and bf16 at D <= 128 (the
+        rows of the earlier entries), f16 at D <= 128, and D 192 (from
+        129) and 256 (from 193) in every dtype."""
+        D = row["shape"][4]
+        if D > 192:
+            return "d256"
+        if D > 128:
+            return "d192"
+        return {"float16": "f16"}.get(row["dtype"], "bf16_f32")
+
+    # a BERT-base forward: 25 LayerNorm launches on 24 x 512 rows and one
+    # on the 24 x 76 masked rows
     ln_w = {"bert": BERT_LN_PER_FWD - 1, "bert_decoder": 1}
-    attn_entry = dict(
-        name="flash_attention_fwd", route="cuda",
-        source="mxnet_tpu_torch/csrc/flash_attention.cu",
-        replaces="mxnet_tpu/ops/pallas_attention.py:313",
-        also_replaces="mxnet_tpu/ops/pallas_attention.py:219",
-        launches=public["bhtd_fwd"],
-        launches_by_path={"public_op": public["bhtd_fwd"],
-                          "bert_forward": bert["bhtd_attention_launches"],
-                          "bert_training":
-                          btrain["bhtd_attention_launches"][0],
-                          "lstm_lm": lm_launches["attention"][0]},
-        max_abs_err=max(r["max_abs_err"] for r in attn_rows),
-        bound_by=[r for r in attn_rows if r["case"] == "bert"][0]["bound_by"],
-        per="ms/plain_ms/bound_ms/library_ms: 12 launches at the case "
-            "'bert' (what a BERT-base bf16 forward at 24 x 512 would take "
-            "through this entry; the BERT path runs the (B, T, H, D) entry); "
-            "launches: the public op path (nd.flash_attention under "
-            "autograd); library: scaled_dot_product_attention with the same "
-            "boolean mask",
-        short_seq_vs_composed=side_by_side, shapes=attn_rows,
-        **{k: per_forward(attn_rows, attn_w, k)
-           for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
     ln_entry = dict(
         name="layer_norm_fwd", route="cuda",
         source="mxnet_tpu_torch/csrc/layernorm.cu",
@@ -3348,6 +3923,8 @@ def main(argv=None):
         launches=bert["layernorm_launches"],
         launches_by_path={"bert_forward": bert["layernorm_launches"],
                           "bert_training": btrain["layernorm_launches"],
+                          "bert_amp_f16": amp16["layernorm_launches"],
+                          "bert_amp_bf16": amp_bf16["layernorm_launches"],
                           "dp_bert": dpb["plain"]["launches"][2],
                           "dp_bert_zero_nccl": dpb["zero"]["launches"][2],
                           "lstm_lm": lm_launches["layernorm"][0]},
@@ -3360,36 +3937,15 @@ def main(argv=None):
         shapes=ln_rows,
         **{k: per_forward(ln_rows, ln_w, k)
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
-    attn_bwd_entry = dict(
-        name="flash_attention_bwd", route="cuda",
-        source="mxnet_tpu_torch/csrc/flash_attention.cu",
-        replaces="mxnet_tpu/ops/pallas_attention.py:827",
-        also_replaces=["mxnet_tpu/ops/pallas_attention.py:773",
-                       "mxnet_tpu/ops/pallas_attention.py:732",
-                       "mxnet_tpu/ops/pallas_attention.py:866"],
-        launches=public["bhtd_bwd"],
-        launches_by_path={"public_op": public["bhtd_bwd"],
-                          "bert_training":
-                          btrain["bhtd_attention_launches"][1],
-                          "lstm_lm": lm_launches["attention"][1]},
-        max_abs_err=max(r["max_abs_err"] for r in attn_bwd_rows),
-        max_rel_err=max(r["max_rel_err"] for r in attn_bwd_rows),
-        bound_by=[r for r in attn_bwd_rows
-                  if r["case"] == "bert"][0]["bound_by"],
-        per="ms/plain_ms/bound_ms/library_ms: 12 launches at the case "
-            "'bert' (what a BERT-base bf16 training step at 24 x 512 would "
-            "take through this entry); launches: the public op path "
-            "(nd.flash_attention under autograd); library: the backward of "
-            "scaled_dot_product_attention with the same boolean mask",
-        shapes=attn_bwd_rows,
-        **{k: per_forward(attn_bwd_rows, attn_w, k)
-           for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
     ln_bwd_entry = dict(
         name="layer_norm_bwd", route="cuda",
         source="mxnet_tpu_torch/csrc/layernorm.cu",
         replaces="mxnet_tpu/ops/pallas_layernorm.py:47",
         launches=btrain["layernorm_bwd_launches"],
         launches_by_path={"bert_training": btrain["layernorm_bwd_launches"],
+                          "bert_amp_f16": amp16["layernorm_bwd_launches"],
+                          "bert_amp_bf16":
+                          amp_bf16["layernorm_bwd_launches"],
                           "dp_bert": dpb["plain"]["launches"][3],
                           "dp_bert_zero_nccl": dpb["zero"]["launches"][3],
                           "lstm_lm": lm_launches["layernorm"][1]},
@@ -3403,57 +3959,160 @@ def main(argv=None):
         shapes=ln_bwd_rows,
         **{k: per_forward(ln_bwd_rows, ln_w, k)
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
-    bshd_w = {"bert": BERT_ATTN_PER_FWD}
 
-    def bshd_numbers(prefix):
-        return {k: per_forward(bshd_rows, bshd_w, prefix + k)
-                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-    bert_bshd = [r for r in bshd_rows if r["case"] == "bert"][0]
-    bshd_entry = dict(
-        name="flash_attention_bshd_fwd", route="cuda",
-        source="mxnet_tpu_torch/csrc/flash_attention.cu",
-        replaces="mxnet_tpu/ops/pallas_attention.py:566",
-        launches=bert["attention_launches"],
-        launches_by_path={"bert_forward": bert["attention_launches"],
-                          "bert_training": btrain["attention_launches"],
-                          "public_op": public["bshd_fwd"],
-                          "dp_bert": dpb["plain"]["launches"][0],
-                          "dp_bert_zero_nccl": dpb["zero"]["launches"][0],
-                          "lstm_lm": lm_launches["attention_bshd"][0]},
-        max_abs_err=max(r["max_abs_err"] for r in bshd_rows),
-        bound_by=bert_bshd["bound_by"],
-        per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 forward at "
-            "24 x 512 (12 launches at the case 'bert', q, k and v strided "
-            "views of the projection output); launches: the BERT path's %d "
-            "forwards; library: scaled_dot_product_attention on the same "
-            "views with the same boolean mask" % bert["forwards"],
-        sublayer_vs_bhtd=sublayer, shapes=bshd_rows, **bshd_numbers(""))
-    bshd_bwd_entry = dict(
-        name="flash_attention_bshd_bwd", route="cuda",
-        source="mxnet_tpu_torch/csrc/flash_attention.cu",
-        replaces="mxnet_tpu/ops/pallas_attention.py:1136",
-        launches=btrain["attention_bwd_launches"],
-        launches_by_path={"bert_training": btrain["attention_bwd_launches"],
-                          "public_op": public["bshd_bwd"],
-                          "dp_bert": dpb["plain"]["launches"][1],
-                          "dp_bert_zero_nccl": dpb["zero"]["launches"][1],
-                          "lstm_lm": lm_launches["attention_bshd"][1]},
-        max_abs_err=max(r["bwd_max_abs_err"] for r in bshd_rows),
-        max_rel_err=max(r["bwd_max_rel_err"] for r in bshd_rows),
-        bound_by=bert_bshd["bwd_bound_by"],
-        per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 training "
-            "step at 24 x 512 (12 launches at the case 'bert', the gradient "
-            "written into one (B, T, 3 H D) tensor); launches: the BERT "
-            "training path's %d steps; library: the backward of "
-            "scaled_dot_product_attention on the same views"
-            % btrain["steps"], shapes=bshd_rows, **bshd_numbers("bwd_"))
+    def attention_entries(variant, case, bhtd_paths, bshd_paths, per,
+                          extra):
+        """The four entries of one attention kernel variant, named with
+        ``_<variant>`` (no suffix for bf16/f32 at D <= 128): the
+        (B, H, T, D) forward and backward and the (B, T, H, D) pair, each
+        timed as 12 launches at ``case``.  ``bhtd_paths`` and
+        ``bshd_paths`` map each path beside the public op to its
+        (forward, backward) launches, None where a path runs one way only;
+        a (B, H, T, D) entry's launches are the public op's, a
+        (B, T, H, D) entry's those of its first path that way.  ``per``
+        and ``extra`` hold each entry's note and further keys."""
+        suffix = "" if variant == "bf16_f32" else "_" + variant
+        pub = public["by_variant"]["bf16" if variant == "bf16_f32"
+                                   else variant]
+        w = {case: BERT_ATTN_PER_FWD}
+        a_rows = [r for r in attn_rows if variant_of(r) == variant]
+        b_rows = [r for r in attn_bwd_rows if variant_of(r) == variant]
+        s_rows = [r for r in bshd_rows if variant_of(r) == variant]
+
+        def case_of(rows_):
+            return [r for r in rows_ if r["case"] == case][0]
+
+        def timed(rows_, prefix=""):
+            return {k: per_forward(rows_, w, prefix + k)
+                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+
+        def by_path(paths, way, public_op):
+            out = {k: v[way] for k, v in paths.items() if v[way] is not None}
+            out["public_op"] = public_op
+            return out
+        bshd_fwd = by_path(bshd_paths, 0, pub["bshd_fwd"])
+        bshd_bwd = by_path(bshd_paths, 1, pub["bshd_bwd"])
+        bwd_replaces = ["mxnet_tpu/ops/pallas_attention.py:773",
+                        "mxnet_tpu/ops/pallas_attention.py:732",
+                        "mxnet_tpu/ops/pallas_attention.py:866"]
+        common = dict(route="cuda",
+                      source="mxnet_tpu_torch/csrc/flash_attention.cu")
+        return [
+            dict(name="flash_attention_fwd" + suffix,
+                 replaces="mxnet_tpu/ops/pallas_attention.py:313",
+                 also_replaces="mxnet_tpu/ops/pallas_attention.py:219",
+                 launches=pub["bhtd_fwd"],
+                 launches_by_path=by_path(bhtd_paths, 0, pub["bhtd_fwd"]),
+                 max_abs_err=max(r["max_abs_err"] for r in a_rows),
+                 bound_by=case_of(a_rows)["bound_by"],
+                 per=per["fwd"], shapes=a_rows, **common,
+                 **extra.get("fwd", {}), **timed(a_rows)),
+            dict(name="flash_attention_bwd" + suffix,
+                 replaces="mxnet_tpu/ops/pallas_attention.py:827",
+                 also_replaces=bwd_replaces,
+                 launches=pub["bhtd_bwd"],
+                 launches_by_path=by_path(bhtd_paths, 1, pub["bhtd_bwd"]),
+                 max_abs_err=max(r["max_abs_err"] for r in b_rows),
+                 max_rel_err=max(r["max_rel_err"] for r in b_rows),
+                 bound_by=case_of(b_rows)["bound_by"],
+                 per=per["bwd"], shapes=b_rows, **common,
+                 **timed(b_rows)),
+            dict(name="flash_attention_bshd_fwd" + suffix,
+                 replaces="mxnet_tpu/ops/pallas_attention.py:566",
+                 launches=next(iter(bshd_fwd.values())),
+                 launches_by_path=bshd_fwd,
+                 max_abs_err=max(r["max_abs_err"] for r in s_rows),
+                 bound_by=case_of(s_rows)["bound_by"],
+                 per=per["bshd_fwd"], shapes=s_rows, **common,
+                 **extra.get("bshd_fwd", {}), **timed(s_rows)),
+            dict(name="flash_attention_bshd_bwd" + suffix,
+                 replaces="mxnet_tpu/ops/pallas_attention.py:1136",
+                 launches=next(iter(bshd_bwd.values())),
+                 launches_by_path=bshd_bwd,
+                 max_abs_err=max(r["bwd_max_abs_err"] for r in s_rows),
+                 max_rel_err=max(r["bwd_max_rel_err"] for r in s_rows),
+                 bound_by=case_of(s_rows)["bwd_bound_by"],
+                 per=per["bshd_bwd"], shapes=s_rows, **common,
+                 **timed(s_rows, "bwd_")),
+        ]
+
+    # bf16 and f32 at D <= 128: 12 launches a BERT-base layer stack at the
+    # case "bert"
+    attention_list = attention_entries(
+        "bf16_f32", "bert",
+        bhtd_paths={"bert_forward": (bert["bhtd_attention_launches"], None),
+                    "bert_training": btrain["bhtd_attention_launches"],
+                    "lstm_lm": lm_launches["attention"]},
+        bshd_paths={"bert_forward": (bert["attention_launches"], None),
+                    "bert_training": (btrain["attention_launches"],
+                                      btrain["attention_bwd_launches"]),
+                    "bert_amp_bf16": (amp_bf16["attention_launches"],
+                                      amp_bf16["attention_bwd_launches"]),
+                    "dp_bert": tuple(dpb["plain"]["launches"][:2]),
+                    "dp_bert_zero_nccl": tuple(dpb["zero"]["launches"][:2]),
+                    "lstm_lm": lm_launches["attention_bshd"]},
+        per={"fwd": "ms/plain_ms/bound_ms/library_ms: 12 launches at the "
+                    "case 'bert' (what a BERT-base bf16 forward at 24 x 512 "
+                    "would take through this entry; the BERT path runs the "
+                    "(B, T, H, D) entry); launches: the public op path "
+                    "(nd.flash_attention under autograd); library: "
+                    "scaled_dot_product_attention with the same boolean "
+                    "mask",
+             "bwd": "ms/plain_ms/bound_ms/library_ms: 12 launches at the "
+                    "case 'bert' (what a BERT-base bf16 training step at "
+                    "24 x 512 would take through this entry); launches: the "
+                    "public op path (nd.flash_attention under autograd); "
+                    "library: the backward of scaled_dot_product_attention "
+                    "with the same boolean mask",
+             "bshd_fwd": "ms/plain_ms/bound_ms/library_ms: one BERT-base "
+                         "bf16 forward at 24 x 512 (12 launches at the case "
+                         "'bert', q, k and v strided views of the projection "
+                         "output); launches: the BERT path's %d forwards; "
+                         "library: scaled_dot_product_attention on the same "
+                         "views with the same boolean mask" % bert["forwards"],
+             "bshd_bwd": "ms/plain_ms/bound_ms/library_ms: one BERT-base "
+                         "bf16 training step at 24 x 512 (12 launches at the "
+                         "case 'bert', the gradient written into one "
+                         "(B, T, 3 H D) tensor); launches: the BERT training "
+                         "path's %d steps; library: the backward of "
+                         "scaled_dot_product_attention on the same views"
+                         % btrain["steps"]},
+        extra={"fwd": {"short_seq_vs_composed": side_by_side},
+               "bshd_fwd": {"sublayer_vs_bhtd": sublayer}})
+    # the variants this slice added: float16, and D 192 and 256 (bf16 at
+    # BERT-base's width; every dtype in the cases), each timed as 12
+    # launches at its BERT-width case, its launches from the path that
+    # runs it
+    for variant, case, path_note, bshd_paths in (
+            ("f16", "f16_bert", "the AMP float16 BERT-base step's",
+             {"bert_amp_f16": (amp16["attention_launches"],
+                               amp16["attention_bwd_launches"])}),
+            ("d192", "d192_bert", "the D 192 encoder's forward and step",
+             {"wide_encoder_d192": (wide[192]["forward_launches"][0]
+                                    + wide[192]["step_launches"][0],
+                                    wide[192]["step_launches"][1])}),
+            ("d256", "d256_bert", "the D 256 encoder's forward and step",
+             {"wide_encoder_d256": (wide[256]["forward_launches"][0]
+                                    + wide[256]["step_launches"][0],
+                                    wide[256]["step_launches"][1])})):
+        note = ("ms/plain_ms/bound_ms/library_ms: 12 launches at the case "
+                "'%s' (BERT-base's layer at 24 x 512); launches: " % case)
+        public_note = note + "the public op path (nd.flash_attention)"
+        attention_list += attention_entries(
+            variant, case, {}, bshd_paths,
+            per={"fwd": public_note, "bwd": public_note,
+                 "bshd_fwd": note + path_note, "bshd_bwd": note + path_note},
+            extra={})
+    entries = [fwd_entry, bwd_entry, ln_entry, ln_bwd_entry] \
+        + attention_list
+    for e in entries:
+        check(e["launches"] > 0, "%s: launched no time on its path"
+              % e["name"])
     print("attention sublayer, the layer's choice: (B, T, H, D) %.4f ms "
           "against (B, H, T, D) with transposes %.4f ms forward and "
           "backward  (%s)" % (sublayer["bshd"], sublayer["bhtd"], card))
     print(card)                       # as nvidia-smi prints it
-    print(json.dumps({"kernels": [fwd_entry, bwd_entry, attn_entry,
-                                  ln_entry, attn_bwd_entry, ln_bwd_entry,
-                                  bshd_entry, bshd_bwd_entry]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

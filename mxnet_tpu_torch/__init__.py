@@ -4,7 +4,8 @@ The port of ``mxnet_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
 kept in the same module layout and public names: ``mx.nd``,
 ``mx.autograd``, ``mx.gluon``, ``mx.init``, ``mx.random``,
 ``mx.optimizer``, ``mx.lr_scheduler``, ``mx.metric``, ``mx.io``,
-``mx.callback``, ``mx.kv``, ``mx.parallel`` and ``mx.serve``.
+``mx.callback``, ``mx.kv``, ``mx.parallel``, ``mx.serve`` and
+``mx.contrib``.
 Its default context is the card (``mx.gpu(0)``); the CPU runs only when
 the caller asks for ``mx.cpu()``.  When ``MXNET_TPU_COORDINATOR_ADDRESS``
 is set, importing the package joins the process group
@@ -35,6 +36,7 @@ from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401
 from . import parallel  # noqa: F401
 from . import serve  # noqa: F401
+from . import contrib  # noqa: F401
 from .base import __version__  # noqa: F401
 
 if _os.environ.get("MXNET_TPU_COORDINATOR_ADDRESS"):

@@ -23,7 +23,7 @@
 // one tile.  K tiles wholly past the valid length, or wholly above the
 // diagonal, are not visited; the tile that straddles the edge is masked
 // element by element.  The rows and keys past Tq and Tk are masked here, so
-// the caller pads only D (to 64 or 128).
+// the caller pads only D (to 64, 128, 192 or 256).
 //
 // Every kernel addresses its operands through strides (Strides below), so
 // one design serves both TPU entries: contiguous (B, H, T, D) operands
@@ -33,8 +33,20 @@
 // (B, T, 3 H D) projection output, read and written in place: no transposed
 // or contiguous copy.  The arithmetic does not depend on the layout.
 //
-// bf16 (flash_fwd_hopper) runs on Hopper's asynchronous units, with one
-// warpgroup (128 threads) a block owning 64 query rows:
+// The kernel each operand type takes:
+// - bfloat16 and float16, at D 64, 128, 192 and 256: flash_fwd_hopper,
+//   below, whose first template argument is the dtype code (1 = bfloat16,
+//   2 = float16).  The two types share every line but the wgmma type (.bf16
+//   or .f16), the tensor maps' element type and the roundings of P and O;
+//   float16 has bfloat16's tensor-core rate (989 TFLOP/s dense) and bytes,
+//   so the same tiles serve both.  At D 192 and 256 O takes 96 and 128 fp32
+//   registers a thread, so the kernel is compiled for one block an SM
+//   (Fwd16 below).
+// - float32: flash_fwd_f32, scalar fp32 FMAs (TF32 is off, so float32 has
+//   no tensor-core path).
+//
+// flash_fwd_hopper runs on Hopper's asynchronous units, with one warpgroup
+// (128 threads) a block owning 64 query rows:
 // - Loads.  Thread 0 issues TMA loads (cp.async.bulk.tensor over a 4-d
 //   tensor map (D, T, H, B) built from the operand's strides, with the
 //   128-byte swizzle and zero fill past T for the ragged last tile) of the
@@ -43,12 +55,12 @@
 //   one (one arrival per warp once its products on the buffer are done).
 //   Thread 0 refills a buffer one tile after its warps released it, so the
 //   loads of the next tiles are in flight while the warps compute.
-// - Products on wgmma (m64nNk16, bf16 in, fp32 accumulate).  S = Q K^T
+// - Products on wgmma (m64nNk16, 16-bit in, fp32 accumulate).  S = Q K^T
 //   takes both operands K-major from shared memory; O += P V takes P from
-//   registers (the fp32 scores, exponentiated and rounded to bf16, are the
-//   A fragments) and V MN-major with the transpose bit from the same
-//   swizzled buffer, one 64-column half at a time: no transposed V is
-//   staged.
+//   registers (the fp32 scores, exponentiated and rounded to the operands'
+//   type, are the A fragments) and V MN-major with the transpose bit from
+//   the same swizzled buffer, one 64-column half at a time: no transposed V
+//   is staged.
 // - The exponentials overlap the tensor cores: each tile's S = Q K^T is
 //   issued together with the previous tile's P V, and the tile's softmax
 //   runs while that P V does (FlashAttention-3's order inside one
@@ -57,13 +69,15 @@
 //   masked pair runs the softmax without mask tests, one masked only by
 //   the valid length with one test a key, and only causal and segment
 //   tiles test each element.
-// - O is divided by the normaliser, rounded once to bf16, written into the
-//   Q tile's buffer in the swizzled layout and stored by TMA, which clips
-//   the rows past Tq; lse = m + log(l) goes out from registers.
-// f32 has no tensor-core path with TF32 off, so it runs scalar fp32 FMAs: a
-// 256-thread block computes the 64 x 64 score tile into shared memory (4 x
-// 4 per thread), four threads a row take the online softmax, and each
-// thread accumulates a 4 x (D/16) slice of the output.
+// - O is divided by the normaliser, rounded once to the operands' type,
+//   written into the Q tile's buffer in the swizzled layout and stored by
+//   TMA, which clips the rows past Tq; lse = m + log(l) goes out from
+//   registers.
+// flash_fwd_f32: a 256-thread block computes the 64 x 64 score tile into
+// shared memory (4 x 4 per thread), four threads a row take the online
+// softmax, and each thread accumulates a 4 x (D/16) slice of the output.
+// Its shared memory, 64 x (D + 1) fp32 Q and K tiles, a 64 x D V tile and
+// the score tile, is 214,272 bytes at D 256, within a block's 232,448.
 //
 // What bounds it at BERT-base (B 24, H 12, T 512, D 64, bf16): bytes,
 // narrowly.  4 B H T^2 D = 19.3 GFLOP a layer is 19.5 us at 989 TFLOP/s; q,
@@ -72,16 +86,34 @@
 // (19.8 us).  Inside a 64 x 64 tile at D 64 the 4,096 exponentials take as
 // long on the special-function unit (16 a cycle an SM) as the tile's two
 // products on the tensor cores, so the design overlaps the two and keeps
-// several blocks on each SM (Bf16Fwd below); every Q tile of a head reads
+// several blocks on each SM (Fwd16 below); every Q tile of a head reads
 // the head's K and V, from L2 after the first.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
+
+// The 16-bit element types by the C entries' dtype code (0 = float32, 1 =
+// bfloat16, 2 = float16), the first template argument of the Hopper
+// kernels.
+template <int DT>
+struct Elem;
+template <>
+struct Elem<1> {
+  typedef bf16 T;
+  static constexpr CUtensorMapDataType tma = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct Elem<2> {
+  typedef f16 T;
+  static constexpr CUtensorMapDataType tma = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
 
 constexpr float kNegInf = -1e30f;
 constexpr int BQ = 64;   // query rows of a block
@@ -130,20 +162,21 @@ __device__ __forceinline__ int valid_keys(const Params& p, int b) {
   return min(max(p.lens[b], 0), p.Tk);
 }
 
-// how many K tiles the Q tile of ROWS rows starting at q0 visits
-template <int ROWS = BQ>
+// how many K tiles of KEYS keys the Q tile of ROWS rows starting at q0
+// visits
+template <int ROWS = BQ, int KEYS = BK>
 __device__ __forceinline__ int key_tiles(const Params& p, int kvlen, int q0) {
   int end = kvlen;
   if (p.causal) end = min(end, min(q0 + ROWS, p.Tq));
-  return end > 0 ? (end + BK - 1) / BK : 0;
+  return end > 0 ? (end + KEYS - 1) / KEYS : 0;
 }
 
-// whether no element of the tile of ROWS queries at q0 by BK keys at k0 is
-// masked
-template <int ROWS = BQ>
+// whether no element of the tile of ROWS queries at q0 by KEYS keys at k0
+// is masked
+template <int ROWS = BQ, int KEYS = BK>
 __device__ __forceinline__ bool tile_unmasked(const Params& p, int kvlen,
                                               int q0, int k0) {
-  return k0 + BK <= kvlen && (!p.causal || q0 >= k0 + BK - 1) &&
+  return k0 + KEYS <= kvlen && (!p.causal || q0 >= k0 + KEYS - 1) &&
          p.qseg == nullptr && q0 + ROWS <= p.Tq;
 }
 
@@ -157,9 +190,26 @@ __device__ __forceinline__ bool visible(const Params& p, int b, int kvlen,
   return true;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// two floats rounded to the 16-bit type of DT (1 or 2) in one 32-bit word,
+// lo in the low half
+template <int DT>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (DT == 1) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// the two 16-bit values of type DT (1 or 2) in a 32-bit word, widened
+template <int DT>
+__device__ __forceinline__ float2 unpack2(uint32_t w) {
+  if constexpr (DT == 1)
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+  else
+    return __half22float2(*reinterpret_cast<__half2*>(&w));
 }
 
 template <int D>
@@ -168,9 +218,10 @@ constexpr size_t f32_smem_bytes() {
           (size_t)BQ * (BK + 1) + 2 * BQ) * sizeof(float);
 }
 
-// f32 with scalar FMAs.  Thread roles: the score tile and the output tile
-// by (tid / 16, tid % 16): rows 4 (tid / 16) .. + 3, columns tid % 16 + 16 j;
-// the softmax by (tid / 4, tid % 4): one row, 16 of its keys.
+// f32 with scalar FMAs (256 threads, 64 query rows a block).  Thread
+// roles: the score tile and the output tile by (tid / 16, tid % 16): rows
+// 4 (tid / 16) .. + 3, columns tid % 16 + 16 j; the softmax by (tid / 4,
+// tid % 4): one row, 16 of its keys.
 template <int D>
 __global__ void __launch_bounds__(256) flash_fwd_f32(StridedParams p) {
   constexpr int LQ = D + 1;      // row stride of the Q and K tiles
@@ -194,7 +245,8 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(StridedParams p) {
 
   for (int i = tid; i < BQ * D; i += 256) {
     const int r = i / D, c = i % D;
-    sQ[r * LQ + c] = q0 + r < p.Tq ? q[(size_t)(q0 + r) * p.sq.t + c] : 0.f;
+    sQ[r * LQ + c] =
+        q0 + r < p.Tq ? q[(size_t)(q0 + r) * p.sq.t + c] : 0.f;
   }
   const int tr = tid / 16, tc = tid % 16;    // score and output tiles
   const int sr = tid / 4, sp = tid % 4;      // softmax: row, quarter
@@ -330,10 +382,11 @@ int launch(Kernel kernel, long long blocks, int threads, size_t smem,
 //
 //     p = exp(s * scale - lse)   (0 where masked),  delta = rowsum(dO * O)
 //     dp = dO v^T,  ds = p (dp - delta) * scale
-//     dv = bf16(p)^T dO,  dq = bf16(ds) k,  dk = bf16(ds)^T q
+//     dv = rnd(p)^T dO,  dq = rnd(ds) k,  dk = rnd(ds)^T q
 //
 // with every product summed in fp32 and p and ds rounded to the operands'
-// dtype where the TPU kernels round them.  One design covers the three TPU
+// dtype (rnd: to bfloat16 or float16; nothing for float32) where the TPU
+// kernels round them.  One design covers the three TPU
 // kernels: a Hopper block holds 64-row tiles, so it always streams, and the
 // TPU's single-block kernels are its one-tile case.  It is the TPU's split
 // form, deterministic (no atomics): a dQ kernel, a block per 64-query tile
@@ -392,7 +445,7 @@ int launch(Kernel kernel, long long blocks, int threads, size_t smem,
 // - delta = rowsum(dO * O) is computed in the dQ kernel's prologue, two
 //   threads a row, while its first tiles load, and written with lse *
 //   log2(e) for the dK/dV kernel: no separate kernel for bf16.
-// - Tiles and occupancy (Bf16Bwd below; chip_smoke.py prints the registers
+// - Tiles and occupancy (Bwd16 below; chip_smoke.py prints the registers
 //   from ptxas -v and the blocks an SM from the CUDA runtime).  dK/dV: 64
 //   keys a block, Q/dO tiles of BR = 64 rows at D 64 and 32 at D 128, so
 //   that S^T, dP^T, dK and dV stay in registers (4 x 32 fp32 at D 64,
@@ -414,8 +467,19 @@ int launch(Kernel kernel, long long blocks, int threads, size_t smem,
 //   the SM overlap.  Two warpgroups in ping-pong, one's exponentials under
 //   the other's products, are the next step.
 //
-// f32 (flash_bwd_kv_f32, flash_bwd_q_f32) runs scalar FMAs (TF32 off) with
-// synchronous staging; it is not on the BERT path.
+// bfloat16 and float16 take the Hopper kernels at every D (the dtype code
+// is their first template argument); the two types differ only in the
+// wgmma type, the tensor maps' element type and the roundings of P, dS and
+// the outputs.  Above D 128 the accumulators would not fit (dK and dV are
+// 2 x 64 x D fp32 in one warpgroup's registers: 256 a thread at D 256), so
+// each block accumulates a 64-column slice of dQ (dK and dV) and D / 64
+// blocks share a tile, each recomputing S and dP over the whole D (DOUT in
+// Bwd16 below).
+//
+// float32 (flash_bwd_kv_f32, flash_bwd_q_f32) runs scalar FMAs (TF32 off)
+// with synchronous staging; it is not on the BERT path.  Its four 64 x (D
+// + 1) fp32 tiles would take 296,960 bytes of shared memory at D 256, so
+// above D 128 its tiles take 32 rows (R, see f32_bwd_rows).
 
 struct BwdParams : StridedParams {
   const void* dout;    // dO, the shape of o
@@ -430,7 +494,7 @@ struct BwdParams : StridedParams {
 constexpr float kLog2e = 1.4426950408889634f;
 
 // f32: delta[bh, t] = sum_d dO[bh, t, d] * O[bh, t, d] in fp32, a warp a
-// row (the bf16 kernels compute delta in the dQ kernel)
+// row (the Hopper kernels compute delta in the dQ kernel)
 __global__ void __launch_bounds__(128)
 flash_bwd_delta_f32(const BwdParams p, long long rows, int D) {
   const long long row = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
@@ -459,13 +523,14 @@ __device__ __forceinline__ int first_query_tile(const Params& p, int k0,
 }
 
 // the accumulators of n-tiles 2 kk and 2 kk + 1 (16 rows x 16 columns)
-// rounded to bf16 as the A fragment of the next product
+// rounded to the 16-bit type of DT as the A fragment of the next product
+template <int DT>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* lo,
                                          const float* hi) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
+  a[0] = pack2<DT>(lo[0], lo[1]);
+  a[1] = pack2<DT>(lo[2], lo[3]);
+  a[2] = pack2<DT>(hi[0], hi[1]);
+  a[3] = pack2<DT>(hi[2], hi[3]);
 }
 
 // ---- Hopper building blocks: mbarriers, TMA, wgmma ------------------------
@@ -583,64 +648,75 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// wgmma m64nNk16, bf16 in, fp32 accumulated into d.  _ss: A and B from
-// shared memory, both K-major, d = A B where `accumulate` is 0 (the first
-// k-slice) and d += A B elsewhere; _rs: d += A B, A from registers (the
-// m16n8k16 A fragments of each warp's 16 rows), B from shared memory
-// MN-major.
+// wgmma m64nNk16, 16-bit in (bf16 for DT 1, f16 for DT 2), fp32
+// accumulated into d.  _ss: A and B from shared memory, both K-major, d = A
+// B where `accumulate` is 0 (the first k-slice) and d += A B elsewhere; _rs:
+// d += A B, A from registers (the m16n8k16 A fragments of each warp's 16
+// rows), B from shared memory MN-major.
+#define MX_WGMMA(N, TY) \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {"
+#define MX_ACC16                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define MX_ACC32                                                             \
+  MX_ACC16, "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+#define MX_SS32(TY)                                         \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" MX_WGMMA(32, TY) \
+  "%0, %1, %2, %3, %4, %5, %6, %7, "                        \
+  "%8, %9, %10, %11, %12, %13, %14, %15"                    \
+  "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+#define MX_SS64(TY)                                         \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" MX_WGMMA(64, TY) \
+  "%0, %1, %2, %3, %4, %5, %6, %7, "                        \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                \
+  "%24, %25, %26, %27, %28, %29, %30, %31"                  \
+  "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+#define MX_RS64(TY)                                         \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" MX_WGMMA(64, TY) \
+  "%0, %1, %2, %3, %4, %5, %6, %7, "                        \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                \
+  "%24, %25, %26, %27, %28, %29, %30, %31"                  \
+  "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+
+template <int DT>
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
                                          uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (DT == 2)
+    asm volatile(MX_SS32("f16") : MX_ACC16
+                 : "l"(da), "l"(db), "r"(accumulate));
+  else
+    asm volatile(MX_SS32("bf16") : MX_ACC16
+                 : "l"(da), "l"(db), "r"(accumulate));
 }
 
+template <int DT>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (DT == 2)
+    asm volatile(MX_SS64("f16") : MX_ACC32
+                 : "l"(da), "l"(db), "r"(accumulate));
+  else
+    asm volatile(MX_SS64("bf16") : MX_ACC32
+                 : "l"(da), "l"(db), "r"(accumulate));
 }
 
+template <int DT>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (DT == 2)
+    asm volatile(MX_RS64("f16") : MX_ACC32
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(1));
+  else
+    asm volatile(MX_RS64("bf16") : MX_ACC32
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                   "r"(1));
 }
 
 // one (64 x 64) box of shared memory at src to column c0, row t0 of head h
@@ -694,7 +770,7 @@ struct FwdSmem {
 // = O exp2(m_old - m) + bf16(P) V.  Accumulator element 4 j + i of a
 // thread: row row0 + 8 ((i >> 1) & 1), key (or column) 8 j + 2 t + (i &
 // 1).
-template <int D, int STAGES, int MINB>
+template <int DT, int D, int STAGES, int MINB>
 __global__ void __launch_bounds__(128, MINB)
 flash_fwd_hopper(const __grid_constant__ HopperFwd hf) {
   using L = FwdSmem<D, STAGES>;
@@ -778,7 +854,7 @@ flash_fwd_hopper(const __grid_constant__ HopperFwd hf) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(s, sw_k(sq, 64, kk), sw_k(sk, 64, kk), kk > 0);
+      wgmma_ss<DT>(s, sw_k(sq, 64, kk), sw_k(sk, 64, kk), kk > 0);
     wgmma_commit();
   };
 
@@ -847,7 +923,7 @@ flash_fwd_hopper(const __grid_constant__ HopperFwd hf) {
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int h = 0; h < D / 64; ++h)
-        wgmma_rs(o[h], pf[kk], sw_mn(sv + h * 64 * 128, kk));
+        wgmma_rs<DT>(o[h], pf[kk], sw_mn(sv + h * 64 * 128, kk));
     wgmma_commit();
   };
 
@@ -866,7 +942,7 @@ flash_fwd_hopper(const __grid_constant__ HopperFwd hf) {
     softmax(s0, 0, corr);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      acc_to_a(pf[kk], &s0[8 * kk], &s0[8 * kk + 4]);
+      acc_to_a<DT>(pf[kk], &s0[8 * kk], &s0[8 * kk + 4]);
   }
   for (int j = 1; j < n_tiles; ++j) {
     float sc[32];
@@ -883,7 +959,7 @@ flash_fwd_hopper(const __grid_constant__ HopperFwd hf) {
     if (lane == 0) mbar_arrive(empty0 + 8 * ((j - 1) % STAGES));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      acc_to_a(pf[kk], &sc[8 * kk], &sc[8 * kk + 4]);
+      acc_to_a<DT>(pf[kk], &sc[8 * kk], &sc[8 * kk + 4]);
   }
   if (n_tiles > 0) {
     issue_pv(n_tiles - 1, corr);
@@ -910,7 +986,7 @@ flash_fwd_hopper(const __grid_constant__ HopperFwd hf) {
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<uint32_t*>(so + hh * 64 * 128 + r * 128 +
                                      ((j ^ g) << 4) + 4 * t) =
-            pack_bf16(o[hh][4 * j + 2 * h] / den,
+            pack2<DT>(o[hh][4 * j + 2 * h] / den,
                       o[hh][4 * j + 2 * h + 1] / den);
     const int row = row0 + 8 * h;
     if (t == 0 && row < p.Tq)
@@ -962,9 +1038,10 @@ struct KvSmem {
 // dS^T = P^T (dP^T - delta) scale, then dV += bf16(P^T) dO and dK +=
 // bf16(dS^T) Q.  Accumulator element 4 j + i of a thread: key key0 +
 // 8 (i >> 1), query q0 + 8 j + 2 t + (i & 1).
-template <int D, int BR, int STAGES, int MINB>
+template <int DT, int D, int BR, int STAGES, int MINB, int DOUT>
 __global__ void __launch_bounds__(128, MINB)
 flash_bwd_kv_hopper(const __grid_constant__ HopperBwd hp) {
+  typedef typename Elem<DT>::T T;
   using L = KvSmem<D, BR, STAGES>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * STAGES + 1];
@@ -973,8 +1050,11 @@ flash_bwd_kv_hopper(const __grid_constant__ HopperBwd hp) {
   const unsigned char* sbase = smem_raw + (base - raw);
   const BwdParams& p = hp.p;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.x / p.n_ktiles;
-  const int k0 = (blockIdx.x % p.n_ktiles) * 64;
+  // the DOUT output columns c0 .. c0 + DOUT - 1 of the key tile k0
+  const int tile = blockIdx.x / (D / DOUT);
+  const int c0 = (blockIdx.x % (D / DOUT)) * DOUT;
+  const int bh = tile / p.n_ktiles;
+  const int k0 = (tile % p.n_ktiles) * 64;
   const int b = bh / p.H, hd = bh % p.H;
   const int kvlen = valid_keys(p, b);
   const int it0 = first_query_tile(p, k0, BR);
@@ -1026,9 +1106,9 @@ flash_bwd_kv_hopper(const __grid_constant__ HopperBwd hp) {
 
   const int g = lane >> 2, t = lane & 3;
   const int key0 = k0 + warp * 16 + g;   // this thread's keys: key0, +8
-  float dk[D / 64][32], dv[D / 64][32];    // by 64-column half
+  float dk[DOUT / 64][32], dv[DOUT / 64][32];    // by 64-column half
 #pragma unroll
-  for (int h = 0; h < D / 64; ++h)
+  for (int h = 0; h < DOUT / 64; ++h)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk[h][i] = dv[h][i] = 0.f;
   // While the tensor cores run tile n's first products, thread 0 refills
@@ -1057,11 +1137,11 @@ flash_bwd_kv_hopper(const __grid_constant__ HopperBwd hp) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(st, sw_k(base + L::K, 64, kk), sw_k(sq, BR, kk), kk > 0);
+      wgmma_ss<DT>(st, sw_k(base + L::K, 64, kk), sw_k(sq, BR, kk), kk > 0);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(dpt, sw_k(base + L::V, 64, kk), sw_k(sdo, BR, kk), kk > 0);
+      wgmma_ss<DT>(dpt, sw_k(base + L::V, 64, kk), sw_k(sdo, BR, kk), kk > 0);
     wgmma_commit();
     refill(n - 1);
     wgmma_wait<1>();
@@ -1129,26 +1209,27 @@ flash_bwd_kv_hopper(const __grid_constant__ HopperBwd hp) {
           dpt[4 * j + i] = st[4 * j + i] *
                            (dpt[4 * j + i] - ((i & 1) ? dl.y : dl.x)) * p.scale;
       }
-      acc_to_a(pf[kk], &st[8 * kk], &st[8 * kk + 4]);
-      acc_to_a(dsf[kk], &dpt[8 * kk], &dpt[8 * kk + 4]);
+      acc_to_a<DT>(pf[kk], &st[8 * kk], &st[8 * kk + 4]);
+      acc_to_a<DT>(dsf[kk], &dpt[8 * kk], &dpt[8 * kk + 4]);
     }
     wgmma_fence();
 #pragma unroll
-    for (int h = 0; h < D / 64; ++h) {
+    for (int h = 0; h < DOUT / 64; ++h) {
       fence_regs(dv[h]);
       fence_regs(dk[h]);
     }
 #pragma unroll
     for (int kk = 0; kk < BR / 16; ++kk)
 #pragma unroll
-      for (int h = 0; h < D / 64; ++h) {
-        wgmma_rs(dv[h], pf[kk], sw_mn(sdo + h * BR * 128, kk));
-        wgmma_rs(dk[h], dsf[kk], sw_mn(sq + h * BR * 128, kk));
+      for (int h = 0; h < DOUT / 64; ++h) {
+        const int half = c0 / 64 + h;
+        wgmma_rs<DT>(dv[h], pf[kk], sw_mn(sdo + half * BR * 128, kk));
+        wgmma_rs<DT>(dk[h], dsf[kk], sw_mn(sq + half * BR * 128, kk));
       }
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
-    for (int h = 0; h < D / 64; ++h) {
+    for (int h = 0; h < DOUT / 64; ++h) {
       fence_regs(dv[h]);
       fence_regs(dk[h]);
     }
@@ -1157,20 +1238,20 @@ flash_bwd_kv_hopper(const __grid_constant__ HopperBwd hp) {
     if (lane == 0) mbar_arrive(empty0 + 8 * s);
   }
 
-  bf16* dkp = head_ptr(static_cast<bf16*>(p.dk), p.sdk, b, hd);
-  bf16* dvp = head_ptr(static_cast<bf16*>(p.dv), p.sdv, b, hd);
+  T* dkp = head_ptr(static_cast<T*>(p.dk), p.sdk, b, hd);
+  T* dvp = head_ptr(static_cast<T*>(p.dv), p.sdv, b, hd);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = key0 + h * 8;
     if (key >= p.Tk) continue;
-    bf16* dkr = dkp + (size_t)key * p.sdk.t + 2 * t;
-    bf16* dvr = dvp + (size_t)key * p.sdv.t + 2 * t;
+    T* dkr = dkp + (size_t)key * p.sdk.t + c0 + 2 * t;
+    T* dvr = dvp + (size_t)key * p.sdv.t + c0 + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
+    for (int dt = 0; dt < DOUT / 8; ++dt) {
       const float* k2 = &dk[dt >> 3][4 * (dt & 7) + 2 * h];
       const float* v2 = &dv[dt >> 3][4 * (dt & 7) + 2 * h];
-      *reinterpret_cast<uint32_t*>(dkr + dt * 8) = pack_bf16(k2[0], k2[1]);
-      *reinterpret_cast<uint32_t*>(dvr + dt * 8) = pack_bf16(v2[0], v2[1]);
+      *reinterpret_cast<uint32_t*>(dkr + dt * 8) = pack2<DT>(k2[0], k2[1]);
+      *reinterpret_cast<uint32_t*>(dvr + dt * 8) = pack2<DT>(v2[0], v2[1]);
     }
   }
 }
@@ -1190,17 +1271,21 @@ struct QSmem {
 // exp2(S scale log2 e - lse2) (0 where masked), dS = P (dP - delta) scale,
 // dQ += bf16(dS) K.  Accumulator element 4 j + i of a thread: row row0 +
 // 8 (i >> 1), key k0 + 8 j + 2 t + (i & 1).
-template <int D, int STAGES, int MINB>
+template <int DT, int D, int STAGES, int MINB, int DOUT>
 __global__ void __launch_bounds__(128, MINB)
 flash_bwd_q_hopper(const __grid_constant__ HopperBwd hp) {
+  typedef typename Elem<DT>::T T;
   using L = QSmem<D, STAGES>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * STAGES + 1];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const BwdParams& p = hp.p;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.x / p.n_qtiles;
-  const int q0 = (blockIdx.x % p.n_qtiles) * 64;
+  // the DOUT output columns c0 .. c0 + DOUT - 1 of the query tile q0
+  const int tile = blockIdx.x / (D / DOUT);
+  const int c0 = (blockIdx.x % (D / DOUT)) * DOUT;
+  const int bh = tile / p.n_qtiles;
+  const int q0 = (tile % p.n_qtiles) * 64;
   const int b = bh / p.H, hd = bh % p.H;
   const int kvlen = valid_keys(p, b);
   const int n_tiles = key_tiles(p, kvlen, q0);
@@ -1247,8 +1332,9 @@ flash_bwd_q_hopper(const __grid_constant__ HopperBwd hp) {
   const int row0 = q0 + warp * 16 + g;     // this thread's rows: row0, +8
 
   // delta = rowsum(dO * O) of the block's 64 rows, two threads a row,
-  // while the first tiles load; with lse * log2(e) it goes to the padded
-  // arrays (0 past Tq) that the dK/dV kernel, launched next, reads
+  // while the first tiles load; with lse * log2(e) the first column slice
+  // writes it to the padded arrays (0 past Tq) that the dK/dV kernel,
+  // launched next, reads
   __shared__ float s_delta[64];
   {
     const int r = tid >> 1, row = q0 + r;
@@ -1256,27 +1342,27 @@ flash_bwd_q_hopper(const __grid_constant__ HopperBwd hp) {
     if (row < p.Tq) {
       const int c0 = (tid & 1) * (D / 2);
       const uint4* o4 = reinterpret_cast<const uint4*>(
-          head_ptr(static_cast<const bf16*>(p.o), p.so, b, hd) +
+          head_ptr(static_cast<const T*>(p.o), p.so, b, hd) +
           (size_t)row * p.so.t + c0);
       const uint4* d4 = reinterpret_cast<const uint4*>(
-          head_ptr(static_cast<const bf16*>(p.dout), p.sdo, b, hd) +
+          head_ptr(static_cast<const T*>(p.dout), p.sdo, b, hd) +
           (size_t)row * p.sdo.t + c0);
 #pragma unroll
       for (int c = 0; c < D / 16; ++c) {
         const uint4 ov = o4[c], dv = d4[c];
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+        const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w};
+        const uint32_t dw[4] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float2 a = __bfloat1622float2(o2[i]);
-          const float2 e = __bfloat1622float2(d2[i]);
+          const float2 a = unpack2<DT>(ow[i]);
+          const float2 e = unpack2<DT>(dw[i]);
           sum += a.x * e.x + a.y * e.y;
         }
       }
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if ((tid & 1) == 0) {
-      s_delta[r] = sum;
+    if ((tid & 1) == 0) s_delta[r] = sum;
+    if ((tid & 1) == 0 && c0 == 0) {
       const size_t at = (size_t)bh * hp.tq_pad + row;
       hp.delta[at] = sum;
       hp.lse2[at] =
@@ -1291,9 +1377,9 @@ flash_bwd_q_hopper(const __grid_constant__ HopperBwd hp) {
     lse_r[h] = row < p.Tq ? p.lse[(size_t)bh * p.Tq + row] * kLog2e : 0.f;
     dl_r[h] = s_delta[row - q0];
   }
-  float dq[D / 64][32];                    // by 64-column half
+  float dq[DOUT / 64][32];                 // by 64-column half
 #pragma unroll
-  for (int h = 0; h < D / 64; ++h)
+  for (int h = 0; h < DOUT / 64; ++h)
 #pragma unroll
     for (int i = 0; i < 32; ++i) dq[h][i] = 0.f;
   // buffers released and refilled as in flash_bwd_kv_hopper
@@ -1316,11 +1402,11 @@ flash_bwd_q_hopper(const __grid_constant__ HopperBwd hp) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(sc, sw_k(base + L::Q, 64, kk), sw_k(sk, 64, kk), kk > 0);
+      wgmma_ss<DT>(sc, sw_k(base + L::Q, 64, kk), sw_k(sk, 64, kk), kk > 0);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(dp, sw_k(base + L::DO, 64, kk), sw_k(sv, 64, kk), kk > 0);
+      wgmma_ss<DT>(dp, sw_k(base + L::DO, 64, kk), sw_k(sv, 64, kk), kk > 0);
     wgmma_commit();
     refill(it - 1);
     wgmma_wait<1>();
@@ -1368,156 +1454,160 @@ flash_bwd_q_hopper(const __grid_constant__ HopperBwd hp) {
 #pragma unroll
       for (int i = 8 * kk; i < 8 * kk + 8; ++i)
         dp[i] = sc[i] * (dp[i] - dl_r[(i >> 1) & 1]) * p.scale;
-      acc_to_a(dsf[kk], &dp[8 * kk], &dp[8 * kk + 4]);
+      acc_to_a<DT>(dsf[kk], &dp[8 * kk], &dp[8 * kk + 4]);
     }
     wgmma_fence();
 #pragma unroll
-    for (int h = 0; h < D / 64; ++h) fence_regs(dq[h]);
+    for (int h = 0; h < DOUT / 64; ++h) fence_regs(dq[h]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int h = 0; h < D / 64; ++h)
-        wgmma_rs(dq[h], dsf[kk], sw_mn(sk + h * 64 * 128, kk));
+      for (int h = 0; h < DOUT / 64; ++h)
+        wgmma_rs<DT>(dq[h], dsf[kk],
+                     sw_mn(sk + (c0 / 64 + h) * 64 * 128, kk));
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
-    for (int h = 0; h < D / 64; ++h) fence_regs(dq[h]);
+    for (int h = 0; h < DOUT / 64; ++h) fence_regs(dq[h]);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty0 + 8 * s);
   }
 
-  bf16* dqp = head_ptr(static_cast<bf16*>(p.dq), p.sdq, b, hd);
+  T* dqp = head_ptr(static_cast<T*>(p.dq), p.sdq, b, hd);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + h * 8;
     if (row >= p.Tq) continue;
-    bf16* dqr = dqp + (size_t)row * p.sdq.t + 2 * t;
+    T* dqr = dqp + (size_t)row * p.sdq.t + c0 + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
+    for (int dt = 0; dt < DOUT / 8; ++dt)
       *reinterpret_cast<uint32_t*>(dqr + dt * 8) =
-          pack_bf16(dq[dt >> 3][4 * (dt & 7) + 2 * h],
+          pack2<DT>(dq[dt >> 3][4 * (dt & 7) + 2 * h],
                     dq[dt >> 3][4 * (dt & 7) + 2 * h + 1]);
   }
 }
 
-// a 64-row tile of a float array with rows `ld` elements apart into
+// an R-row tile of a float array with rows `ld` elements apart into
 // shared memory with row stride D + 1, zeros past `rows_valid`
-template <int D>
+template <int R, int D>
 __device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
                                                long long ld, int r0,
                                                int rows_valid, int tid) {
-  for (int i = tid; i < 64 * D; i += 256) {
+  for (int i = tid; i < R * D; i += 256) {
     const int r = i / D, c = i % D;
     dst[r * (D + 1) + c] =
         r0 + r < rows_valid ? src[(size_t)(r0 + r) * ld + c] : 0.f;
   }
 }
 
-template <int D>
+template <int D, int R>
 constexpr size_t bwd_kv_f32_smem_bytes() {
-  return (4 * (size_t)64 * (D + 1) + 2 * (size_t)64 * (64 + 1) + 2 * 64) *
+  return (4 * (size_t)R * (D + 1) + 2 * (size_t)R * (R + 1) + 2 * R) *
          sizeof(float);
 }
 
-// dK and dV of one 64-key tile in f32 with scalar FMAs (256 threads).
-// Thread roles: the 64 x 64 S^T tile and the dK/dV tile by (tid / 16,
-// tid % 16): keys 4 (tid / 16) .. + 3, columns tid % 16 + 16 j.
-template <int D>
+// dK and dV of one tile of R keys in f32 with scalar FMAs (256 threads),
+// streaming Q and dO tiles of R rows.  R is 64, or 32 where four 64 x (D +
+// 1) fp32 tiles would not fit a block's shared memory (D > 128).  Thread
+// roles: the R x R S^T tile and the dK/dV tile by (tid / 16, tid % 16):
+// keys RT (tid / 16) .. + RT - 1 (RT = R / 16), queries and columns tid %
+// 16 + 16 j.
+template <int D, int R>
 __global__ void __launch_bounds__(256) flash_bwd_kv_f32(BwdParams p) {
   constexpr int LQ = D + 1;
-  constexpr int LS = BQ + 1;
+  constexpr int LS = R + 1;
   constexpr int DJ = D / 16;
+  constexpr int RT = R / 16;
   extern __shared__ __align__(16) float smf[];
   float* sK = smf;
-  float* sV = sK + BK * LQ;
-  float* sQ = sV + BK * LQ;
-  float* sdO = sQ + BQ * LQ;
-  float* sP = sdO + BQ * LQ;
-  float* sDS = sP + BK * LS;
-  float* sLse = sDS + BK * LS;
-  float* sDelta = sLse + BQ;
+  float* sV = sK + R * LQ;
+  float* sQ = sV + R * LQ;
+  float* sdO = sQ + R * LQ;
+  float* sP = sdO + R * LQ;
+  float* sDS = sP + R * LS;
+  float* sLse = sDS + R * LS;
+  float* sDelta = sLse + R;
 
   const int tid = threadIdx.x;
   const int tr = tid / 16, tc = tid % 16;
   const int bh = blockIdx.x / p.n_ktiles;
-  const int k0 = (blockIdx.x % p.n_ktiles) * BK;
+  const int k0 = (blockIdx.x % p.n_ktiles) * R;
   const int b = bh / p.H, hd = bh % p.H;
   const float* q = head_ptr(static_cast<const float*>(p.q), p.sq, b, hd);
   const float* k = head_ptr(static_cast<const float*>(p.k), p.sk, b, hd);
   const float* v = head_ptr(static_cast<const float*>(p.v), p.sv, b, hd);
-  const float* dout =
-      head_ptr(static_cast<const float*>(p.dout), p.sdo, b, hd);
+  const float* dout = head_ptr(static_cast<const float*>(p.dout), p.sdo, b, hd);
   const float* lse = p.lse + (size_t)bh * p.Tq;
   const float* delta = p.delta + (size_t)bh * p.Tq;
 
-  stage_rows_f32<D>(sK, k, p.sk.t, k0, p.Tk, tid);
-  stage_rows_f32<D>(sV, v, p.sv.t, k0, p.Tk, tid);
-  float dk[4][DJ], dv[4][DJ];
+  stage_rows_f32<R, D>(sK, k, p.sk.t, k0, p.Tk, tid);
+  stage_rows_f32<R, D>(sV, v, p.sv.t, k0, p.Tk, tid);
+  float dk[RT][DJ], dv[RT][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RT; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
 
   const int kvlen = valid_keys(p, b);
   const int it_end = k0 < kvlen ? p.n_qtiles : 0;
-  for (int it = first_query_tile(p, k0); it < it_end; ++it) {
-    const int q0 = it * BQ;
+  for (int it = first_query_tile(p, k0, R); it < it_end; ++it) {
+    const int q0 = it * R;
     __syncthreads();
-    stage_rows_f32<D>(sQ, q, p.sq.t, q0, p.Tq, tid);
-    stage_rows_f32<D>(sdO, dout, p.sdo.t, q0, p.Tq, tid);
-    for (int i = tid; i < BQ; i += 256) {
+    stage_rows_f32<R, D>(sQ, q, p.sq.t, q0, p.Tq, tid);
+    stage_rows_f32<R, D>(sdO, dout, p.sdo.t, q0, p.Tq, tid);
+    for (int i = tid; i < R; i += 256) {
       const bool in = q0 + i < p.Tq;
       sLse[i] = in ? lse[q0 + i] : 0.f;
       sDelta[i] = in ? delta[q0 + i] : 0.f;
     }
     __syncthreads();
 
-    float st[4][4], dpt[4][4];
+    float st[RT][RT], dpt[RT][RT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+      for (int j = 0; j < RT; ++j) st[i][j] = dpt[i][j] = 0.f;
     for (int d = 0; d < D; ++d) {
-      float ka[4], va[4], qb[4], ob[4];
+      float ka[RT], va[RT], qb[RT], ob[RT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ka[i] = sK[(tr * 4 + i) * LQ + d];
-        va[i] = sV[(tr * 4 + i) * LQ + d];
+      for (int i = 0; i < RT; ++i) {
+        ka[i] = sK[(tr * RT + i) * LQ + d];
+        va[i] = sV[(tr * RT + i) * LQ + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RT; ++j) {
         qb[j] = sQ[(tc + 16 * j) * LQ + d];
         ob[j] = sdO[(tc + 16 * j) * LQ + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RT; ++j) {
           st[i][j] += ka[i] * qb[j];
           dpt[i][j] += va[i] * ob[j];
         }
     }
-    const bool full = tile_unmasked(p, kvlen, q0, k0);
+    const bool full = tile_unmasked<R, R>(p, kvlen, q0, k0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RT; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RT; ++j) {
         const int qc = tc + 16 * j;
         float pv = 0.f;
-        if (full || visible(p, b, kvlen, q0 + qc, k0 + tr * 4 + i))
+        if (full || visible(p, b, kvlen, q0 + qc, k0 + tr * RT + i))
           pv = expf(st[i][j] * p.scale - sLse[qc]);
-        sP[(tr * 4 + i) * LS + qc] = pv;
-        sDS[(tr * 4 + i) * LS + qc] =
+        sP[(tr * RT + i) * LS + qc] = pv;
+        sDS[(tr * RT + i) * LS + qc] =
             pv * (dpt[i][j] - sDelta[qc]) * p.scale;
       }
     }
     __syncthreads();
-    for (int c = 0; c < BQ; ++c) {
-      float pa[4], da[4], ob[DJ], qb[DJ];
+    for (int c = 0; c < R; ++c) {
+      float pa[RT], da[RT], ob[DJ], qb[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = sP[(tr * 4 + i) * LS + c];
-        da[i] = sDS[(tr * 4 + i) * LS + c];
+      for (int i = 0; i < RT; ++i) {
+        pa[i] = sP[(tr * RT + i) * LS + c];
+        da[i] = sDS[(tr * RT + i) * LS + c];
       }
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
@@ -1525,7 +1615,7 @@ __global__ void __launch_bounds__(256) flash_bwd_kv_f32(BwdParams p) {
         qb[j] = sQ[c * LQ + tc + 16 * j];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
         for (int j = 0; j < DJ; ++j) {
           dv[i][j] += pa[i] * ob[j];
@@ -1537,8 +1627,8 @@ __global__ void __launch_bounds__(256) flash_bwd_kv_f32(BwdParams p) {
   float* dkp = head_ptr(static_cast<float*>(p.dk), p.sdk, b, hd);
   float* dvp = head_ptr(static_cast<float*>(p.dv), p.sdv, b, hd);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + tr * 4 + i;
+  for (int i = 0; i < RT; ++i) {
+    const int key = k0 + tr * RT + i;
     if (key >= p.Tk) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
@@ -1548,92 +1638,93 @@ __global__ void __launch_bounds__(256) flash_bwd_kv_f32(BwdParams p) {
   }
 }
 
-template <int D>
+template <int D, int R>
 constexpr size_t bwd_q_f32_smem_bytes() {
-  return (4 * (size_t)64 * (D + 1) + (size_t)64 * (64 + 1) + 2 * 64) *
+  return (4 * (size_t)R * (D + 1) + (size_t)R * (R + 1) + 2 * R) *
          sizeof(float);
 }
 
-// dQ of one 64-query tile in f32 with scalar FMAs (256 threads), the same
-// thread roles as flash_bwd_kv_f32 with query rows for key rows.
-template <int D>
+// dQ of one tile of R queries in f32 with scalar FMAs (256 threads),
+// streaming K and V tiles of R keys: R and the thread roles of
+// flash_bwd_kv_f32 with query rows for key rows.
+template <int D, int R>
 __global__ void __launch_bounds__(256) flash_bwd_q_f32(BwdParams p) {
   constexpr int LQ = D + 1;
-  constexpr int LS = BK + 1;
+  constexpr int LS = R + 1;
   constexpr int DJ = D / 16;
+  constexpr int RT = R / 16;
   extern __shared__ __align__(16) float smf[];
   float* sQ = smf;
-  float* sdO = sQ + BQ * LQ;
-  float* sK = sdO + BQ * LQ;
-  float* sV = sK + BK * LQ;
-  float* sDS = sV + BK * LQ;
-  float* sLse = sDS + BQ * LS;
-  float* sDelta = sLse + BQ;
+  float* sdO = sQ + R * LQ;
+  float* sK = sdO + R * LQ;
+  float* sV = sK + R * LQ;
+  float* sDS = sV + R * LQ;
+  float* sLse = sDS + R * LS;
+  float* sDelta = sLse + R;
 
   const int tid = threadIdx.x;
   const int tr = tid / 16, tc = tid % 16;
   const int bh = blockIdx.x / p.n_qtiles;
-  const int q0 = (blockIdx.x % p.n_qtiles) * BQ;
+  const int q0 = (blockIdx.x % p.n_qtiles) * R;
   const int b = bh / p.H, hd = bh % p.H;
   const float* q = head_ptr(static_cast<const float*>(p.q), p.sq, b, hd);
   const float* k = head_ptr(static_cast<const float*>(p.k), p.sk, b, hd);
   const float* v = head_ptr(static_cast<const float*>(p.v), p.sv, b, hd);
-  const float* dout =
-      head_ptr(static_cast<const float*>(p.dout), p.sdo, b, hd);
+  const float* dout = head_ptr(static_cast<const float*>(p.dout), p.sdo, b, hd);
 
-  stage_rows_f32<D>(sQ, q, p.sq.t, q0, p.Tq, tid);
-  stage_rows_f32<D>(sdO, dout, p.sdo.t, q0, p.Tq, tid);
-  for (int i = tid; i < BQ; i += 256) {
+  stage_rows_f32<R, D>(sQ, q, p.sq.t, q0, p.Tq, tid);
+  stage_rows_f32<R, D>(sdO, dout, p.sdo.t, q0, p.Tq, tid);
+  for (int i = tid; i < R; i += 256) {
     const bool in = q0 + i < p.Tq;
     sLse[i] = in ? p.lse[(size_t)bh * p.Tq + q0 + i] : 0.f;
     sDelta[i] = in ? p.delta[(size_t)bh * p.Tq + q0 + i] : 0.f;
   }
-  float acc[4][DJ];
+  float acc[RT][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RT; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
   const int kvlen = valid_keys(p, b);
-  const int n_tiles = key_tiles(p, kvlen, q0);
+  const int n_tiles = key_tiles<R, R>(p, kvlen, q0);
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * BK;
+    const int k0 = it * R;
     __syncthreads();
-    stage_rows_f32<D>(sK, k, p.sk.t, k0, p.Tk, tid);
-    stage_rows_f32<D>(sV, v, p.sv.t, k0, p.Tk, tid);
+    stage_rows_f32<R, D>(sK, k, p.sk.t, k0, p.Tk, tid);
+    stage_rows_f32<R, D>(sV, v, p.sv.t, k0, p.Tk, tid);
     __syncthreads();
 
-    float sc[4][4], dps[4][4];
+    float sc[RT][RT], dps[RT][RT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = dps[i][j] = 0.f;
+      for (int j = 0; j < RT; ++j) sc[i][j] = dps[i][j] = 0.f;
     for (int d = 0; d < D; ++d) {
-      float qa[4], oa[4], kb[4], vb[4];
+      float qa[RT], oa[RT], kb[RT], vb[RT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = sQ[(tr * 4 + i) * LQ + d];
-        oa[i] = sdO[(tr * 4 + i) * LQ + d];
+      for (int i = 0; i < RT; ++i) {
+        qa[i] = sQ[(tr * RT + i) * LQ + d];
+        oa[i] = sdO[(tr * RT + i) * LQ + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RT; ++j) {
         kb[j] = sK[(tc + 16 * j) * LQ + d];
         vb[j] = sV[(tc + 16 * j) * LQ + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RT; ++j) {
           sc[i][j] += qa[i] * kb[j];
           dps[i][j] += oa[i] * vb[j];
         }
     }
-    const bool full = tile_unmasked(p, kvlen, q0, k0);
+    const bool full = tile_unmasked<R, R>(p, kvlen, q0, k0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = tr * 4 + i;
+    for (int i = 0; i < RT; ++i) {
+      const int r = tr * RT + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RT; ++j) {
         float pv = 0.f;
         if (full || visible(p, b, kvlen, q0 + r, k0 + tc + 16 * j))
           pv = expf(sc[i][j] * p.scale - sLse[r]);
@@ -1641,14 +1732,14 @@ __global__ void __launch_bounds__(256) flash_bwd_q_f32(BwdParams p) {
       }
     }
     __syncthreads();
-    for (int c = 0; c < BK; ++c) {
-      float da[4], kb[DJ];
+    for (int c = 0; c < R; ++c) {
+      float da[RT], kb[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) da[i] = sDS[(tr * 4 + i) * LS + c];
+      for (int i = 0; i < RT; ++i) da[i] = sDS[(tr * RT + i) * LS + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) kb[j] = sK[c * LQ + tc + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
         for (int j = 0; j < DJ; ++j) acc[i][j] += da[i] * kb[j];
     }
@@ -1656,8 +1747,8 @@ __global__ void __launch_bounds__(256) flash_bwd_q_f32(BwdParams p) {
 
   float* dq = head_ptr(static_cast<float*>(p.dq), p.sdq, b, hd);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + tr * 4 + i;
+  for (int i = 0; i < RT; ++i) {
+    const int row = q0 + tr * RT + i;
     if (row >= p.Tq) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
@@ -1665,13 +1756,32 @@ __global__ void __launch_bounds__(256) flash_bwd_q_f32(BwdParams p) {
   }
 }
 
+// the rows of the f32 backward's tiles at head dim D: four 64 x (D + 1)
+// fp32 tiles fit a block's 227 KB up to D 128 (D 192 would leave 1 KB,
+// D 256 not fit), so above it the tiles take 32 rows
 template <int D>
-int launch_bwd_f32(const BwdParams& p, int BH, cudaStream_t s) {
-  int rc = launch(flash_bwd_q_f32<D>, (long long)BH * p.n_qtiles, 256,
-                  bwd_q_f32_smem_bytes<D>(), s, p);
+constexpr int f32_bwd_rows() {
+  return D <= 128 ? 64 : 32;
+}
+
+// delta, dQ, then dK and dV, in f32
+template <int D>
+int launch_bwd_f32(BwdParams p, int BH, cudaStream_t s) {
+  constexpr int R = f32_bwd_rows<D>();
+  const long long rows = (long long)BH * p.Tq;
+  if (rows > 0) {
+    flash_bwd_delta_f32<<<(unsigned)((rows + 3) / 4), 128, 0, s>>>(p, rows,
+                                                                   D);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  p.n_qtiles = (p.Tq + R - 1) / R;
+  p.n_ktiles = (p.Tk + R - 1) / R;
+  int rc = launch(flash_bwd_q_f32<D, R>, (long long)BH * p.n_qtiles, 256,
+                  bwd_q_f32_smem_bytes<D, R>(), s, p);
   if (rc != 0) return rc;
-  return launch(flash_bwd_kv_f32<D>, (long long)BH * p.n_ktiles, 256,
-                bwd_kv_f32_smem_bytes<D>(), s, p);
+  return launch(flash_bwd_kv_f32<D, R>, (long long)BH * p.n_ktiles, 256,
+                bwd_kv_f32_smem_bytes<D, R>(), s, p);
 }
 
 // cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
@@ -1696,13 +1806,14 @@ EncodeTiledFn tensor_map_encoder() {
   return fn;
 }
 
-// the bf16 operand at `ptr` with strides s as a 4-d tensor map (D, T, H,
-// B) with boxes of 64 columns by `rows` rows of one head, 128-byte
-// swizzled, zeros past T.  T is a dimension of its own, so the ragged last
-// tile of a head reads zeros, never the next batch's first rows.  TMA takes
-// strides in any order, multiples of 16 bytes (the caller checks them).
-int make_map(CUtensorMap* map, const void* ptr, const Strides& s, int T,
-             int H, int B, int D, int rows) {
+// the 16-bit operand at `ptr` (type `dt`) with strides s as a 4-d tensor
+// map (D, T, H, B) with boxes of 64 columns by `rows` rows of one head,
+// 128-byte swizzled, zeros past T.  T is a dimension of its own, so the
+// ragged last tile of a head reads zeros, never the next batch's first rows.
+// TMA takes strides in any order, multiples of 16 bytes (the caller checks
+// them).
+int make_map(CUtensorMap* map, CUtensorMapDataType dt, const void* ptr,
+             const Strides& s, int T, int H, int B, int D, int rows) {
   EncodeTiledFn encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)(T > 0 ? T : 1),
@@ -1712,47 +1823,65 @@ int make_map(CUtensorMap* map, const void* ptr, const Strides& s, int T,
   const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem,
+      map, dt, 4, const_cast<void*>(ptr), dims, strides, box, elem,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The tiles, ring stages and register bounds of the bf16 backward at head
-// dim D (the reasons are in the note above the kernels).  BR: the Q/dO tile
-// rows of the dK/dV kernel; MINB: the blocks an SM a kernel is compiled for,
-// which bounds its registers to 65536 / (128 MINB).
+// The tiles, ring stages and register bounds of the 16-bit (bf16 and f16)
+// backward at head dim D (the reasons are in the note above the kernels).
+// BR: the Q/dO tile rows of the dK/dV kernel; MINB: the blocks an SM a
+// kernel is compiled for, which bounds its registers to 65536 / (128 MINB);
+// DOUT: the output columns of dQ (dK and dV) a block accumulates.  Up to D
+// 128 a block holds all D; above, the accumulators (2 x 64 x D fp32 of dK
+// and dV in one warpgroup) would not fit its registers, so each block takes
+// a 64-column slice and the grid D / 64 blocks a tile, each recomputing S
+// and dP over the whole D (2.5x the products at D 256); shared memory then
+// holds one block an SM.
 template <int D>
-struct Bf16Bwd;
+struct Bwd16;
 template <>
-struct Bf16Bwd<64> {
+struct Bwd16<64> {
   static constexpr int BR = 64, KV_STAGES = 3, Q_STAGES = 3;
-  static constexpr int KV_MINB = 2, Q_MINB = 2;
+  static constexpr int KV_MINB = 2, Q_MINB = 2, DOUT = 64;
 };
 template <>
-struct Bf16Bwd<128> {
+struct Bwd16<128> {
   static constexpr int BR = 32, KV_STAGES = 3, Q_STAGES = 2;
-  static constexpr int KV_MINB = 2, Q_MINB = 2;
+  static constexpr int KV_MINB = 2, Q_MINB = 2, DOUT = 128;
+};
+template <>
+struct Bwd16<192> {
+  static constexpr int BR = 32, KV_STAGES = 3, Q_STAGES = 2;
+  static constexpr int KV_MINB = 1, Q_MINB = 1, DOUT = 64;
+};
+template <>
+struct Bwd16<256> {
+  static constexpr int BR = 32, KV_STAGES = 3, Q_STAGES = 2;
+  static constexpr int KV_MINB = 1, Q_MINB = 1, DOUT = 64;
 };
 
-template <int D>
-struct Bf16BwdKernels {
-  using C = Bf16Bwd<D>;
-  static constexpr auto q = flash_bwd_q_hopper<D, C::Q_STAGES, C::Q_MINB>;
+template <int DT, int D>
+struct Bwd16Kernels {
+  using C = Bwd16<D>;
+  static constexpr auto q =
+      flash_bwd_q_hopper<DT, D, C::Q_STAGES, C::Q_MINB, C::DOUT>;
   static constexpr auto kv =
-      flash_bwd_kv_hopper<D, C::BR, C::KV_STAGES, C::KV_MINB>;
+      flash_bwd_kv_hopper<DT, D, C::BR, C::KV_STAGES, C::KV_MINB, C::DOUT>;
   static constexpr size_t q_smem = QSmem<D, C::Q_STAGES>::BYTES + 1024;
   static constexpr size_t kv_smem =
       KvSmem<D, C::BR, C::KV_STAGES>::BYTES + 1024;
 };
 
-// dQ, then dK and dV
-template <int D>
-int launch_bwd_bf16(const BwdParams& p, float* delta, float* lse2,
-                    int tq_pad, int BH, cudaStream_t s) {
-  using K = Bf16BwdKernels<D>;
-  constexpr int BR = Bf16Bwd<D>::BR;
+// dQ, then dK and dV, on the Hopper kernels (DT 1 or 2)
+template <int DT, int D>
+int launch_bwd_hopper(const BwdParams& p, float* delta, float* lse2,
+                      int tq_pad, int BH, cudaStream_t s) {
+  using K = Bwd16Kernels<DT, D>;
+  constexpr int BR = Bwd16<D>::BR;
+  constexpr int SLICES = D / Bwd16<D>::DOUT;
+  constexpr CUtensorMapDataType dt = Elem<DT>::tma;
   HopperBwd hp;
   hp.p = p;
   hp.delta = delta;
@@ -1767,22 +1896,25 @@ int launch_bwd_bf16(const BwdParams& p, float* delta, float* lse2,
   int dev = 0;
   int rc = (int)cudaGetDevice(&dev);
   if (rc == 0) rc = (int)cudaSetDevice(dev);
-  if (rc == 0) rc = make_map(&hp.tq, p.q, p.sq, p.Tq, p.H, B, D, 64);
-  if (rc == 0) rc = make_map(&hp.tdo, p.dout, p.sdo, p.Tq, p.H, B, D, 64);
-  if (rc == 0) rc = make_map(&hp.tk, p.k, p.sk, p.Tk, p.H, B, D, 64);
-  if (rc == 0) rc = make_map(&hp.tv, p.v, p.sv, p.Tk, p.H, B, D, 64);
+  if (rc == 0) rc = make_map(&hp.tq, dt, p.q, p.sq, p.Tq, p.H, B, D, 64);
+  if (rc == 0) rc = make_map(&hp.tdo, dt, p.dout, p.sdo, p.Tq, p.H, B, D, 64);
+  if (rc == 0) rc = make_map(&hp.tk, dt, p.k, p.sk, p.Tk, p.H, B, D, 64);
+  if (rc == 0) rc = make_map(&hp.tv, dt, p.v, p.sv, p.Tk, p.H, B, D, 64);
   if (rc == 0)
-    rc = launch(K::q, (long long)BH * p.n_qtiles, 128, K::q_smem, s, hp);
+    rc = launch(K::q, (long long)BH * p.n_qtiles * SLICES, 128, K::q_smem, s,
+                hp);
   if (rc == 0 && BR != 64) {
-    rc = make_map(&hp.tq, p.q, p.sq, p.Tq, p.H, B, D, BR);
-    if (rc == 0) rc = make_map(&hp.tdo, p.dout, p.sdo, p.Tq, p.H, B, D, BR);
+    rc = make_map(&hp.tq, dt, p.q, p.sq, p.Tq, p.H, B, D, BR);
+    if (rc == 0)
+      rc = make_map(&hp.tdo, dt, p.dout, p.sdo, p.Tq, p.H, B, D, BR);
   }
   if (rc == 0)
-    rc = launch(K::kv, (long long)BH * p.n_ktiles, 128, K::kv_smem, s, hp);
+    rc = launch(K::kv, (long long)BH * p.n_ktiles * SLICES, 128, K::kv_smem,
+                s, hp);
   return rc;
 }
 
-// The ring stages and register bounds of the bf16 forward at head dim D:
+// The ring stages and register bounds of the 16-bit forward at head dim D:
 // one warpgroup of 64 query rows a block with STAGES K/V buffers, compiled
 // for MINB blocks an SM, which bounds the registers to 65536 / (128 MINB).
 // In iteration j the ring holds tile j - 1 (in P V), tile j (in S = Q K^T)
@@ -1792,40 +1924,53 @@ int launch_bwd_bf16(const BwdParams& p, float* delta, float* lse2,
 // BERT-base's shape and 20% slower at (1, 12, 2048, 2048, 64), where the
 // grid of 128-row tiles leaves SMs empty (PERF.md), so one it is.
 template <int D>
-struct Bf16Fwd;
+struct Fwd16;
 template <>
-struct Bf16Fwd<64> {
+struct Fwd16<64> {
   static constexpr int STAGES = 4, MINB = 3;
 };
 template <>
-struct Bf16Fwd<128> {
+struct Fwd16<128> {
   static constexpr int STAGES = 3, MINB = 2;
 };
+// D 192 and 256: O is 64 x D fp32 in the warpgroup's registers (96 and 128
+// a thread), so one block an SM (MINB 1, up to 255 registers); the Q tile
+// and three K/V stages take 168 KB and 224 KB of shared memory
+template <>
+struct Fwd16<192> {
+  static constexpr int STAGES = 3, MINB = 1;
+};
+template <>
+struct Fwd16<256> {
+  static constexpr int STAGES = 3, MINB = 1;
+};
 
-template <int D>
-struct Bf16FwdKernel {
-  using C = Bf16Fwd<D>;
-  static constexpr auto kernel = flash_fwd_hopper<D, C::STAGES, C::MINB>;
+template <int DT, int D>
+struct Fwd16Kernel {
+  using C = Fwd16<D>;
+  static constexpr auto kernel = flash_fwd_hopper<DT, D, C::STAGES, C::MINB>;
   static constexpr size_t smem = FwdSmem<D, C::STAGES>::BYTES + 1024;
 };
 
-template <int D>
-int launch_fwd_bf16(const StridedParams& p, int BH, cudaStream_t s) {
-  using K = Bf16FwdKernel<D>;
+// the forward on the Hopper kernel (DT 1 or 2, D 64 or 128)
+template <int DT, int D>
+int launch_fwd_hopper(const StridedParams& p, int BH, cudaStream_t s) {
+  using K = Fwd16Kernel<DT, D>;
+  constexpr CUtensorMapDataType dt = Elem<DT>::tma;
   HopperFwd hf;
   hf.p = p;
   hf.p.n_qtiles = (p.Tq + 63) / 64;
   hf.scale_log2 = p.scale * kLog2e;
   const int B = BH / p.H;
   // the tensor maps need the device's context on this thread (as in
-  // launch_bwd_bf16)
+  // launch_bwd_hopper)
   int dev = 0;
   int rc = (int)cudaGetDevice(&dev);
   if (rc == 0) rc = (int)cudaSetDevice(dev);
-  if (rc == 0) rc = make_map(&hf.tq, p.q, p.sq, p.Tq, p.H, B, D, 64);
-  if (rc == 0) rc = make_map(&hf.tk, p.k, p.sk, p.Tk, p.H, B, D, 64);
-  if (rc == 0) rc = make_map(&hf.tv, p.v, p.sv, p.Tk, p.H, B, D, 64);
-  if (rc == 0) rc = make_map(&hf.to, p.o, p.so, p.Tq, p.H, B, D, 64);
+  if (rc == 0) rc = make_map(&hf.tq, dt, p.q, p.sq, p.Tq, p.H, B, D, 64);
+  if (rc == 0) rc = make_map(&hf.tk, dt, p.k, p.sk, p.Tk, p.H, B, D, 64);
+  if (rc == 0) rc = make_map(&hf.tv, dt, p.v, p.sv, p.Tk, p.H, B, D, 64);
+  if (rc == 0) rc = make_map(&hf.to, dt, p.o, p.so, p.Tq, p.H, B, D, 64);
   if (rc == 0)
     rc = launch(K::kernel, (long long)BH * hf.p.n_qtiles, 128, K::smem, s,
                 hf);
@@ -1842,19 +1987,49 @@ int occupancy(Kernel kernel, int threads, size_t smem, int* blocks) {
   return (int)err;
 }
 
-// The forward over operands with strides (B H of them, B = BH / H), D =
-// 64 or 128, of `dtype` (0 = float32, 1 = bfloat16); the caller checks that
-// every stride is a multiple of 16 bytes and every pointer 16-byte
-// aligned.
-int run_fwd(StridedParams& p, int BH, int D, int dtype, cudaStream_t s) {
-  if (dtype == 1)
-    return D == 64 ? launch_fwd_bf16<64>(p, BH, s)
-                   : launch_fwd_bf16<128>(p, BH, s);
+// the 16-bit forward (DT 1 or 2) on the Hopper kernel of head dim D
+template <int DT>
+int fwd_16(StridedParams& p, int BH, int D, cudaStream_t s) {
+  if (D == 64) return launch_fwd_hopper<DT, 64>(p, BH, s);
+  if (D == 128) return launch_fwd_hopper<DT, 128>(p, BH, s);
+  if (D == 192) return launch_fwd_hopper<DT, 192>(p, BH, s);
+  return launch_fwd_hopper<DT, 256>(p, BH, s);
+}
+
+// the f32 forward of head dim D
+template <int D>
+int launch_fwd_f32(StridedParams p, int BH, cudaStream_t s) {
   p.n_qtiles = (p.Tq + BQ - 1) / BQ;
-  const long long blocks = (long long)BH * p.n_qtiles;
-  if (D == 64)
-    return launch(flash_fwd_f32<64>, blocks, 256, f32_smem_bytes<64>(), s, p);
-  return launch(flash_fwd_f32<128>, blocks, 256, f32_smem_bytes<128>(), s, p);
+  return launch(flash_fwd_f32<D>, (long long)BH * p.n_qtiles, 256,
+                f32_smem_bytes<D>(), s, p);
+}
+
+// The forward over operands with strides (B H of them, B = BH / H), D = 64,
+// 128, 192 or 256, of `dtype` (0 = float32, 1 = bfloat16, 2 = float16): the
+// Hopper kernel for the 16-bit types, scalar FMAs for float32.  The caller
+// checks that every stride is a multiple of 16 bytes and every pointer
+// 16-byte aligned.
+int run_fwd(StridedParams& p, int BH, int D, int dtype, cudaStream_t s) {
+  if (dtype == 1) return fwd_16<1>(p, BH, D, s);
+  if (dtype == 2) return fwd_16<2>(p, BH, D, s);
+  if (D == 64) return launch_fwd_f32<64>(p, BH, s);
+  if (D == 128) return launch_fwd_f32<128>(p, BH, s);
+  if (D == 192) return launch_fwd_f32<192>(p, BH, s);
+  return launch_fwd_f32<256>(p, BH, s);
+}
+
+// the 16-bit backward (DT 1 or 2) on the Hopper kernels of head dim D;
+// delta and lse * log2(e), padded to whole 64-row tiles for the dK/dV
+// kernel's bulk copies, are written by the dQ kernel into the scratch
+template <int DT>
+int bwd_16(BwdParams& p, int BH, int D, void* delta, cudaStream_t s) {
+  const int pad = (p.Tq + 63) / 64 * 64;
+  float* dl = static_cast<float*>(delta);
+  float* lse2 = dl + (size_t)BH * pad;
+  if (D == 64) return launch_bwd_hopper<DT, 64>(p, dl, lse2, pad, BH, s);
+  if (D == 128) return launch_bwd_hopper<DT, 128>(p, dl, lse2, pad, BH, s);
+  if (D == 192) return launch_bwd_hopper<DT, 192>(p, dl, lse2, pad, BH, s);
+  return launch_bwd_hopper<DT, 256>(p, dl, lse2, pad, BH, s);
 }
 
 // The backward, as run_fwd; delta: scratch of 2 x BH x Tq_pad floats.
@@ -1863,28 +2038,18 @@ int run_bwd(BwdParams& p, int BH, int D, int dtype, void* delta,
   p.n_qtiles = (p.Tq + BQ - 1) / BQ;
   p.n_ktiles = (p.Tk + BK - 1) / BK;
   p.delta = static_cast<const float*>(delta);
-  if (dtype == 1) {
-    // delta and lse * log2(e), padded to whole 64-row tiles for the dK/dV
-    // kernel's bulk copies, are written by the dQ kernel
-    const int pad = (p.Tq + 63) / 64 * 64;
-    float* dl = static_cast<float*>(delta);
-    float* lse2 = dl + (size_t)BH * pad;
-    return D == 64 ? launch_bwd_bf16<64>(p, dl, lse2, pad, BH, s)
-                   : launch_bwd_bf16<128>(p, dl, lse2, pad, BH, s);
-  }
-  const long long rows = (long long)BH * p.Tq;
-  if (rows > 0) {
-    flash_bwd_delta_f32<<<(unsigned)((rows + 3) / 4), 128, 0, s>>>(p, rows,
-                                                                   D);
-    const int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-  }
-  return D == 64 ? launch_bwd_f32<64>(p, BH, s) : launch_bwd_f32<128>(p, BH, s);
+  if (dtype == 1) return bwd_16<1>(p, BH, D, delta, s);
+  if (dtype == 2) return bwd_16<2>(p, BH, D, delta, s);
+  if (D == 64) return launch_bwd_f32<64>(p, BH, s);
+  if (D == 128) return launch_bwd_f32<128>(p, BH, s);
+  if (D == 192) return launch_bwd_f32<192>(p, BH, s);
+  return launch_bwd_f32<256>(p, BH, s);
 }
 
 bool bad_args(int BH, int H, int Tq, int Tk, int D, int dtype) {
   return BH < 0 || H <= 0 || BH % H != 0 || Tq < 0 || Tk < 0 ||
-         (D != 64 && D != 128) || dtype < 0 || dtype > 1;
+         (D != 64 && D != 128 && D != 192 && D != 256) || dtype < 0 ||
+         dtype > 2;
 }
 
 // the strides of a contiguous (B, H, T, D) operand
@@ -1918,8 +2083,8 @@ void fill(Params& p, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q: BH x Tq x D, k and v: BH x Tk x D, o: BH x Tq x D, all contiguous, of
-// `dtype` (0 = float32, 1 = bfloat16), D = 64 or 128, the pointers 16-byte
-// aligned; lse: BH x Tq floats.  lens: B ints or null; qseg: B x Tq ints and
+// `dtype` (0 = float32, 1 = bfloat16, 2 = float16), D = 64, 128, 192 or
+// 256, the pointers 16-byte aligned; lse: BH x Tq floats.  lens: B ints or null; qseg: B x Tq ints and
 // kseg: B x Tk ints, or both null; B = BH / H.  Returns a cudaError_t as int
 // (0 = ok).
 extern "C" int mx_flash_attention_fwd(const void* q, const void* k,
@@ -1941,14 +2106,14 @@ extern "C" int mx_flash_attention_fwd(const void* q, const void* k,
 }
 
 // The backward of mx_flash_attention_fwd.  q, o and dout: BH x Tq x D; k and
-// v: BH x Tk x D; all contiguous, of `dtype`, D = 64 or 128, the pointers
-// 16-byte aligned; lse: the forward's BH x Tq floats; delta: scratch of
+// v: BH x Tk x D; all contiguous, of `dtype`, D as for the forward, the
+// pointers 16-byte aligned; lse: the forward's BH x Tq floats; delta: scratch of
 // 2 x BH x Tq_pad floats, Tq_pad = Tq rounded up to 64, 16-byte aligned.
 // dq (BH x Tq x D), dk and dv (BH x Tk x D), of `dtype`, are written whole:
 // rows of dk and dv past a row's valid length are zeros.  lens, qseg, kseg,
 // H, scale and causal as for the forward.  The kernels run in turn on
-// `stream`: bf16, dq (with delta = rowsum(dout * o) and lse * log2(e) into
-// the scratch), then dk and dv; f32, delta, dq, then dk and dv.  Returns a
+// `stream`: 16-bit, dq (with delta = rowsum(dout * o) and lse * log2(e)
+// into the scratch), then dk and dv; f32, delta, dq, then dk and dv.  Returns a
 // cudaError_t as int (0 = ok).
 extern "C" int mx_flash_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* o,
@@ -2032,40 +2197,59 @@ extern "C" int mx_flash_attention_bshd_bwd(
   return run_bwd(p, B * H, D, dtype, delta, static_cast<cudaStream_t>(stream));
 }
 
-// The resources of the bf16 backward kernels at head dim D (64 or 128), for
-// the build report: out[0..3] = blocks an SM and dynamic shared memory bytes
-// a block of the dQ kernel, then of the dK/dV kernel.  Returns a cudaError_t
-// as int (0 = ok).
-extern "C" int mx_flash_attention_bwd_occupancy(int D, int* out) {
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
-  int rc;
-  if (D == 64) {
-    using K = Bf16BwdKernels<64>;
-    out[1] = (int)K::q_smem;
-    out[3] = (int)K::kv_smem;
-    rc = occupancy(K::q, 128, K::q_smem, &out[0]);
-    if (rc == 0) rc = occupancy(K::kv, 128, K::kv_smem, &out[2]);
-  } else {
-    using K = Bf16BwdKernels<128>;
-    out[1] = (int)K::q_smem;
-    out[3] = (int)K::kv_smem;
-    rc = occupancy(K::q, 128, K::q_smem, &out[0]);
-    if (rc == 0) rc = occupancy(K::kv, 128, K::kv_smem, &out[2]);
-  }
+// The resources of the Hopper backward kernels (16-bit, of `dtype` 1 or 2)
+// at head dim D (64, 128, 192 or 256), for the build report: out[0..3] = blocks an SM
+// and dynamic shared memory bytes a block of the dQ kernel, then of the
+// dK/dV kernel.  Returns a cudaError_t as int (0 = ok).
+template <int DT, int D>
+int bwd_occupancy(int* out) {
+  using K = Bwd16Kernels<DT, D>;
+  out[1] = (int)K::q_smem;
+  out[3] = (int)K::kv_smem;
+  int rc = occupancy(K::q, 128, K::q_smem, &out[0]);
+  if (rc == 0) rc = occupancy(K::kv, 128, K::kv_smem, &out[2]);
   return rc;
 }
 
-// The resources of the bf16 forward kernel at head dim D (64 or 128), for
-// the build report: out[0..1] = blocks an SM of 128 threads and dynamic
-// shared memory bytes a block.  Returns a cudaError_t as int (0 = ok).
-extern "C" int mx_flash_attention_fwd_occupancy(int D, int* out) {
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
-  if (D == 64) {
-    using K = Bf16FwdKernel<64>;
-    out[1] = (int)K::smem;
-    return occupancy(K::kernel, 128, K::smem, &out[0]);
-  }
-  using K = Bf16FwdKernel<128>;
+template <int DT>
+int bwd_occupancy_of_type(int D, int* out) {
+  if (D == 64) return bwd_occupancy<DT, 64>(out);
+  if (D == 128) return bwd_occupancy<DT, 128>(out);
+  if (D == 192) return bwd_occupancy<DT, 192>(out);
+  return bwd_occupancy<DT, 256>(out);
+}
+
+extern "C" int mx_flash_attention_bwd_occupancy(int D, int dtype, int* out) {
+  if ((D != 64 && D != 128 && D != 192 && D != 256) ||
+      (dtype != 1 && dtype != 2))
+    return (int)cudaErrorInvalidValue;
+  return dtype == 1 ? bwd_occupancy_of_type<1>(D, out)
+                    : bwd_occupancy_of_type<2>(D, out);
+}
+
+// The resources of the Hopper forward kernel (16-bit, of `dtype` 1 or 2) at
+// head dim D (64, 128, 192 or 256), for the build report: out[0..1] = blocks
+// an SM of 128 threads and dynamic shared memory bytes a block.  Returns a
+// cudaError_t as int (0 = ok).
+template <int DT, int D>
+int fwd_occupancy(int* out) {
+  using K = Fwd16Kernel<DT, D>;
   out[1] = (int)K::smem;
   return occupancy(K::kernel, 128, K::smem, &out[0]);
+}
+
+template <int DT>
+int fwd_occupancy_of_type(int D, int* out) {
+  if (D == 64) return fwd_occupancy<DT, 64>(out);
+  if (D == 128) return fwd_occupancy<DT, 128>(out);
+  if (D == 192) return fwd_occupancy<DT, 192>(out);
+  return fwd_occupancy<DT, 256>(out);
+}
+
+extern "C" int mx_flash_attention_fwd_occupancy(int D, int dtype, int* out) {
+  if ((D != 64 && D != 128 && D != 192 && D != 256) ||
+      (dtype != 1 && dtype != 2))
+    return (int)cudaErrorInvalidValue;
+  return dtype == 1 ? fwd_occupancy_of_type<1>(D, out)
+                    : fwd_occupancy_of_type<2>(D, out);
 }

@@ -145,10 +145,12 @@ class NDArray:
 
     # -- reductions: the registered ops of ops/reduce.py ----------------
     def _reduce(self, name, axis, keepdims, exclude):
+        # through the op dispatch, as the JAX package's methods go: AMP's
+        # cast policy reads it (``sum`` and ``mean`` run in float32)
         from ..ops.registry import get_op
-        with autograd.op_scope():
-            return _wrap(get_op(name).fn(self._data, axis=axis,
-                                         keepdims=keepdims, exclude=exclude))
+        from . import _make_op_func
+        return _make_op_func(get_op(name))(self, axis=axis, keepdims=keepdims,
+                                           exclude=exclude)
 
     def sum(self, axis=None, keepdims=False, exclude=False) -> "NDArray":
         return self._reduce("sum", axis, keepdims, exclude)

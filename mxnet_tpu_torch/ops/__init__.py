@@ -10,3 +10,4 @@ from . import elemwise  # noqa: F401
 from . import reduce  # noqa: F401
 from . import rnn  # noqa: F401
 from . import control_flow  # noqa: F401
+from . import contrib_ops  # noqa: F401

@@ -11,11 +11,14 @@ with the JAX package's masks: ``causal`` (query row r sees keys c <= r),
 ``kv_lens`` (B,) per-row valid key length (clamped to Tk) and
 ``q_segments``/``kv_segments`` (B, T) packed-sequence ids.  A row that sees
 no key gives 0.  :func:`flash_attention_fwd` launches the hand-written
-kernel of ``csrc/flash_attention.cu`` for CUDA tensors (f32 or bf16,
-D <= 128) or raises, and runs :func:`_flash_attention_plain` for CPU
-tensors; it returns ``o`` and the fp32 ``lse``.  One CUDA kernel covers
-both TPU forward kernels (the single-pass one and the streaming one):
-it streams 64-key tiles whatever Tk is.
+kernel of ``csrc/flash_attention.cu`` for CUDA tensors (float32, bfloat16
+or float16, D <= 256) or raises, and runs :func:`_flash_attention_plain`
+for CPU tensors; it returns ``o`` and the fp32 ``lse``.  One CUDA kernel
+covers both TPU forward kernels (the single-pass one and the streaming
+one): it streams 64-key tiles whatever Tk is.  bfloat16 and float16 run
+on Hopper's TMA and ``wgmma`` at every D, float32 on scalar fp32 FMAs (TF32
+off).  D is zero-padded to the next of 64, 128, 192 and 256, as the Pallas
+kernels pad it to a multiple of 64.
 
 :func:`flash_attention_bwd` is the backward from the forward's ``o`` and
 ``lse`` and the cotangent ``do``, in the arithmetic of the TPU backward
@@ -42,8 +45,8 @@ backward in the JAX package): :func:`flash_attention_bshd_fwd` and
 H, D) operands addressed in place through their strides: views with D
 contiguous and 16-byte aligned strides and base, such as q, k and v as
 column blocks of one fused projection output.  They make no transposed or
-contiguous copy (only D is zero-padded, by a copy, where it is neither 64
-nor 128); :func:`flash_attention_bshd` is their public op, and
+contiguous copy (only D is zero-padded, by a copy, where it is not one of
+64, 128, 192 and 256); :func:`flash_attention_bshd` is their public op, and
 :func:`self_attention_bshd` runs them over a fused (B, L, 3E) projection
 output and writes the three gradients into one (B, L, 3E) tensor, the
 path of ``MultiHeadAttention``.  They take no segment ids, as in the JAX
@@ -74,11 +77,11 @@ _NEG_INF = -1e30
 # shortest sequence that goes to a kernel at all
 _SHORT_SEQ_MAX_TK = 1024
 _DENSE_MIN_SEQ = 128
-# the CUDA kernel's tiles (csrc/flash_attention.cu): 64 query rows a block,
-# 64 keys a K tile, for every D <= 128 and both dtypes
+# the CUDA forward kernels' tiles (csrc/flash_attention.cu): 64 query rows
+# a block, 64 keys a K tile, for every D and dtype
 BLOCK_Q = 64
 BLOCK_K = 64
-_HEAD_DIMS = (64, 128)          # D is zero-padded up to one of these
+_HEAD_DIMS = (64, 128, 192, 256)    # D is zero-padded up to one of these
 
 # kernel launches in this process, forward and backward, through the
 # (B, H, T, D) entries and through the (B, T, H, D) ones
@@ -87,7 +90,7 @@ BWD_LAUNCHES = 0
 BSHD_LAUNCHES = 0
 BSHD_BWD_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _FNS = {}
 _CENSUSED = set()
 
@@ -105,10 +108,10 @@ def _kernel_fn(name="fwd"):
             [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         bwd.restype = ctypes.c_int
         occ = lib.mx_flash_attention_bwd_occupancy
-        occ.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         occ.restype = ctypes.c_int
         focc = lib.mx_flash_attention_fwd_occupancy
-        focc.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        focc.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         focc.restype = ctypes.c_int
         strides = ctypes.POINTER(ctypes.c_longlong)
         bfwd = lib.mx_flash_attention_bshd_fwd
@@ -127,10 +130,13 @@ def _kernel_fn(name="fwd"):
 
 
 def tune_attention_blocks(seq_q, seq_k, head_dim, dtype="bfloat16"):
-    """(block_q, block_k) of the CUDA kernel for a shape: 64 x 64 for
-    every shape it takes.  The TPU picked blocks up to the whole K axis
-    under a VMEM budget; on the card a block's shared memory and a
-    thread's registers make 64-key tiles the size (the source's note)."""
+    """(block_q, block_k) of the CUDA forward kernel for a shape: 64 x 64
+    for every D and dtype it takes, on the Hopper kernel (bfloat16 and
+    float16) and on the scalar one (float32) alike.  The TPU picked blocks
+    up to the whole K axis under a VMEM budget; on the card a block's
+    shared memory and a thread's registers make 64-key tiles the size (the
+    source's note).  (Above D 128 the float32 backward takes 32-row tiles,
+    for its shared memory.)"""
     return BLOCK_Q, BLOCK_K
 
 
@@ -298,9 +304,9 @@ def _ptrs(tensors):
 
 def _kernel_operands(what, tensors, contiguous=True):
     """The device of ``tensors`` and the CUDA kernels' dtype code for them,
-    after the checks every kernel makes: one device, float32 or bfloat16
-    of one dtype, and contiguous where ``contiguous``.  ``None`` as the
-    code: the tensors lie on the CPU."""
+    after the checks every kernel makes: one device, float32, bfloat16 or
+    float16 of one dtype, and contiguous where ``contiguous``.  ``None`` as
+    the code: the tensors lie on the CPU."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise MXNetError("%s: operands on several devices %s"
@@ -312,8 +318,8 @@ def _kernel_operands(what, tensors, contiguous=True):
         raise MXNetError("%s: no kernel for device %s" % (what, device))
     code = _DTYPE_CODE.get(tensors[0].dtype)
     if code is None or any(t.dtype != tensors[0].dtype for t in tensors):
-        raise MXNetError("%s: the CUDA kernel takes float32 or bfloat16 "
-                         "operands of one dtype, got %s"
+        raise MXNetError("%s: the CUDA kernel takes float32, bfloat16 or "
+                         "float16 operands of one dtype, got %s"
                          % (what, ", ".join(str(t.dtype) for t in tensors)))
     if contiguous and not all(t.is_contiguous() for t in tensors):
         raise MXNetError("%s: the CUDA kernel takes contiguous operands"
@@ -325,7 +331,8 @@ def _padded_head_dim(what, D):
     Dp = next((d for d in _HEAD_DIMS if D <= d), None)
     if Dp is None:
         raise MXNetError("%s: the CUDA kernel takes head dims up to %d, got "
-                         "%d" % (what, _HEAD_DIMS[-1], D))
+                         "%d; larger ones wait (ROADMAP.md, queue 2)"
+                         % (what, _HEAD_DIMS[-1], D))
     return Dp
 
 
@@ -334,9 +341,9 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, kv_lens=None,
     """``(o, lse)`` of masked attention over contiguous (B, H, T, D)
     operands: o (B, H, Tq, D) in q's dtype, lse (B, H, Tq) fp32.
     Launches the CUDA kernel for CUDA tensors and runs the plain version
-    for CPU tensors.  The kernel takes float32 or bfloat16 q, k and v of
-    one dtype, D <= 128 (zero-padded to 64 or 128 here) and contiguous
-    operands, and raises on anything else."""
+    for CPU tensors.  The kernel takes float32, bfloat16 or float16 q, k
+    and v of one dtype, D <= 256 (zero-padded to 64, 128, 192 or 256 here)
+    and contiguous operands, and raises on anything else."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise ValueError("flash_attention_fwd: q (B, H, Tq, D), k and v "
@@ -379,8 +386,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
     ``lse`` and the cotangent ``do`` of o, in the dtypes of q, k and v.
     Launches the CUDA backward for CUDA tensors and runs the plain version
     for CPU tensors.  The kernels take q, k, v, o and do of one dtype,
-    float32 or bfloat16, contiguous, D <= 128 (zero-padded to 64 or 128
-    here), and raise on anything else."""
+    float32, bfloat16 or float16, contiguous, D <= 256 (zero-padded to 64,
+    128, 192 or 256 here), and raise on anything else."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3] \
             or o.shape != q.shape or do.shape != q.shape \
@@ -621,10 +628,10 @@ def flash_attention_bshd_fwd(q, k, v, causal=False, scale=None,
     """``(o, lse)`` of masked attention over (B, T, H, D) operands: o
     (B, Tq, H, D) in q's dtype, lse (B, H, Tq) fp32.  Launches the CUDA
     kernel for CUDA tensors and runs the plain version for CPU tensors.
-    The kernel takes float32 or bfloat16 q, k and v of one dtype, D <=
-    128 (zero-padded to 64 or 128 here, by a copy) and strided views with
-    D contiguous and 16-byte aligned strides and base, read in place; it
-    raises on anything else."""
+    The kernel takes float32, bfloat16 or float16 q, k and v of one dtype,
+    D <= 256 (zero-padded to 64, 128, 192 or 256 here, by a copy) and
+    strided views with D contiguous and 16-byte aligned strides and base,
+    read in place; it raises on anything else."""
     _check_bshd("flash_attention_bshd_fwd", q, k, v)
     device, code = _kernel_operands("flash_attention_bshd_fwd", (q, k, v),
                                     contiguous=False)

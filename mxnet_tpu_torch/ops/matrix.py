@@ -2,8 +2,8 @@
 
 Counterpart of the part of ``mxnet_tpu/ops/matrix.py`` the BERT and
 LSTM paths use: ``batch_dot``, ``transpose``, ``swapaxes``,
-``slice_axis``, ``_contrib_gather_positions``, ``Cast``, ``zeros_like``
-and ``ones_like``, and the list-signature ``concat`` and ``stack`` of
+``slice_axis``, ``_contrib_gather_positions``, ``Cast``, ``amp_cast``,
+``zeros_like`` and ``ones_like``, and the list-signature ``concat`` and ``stack`` of
 ``mxnet_tpu/ndarray/ndarray.py`` (``nd.concat``/``nd.stack`` there).  Mixed
 input dtypes promote as ``jnp.concatenate``/``jnp.stack`` promote them.
 ``Flatten`` lives in ``ops/nn.py``; the rest of the JAX module waits.
@@ -16,8 +16,8 @@ from ..base import torch_dtype
 from .registry import register
 
 __all__ = ["batch_dot", "transpose", "swapaxes", "slice_axis",
-           "gather_positions", "cast", "zeros_like", "ones_like", "concat",
-           "stack"]
+           "gather_positions", "cast", "amp_cast", "zeros_like", "ones_like",
+           "concat", "stack"]
 
 
 @register("batch_dot")
@@ -59,6 +59,12 @@ def gather_positions(data, positions):
 
 @register("Cast", aliases=("cast",))
 def cast(data, dtype="float32"):
+    return data.to(torch_dtype(dtype))
+
+
+@register("amp_cast")
+def amp_cast(data, dtype="float32"):
+    """``data`` in ``dtype``: the cast AMP's graph conversion inserts."""
     return data.to(torch_dtype(dtype))
 
 

@@ -290,8 +290,11 @@ def leaky_relu(data, gamma=None, act_type: str = "leaky", slope: float = 0.25,
 def softmax(data, length=None, axis: int = -1, temperature=None,
             dtype=None, use_length: bool = False):
     """Softmax over ``axis``; with ``use_length`` the entries at or past
-    each row's ``length`` are masked out and come back as 0."""
+    each row's ``length`` are masked out and come back as 0.  An integer
+    input is taken as float32, as ``jax.nn.softmax`` takes it."""
     x = data / temperature if temperature else data
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
     mask = None
     if length is not None and use_length:
         shape = [1] * x.dim()

@@ -166,13 +166,13 @@ def test_flash_attention_kernel_matches_plain_on_cuda():
     TA.flash_attention_fwd(q, q, q)          # a recorded gradient runs too
     assert TA.LAUNCHES == before + 1
     x = torch.zeros((1, 1, 128, 64), device=dev)
-    with pytest.raises(MXNetError, match="float32 or bfloat16"):
-        TA.flash_attention_fwd(x.half(), x.half(), x.half())
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        TA.flash_attention_fwd(x.double(), x.double(), x.double())
     with pytest.raises(MXNetError, match="contiguous"):
         t = x.transpose(2, 3)
         TA.flash_attention_fwd(t, t, t)
     with pytest.raises(MXNetError, match="head dims"):
-        y = torch.zeros((1, 1, 128, 160), device=dev)
+        y = torch.zeros((1, 1, 128, 300), device=dev)
         TA.flash_attention_fwd(y, y, y)
 
 
@@ -377,6 +377,153 @@ def test_layernorm_bwd_kernel_matches_plain_on_cuda():
     for a, b in zip((xg, gg, bg), cpu):
         torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_f16_and_wide_kernels_match_plain_on_cuda():
+    """On the card: the float16 Hopper kernels (D 64 and 128) and the
+    kernels at D 160 (padded to 192), 192 and 256 in float32, bfloat16 and
+    float16, forward and backward, through both entries, against the plain
+    versions: o within 2e-5 (f32), 2e-2 (bf16) and 5e-3 (f16) of the
+    largest |o| (f32 absolute), lse within 1e-5; dq, dk, dv within 1e-5,
+    1e-2 and 2.5e-3 of the largest |plain value|; the backward twice to
+    the same bits; each call counted as one launch of its entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    o_tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 5e-3}
+    g_tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2,
+             torch.float16: 2.5e-3}
+    cases = [  # B, H, Tq, Tk, D, dtype, causal, lens, segments
+        (2, 3, 200, 200, 64, torch.float16, False, (0, 150), True),
+        (1, 4, 256, 129, 128, torch.float16, True, None, False)] + [
+        (2, 2, Tq, Tk, D, dtype, causal, lens, seg)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16)
+        for D, Tq, Tk, causal, lens, seg in (
+            (160, 130, 130, False, (130, 64), False),
+            (192, 100, 190, True, None, True),
+            (256, 128, 97, False, (0, 97), False))]
+    for B, H, Tq, Tk, D, dtype, causal, lens, seg in cases:
+        what = (B, H, Tq, Tk, D, dtype)
+        q, k, v, do = (
+            (torch.rand((B, H, T, D), device=dev, generator=g) * 4 - 2)
+            .to(dtype) for T in (Tq, Tk, Tk, Tq))
+        kw = dict(causal=causal)
+        if lens is not None:
+            kw["kv_lens"] = torch.tensor(lens, device=dev)
+        if seg:
+            kw["q_segments"] = torch.randint(0, 3, (B, Tq), device=dev,
+                                             generator=g).sort(1).values
+            kw["kv_segments"] = torch.randint(0, 3, (B, Tk), device=dev,
+                                              generator=g).sort(1).values
+        for entry in ("bhtd", "bshd"):
+            if entry == "bshd" and seg:
+                continue
+            if entry == "bhtd":
+                args = (q, k, v)
+                fwd, bwd = TA.flash_attention_fwd, TA.flash_attention_bwd
+                counts = lambda: (TA.LAUNCHES, TA.BWD_LAUNCHES)
+                pf, pb = TA._flash_attention_plain, \
+                    TA._flash_attention_bwd_plain
+                d_o = do
+            else:
+                args = tuple(t.transpose(1, 2).contiguous()
+                             for t in (q, k, v))
+                fwd, bwd = TA.flash_attention_bshd_fwd, \
+                    TA.flash_attention_bshd_bwd
+                counts = lambda: (TA.BSHD_LAUNCHES, TA.BSHD_BWD_LAUNCHES)
+                pf, pb = TA._flash_attention_bshd_plain, \
+                    TA._flash_attention_bshd_bwd_plain
+                d_o = do.transpose(1, 2).contiguous()
+            before = counts()
+            o, lse = fwd(*args, **kw)
+            got = bwd(*args, o, lse, d_o, **kw)
+            again = bwd(*args, o, lse, d_o, **kw)
+            torch.cuda.synchronize()
+            assert counts() == (before[0] + 1, before[1] + 2), what
+            want_o, want_lse = pf(*args, **kw)
+            assert o.dtype == dtype and o.shape == want_o.shape, what
+            assert (lse - want_lse).abs().max().item() <= 1e-5, what
+            err = (o.float() - want_o.float()).abs().max().item()
+            ref = 1.0 if dtype == torch.float32 else \
+                want_o.float().abs().max().item()
+            assert err <= o_tol[dtype] * ref, (what, entry, err)
+            want = pb(*args, o, lse, d_o, **kw)
+            for a, b, w in zip(got, again, want):
+                assert torch.equal(a, b), (what, entry)
+                e = (a.float() - w.float()).abs().max().item()
+                assert e <= g_tol[dtype] * w.float().abs().max().item(), \
+                    (what, entry, e)
+
+
+@pytest.mark.cuda
+def test_bert_small_amp_step_on_cuda(monkeypatch):
+    """On the card: one masked-LM Adam step of a small BERT (2 layers, 128
+    units, 4 heads of 32) under ``amp.init("float16")``, through record,
+    ``scale_loss``, backward and the Trainer with ``init_trainer``: the
+    attention kernels take float16 and the LayerNorm kernels float32, one
+    launch each a layer or norm, forward and backward; finite loss and
+    gradients, float32 weights and Adam state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as onp
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo import bert_small
+    monkeypatch.setenv("MXNET_FUSED_LAYERNORM", "1")
+    layers, vocab, B, S, P = 2, 97, 2, 128, 5
+    rs = onp.random.RandomState(0)
+    gpu = mx.gpu(0)
+    x = mx.nd.array(rs.randint(0, vocab, (B, S)).astype("float32"), ctx=gpu)
+    vl = mx.nd.array(onp.array([S, 70], "int32"), ctx=gpu, dtype="int32")
+    mp = mx.nd.array(onp.sort(rs.choice(70, (B, P), replace=False), 1)
+                     .astype("int32"), ctx=gpu, dtype="int32")
+    y = mx.nd.array(rs.randint(0, vocab, (B, P)).astype("float32"), ctx=gpu)
+    mx.random.seed(0)
+    net = bert_small(num_layers=layers, units=128, hidden_size=256,
+                     vocab_size=vocab, max_length=S, dropout=0.0,
+                     use_pooler=False, use_decoder=True)
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    amp.init("float16")
+    seen = []
+    real = TA.flash_attention_bshd_fwd
+    monkeypatch.setattr(TA, "flash_attention_bshd_fwd",
+                        lambda q, *a, **k: seen.append(q.dtype)
+                        or real(q, *a, **k))
+    try:
+        with mx.autograd.predict_mode():
+            net(x, None, None, vl, mp)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": 1e-4})
+        amp.init_trainer(trainer)
+        ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        counts = (TA.BSHD_LAUNCHES, TA.BSHD_BWD_LAUNCHES, TL.LAUNCHES,
+                  TL.BWD_LAUNCHES)
+        with mx.autograd.record():
+            _, logits = net(x, None, None, vl, mp)
+            loss = ce(logits.reshape(-1, vocab), y.reshape(-1)).mean()
+            with amp.scale_loss(loss, trainer) as scaled:
+                scaled.backward()
+        trainer.step(1, ignore_stale_grad=True)
+        torch.cuda.synchronize()
+    finally:
+        amp.disable()
+    after = (TA.BSHD_LAUNCHES, TA.BSHD_BWD_LAUNCHES, TL.LAUNCHES,
+             TL.BWD_LAUNCHES)
+    n_ln = 2 * layers + 2
+    assert [a - b for a, b in zip(after, counts)] == [layers, layers, n_ln,
+                                                      n_ln]
+    assert set(seen) == {torch.float16}
+    assert logits.dtype == onp.float16 and loss.dtype == onp.float32
+    assert not trainer._amp_loss_scaler._has_overflow
+    assert onp.isfinite(float(loss.asscalar()))
+    for k, p in net._collect_params_with_prefix().items():
+        w, g = p.data().astorch(), p.grad().astorch()
+        assert w.dtype == g.dtype == torch.float32, k
+        assert bool(torch.isfinite(g).all()), k
+    for state in trainer._updater.states.values():
+        assert all(s.astorch().dtype == torch.float32 for s in state)
 
 
 @pytest.mark.cuda

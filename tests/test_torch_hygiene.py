@@ -93,6 +93,16 @@ def test_every_module_of_the_data_parallel_slice_is_checked():
         assert name in rel, name
 
 
+def test_every_module_of_the_amp_slice_is_checked():
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("contrib/__init__.py", "contrib/amp/__init__.py",
+                 "contrib/amp/amp.py", "contrib/amp/lists.py",
+                 "contrib/amp/loss_scaler.py", "ops/contrib_ops.py",
+                 "ops/registry.py", "ops/matrix.py", "ndarray/__init__.py",
+                 "ops/attention.py"):
+        assert name in rel, name
+
+
 def test_kernel_wrappers_have_no_fallback_try():
     """A module that loads a kernel library launches its kernel or raises:
     no ``try`` around a launch that could run something else."""
