@@ -72,6 +72,29 @@ and PyTorch built for CUDA.  It:
    float32 forward on the card against the same forward on the CPU (batch
    2, S 128, pooler and decoder), and prints one forward on the default
    (composed) LayerNorm route beside it;
+7b. array phase (``array_phase``): (a) every op that ``ops/elemwise.py``,
+   ``ops/matrix.py`` and ``ops/random_ops.py`` register, once on the card
+   through ``mx.nd`` against the same call with ``ctx=mx.cpu()`` (the case
+   table checked against the registry; exact for integer, index, shape,
+   comparison and ordering results, ``ARRAY_*`` tolerances for floats, the
+   samplers' shape, dtype, device and support), printed as ``array ops on
+   the card: N of N``; (b) BERT-base's masked-LM evaluation on the bf16
+   logits of phase 7 (``topk`` k 5, ``pick`` of the labels,
+   ``broadcast_equal`` top-1/top-5 hits, ``one_hot`` to 30522, ``argsort``
+   over the vocabulary), the same logits through the port on the CPU to
+   the same bits, ties included; ``dot`` at (12288, 768) x (768, 3072) in
+   float32 and bf16, with and without ``transpose_b``; ``take`` of the
+   word embedding by the batch's ids; ``Reshape`` by (0, 0, -4, 12, -1);
+   ``exp``, ``erf``, ``rsqrt`` and ``clip`` on the FFN activation;
+   ``gather_nd``/``scatter_nd`` at the masked positions; the samplers at
+   full size (25.6 M normal draws, 10**7 of each other distribution,
+   ``multinomial`` over 30522 classes, ``shuffle`` of 50,000 rows) with
+   their mean and variance within 5 standard errors, reseeding to the
+   same bits, and a hybridized block drawing ``F.random.normal`` anew on
+   each graph replay; (c) the device ms of each full-width case beside the
+   plain torch call the op wraps (CUDA events, median of 30) and the host
+   µs of a ``mx.nd`` dispatch of a one-element op (median of 1000), eager
+   and under ``amp.init``; no hand-written kernel launches on this path;
 8. BERT backward kernel phase: holds the flash-attention backward and the
    LayerNorm backward against their plain versions (the same cases as the
    forwards, T = 4096, and the edges of the attention backward's tile
@@ -997,6 +1020,10 @@ LN_CASES = [
     ("bert_decoder", BERT_BATCH * BERT_PRED, BERT_UNITS, "bfloat16",
      "bfloat16"),
     ("f32", BERT_BATCH * BERT_SEQ, BERT_UNITS, "float32", "float32"),
+    # the AMP step's float32 LayerNorm on the MLM head's masked rows (its
+    # other 25 launches a step are the case "f32")
+    ("f32_decoder", BERT_BATCH * BERT_PRED, BERT_UNITS, "float32",
+     "float32"),
     ("bf16_x_f32_affine", BERT_BATCH * BERT_SEQ, BERT_UNITS, "bfloat16",
      "float32"),
     ("ragged", 37, 1000, "float32", "float32"),
@@ -1941,7 +1968,8 @@ def bert_phase(torch, mx, attention, layernorm, seed, card, profile=False):
             "layernorm_launches": launches[1], "forwards": n_fwd,
             "bf16_vs_f32_rel_l2": bf16_rel, "parity_rel_l2": parity,
             "parity_s": parity_s, "default_route_forward_ms": default_ms,
-            "valid_tokens": int(lens.sum()), "profiles": profiles}
+            "valid_tokens": int(lens.sum()), "profiles": profiles,
+            "logits": logits}
 
 
 def _mlm_step(mx, net, trainer, ce, x, vl, mp, labels):
@@ -3635,6 +3663,833 @@ def print_lstm_lm(lm, card):
                                                  w["dropout"]["losses"]))
 
 
+# --- the array surface (ops/elemwise.py, ops/matrix.py, ops/random_ops.py,
+# nd.random, nd.linalg) ------------------------------------------------------
+# Phase (a), the sweep: every op those three modules register runs once on
+# the card through mx.nd and once with ctx=mx.cpu() on the same inputs.
+# Integer, index, shape, comparison, sort and top-k results must be the
+# same bits; float results within ARRAY_F32_RTOL (relative, ARRAY_F32_ATOL
+# absolute near 0: CUDA's exp/log/erf and the CPU's differ by an ulp or
+# two), ARRAY_LINALG_RTOL for the products and the solvers (TF32 off; sums
+# in another order, LAPACK against cuSOLVER), and one ulp of their type
+# for bfloat16 and float16 (2**-7 and 2**-10 relative) plus ARRAY_F32_ATOL
+# (near 0 the CPU's vectorised erf, an approximation within about 1.5e-7,
+# and CUDA's differ by more than a 16-bit ulp of the value).  A sampler's
+# draws differ by device: its shape, dtype and device are checked, and its
+# values lie in the distribution's support.
+ARRAY_F32_RTOL, ARRAY_F32_ATOL = 1e-5, 1e-6
+ARRAY_LINALG_RTOL = 1e-4
+ARRAY_ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+ARRAY_MODULES = ("mxnet_tpu_torch.ops.elemwise", "mxnet_tpu_torch.ops.matrix",
+                 "mxnet_tpu_torch.ops.random_ops", "torch")
+ARRAY_EXACT = ("topk", "sort", "argsort", "one_hot", "take", "pick",
+               "gather_nd", "gather_positions", "_contrib_gather_positions",
+               "shape_array", "size_array", "Reshape", "reshape", "slice",
+               "slice_axis", "slice_like", "transpose", "swapaxes",
+               "SwapAxis", "expand_dims", "squeeze", "repeat", "tile",
+               "reverse", "flip", "Pad", "pad", "diag", "tril",
+               "depth_to_space", "space_to_depth", "concat", "Concat",
+               "stack", "histogram", "_unravel_index", "unravel_index",
+               "linalg_extractdiag", "linalg_makediag", "zeros_like",
+               "ones_like", "Cast", "cast", "amp_cast")
+ARRAY_LINALG = ("dot", "batch_dot", "linalg_gemm", "linalg_gemm2",
+                "linalg_potrf", "linalg_potri", "linalg_trmm", "linalg_trsm",
+                "linalg_sumlogdiag", "linalg_syrk", "linalg_gelqf",
+                "linalg_inverse", "linalg_det", "linalg_slogdet")
+
+
+def array_sweep_inputs(seed):
+    """The sweep's numpy inputs, from ``RandomState(seed)``."""
+    import numpy as onp
+    rs = onp.random.RandomState(seed + 21)
+    sgn = onp.where(rs.uniform(size=(3, 4, 5)) < 0.5, -1.0, 1.0)
+    x = (sgn * rs.uniform(0.2, 2.0, (3, 4, 5))).astype("float32")
+    y = rs.uniform(-2, 2, (3, 4, 5)).astype("float32")
+    spd = rs.uniform(-1, 1, (2, 4, 4))
+    spd = (spd @ spd.transpose(0, 2, 1) + 4 * onp.eye(4)).astype("float32")
+    ties = onp.array([[1, 3, 3, 0, 3, 1, 2, 2, 0, 1],
+                      [5, 5, 5, 5, 4, 4, 6, 6, 0, 5]], "float32")
+    f = lambda *s: rs.uniform(-1, 1, s).astype("float32")
+    return {
+        "x": x, "y": y, "yb": f(1, 4, 1),
+        "eq": onp.where(rs.uniform(size=x.shape) < 0.3, x, y)
+        .astype("float32"),
+        "zeros": onp.where(rs.uniform(size=x.shape) < 0.3, 0, x)
+        .astype("float32"),
+        "cond": (rs.uniform(size=x.shape) < 0.5).astype("float32"),
+        "pos": rs.uniform(0.1, 3.0, (3, 4, 5)).astype("float32"),
+        "unit": rs.uniform(-0.9, 0.9, (3, 4, 5)).astype("float32"),
+        "ge1": rs.uniform(1.1, 3.0, (3, 4, 5)).astype("float32"),
+        "ynz": (sgn * rs.uniform(0.5, 2.0, (3, 4, 5))).astype("float32"),
+        "exps": rs.randint(-3, 4, (3, 4, 5)).astype("float32"),
+        "i": rs.randint(-5, 6, (3, 4, 5)).astype("int32"),
+        "ipos": rs.randint(1, 4, (3, 4, 5)).astype("int32"),
+        "m45": f(4, 5), "m53": f(5, 3), "m35": f(3, 5), "t234": f(2, 3, 4),
+        "t245": f(2, 4, 5), "m43": f(2, 4, 3), "m34": f(2, 3, 4),
+        "m44": f(2, 4, 4), "spd": spd,
+        "low": onp.tril(rs.uniform(0.5, 1.5, (2, 4, 4))).astype("float32"),
+        "img": f(2, 3, 4, 5), "sq1": f(3, 1, 5, 1),
+        "d2s": onp.arange(48, dtype="float32").reshape(1, 8, 2, 3),
+        "s2d": onp.arange(48, dtype="float32").reshape(1, 2, 4, 6),
+        "idx": onp.array([[0, 2.7], [4, 9], [-1, -6]], "float32"),
+        "pick_idx": onp.array([0, 4, 7], "float32"),
+        "gnd": onp.array([[0, 2, 1, -1, 2], [3, 0, 1, 2, 1]], "float32"),
+        "snd_data": f(5), "gpos_data": f(2, 6, 3),
+        "gpos": onp.array([[0, 5, 9], [2, -1, 3]], "float32"),
+        "ties": ties, "shape_like": onp.zeros((2, 3, 4), "float32"),
+        "hist": onp.concatenate([rs.uniform(-2, 2, 98), [2.0, -2.0]])
+        .astype("float32"),
+        "ravel": onp.array([[0, 1, 2], [3, 0, 4]], "float32"),
+        "flat": onp.array([0, 7, 13, 19], "float32"),
+        "probs": onp.array([[0.1, 0.6, 0.0, 0.3], [0.25] * 4], "float32"),
+        "lo": onp.array([0.0, -2.0], "float32"),
+        "hi": onp.array([1.0, 2.0], "float32"),
+    }
+
+
+def array_sweep_cases():
+    """(op, input names (or (name, dtype)), attrs): at least one case for
+    every op of ``ARRAY_MODULES``."""
+    cases = []
+
+    def add(op, arrays, **attrs):
+        cases.append((op, tuple(arrays), attrs))
+    for op in ("abs", "sign", "rint", "ceil", "floor", "trunc", "fix",
+               "square", "cbrt", "rcbrt", "exp", "expm1", "sin", "cos",
+               "arctan", "sinh", "cosh", "tanh", "arcsinh", "degrees",
+               "radians", "reciprocal", "negative", "erf", "sigmoid", "relu",
+               "softsign", "identity", "_copy", "stop_gradient_identity",
+               "BlockGrad_inner", "BlockGrad", "stop_gradient",
+               "hard_sigmoid", "logical_not"):
+        add(op, ["x"])
+    for op in ("sqrt", "rsqrt", "log", "log10", "log2", "log1p", "gamma",
+               "gammaln"):
+        add(op, ["pos"])
+    for op in ("arcsin", "arccos", "arctanh", "erfinv", "tan"):
+        add(op, ["unit"])
+    add("arccosh", ["ge1"])
+    for op in ("exp", "erf", "rsqrt", "tanh"):
+        add(op, [("pos", "bfloat16")])
+        add(op, [("pos", "float16")])
+    for op in ("abs", "square", "sign", "rint"):
+        add(op, [("i", "int32")])
+    add("clip", ["x"], a_min=-0.5, a_max=1.0)
+    add("make_loss", ["x"], grad_scale=0.3)
+    add("smooth_l1", ["x"], scalar=1.5)
+    for op in ("elemwise_add", "elemwise_sub", "elemwise_mul", "elemwise_div",
+               "maximum", "minimum", "hypot", "arctan2"):
+        add(op, ["x", "y"])
+    for op in ("broadcast_add", "broadcast_sub", "broadcast_mul",
+               "broadcast_div", "broadcast_maximum", "broadcast_minimum",
+               "broadcast_hypot", "broadcast_plus", "broadcast_minus", "_add",
+               "_plus", "_sub", "_minus", "_mul", "_div"):
+        add(op, ["x", "yb"])
+    for op in ("mod", "broadcast_mod", "_mod"):
+        add(op, ["x", "ynz"])
+        add(op, [("i", "int32"), ("ipos", "int32")])
+    for op in ("power", "broadcast_power", "_power", "pow"):
+        add(op, ["pos", "y"])
+    add("ldexp", ["x", "exps"])
+    for op in ("broadcast_equal", "broadcast_not_equal", "broadcast_greater",
+               "broadcast_greater_equal", "broadcast_lesser",
+               "broadcast_lesser_equal", "equal", "not_equal", "greater",
+               "greater_equal", "lesser", "lesser_equal"):
+        add(op, ["x", "eq"])
+    for op in ("broadcast_logical_and", "broadcast_logical_or",
+               "broadcast_logical_xor", "logical_and", "logical_or",
+               "logical_xor"):
+        add(op, ["zeros", "cond"])
+    for op, src, s in (("_plus_scalar", "x", 1.5), ("_minus_scalar", "x", 1.5),
+                       ("_rminus_scalar", "x", 1.5), ("_mul_scalar", "x", 1.5),
+                       ("_div_scalar", "x", 1.5), ("_rdiv_scalar", "x", 1.5),
+                       ("_mod_scalar", "x", -0.7), ("_rmod_scalar", "ynz", 2.5),
+                       ("_power_scalar", "pos", 2.5),
+                       ("_rpower_scalar", "x", 1.5),
+                       ("_maximum_scalar", "x", 0.3),
+                       ("_minimum_scalar", "x", 0.3),
+                       ("_hypot_scalar", "x", 1.5),
+                       ("_equal_scalar", "exps", 1.0),
+                       ("_not_equal_scalar", "exps", 1.0),
+                       ("_greater_scalar", "x", 0.3),
+                       ("_greater_equal_scalar", "exps", 1.0),
+                       ("_lesser_scalar", "x", 0.3),
+                       ("_lesser_equal_scalar", "exps", 1.0)):
+        add(op, [src], scalar=s)
+    add("_mod_scalar", [("i", "int32")], scalar=3)
+    add("where", ["cond", "x", "y"])
+    add("dot", ["m45", "m53"])
+    add("dot", ["m35", "m45"], transpose_b=True)
+    add("dot", ["t234", "m45"])
+    add("dot", [("m45", "bfloat16"), ("m53", "bfloat16")])
+    add("batch_dot", ["t234", "t245"])
+    add("transpose", ["x"], axes=(1, 0, 2))
+    add("swapaxes", ["x"], dim1=0, dim2=2)
+    add("SwapAxis", ["x"], dim1=1, dim2=2)
+    add("expand_dims", ["x"], axis=1)
+    add("squeeze", ["sq1"])
+    add("Reshape", ["x"], shape=(0, -4, 2, -1, -2))
+    add("reshape", ["x"], shape=(-3, 0))
+    add("slice", ["x"], begin=(None, 3, 1), end=(None, 0, None),
+        step=(1, -1, 2))
+    add("slice_axis", ["x"], axis=2, begin=-2, end=None)
+    add("slice_like", ["x", "shape_like"], axes=(0, 2))
+    add("take", ["m45", "idx"])
+    add("take", ["x", "idx"], axis=2, mode="wrap")
+    add("pick", ["m35", "pick_idx"])
+    add("one_hot", ["idx"], depth=5)
+    add("gather_nd", ["x", "gnd"])
+    add("gather_positions", ["gpos_data", "gpos"])
+    add("_contrib_gather_positions", ["gpos_data", "gpos"])
+    add("scatter_nd", ["snd_data", "gnd"], shape=(3, 4))
+    add("repeat", ["t234"], repeats=2, axis=1)
+    add("tile", ["t234"], reps=(2, 1, 3))
+    add("reverse", ["x"], axis=(0, 2))
+    add("flip", ["x"], axis=1)
+    add("Pad", ["img"], mode="reflect", pad_width=(0, 0, 0, 0, 1, 2, 2, 1))
+    add("pad", ["img"], mode="edge", pad_width=(0, 0, 0, 0, 3, 3, 4, 4))
+    add("Pad", ["img"], mode="constant", pad_width=(0, 0, 1, 0, 0, 3, 1, 1),
+        constant_value=1.5)
+    add("Cast", ["x"], dtype="int32")
+    add("cast", ["x"], dtype="bfloat16")
+    add("amp_cast", ["x"], dtype="float16")
+    add("shape_array", ["x"])
+    add("size_array", ["img"])
+    add("zeros_like", ["x"])
+    add("ones_like", [("i", "int32")])
+    add("diag", ["m45"], k=-1)
+    add("tril", ["x"], k=1)
+    add("concat", ["x", "y"], dim=2)
+    add("Concat", ["x", "y"])
+    add("stack", ["x", "y"], axis=1)
+    for src in ("ties", ("ties", "bfloat16")):
+        add("topk", [src], k=3, ret_typ="both")
+        add("topk", [src], k=2, is_ascend=True)
+        add("topk", [src], k=2, ret_typ="mask")
+        add("sort", [src], is_ascend=False)
+        add("argsort", [src])
+        add("argsort", [src], is_ascend=False)
+    add("depth_to_space", ["d2s"], block_size=2)
+    add("space_to_depth", ["s2d"], block_size=2)
+    add("histogram", ["hist"], bin_cnt=5)
+    add("histogram", ["hist"], bin_cnt=7, range=(-1.0, 1.5))
+    add("linalg_gemm", ["m43", "m43", "m44"], transpose_b=True, alpha=0.5,
+        beta=-2.0)
+    add("linalg_gemm2", ["m43", "m43"], transpose_a=True)
+    add("linalg_potrf", ["spd"])
+    add("linalg_potri", ["low"])
+    add("linalg_trmm", ["low", "m34"], rightside=True, transpose=True)
+    add("linalg_trsm", ["low", "m43"], transpose=True, alpha=1.5)
+    add("linalg_trsm", ["low", "m34"], rightside=True)
+    add("linalg_sumlogdiag", ["spd"])
+    add("linalg_syrk", ["m43"], transpose=True, alpha=0.5)
+    add("linalg_gelqf", ["m35"])
+    add("linalg_extractdiag", ["m44"], offset=1)
+    add("linalg_makediag", ["m34"], offset=-1)
+    add("linalg_inverse", ["spd"])
+    add("linalg_det", ["spd"])
+    add("linalg_slogdet", ["m44"])
+    add("_ravel_multi_index", ["ravel"], shape=(4, 5))
+    add("ravel_multi_index", [("ravel", "int32")], shape=(4, 5))
+    add("_unravel_index", ["flat"], shape=(4, 5))
+    add("unravel_index", [("flat", "int32")], shape=(2, 2, 5))
+    # the samplers: (lower, upper) bounds of the support ride along
+    for op in ("_random_uniform", "random_uniform", "uniform"):
+        add(op, [], low=-1.0, high=2.0, shape=(64,), support=(-1.0, 2.0))
+    for op in ("_random_normal", "random_normal", "normal"):
+        add(op, [], loc=1.0, scale=2.0, shape=(64,), support=None)
+    for op in ("_random_gamma", "random_gamma"):
+        add(op, [], alpha=2.0, beta=0.5, shape=(64,), support=(0.0, None))
+    for op in ("_random_exponential", "random_exponential"):
+        add(op, [], lam=2.0, shape=(64,), support=(0.0, None))
+    for op in ("_random_poisson", "random_poisson", "_random_negative_binomial",
+               "random_negative_binomial",
+               "_random_generalized_negative_binomial",
+               "random_generalized_negative_binomial"):
+        add(op, [], shape=(64,), support=(0.0, None))
+    for op in ("_random_randint", "random_randint", "randint"):
+        add(op, [], low=-3, high=7, shape=(64,), support=(-3, 6))
+    for op in ("_sample_multinomial", "sample_multinomial", "multinomial"):
+        add(op, ["probs"], shape=(16,), support=(0, 3))
+    for op in ("shuffle", "_shuffle"):
+        add(op, ["x"], support=None)
+    for op in ("_sample_uniform", "sample_uniform"):
+        add(op, ["lo", "hi"], shape=(32,), support=(-2.0, 2.0))
+    for op in ("_sample_normal", "sample_normal"):
+        add(op, ["lo", "hi"], shape=(32,), support=None)
+    for op in ("_sample_gamma", "sample_gamma"):
+        add(op, ["hi", "hi"], shape=(32,), support=(0.0, None))
+    return cases
+
+
+def array_surface_ops(mx):
+    """The registered names of ``ARRAY_MODULES``."""
+    from mxnet_tpu_torch.ops.registry import get_op, list_ops
+    return [n for n in list_ops()
+            if getattr(get_op(n).fn, "__module__", "") in ARRAY_MODULES]
+
+
+def _arrays_on(mx, inputs, names, ctx):
+    out = []
+    for a in names:
+        name, dt = (a, None) if isinstance(a, str) else a
+        out.append(mx.nd.array(inputs[name], ctx=ctx, dtype=dt))
+    return out
+
+
+def _as_list(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def _host(torch, o):
+    """A float64 numpy copy of an output (integers exact)."""
+    import numpy as onp
+    t = o.astorch().detach().cpu()
+    if t.is_floating_point():
+        return t.double().numpy()
+    return t.numpy().astype(onp.int64)
+
+
+def array_sweep(torch, mx, seed):
+    """Phase (a): every op of the array surface on the card against the
+    same call on the CPU.  Returns the number of cases and of ops."""
+    import numpy as onp
+    inputs = array_sweep_inputs(seed)
+    cases = array_sweep_cases()
+    names = array_surface_ops(mx)
+    covered = {c[0] for c in cases}
+    missing = [n for n in names if n not in covered]
+    check(not missing, "array ops without a sweep case: %s" % missing)
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    dev = gpu.torch_device
+    bad = []
+
+    def expect(cond, msg):
+        if not cond:
+            bad.append(msg)
+        return cond
+    for op, arrays, attrs in cases:
+        attrs = dict(attrs)
+        sampler = "support" in attrs
+        support = attrs.pop("support", None)
+        fn = getattr(mx.nd, op)
+        what = "array op %s %s %s" % (op, arrays, attrs)
+        if sampler and not arrays:
+            g = _as_list(fn(ctx=gpu, **attrs))
+            c = _as_list(fn(ctx=cpu, **attrs))
+        else:
+            g = _as_list(fn(*_arrays_on(mx, inputs, arrays, gpu), **attrs))
+            with mx.cpu():
+                c = _as_list(fn(*_arrays_on(mx, inputs, arrays, cpu),
+                                **attrs))
+        if not expect(len(g) == len(c), "%s: %d outputs on the card, %d on "
+                      "the CPU" % (what, len(g), len(c))):
+            continue
+        for go, co in zip(g, c):
+            gt, ct = go.astorch(), co.astorch()
+            if not (expect(gt.device == dev and ct.device.type == "cpu",
+                           "%s: output on %s" % (what, gt.device))
+                    and expect(gt.dtype == ct.dtype and gt.shape == ct.shape,
+                               "%s: card %s %s, CPU %s %s"
+                               % (what, gt.dtype, tuple(gt.shape), ct.dtype,
+                                  tuple(ct.shape)))):
+                continue
+            gv, cv = _host(torch, go), _host(torch, co)
+            if sampler:
+                expect(onp.isfinite(gv).all(), "%s: non-finite draw" % what)
+                if support is not None:
+                    lo, hi = support
+                    expect((lo is None or gv.min() >= lo)
+                           and (hi is None or gv.max() <= hi),
+                           "%s: a draw outside %s" % (what, support))
+                if op in ("shuffle", "_shuffle"):
+                    expect(onp.array_equal(onp.sort(gv.reshape(-1)),
+                                           onp.sort(cv.reshape(-1))),
+                           "%s: not a permutation" % what)
+                continue
+            dt = str(gt.dtype).replace("torch.", "")
+            if not gt.is_floating_point() or op in ARRAY_EXACT:
+                expect(onp.array_equal(gv, cv, equal_nan=True),
+                       "%s: card and CPU differ (exact)" % what)
+            elif dt in ARRAY_ULP:
+                big = onp.maximum(abs(gv), abs(cv))
+                err = abs(gv - cv)
+                expect((err <= ARRAY_ULP[dt] * big + ARRAY_F32_ATOL).all(),
+                       "%s: %s max err %.3g beyond an ulp" % (what, dt,
+                                                              err.max()))
+            else:
+                rtol = ARRAY_LINALG_RTOL if op in ARRAY_LINALG \
+                    else ARRAY_F32_RTOL
+                expect(onp.allclose(gv, cv, rtol=rtol, atol=ARRAY_F32_ATOL,
+                                    equal_nan=True),
+                       "%s: card and CPU differ beyond rtol %g: max %.3g"
+                       % (what, rtol, abs(gv - cv).max()))
+    check(not bad, "%d of %d array cases failed:\n  %s"
+          % (len(bad), len(cases), "\n  ".join(bad)))
+    return {"cases": len(cases), "ops": len(names), "covered":
+            len([n for n in names if n in covered])}
+
+
+# Phase (b): full width.  BERT-base's masked-LM evaluation on the bf16
+# logits bert_phase produced (24 x 76 x 30522), the products, gathers and
+# activations at BERT-base's shapes, and the samplers at sizes their users
+# draw.  The samplers' mean and variance must lie within ARRAY_SE standard
+# errors of the distribution's: the mean's standard error is
+# sqrt(var / n), the variance's sqrt((mu4 - var**2) / n), mu4 the fourth
+# central moment: uniform(a, b): mean (a+b)/2, var (b-a)²/12, mu4
+# (b-a)⁴/80; normal(m, s): m, s², 3s⁴; gamma(a, b): ab, ab², 3a(a+2)b⁴;
+# exponential(l): 1/l, 1/l², 9/l⁴; Poisson(l): l, l, l(1+3l); the failures
+# before the k-th success at rate p (negative binomial, and the
+# generalized one with k = 1/alpha, p = k/(k+mu)): k(1-p)/p, k(1-p)/p²,
+# (3 + 6/k + p²/(k(1-p))) var²; randint(lo, hi), n = hi - lo values:
+# (lo+hi-1)/2, (n²-1)/12, (n²-1)(3n²-7)/240; a category drawn from p_k:
+# sum k p_k and the central moments of that sum, computed from p.
+ARRAY_SE = 5.0
+ARRAY_NORMAL_DRAWS = 25_557_032        # ResNet-50 v1's parameter count
+ARRAY_DRAWS = 10 ** 7
+ARRAY_SHUFFLE_ROWS = 50_000
+ARRAY_DISPATCH_CALLS = 1000
+
+
+def _moments_ok(torch, v, mean, var, mu4, what):
+    v = v.double().reshape(-1)
+    n = v.numel()
+    m = v.mean().item()
+    s2 = v.var(unbiased=False).item()
+    se_m = (var / n) ** 0.5
+    se_v = ((mu4 - var * var) / n) ** 0.5
+    check(abs(m - mean) <= ARRAY_SE * se_m and abs(s2 - var)
+          <= ARRAY_SE * se_v,
+          "%s: mean %.6g (want %.6g +- %.3g), var %.6g (want %.6g +- %.3g)"
+          % (what, m, mean, ARRAY_SE * se_m, s2, var, ARRAY_SE * se_v))
+    return {"n": n, "mean": m, "var": s2, "mean_z": (m - mean) / se_m,
+            "var_z": (s2 - var) / se_v}
+
+
+def _nb_moments(k, p):
+    var = k * (1 - p) / p ** 2
+    return k * (1 - p) / p, var, (3 + 6 / k + p * p / (k * (1 - p))) * var ** 2
+
+
+def array_samplers(torch, mx, seed):
+    """The samplers at full size on the card, each draw's moments against
+    the distribution's."""
+    gpu = mx.gpu(0)
+    dev = gpu.torch_device
+    out = {}
+    mx.random.seed(seed)
+    z = mx.nd.random.normal(0.0, 1.0, shape=(ARRAY_NORMAL_DRAWS,), ctx=gpu)
+    out["normal_25.6M"] = _moments_ok(torch, z.astorch(), 0.0, 1.0, 3.0,
+                                      "normal")
+    del z
+    n = ARRAY_DRAWS
+    lo_hi = 9 - (-3)
+    for name, draw, mom in (
+            ("uniform", lambda: mx.nd.random.uniform(-1.0, 3.0, shape=(n,),
+                                                     ctx=gpu),
+             (1.0, 16 / 12, 256 / 80)),
+            ("gamma", lambda: mx.nd.random.gamma(2.5, 1.5, shape=(n,),
+                                                 ctx=gpu),
+             (3.75, 2.5 * 2.25, 3 * 2.5 * 4.5 * 1.5 ** 4)),
+            ("exponential", lambda: mx.nd.random.exponential(2.0, shape=(n,),
+                                                             ctx=gpu),
+             (0.5, 0.25, 9 / 16)),
+            ("poisson", lambda: mx.nd.random.poisson(4.0, shape=(n,),
+                                                     ctx=gpu),
+             (4.0, 4.0, 4.0 * 13)),
+            ("negative_binomial", lambda: mx.nd.random.negative_binomial(
+                3, 0.4, shape=(n,), ctx=gpu), _nb_moments(3, 0.4)),
+            ("generalized_negative_binomial",
+             lambda: mx.nd.random.generalized_negative_binomial(
+                 2.0, 0.5, shape=(n,), ctx=gpu), _nb_moments(2.0, 0.5)),
+            ("randint", lambda: mx.nd.random.randint(-3, 9, shape=(n,),
+                                                     ctx=gpu),
+             (2.5, (lo_hi ** 2 - 1) / 12,
+              (lo_hi ** 2 - 1) * (3 * lo_hi ** 2 - 7) / 240))):
+        v = draw()
+        check(v.astorch().device == dev, "%s drew off the card" % name)
+        out[name] = _moments_ok(torch, v.astorch(), *mom, what=name)
+    # the per-parameter samplers: 10 parameters, 10**6 draws each
+    import numpy as onp
+    a = onp.linspace(0.5, 5.0, 10).astype("float32")
+    b = onp.linspace(0.2, 2.0, 10).astype("float32")
+    pa, pb = mx.nd.array(a, ctx=gpu), mx.nd.array(b, ctx=gpu)
+    per = n // 10
+    for name, draw, mom in (
+            ("sample_uniform", lambda: mx.nd.sample_uniform(pa - 3.0, pa + pb,
+                                                            shape=(per,)),
+             lambda p, q: ((2 * p - 3 + q) / 2, (q + 3) ** 2 / 12,
+                           (q + 3) ** 4 / 80)),
+            ("sample_normal", lambda: mx.nd.sample_normal(pa, pb,
+                                                          shape=(per,)),
+             lambda p, q: (p, q * q, 3 * q ** 4)),
+            ("sample_gamma", lambda: mx.nd.sample_gamma(pa, pb, shape=(per,)),
+             lambda p, q: (p * q, p * q * q, 3 * p * (p + 2) * q ** 4))):
+        v = draw().astorch()
+        rows = [_moments_ok(torch, v[i], *mom(float(a[i]), float(b[i])),
+                            what="%s row %d" % (name, i)) for i in range(10)]
+        out[name] = {"n": v.numel(), "max_abs_mean_z":
+                     max(abs(r["mean_z"]) for r in rows),
+                     "max_abs_var_z": max(abs(r["var_z"]) for r in rows)}
+    # a category over BERT's vocabulary (Zipf-like weights)
+    k = torch.arange(BERT_VOCAB, device=dev, dtype=torch.float64)
+    p = 1.0 / (k + 10.0)
+    p = p / p.sum()
+    mean = (k * p).sum().item()
+    var = ((k - mean) ** 2 * p).sum().item()
+    mu4 = ((k - mean) ** 4 * p).sum().item()
+    probs = mx.nd.array(p.float(), ctx=gpu)
+    draws = mx.nd.random.multinomial(probs, shape=(n,))
+    check(str(draws.dtype) == "int32" and draws.shape == (n,),
+          "multinomial: %s %s" % (draws.dtype, draws.shape))
+    out["multinomial_30522"] = _moments_ok(torch, draws.astorch(), mean, var,
+                                           mu4, "multinomial")
+    # shuffle of 50,000 rows: a permutation of the rows, and the new
+    # position of a row uncorrelated with its old one (the correlation of
+    # a random permutation has standard error 1/sqrt(n - 1))
+    rows = ARRAY_SHUFFLE_ROWS
+    x = mx.nd.array(onp.arange(rows * 2, dtype="float32").reshape(rows, 2),
+                    ctx=gpu)
+    s = mx.nd.random.shuffle(x).astorch()
+    old = s[:, 0].double() / 2
+    check(bool((s[:, 1] == s[:, 0] + 1).all()) and torch.equal(
+        torch.sort(old).values, torch.arange(rows, device=dev,
+                                             dtype=torch.float64)),
+          "shuffle: not a permutation of the rows")
+    new = torch.arange(rows, device=dev, dtype=torch.float64)
+    rho = torch.corrcoef(torch.stack([old, new]))[0, 1].item()
+    check(abs(rho) <= ARRAY_SE / (rows - 1) ** 0.5,
+          "shuffle: position correlation %.3g" % rho)
+    out["shuffle_50000"] = {"rows": rows, "position_corr": rho}
+    # reseeding repeats the bits; two seeds differ
+    def draws3(s):
+        mx.random.seed(s)
+        return [mx.nd.random.normal(shape=(1000,), ctx=gpu).astorch().cpu(),
+                mx.nd.random.poisson(3.0, shape=(1000,), ctx=gpu).astorch()
+                .cpu(),
+                mx.nd.random.shuffle(mx.nd.arange(100, ctx=gpu)).astorch()
+                .cpu()]
+    r1, r2, r3 = draws3(seed + 5), draws3(seed + 5), draws3(seed + 6)
+    check(all(torch.equal(u, w) for u, w in zip(r1, r2)),
+          "mx.random.seed: the same seed drew other numbers")
+    check(not torch.equal(r1[0], r3[0]), "two seeds drew the same numbers")
+    return out
+
+
+def _random_block(mx):
+    """A HybridBlock that adds ``F.random.normal`` noise (its class made
+    here: this module imports the package only inside its phases)."""
+    class Noisy(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return x + F.random.normal(shape=x.shape, ctx=x.context)
+    return Noisy(prefix="noisy_")
+
+
+def hybrid_random_replays(torch, mx, seed):
+    """A hybridized block drawing ``F.random.normal`` replays its graph
+    (captured once) with new numbers each call, and the same numbers after
+    the same ``mx.random.seed``."""
+    from mxnet_tpu_torch import telemetry
+    net = _random_block(mx)
+    net.hybridize()
+    x = mx.nd.zeros((4, 1024), ctx=mx.gpu(0))
+    name = "CachedOp_%s" % net.name
+    before = telemetry.compile_counts().get(name, 0)
+    calls = [net(x).astorch().clone() for _ in range(4)]
+
+    def two(s):
+        mx.random.seed(s)
+        return [net(x).astorch().clone() for _ in range(2)]
+    first, again = two(seed), two(seed)
+    check(telemetry.compile_counts().get(name, 0) - before == 1,
+          "the random block was not captured once")
+    check(all(not torch.equal(calls[i], calls[j]) for i in range(4)
+              for j in range(i)), "a replay repeated its draws")
+    check(all(torch.equal(a, b) for a, b in zip(first, again))
+          and not torch.equal(first[0], first[1]),
+          "reseeding did not repeat the replays")
+    z = calls[1].double()
+    return {"replays": 8, "mean": z.mean().item(), "std": z.std().item()}
+
+
+def _mlm_eval(mx, logits, labels):
+    """The masked-LM evaluation ops on ``logits`` (B, P, V) and ``labels``
+    (B, P): top-5 values and indices, the labels' logits, top-1 and top-5
+    hits, the labels one-hot, and the vocabulary's order."""
+    vals, idx = mx.nd.topk(logits, k=5, ret_typ="both")
+    picked = mx.nd.pick(logits, labels)
+    hit1 = mx.nd.broadcast_equal(idx.slice_axis(axis=2, begin=0, end=1)
+                                 .squeeze(axis=2), labels)
+    hit5 = mx.nd.broadcast_equal(idx, labels.expand_dims(2)).sum(axis=2)
+    oh = mx.nd.one_hot(labels, depth=BERT_VOCAB)
+    order = mx.nd.argsort(logits, axis=-1)
+    return {"top5_values": vals, "top5_indices": idx, "picked": picked,
+            "top1_hits": hit1, "top5_hits": hit5, "one_hot": oh,
+            "argsort": order}
+
+
+def _bits(torch, o):
+    t = o.astorch().detach().cpu()
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def array_full_width(torch, mx, logits, seed, card, flush):
+    """Phase (b) and the device times of (c)."""
+    import numpy as onp
+    gpu = mx.gpu(0)
+    dev = gpu.torch_device
+    rows = []
+
+    def timed(case, nd_fn, plain_fn, library_fn=None):
+        ms = time_cuda(torch, nd_fn, flush)
+        plain_ms = time_cuda(torch, plain_fn, flush)
+        lib_ms = time_cuda(torch, library_fn, flush) if library_fn else None
+        rows.append({"case": case, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms})
+        print("array %-34s mx.nd %.4f ms  plain torch %.4f ms%s  (%s)"
+              % (case, ms, plain_ms, "" if lib_ms is None else
+                 "  library %.4f ms" % lib_ms, card))
+
+    # BERT-base masked-LM evaluation, card against the CPU, same logits
+    rs = onp.random.RandomState(seed + 31)
+    labels_np = rs.randint(0, BERT_VOCAB, (BERT_BATCH, BERT_PRED))
+    labels = mx.nd.array(labels_np, ctx=gpu, dtype="int32")
+    check(logits.shape == (BERT_BATCH, BERT_PRED, BERT_VOCAB)
+          and str(logits.dtype) == "torch.bfloat16",
+          "MLM logits %s %s" % (logits.shape, logits.dtype))
+    t0 = time.perf_counter()
+    got = _mlm_eval(mx, logits, labels)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    host_logits = logits.as_in_context(mx.cpu())
+    t0 = time.perf_counter()
+    with mx.cpu():
+        want = _mlm_eval(mx, host_logits,
+                         mx.nd.array(labels_np, ctx=mx.cpu(), dtype="int32"))
+    cpu_s = time.perf_counter() - t0
+    for k in got:
+        g, w = _bits(torch, got[k]), _bits(torch, want[k])
+        check(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w),
+              "MLM eval %s: the card and the CPU differ" % k)
+    ties = int((torch.sort(host_logits.astorch().float(), dim=-1,
+                           descending=True).values[..., :6].diff(dim=-1)
+                == 0).any(dim=-1).sum())
+    acc1 = got["top1_hits"].astorch().float().mean().item()
+    acc5 = got["top5_hits"].astorch().float().mean().item()
+    print("array: BERT-base MLM eval on the bf16 logits (%d, %d, %d): top-5, "
+          "pick, hits, one_hot, argsort: the card's indices and values the "
+          "CPU's bits (%d rows with a tie among their 6 largest); top-1 "
+          "accuracy %.5f, top-5 %.5f against random labels; card %.2f s, "
+          "CPU %.2f s with the first call"
+          % (BERT_BATCH, BERT_PRED, BERT_VOCAB, ties, acc1, acc5, card_s,
+             cpu_s))
+    del want, host_logits
+    lt = logits.astorch()
+    lab64 = labels.astorch().long()
+    timed("topk_k5_both_bert_logits",
+          lambda: mx.nd.topk(logits, k=5, ret_typ="both"),
+          lambda: torch.sort(lt, dim=-1, descending=True, stable=True),
+          lambda: torch.topk(lt, 5, dim=-1))
+    timed("pick_labels", lambda: mx.nd.pick(logits, labels),
+          lambda: torch.take_along_dim(lt, lab64.unsqueeze(-1), dim=-1))
+    timed("one_hot_30522", lambda: mx.nd.one_hot(labels, depth=BERT_VOCAB),
+          lambda: torch.zeros(lab64.shape + (BERT_VOCAB,), device=dev)
+          .scatter_(-1, lab64.unsqueeze(-1), 1.0),
+          lambda: torch.nn.functional.one_hot(lab64, BERT_VOCAB))
+    timed("argsort_vocab", lambda: mx.nd.argsort(logits, axis=-1),
+          lambda: torch.argsort(lt, dim=-1, stable=True))
+    del got
+    torch.cuda.empty_cache()
+
+    # dot at BERT-base's FFN shapes, float32 and bf16 (TF32 off)
+    g = torch.Generator(device=dev).manual_seed(seed + 32)
+    n_tok = BERT_BATCH * BERT_SEQ
+    ffn = 4 * BERT_UNITS
+    a32 = torch.randn(n_tok, BERT_UNITS, device=dev, generator=g)
+    b32 = torch.randn(BERT_UNITS, ffn, device=dev, generator=g)
+    bt32 = b32.t().contiguous()
+    ref = None
+    for dt in ("float32", "bfloat16"):
+        tdt = getattr(torch, dt)
+        A = mx.nd.array(a32.to(tdt), ctx=gpu)
+        B = mx.nd.array(b32.to(tdt), ctx=gpu)
+        Bt = mx.nd.array(bt32.to(tdt), ctx=gpu)
+        out = mx.nd.dot(A, B).astorch()
+        out_t = mx.nd.dot(A, Bt, transpose_b=True).astorch()
+        if ref is None:
+            ref = (a32.double() @ b32.double()).float()
+        err = ((out.float() - ref).norm() / ref.norm()).item()
+        err_t = ((out_t.float() - ref).norm() / ref.norm()).item()
+        tol = 1e-6 if dt == "float32" else 1e-2
+        check(err <= tol and err_t <= tol, "dot %s: rel L2 err %.3g, "
+              "transpose_b %.3g" % (dt, err, err_t))
+        print("array: dot (%d, %d) . (%d, %d) %s: rel L2 err against float64 "
+              "%.3g, transpose_b %.3g" % (n_tok, BERT_UNITS, BERT_UNITS, ffn,
+                                          dt, err, err_t))
+        At, Btt, Btt_t = A.astorch(), B.astorch(), Bt.astorch()
+        timed("dot_%s" % dt, lambda: mx.nd.dot(A, B),
+              lambda: torch.matmul(At, Btt))
+        timed("dot_%s_transpose_b" % dt,
+              lambda: mx.nd.dot(A, Bt, transpose_b=True),
+              lambda: torch.matmul(At, Btt_t.t()))
+        del A, B, Bt, out, out_t
+    del a32, b32, bt32, ref
+    torch.cuda.empty_cache()
+
+    # take of the word embedding by the batch's ids
+    tokens, _, pos = bert_inputs(seed)
+    emb = torch.randn(BERT_VOCAB, BERT_UNITS, device=dev, generator=g)
+    E = mx.nd.array(emb, ctx=gpu)
+    ids = mx.nd.array(tokens, ctx=gpu)
+    rows_ = mx.nd.take(E, ids)
+    ids64 = ids.astorch().long()
+    check(rows_.shape == (BERT_BATCH, BERT_SEQ, BERT_UNITS) and torch.equal(
+        rows_.astorch(), torch.nn.functional.embedding(ids64, emb)),
+        "take of the embedding differs from its rows")
+    timed("take_embedding", lambda: mx.nd.take(E, ids),
+          lambda: torch.index_select(emb, 0, ids64.reshape(-1)),
+          lambda: torch.nn.functional.embedding(ids64, emb))
+    del E, rows_, emb
+    # Reshape of the sequence output into heads
+    seq = mx.nd.array(torch.randn(BERT_BATCH, BERT_SEQ, BERT_UNITS,
+                                  device=dev, generator=g), ctx=gpu)
+    heads = mx.nd.Reshape(seq, shape=(0, 0, -4, BERT_HEADS, -1))
+    check(heads.shape == (BERT_BATCH, BERT_SEQ, BERT_HEADS,
+                          BERT_UNITS // BERT_HEADS)
+          and heads.astorch().data_ptr() == seq.astorch().data_ptr(),
+          "Reshape (0, 0, -4, 12, -1) gave %s" % (heads.shape,))
+    st = seq.astorch()
+    timed("reshape_0_0_m4_12_m1",
+          lambda: mx.nd.Reshape(seq, shape=(0, 0, -4, BERT_HEADS, -1)),
+          lambda: st.reshape(BERT_BATCH, BERT_SEQ, BERT_HEADS, -1))
+    # gather_nd / scatter_nd at the masked positions
+    bidx = onp.repeat(onp.arange(BERT_BATCH), BERT_PRED)
+    ind = mx.nd.array(onp.stack([bidx, pos.reshape(-1)]), ctx=gpu,
+                      dtype="int32")
+    picked = mx.nd.gather_nd(seq, ind)
+    check(torch.equal(picked.astorch(), mx.nd.gather_positions(
+        seq, mx.nd.array(pos, ctx=gpu, dtype="int32")).astorch()
+        .reshape(-1, BERT_UNITS)), "gather_nd differs from the positions'")
+    back = mx.nd.scatter_nd(picked, ind, shape=(BERT_BATCH, BERT_SEQ,
+                                                BERT_UNITS))
+    check(torch.equal(mx.nd.gather_nd(back, ind).astorch(),
+                      picked.astorch()), "scatter_nd lost the rows")
+    it = tuple(ind.astorch().long())
+    pt = picked.astorch()
+    timed("gather_nd_masked_positions", lambda: mx.nd.gather_nd(seq, ind),
+          lambda: st[it])
+    timed("scatter_nd_masked_positions",
+          lambda: mx.nd.scatter_nd(picked, ind, shape=(BERT_BATCH, BERT_SEQ,
+                                                       BERT_UNITS)),
+          lambda: torch.zeros_like(st).index_put_(it, pt, accumulate=True))
+    del seq, heads, picked, back
+    # the FFN activation's elementwise ops, float32 and bf16
+    act32 = torch.randn(BERT_BATCH, BERT_SEQ, ffn, device=dev, generator=g)
+    for dt in ("float32", "bfloat16"):
+        h = mx.nd.array(act32.to(getattr(torch, dt)), ctx=gpu)
+        ht = h.astorch()
+        ha = ht.abs() + 0.5
+        habs = mx.nd.array(ha, ctx=gpu)
+        host = mx.nd.array(ht[0].cpu(), ctx=mx.cpu())
+        host_abs = mx.nd.array(ha[0].cpu(), ctx=mx.cpu())
+        for op, fn, plain, src, hsrc in (
+                ("exp", lambda: mx.nd.exp(h), lambda: torch.exp(ht), h, host),
+                ("erf", lambda: mx.nd.erf(h), lambda: torch.erf(ht), h, host),
+                ("rsqrt", lambda: mx.nd.rsqrt(habs),
+                 lambda: torch.rsqrt(ha), habs, host_abs),
+                ("clip", lambda: mx.nd.clip(h, a_min=-1.0, a_max=1.0),
+                 lambda: torch.clamp(ht, -1.0, 1.0), h, host)):
+            out = getattr(mx.nd, op)(src, **({"a_min": -1.0, "a_max": 1.0}
+                                            if op == "clip" else {}))
+            with mx.cpu():
+                ref = getattr(mx.nd, op)(hsrc, **({"a_min": -1.0,
+                                                   "a_max": 1.0}
+                                                  if op == "clip" else {}))
+            gv = out.astorch()[0].float().cpu()
+            rv = ref.astorch().float()
+            big = torch.maximum(gv.abs(), rv.abs())
+            tol = (ARRAY_ULP[dt] if dt in ARRAY_ULP else ARRAY_F32_RTOL) \
+                * big + ARRAY_F32_ATOL
+            excess = ((gv - rv).abs() - tol).max().item()
+            check(out.dtype == ref.dtype and excess <= 0,
+                  "%s %s at (24, 512, 3072): the card and the CPU differ "
+                  "(max |err| %.3g)" % (op, dt, (gv - rv).abs().max().item()))
+            timed("%s_ffn_%s" % (op, dt), fn, plain)
+        del h, habs, host, host_abs, ha
+    del act32
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dispatch_host_us(torch, mx):
+    """Host microseconds a ``mx.nd`` call of a one-element op on the card
+    takes (the median of ARRAY_DISPATCH_CALLS calls, the card kept busy),
+    eager and under ``amp.init("float16")`` (a float32-list op, whose
+    input the policy casts, and a widest-type op)."""
+    from mxnet_tpu_torch.contrib import amp
+    one = mx.nd.array([1.5], ctx=mx.gpu(0))
+    half = one.astype("float16")
+
+    def median_us(fn):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        times = []
+        for _ in range(ARRAY_DISPATCH_CALLS):
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        return statistics.median(times) * 1e6
+    out = {"exp_eager": median_us(lambda: mx.nd.exp(one)),
+           "broadcast_add_eager": median_us(lambda: mx.nd.broadcast_add(
+               one, one)),
+           "plain_torch_exp": median_us(lambda: torch.exp(one.astorch()))}
+    amp.init(target_dtype="float16")
+    try:
+        check(str(mx.nd.exp(half).dtype) == "float32",
+              "amp: exp of float16 is not float32")
+        out["exp_amp_f16_input"] = median_us(lambda: mx.nd.exp(half))
+        out["broadcast_add_amp"] = median_us(
+            lambda: mx.nd.broadcast_add(half, one))
+    finally:
+        amp.disable()
+    return out
+
+
+def array_phase(torch, mx, logits, seed, card):
+    """The array surface on the card: (a) the sweep, (b) full width, (c)
+    device ms and host µs a dispatch.  ``logits``: bert_phase's last bf16
+    MLM logits."""
+    t0 = time.perf_counter()
+    sweep = array_sweep(torch, mx, seed)
+    print("array ops on the card: %d of %d (%d cases, each against the same "
+          "call on the CPU)" % (sweep["covered"], sweep["ops"],
+                                sweep["cases"]))
+    sweep_s = time.perf_counter() - t0
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=mx.gpu(0).torch_device)
+    rows = array_full_width(torch, mx, logits, seed, card, flush)
+    del flush
+    torch.cuda.empty_cache()
+    samplers = array_samplers(torch, mx, seed)
+    for k, v in samplers.items():
+        print("array sampler %-30s %s" % (k, ", ".join(
+            "%s %s" % (a, ("%.4g" % b) if isinstance(b, float) else b)
+            for a, b in v.items())))
+    replays = hybrid_random_replays(torch, mx, seed)
+    print("array: hybridized F.random.normal block: %d calls, one capture, "
+          "each replay new draws, reseeding repeats them; a replay's mean "
+          "%.4g std %.4g" % (replays["replays"], replays["mean"],
+                             replays["std"]))
+    host = dispatch_host_us(torch, mx)
+    print("array: host us a mx.nd dispatch of a one-element op on the card "
+          "(median of %d): %s  (%s)" % (ARRAY_DISPATCH_CALLS, ", ".join(
+              "%s %.2f" % kv for kv in host.items()), card))
+    torch.cuda.empty_cache()
+    return {"sweep": sweep, "sweep_s": sweep_s, "full_width": rows,
+            "samplers": samplers, "replays": replays, "dispatch_us": host}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3782,8 +4637,24 @@ def main(argv=None):
                                             card))
     print_profiles(bert["profiles"], card)
     torch.cuda.empty_cache()
-
     mark("bert")
+
+    # the array surface on the MLM logits of the BERT path: counts from 0
+    # just before, read just after; no TPU kernel of the repo lies on it
+    _reset_counts(attention, layernorm)
+    fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
+    arr = array_phase(torch, mx, bert.pop("logits"), args.seed, card)
+    arr_launches = {
+        "fused_norm": (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES),
+        "attention": (attention.LAUNCHES, attention.BWD_LAUNCHES),
+        "attention_bshd": (attention.BSHD_LAUNCHES,
+                           attention.BSHD_BWD_LAUNCHES),
+        "layernorm": (layernorm.LAUNCHES, layernorm.BWD_LAUNCHES)}
+    print("array: hand-written kernel launches on the path (forward, "
+          "backward): %s; sweep %.1f s" % (arr_launches, arr["sweep_s"]))
+    check(all(v == (0, 0) for v in arr_launches.values()),
+          "the array surface launched a hand-written kernel")
+    mark("array")
     btrain = bert_training_phase(torch, mx, attention, layernorm, args.seed,
                                  card, profile=args.profile)
     print("bert training: BERT-base bf16 MLM step, batch %d x %d (%d valid "
@@ -4108,6 +4979,7 @@ def main(argv=None):
     for e in entries:
         check(e["launches"] > 0, "%s: launched no time on its path"
               % e["name"])
+        e["launches_by_path"]["array_surface"] = 0   # checked above
     print("attention sublayer, the layer's choice: (B, T, H, D) %.4f ms "
           "against (B, H, T, D) with transposes %.4f ms forward and "
           "backward  (%s)" % (sublayer["bshd"], sublayer["bhtd"], card))

@@ -6,7 +6,9 @@ is the CPU, the port's default context is ``gpu(0)``: the card is where
 it runs.  A context resolves to a device only through
 :attr:`Context.torch_device`, which raises when a GPU context is asked
 for on a machine without CUDA, so nothing falls back to the CPU unless
-the caller asked for ``mx.cpu()``.
+the caller asked for ``mx.cpu()``.  ``cpu_pinned()`` is the host too:
+an array there lives in page-locked memory, which the card copies from
+without staging.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
+           "num_gpus", "gpu_memory_info"]
 
 
 class Context:
@@ -29,7 +32,7 @@ class Context:
     def __init__(self, device_type, device_id: int = 0):
         if isinstance(device_type, Context):
             device_type, device_id = device_type.device_type, device_type.device_id
-        if device_type not in ("cpu", "gpu"):
+        if device_type not in ("cpu", "gpu", "cpu_pinned"):
             raise ValueError("unknown device type %r" % (device_type,))
         self.device_type = device_type
         self.device_id = int(device_id)
@@ -52,7 +55,7 @@ class Context:
     def torch_device(self) -> torch.device:
         """The ``torch.device`` of this context.  Raises for a GPU context
         when CUDA is absent or the id is out of range."""
-        if self.device_type == "cpu":
+        if self.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise MXNetError(
@@ -88,6 +91,21 @@ def cpu(device_id: int = 0) -> Context:
 def gpu(device_id: int = 0) -> Context:
     """The CUDA device ``cuda:<device_id>``."""
     return Context("gpu", device_id)
+
+
+def cpu_pinned(device_id: int = 0) -> Context:
+    """Page-locked host memory."""
+    return Context("cpu_pinned", device_id)
+
+
+def num_gpus() -> int:
+    """The number of CUDA devices visible."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def gpu_memory_info(device_id: int = 0):
+    """(free, total) bytes of the card ``device_id``."""
+    return torch.cuda.mem_get_info(gpu(device_id).torch_device)
 
 
 def current_context() -> Context:

@@ -331,8 +331,11 @@ class _CachedGraph:
         device = arrays[0]._data.device
         if self._pool is None:
             self._pool = new_pool(device)
-        gens = (_random.generator(device),) \
-            if training and device.type == "cuda" else ()
+        # the device's generator is registered in either mode: dropout
+        # draws while training, and a block may draw (F.random.normal) in
+        # either; each replay draws new numbers, as each call of the JAX
+        # package's _CachedGraph takes a fresh key
+        gens = (_random.generator(device),) if device.type == "cuda" else ()
         return Captured(body, [a._data for a in arrays], pool=self._pool,
                         generators=gens), meta
 

@@ -1,18 +1,31 @@
 """NDArray: MXNet's imperative array over a ``torch.Tensor``.
 
-Counterpart of ``mxnet_tpu/ndarray/ndarray.py``, carrying over what the
-Gluon layers, the serving path and the training loop use: ``asnumpy``,
-``asscalar``, ``shape``, ``dtype``, ``context``, ``astype``, arithmetic,
-basic indexing, ``len`` (the first axis), the ``sum`` and ``mean``
-reductions (the registered ops of ``ops/reduce.py``), ``reshape`` with
-MXNet's special codes (``Flatten`` uses it), placement (``copyto``, ``as_in_context``), the autograd surface
-(``attach_grad``, ``grad``, ``backward``, ``detach``), ``transpose``, the
-``array``/``zeros``/``ones``/``arange`` constructors, ``split``,
-``concat`` and ``stack``, and the ordered comparisons (``<``, ``<=``,
-``>``, ``>=``: 1 where true, 0 where false, in the left operand's
-dtype, as in the JAX package).  The tensor lives on the context's device;
-its context is read from the tensor.  Arithmetic rebinds the wrapped
-tensor (``self._data = new``) as the JAX package does; every operation
+Counterpart of ``mxnet_tpu/ndarray/ndarray.py`` with its whole surface:
+conversion (``asnumpy``, ``asscalar``, ``item``, ``astype``,
+``float()``/``int()``/``bool()``), placement (``copyto``,
+``as_in_context``), the autograd surface (``attach_grad``, ``grad``,
+``backward``, ``detach``), shape methods (``reshape`` with MXNet's codes,
+``reshape_like``, ``flatten``, ``expand_dims``, ``squeeze``,
+``broadcast_to``/``broadcast_like``, ``transpose`` and ``T``), the
+arithmetic, reflected and in-place operators with ``@``, ``**``, ``%``
+and ``//``, element-wise comparisons (``==`` and ``!=`` too: 1 where true,
+0 where false, in the left operand's dtype, as in the JAX package; the
+hash stays the identity's), indexing with integers, slices (negative
+steps too), ``None``, ``...`` and integer arrays (NDArrays, numpy arrays,
+lists; float indices are cut to integers and every index is clipped into
+range, as the JAX package's gathers clip), item assignment, and every
+registered op as a method (``a.exp()``), through the ``mx.nd`` dispatch.
+The module adds the constructors ``array``, ``empty``, ``zeros``,
+``ones``, ``full``, ``arange``, ``linspace``, ``eye``, ``from_numpy``,
+and ``split``, ``concat``, ``stack``, ``add_n`` and ``waitall``.
+
+The tensor lives on the context's device; the context is read from the
+tensor.  Mutation rebinds the wrapped tensor (``self._data = new``), as
+the JAX package rebinds its immutable buffer: ``a += b``, ``a[1:] = v``
+and ``out=`` leave an array taken from ``a`` before (a slice, a view) with
+its old values.  A variable (``attach_grad``) is the exception: it is
+updated in place, so that it stays the leaf its gradient hook is on, and
+that is refused while recording, as in the JAX package.  Every operation
 runs in :func:`autograd.op_scope`, so it builds a graph only inside
 ``autograd.record()``.
 """
@@ -28,8 +41,9 @@ from .. import autograd
 from ..base import MXNetError, numeric_types, torch_dtype
 from ..context import Context, current_context
 
-__all__ = ["NDArray", "array", "zeros", "ones", "arange", "split", "concat",
-           "stack"]
+__all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
+           "linspace", "eye", "split", "concat", "stack", "add_n", "waitall",
+           "from_numpy"]
 
 
 class NDArray:
@@ -61,12 +75,27 @@ class NDArray:
         return onp.dtype(str(self._data.dtype).replace("torch.", ""))
 
     @property
+    def ndim(self) -> int:
+        return self._data.dim()
+
+    @property
     def context(self) -> Context:
         return Context.from_device(self._data.device)
+
+    ctx = context
 
     @property
     def size(self) -> int:
         return self._data.numel()
+
+    @property
+    def stype(self) -> str:
+        """The storage type: always dense (``"default"``)."""
+        return "default"
+
+    @property
+    def T(self) -> "NDArray":
+        return self.transpose()
 
     @property
     def grad(self) -> Optional["NDArray"]:
@@ -91,10 +120,29 @@ class NDArray:
             raise ValueError("The current array is not a scalar")
         return self.asnumpy().reshape(())[()]
 
+    def item(self):
+        return self.asscalar()
+
     def wait_to_read(self):
         """Wait until the value is computed."""
         if self._data.device.type == "cuda":
             torch.cuda.current_stream(self._data.device).synchronize()
+
+    wait_to_write = wait_to_read
+
+    def __float__(self):
+        return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
+
+    def __bool__(self):
+        if self.size == 0:
+            return False
+        if self.size == 1:
+            return bool(self.asscalar())
+        raise ValueError("The truth value of an NDArray with multiple "
+                         "elements is ambiguous.")
 
     def astorch(self) -> torch.Tensor:
         """The underlying ``torch.Tensor``."""
@@ -115,8 +163,8 @@ class NDArray:
             other._data = self._data.detach().to(other._data.device)
             return other
         if isinstance(other, Context):
-            return _wrap(self._data.detach().to(other.torch_device,
-                                                copy=True))
+            return _wrap(_placed(self._data.detach().to(
+                other.torch_device, copy=True), other))
         raise TypeError("copyto does not support type %s" % type(other))
 
     def as_in_context(self, ctx: Context) -> "NDArray":
@@ -124,6 +172,27 @@ class NDArray:
         if ctx == self.context:
             return self
         return self.copyto(ctx)
+
+    as_in_ctx = as_in_context
+
+    def as_nd_ndarray(self):
+        return self
+
+    def copy(self) -> "NDArray":
+        """A copy on the same device."""
+        with autograd.op_scope():
+            return _wrap(self._data.clone())
+
+    def tostype(self, stype):
+        """This array in storage ``stype``: only dense (``"default"``)
+        storage is ported, so that gives a copy and a sparse type
+        raises."""
+        if stype != "default":
+            raise MXNetError("sparse storage (%r) is not ported" % (stype,))
+        return self.copy()
+
+    def tojson(self):
+        raise AttributeError("tojson is a Symbol method")
 
     # -- autograd -------------------------------------------------------
     def detach(self) -> "NDArray":
@@ -166,15 +235,42 @@ class NDArray:
         return self._data.shape[0]
 
     def __getitem__(self, key):
-        """Basic indexing: integers, slices, ``None`` and ``...``."""
-        parts = key if isinstance(key, tuple) else (key,)
-        if not all(p is None or p is Ellipsis
-                   or isinstance(p, (numbers.Integral, slice))
-                   for p in parts):
-            raise MXNetError("NDArray indexing takes integers, slices, None "
-                             "and Ellipsis; got %r" % (key,))
+        """Basic and advanced indexing (see the module's docstring)."""
+        key, flips = _torch_key(key, self._data)
         with autograd.op_scope():
-            return _wrap(self._data[key])
+            data = self._data.flip(flips) if flips else self._data
+            return _wrap(data[key])
+
+    def __setitem__(self, key, value):
+        """``a[key] = value``: ``a`` is rebound to a new tensor (a variable
+        is written in place, and not while recording)."""
+        variable = self._grad_req is not None
+        if variable and autograd.is_recording():
+            raise MXNetError("in-place assignment to an array that requires "
+                             "grad is not supported while recording")
+        cur = self._data
+        if isinstance(value, NDArray):
+            value = value._data
+        elif isinstance(value, numeric_types):
+            value = torch.full((), value, device=cur.device)
+        else:
+            value = torch.as_tensor(onp.asarray(value), device=cur.device)
+        value = value.to(device=cur.device, dtype=cur.dtype)
+        key, flips = _torch_key(key, cur)
+        whole = all(isinstance(k, slice) and k == slice(None)
+                    for k in (key if isinstance(key, tuple) else (key,)))
+        with torch.no_grad() if variable else autograd.op_scope():
+            if whole:
+                new = torch.empty_like(cur).copy_(value)
+            else:
+                new = cur.flip(flips) if flips else cur.clone()
+                new[key] = value
+                if flips:
+                    new = new.flip(flips)
+            if variable:
+                cur.copy_(new)
+            else:
+                self._data = new
 
     def __repr__(self):
         return "\n%s\n<NDArray %s @%s>" % (
@@ -203,6 +299,52 @@ class NDArray:
         with autograd.op_scope():
             return _wrap(transpose(self._data, axes))
 
+    def reshape_like(self, other: "NDArray") -> "NDArray":
+        return self.reshape(other.shape)
+
+    def flatten(self) -> "NDArray":
+        """(first axis, the rest flattened)."""
+        return self.reshape((self.shape[0] if self.ndim else 1, -1))
+
+    def squeeze(self, axis=None) -> "NDArray":
+        from ..ops.matrix import squeeze
+        with autograd.op_scope():
+            return _wrap(squeeze(self._data, axis))
+
+    def expand_dims(self, axis) -> "NDArray":
+        with autograd.op_scope():
+            return _wrap(self._data.unsqueeze(axis))
+
+    def broadcast_to(self, shape) -> "NDArray":
+        """This array broadcast to ``shape`` (missing leading axes of 1
+        added first)."""
+        shape = tuple(shape)
+        cur = (1,) * (len(shape) - self.ndim) + self.shape
+        with autograd.op_scope():
+            return _wrap(self._data.reshape(cur).expand(shape))
+
+    def broadcast_like(self, other) -> "NDArray":
+        return self.broadcast_to(other.shape)
+
+    def zeros_like(self, **kw) -> "NDArray":
+        return _wrap(torch.zeros_like(self._data))
+
+    def ones_like(self, **kw) -> "NDArray":
+        return _wrap(torch.ones_like(self._data))
+
+    def __getattr__(self, name):
+        """A registered op as a method: ``a.op(*args, **kw)`` is
+        ``mx.nd.op(a, *args, **kw)``."""
+        if name.startswith("_"):
+            raise AttributeError(name)
+        from ..ops.registry import get_op
+        op = get_op(name)
+        if op is None:
+            raise AttributeError("NDArray has no attribute or op %r" % name)
+        from . import _make_op_func
+        f = _make_op_func(op)
+        return lambda *a, **kw: f(self, *a, **kw)
+
     # -- arithmetic -----------------------------------------------------
     def _binop(self, other, fn):
         if isinstance(other, NDArray):
@@ -230,9 +372,22 @@ class NDArray:
     def __rmul__(self, o): return self.__mul__(o)
     def __truediv__(self, o): return self._binop(o, torch.div)
     def __rtruediv__(self, o): return self._rbinop(o, torch.div)
+    def __floordiv__(self, o): return self._binop(o, torch.floor_divide)
+    def __rfloordiv__(self, o): return self._rbinop(o, torch.floor_divide)
+    def __mod__(self, o): return self._binop(o, torch.remainder)
+    def __rmod__(self, o): return self._rbinop(o, torch.remainder)
+    def __pow__(self, o): return self._binop(o, torch.pow)
+    def __rpow__(self, o): return self._rbinop(o, torch.pow)
+    def __matmul__(self, o): return self._binop(o, _matmul)
+    def __rmatmul__(self, o): return self._rbinop(o, _matmul)
+
     def __neg__(self):
         with autograd.op_scope():
             return _wrap(torch.neg(self._data))
+
+    def __abs__(self):
+        with autograd.op_scope():
+            return _wrap(torch.abs(self._data))
 
     def _inplace(self, res):
         """``a op= b`` rebinds ``a``; a variable (``attach_grad``) is
@@ -251,6 +406,8 @@ class NDArray:
     def _compare(self, other, fn):
         return self._binop(other, lambda a, b: fn(a, b).to(self._data.dtype))
 
+    def __eq__(self, o): return self._compare(o, torch.eq)
+    def __ne__(self, o): return self._compare(o, torch.ne)
     def __gt__(self, o): return self._compare(o, torch.gt)
     def __ge__(self, o): return self._compare(o, torch.ge)
     def __lt__(self, o): return self._compare(o, torch.lt)
@@ -260,7 +417,10 @@ class NDArray:
     def __isub__(self, o): return self._inplace(self.__sub__(o))
     def __imul__(self, o): return self._inplace(self.__mul__(o))
     def __itruediv__(self, o): return self._inplace(self.__truediv__(o))
+    def __imod__(self, o): return self._inplace(self.__mod__(o))
 
+    # the identity's hash, as MXNet's: NDArrays stay usable as dict keys
+    # and set members although ``==`` is element-wise
     __hash__ = object.__hash__
 
     # pickling, in the JAX package's form: optimizer-state files of either
@@ -277,11 +437,16 @@ _NARROW = {onp.dtype(onp.float64): onp.dtype(onp.float32),
            onp.dtype(onp.int64): onp.dtype(onp.int32)}
 
 
+def _placed(t: torch.Tensor, ctx: Context) -> torch.Tensor:
+    """``t`` in page-locked memory when ``ctx`` is ``cpu_pinned``."""
+    return t.pin_memory() if ctx.device_type == "cpu_pinned" else t
+
+
 def _to_tensor(data, ctx: Context, dtype=None) -> torch.Tensor:
     device = ctx.torch_device
     dt = torch_dtype(dtype) if dtype is not None else None
     if isinstance(data, torch.Tensor):
-        return data.to(device=device, dtype=dt)
+        return _placed(data.to(device=device, dtype=dt), ctx)
     if dt is None:
         # like the JAX package, whose arrays are at most 32-bit: a 64-bit
         # numpy source becomes its 32-bit kind (float64 float32, int64
@@ -291,8 +456,8 @@ def _to_tensor(data, ctx: Context, dtype=None) -> torch.Tensor:
     arr = onp.asarray(data)
     if dt != torch.bfloat16:
         arr = arr.astype(str(dt).replace("torch.", ""), copy=False)
-    return torch.as_tensor(onp.ascontiguousarray(arr)).to(device=device,
-                                                          dtype=dt)
+    return _placed(torch.as_tensor(onp.ascontiguousarray(arr))
+                   .to(device=device, dtype=dt), ctx)
 
 
 def _wrap(tensor: torch.Tensor) -> NDArray:
@@ -300,6 +465,54 @@ def _wrap(tensor: torch.Tensor) -> NDArray:
     out = NDArray.__new__(NDArray)
     out._data = tensor
     return out
+
+
+def _matmul(a, b):
+    from ..ops.matrix import _matmul as matmul
+    return matmul(a, b)
+
+
+def _torch_key(key, data):
+    """``key`` as torch indexes ``data``, and the axes to flip first.
+    NDArray, numpy and list indices become int64 tensors on ``data``'s
+    device (a float index is cut to an integer), a negative index counts
+    from the end and every index is clipped into its axis, as the JAX
+    package's gathers clip; a boolean numpy or list index stays a mask.
+    A slice with a negative step, which torch lacks, becomes a forward
+    slice of the flipped axis."""
+    from ..ops.matrix import forward_slice
+    parts = list(key) if isinstance(key, tuple) else [key]
+    for i, p in enumerate(parts):
+        if isinstance(p, NDArray):
+            p = p._data
+        elif isinstance(p, (list, onp.ndarray)):
+            p = torch.as_tensor(onp.asarray(p), device=data.device)
+        if isinstance(p, torch.Tensor) and p.dtype != torch.bool:
+            p = p.to(device=data.device, dtype=torch.int64)
+        parts[i] = p
+    used = sum(p.dim() if isinstance(p, torch.Tensor)
+               and p.dtype == torch.bool else 1 for p in parts
+               if p is not None and p is not Ellipsis)
+    flips, axis = [], 0
+    for i, p in enumerate(parts):
+        if p is None:
+            continue
+        if p is Ellipsis:
+            axis += data.dim() - used
+            continue
+        if isinstance(p, torch.Tensor) and p.dtype == torch.bool:
+            axis += p.dim()
+            continue
+        n = data.shape[axis]
+        if isinstance(p, torch.Tensor):
+            parts[i] = torch.clamp(torch.where(p < 0, p + n, p), 0, n - 1)
+        elif isinstance(p, slice):
+            flip, parts[i] = forward_slice(p, n)
+            if flip:
+                flips.append(axis)
+        axis += 1
+    key = tuple(parts) if isinstance(key, tuple) else parts[0]
+    return key, tuple(flips)
 
 
 def _infer_reshape(cur_shape, target, reverse=False):
@@ -367,12 +580,54 @@ def _filled(shape, value, ctx, dtype) -> NDArray:
                             device=ctx.torch_device))
 
 
+def empty(shape, ctx: Optional[Context] = None, dtype=None) -> NDArray:
+    """An array of ``shape`` (zeros, as the JAX package gives)."""
+    return zeros(shape, ctx=ctx, dtype=dtype)
+
+
 def zeros(shape, ctx: Optional[Context] = None, dtype=None, **kw) -> NDArray:
     return _filled(shape, 0, ctx, dtype)
 
 
 def ones(shape, ctx: Optional[Context] = None, dtype=None, **kw) -> NDArray:
     return _filled(shape, 1, ctx, dtype)
+
+
+def full(shape, val, ctx: Optional[Context] = None, dtype=None,
+         out=None) -> NDArray:
+    """An array of ``shape`` filled with ``val`` (float32 unless ``dtype``
+    says otherwise), written into ``out`` when given."""
+    res = _filled(shape, val, ctx, dtype)
+    if out is not None:
+        return out._inplace(res)
+    return res
+
+
+def linspace(start, stop, num, endpoint=True, ctx: Optional[Context] = None,
+             dtype=None) -> NDArray:
+    """``num`` evenly spaced values from ``start`` to ``stop`` (float32
+    unless ``dtype`` says otherwise), in ``jnp.linspace``'s arithmetic."""
+    from ..ops.matrix import linspace as _linspace
+    ctx = ctx if ctx is not None else current_context()
+    dt = torch_dtype(dtype) if dtype is not None else torch.float32
+    dev = ctx.torch_device
+    lo, hi = (torch.tensor(v, dtype=torch.float32, device=dev)
+              for v in (start, stop))
+    a = _linspace(lo, hi, int(num), torch.float32, endpoint)
+    if not dt.is_floating_point:
+        a = torch.floor(a)
+    return _wrap(a.to(dt))
+
+
+def eye(N, M=0, k=0, ctx: Optional[Context] = None, dtype=None) -> NDArray:
+    """An N x M (N x N when M is 0) array with ones on the k-th
+    diagonal."""
+    ctx = ctx if ctx is not None else current_context()
+    dt = torch_dtype(dtype) if dtype is not None else torch.float32
+    dev = ctx.torch_device
+    rows = torch.arange(N, device=dev).unsqueeze(1)
+    cols = torch.arange(M if M else N, device=dev).unsqueeze(0)
+    return _wrap((cols - rows == k).to(dt))
 
 
 def arange(start, stop=None, step=1.0, repeat=1, ctx: Optional[Context] = None,
@@ -423,3 +678,24 @@ def stack(*data, axis: int = 0, **kw) -> NDArray:
     from ..ops import matrix
     with autograd.op_scope():
         return _wrap(matrix.stack(*_tensors(data), axis=axis))
+
+
+def add_n(*args, **kw) -> NDArray:
+    """The sum of the arrays (or of one list of them), left to right."""
+    with autograd.op_scope():
+        tensors = _tensors(args)
+        total = tensors[0]
+        for t in tensors[1:]:
+            total = total + t
+        return _wrap(total)
+
+
+def waitall():
+    """Wait until every computation queued on the card has finished."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def from_numpy(value, ctx: Optional[Context] = None) -> NDArray:
+    """An NDArray holding a copy of the numpy array ``value``."""
+    return array(value, ctx=ctx)

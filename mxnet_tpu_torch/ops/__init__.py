@@ -7,6 +7,7 @@ from . import attention  # noqa: F401
 from . import nn  # noqa: F401
 from . import matrix  # noqa: F401
 from . import elemwise  # noqa: F401
+from . import random_ops  # noqa: F401
 from . import reduce  # noqa: F401
 from . import rnn  # noqa: F401
 from . import control_flow  # noqa: F401

@@ -344,12 +344,22 @@ def sequence_last(data, sequence_length=None,
                   use_sequence_length: bool = False, axis: int = 0):
     """The last step of each sequence along ``axis`` (0: (T, N, ...), 1:
     (N, T, ...)): step ``sequence_length - 1`` of each row with
-    ``use_sequence_length``, else the last step."""
+    ``use_sequence_length``, else the last step.  The step is taken as the
+    JAX package's ``take_along_axis`` takes it: a negative step counts from
+    the end (a length of 0 gives the last step), and a step past either
+    end gives the fill value (NaN, or the integer type's least value)."""
     if not use_sequence_length or sequence_length is None:
         return data.select(axis, -1)
-    last = sequence_length.to(torch.int64) - 1
-    if axis == 0:
-        idx = last.reshape((1, -1) + (1,) * (data.dim() - 2))
-        return torch.take_along_dim(data, idx, dim=0)[0]
-    idx = last.reshape((-1, 1) + (1,) * (data.dim() - 2))
-    return torch.take_along_dim(data, idx, dim=1)[:, 0]
+    T = data.shape[axis]
+    step = sequence_length.to(torch.int64) - 1
+    step = torch.where(step < 0, step + T, step)
+    inside = (step >= 0) & (step < T)
+    shape = [1] * data.dim()
+    shape[1 - axis] = -1
+    idx = torch.clamp(step, 0, T - 1).reshape(shape)
+    out = torch.take_along_dim(data, idx, dim=axis).select(axis, 0)
+    fill = float("nan") if data.is_floating_point() else \
+        torch.iinfo(data.dtype).min
+    keep = inside.reshape((-1,) + (1,) * (out.dim() - 1))
+    return torch.where(keep, out, torch.full((), fill, dtype=data.dtype,
+                                             device=data.device))

@@ -107,6 +107,10 @@ class DataParallelStep:
         self._net = net
         self._loss = loss_fn
         self._opt = optimizer
+        # the recompile detector's name; an earlier step with the same id
+        # was collected, and its compiles are not this step's
+        self._program = "DataParallelStep[%x]" % id(self)
+        telemetry.forget_compiles(self._program)
         self._mesh = mesh if mesh is not None else get_mesh()
         self._shard_n = self._resolve_shard_optimizer(shard_optimizer)
         params = [p for _, p in sorted(net.collect_params().items())
@@ -341,7 +345,7 @@ class DataParallelStep:
         sig_d = lambda v: None if v is None else {"shape": list(v.shape),
                                                   "dtype": str(v.dtype)}
         telemetry.record_compile(
-            "DataParallelStep[%x]" % id(self),
+            self._program,
             {"mode": "scan" if scan else "call",
              "data": [sig_d(d) for d in dval] if tupled else sig_d(dval),
              "label": sig_d(lval)})

@@ -9,7 +9,9 @@ from the same seed; tests that compare them carry weights across.
 data-parallel step's dropout stream), ``draw_seed`` takes a seed for it
 from the host generator, and ``seed_epoch`` counts the ``seed()`` calls,
 so that an owner of its own generator reseeds it after a new
-``mx.random.seed``, as the JAX package's step draws a new key then.
+``mx.random.seed``, as the JAX package's step draws a new key then.  The
+distribution draws (``mx.random.uniform``, ``normal``...) are
+``mx.nd.random``'s.
 """
 from __future__ import annotations
 
@@ -53,13 +55,19 @@ def seed(seed_state: int, ctx="all") -> None:
     generator(ctx.torch_device).manual_seed(int(seed_state))
 
 
-def generator(device) -> torch.Generator:
-    """The generator of ``device`` (a ``torch.device`` or a name)."""
+def _indexed(device) -> torch.device:
+    """``device`` with its index (``cuda`` is the current CUDA device)."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def generator(device) -> torch.Generator:
+    """The generator of ``device`` (a ``torch.device`` or a name)."""
+    device = _indexed(device)
     lent = _LENT.generator
-    if lent is not None and lent.device == device:
+    if lent is not None and _indexed(lent.device) == device:
         return lent
     with _STATE.lock:
         g = _STATE.generators.get(device)
@@ -89,3 +97,12 @@ def draw_seed() -> int:
 def seed_epoch() -> int:
     """The number of ``seed()`` calls so far."""
     return _STATE.epoch
+
+
+def __getattr__(name):
+    # the distribution draws are nd.random's, as in the JAX package
+    from .ndarray import random as _ndrandom
+    try:
+        return getattr(_ndrandom, name)
+    except AttributeError:
+        raise AttributeError("module 'random' has no attribute %r" % name)

@@ -4,9 +4,10 @@ log-bucketed histograms and the recompile detector.
 Counterpart of the part of ``mxnet_tpu/telemetry.py`` that serving reads:
 ``inc``/``counter``, ``gauge``, ``event`` (a bounded in-memory journal),
 ``hist_observe``/``histogram`` with honest p50/p99 from fixed-size
-log buckets, ``span_event``, ``record_compile``/``compile_counts``/
-``compile_deltas`` and ``new_trace_id``.  Export, trace contexts, the
-collector and the profiler come with the observability port.
+log buckets, ``span_event``, ``record_compile``/``forget_compiles``/
+``compile_counts``/``compile_deltas`` and ``new_trace_id``.  Export,
+trace contexts, the collector and the profiler come with the
+observability port.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import time
 from collections import deque
 
 __all__ = ["inc", "counter", "gauge", "event", "span_event", "Histogram",
-           "hist_observe", "histogram", "record_compile", "compile_counts",
+           "hist_observe", "histogram", "record_compile", "forget_compiles",
+           "compile_counts",
            "compile_deltas", "new_trace_id"]
 
 JOURNAL_MAXLEN = 4096
@@ -173,6 +175,13 @@ def record_compile(fn, key):
         event("compile", fn, n=n)
     else:
         event("recompile", fn, n=n, previous=prev, key=key)
+
+
+def forget_compiles(fn):
+    """Drop the compile record of ``fn``: a new owner of a name made from
+    an ``id()`` that an earlier, collected object had starts from 0."""
+    with _lock:
+        _compiles.pop(fn, None)
 
 
 def compile_counts():

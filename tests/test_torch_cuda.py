@@ -1039,3 +1039,109 @@ def test_device_scale_update_gives_the_bits_of_host_numbers_on_cuda():
                     assert a.dtype == b.dtype and torch.equal(a, b), \
                         (name, mode, t)
                 w, state = want[0], list(want[1:])
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` from the repo's root (its array sweep is shared
+    with this file)."""
+    import importlib
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.fixture
+def tf32_off():
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = prev
+
+
+@pytest.mark.cuda
+def test_array_surface_sweep_on_cuda(tf32_off):
+    """``chip_smoke.array_sweep``: every op of ``ops/elemwise.py``,
+    ``ops/matrix.py`` and ``ops/random_ops.py`` once on the card against
+    the same call on the CPU (exact for integer, index, shape, comparison
+    and ordering results, the stated tolerances for floats; the samplers'
+    shape, dtype, device and support), the case table checked against the
+    registry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mxnet_tpu_torch as mx
+    cs = _chip_smoke()
+    r = cs.array_sweep(torch, mx, 0)
+    assert r["covered"] == r["ops"] == len(cs.array_surface_ops(mx))
+    assert r["ops"] >= 211
+
+
+@pytest.mark.cuda
+def test_hybridized_random_block_replays_new_draws_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mxnet_tpu_torch as mx
+    r = _chip_smoke().hybrid_random_replays(torch, mx, 3)
+    assert r["replays"] == 8 and abs(r["mean"]) < 0.1
+
+
+@pytest.mark.cuda
+def test_samplers_draw_on_the_card_from_its_generator():
+    """No ``ctx=``: the samplers draw on the card, from the card's
+    generator, which ``mx.random.seed`` resets and ``generator_scope``
+    replaces."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mxnet_tpu_torch as mx
+    mx.random.seed(11)
+    a = mx.nd.random.normal(shape=(1000,))
+    assert a.context == mx.gpu(0) and a.astorch().is_cuda
+    mx.random.seed(11)
+    assert torch.equal(mx.nd.random.normal(shape=(1000,)).astorch(),
+                       a.astorch())
+    g = torch.Generator(device="cuda").manual_seed(11)
+    with mx.random.generator_scope(g):
+        b = mx.nd.random.normal(shape=(1000,))
+    assert torch.equal(b.astorch(), torch.randn(
+        1000, generator=torch.Generator(device="cuda").manual_seed(11),
+        device="cuda"))
+
+
+@pytest.mark.cuda
+def test_array_ops_capture_in_a_hybridized_block_on_cuda():
+    """Ops that make small tensors (``shape_array``, ``size_array``,
+    ``_ravel_multi_index``, ``histogram`` with a range) and the samplers
+    copy nothing from the host and read nothing back, so a hybridized
+    block's CUDA graph captures them: the graph gives the eager block's
+    bits, and its draws change from call to call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mxnet_tpu_torch as mx
+
+    class Block(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            sizes = F.shape_array(x).astype("float32").sum() \
+                + F.size_array(x).astype("float32").sum()
+            counts, edges = F.histogram(x, bin_cnt=5, range=(-1.0, 1.0))
+            flat = F._ravel_multi_index(F.abs(x[:2, :3]).floor(),
+                                        shape=(4, 5))
+            hot = F.one_hot(F.topk(x, k=2), depth=x.shape[-1]).sum(axis=1)
+            draws = F.random.gamma(2.0, shape=(3,), ctx=x.context)
+            return sizes, counts, edges, flat, hot, draws
+
+    x = mx.nd.array(torch.randn(4, 6, generator=torch.Generator()
+                                .manual_seed(0)) * 2, ctx=mx.gpu(0))
+    eager = Block()(x)
+    net = Block()
+    net.hybridize()
+    runs = [net(x) for _ in range(3)]
+    assert net._cached_graph is not None
+    for out in runs:
+        for got, want in zip(out[:5], eager[:5]):
+            assert torch.equal(got.astorch(), want.astorch())
+    assert not torch.equal(runs[1][5].astorch(), runs[2][5].astorch())

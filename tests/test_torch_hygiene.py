@@ -103,6 +103,38 @@ def test_every_module_of_the_amp_slice_is_checked():
         assert name in rel, name
 
 
+def test_every_module_of_the_array_surface_slice_is_checked():
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("ops/elemwise.py", "ops/matrix.py", "ops/random_ops.py",
+                 "ndarray/__init__.py", "ndarray/ndarray.py",
+                 "ndarray/random.py", "ndarray/linalg.py",
+                 "ndarray/utils.py", "ndarray/legacy_io.py", "base.py",
+                 "context.py", "random.py", "ops/nn.py", "telemetry.py"):
+        assert name in rel, name
+
+
+def test_samplers_draw_only_from_an_explicit_generator():
+    """Every torch sampler call in the sampling ops passes the generator
+    the dispatch hands them, and nothing there uses torch.distributions
+    (which draws from the global generator)."""
+    path = os.path.join(PKG, "ops", "random_ops.py")
+    with open(path) as f:
+        src = f.read()
+    tree = ast.parse(src, filename=path)
+    draws = ("rand", "randn", "randint", "randperm", "multinomial",
+             "poisson", "_standard_gamma", "exponential_")
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Attribute) and n.func.attr in draws]
+    assert len(calls) >= 8
+    for c in calls:
+        assert any(k.arg == "generator" for k in c.keywords), \
+            ast.unparse(c)
+    assert not any(isinstance(n, ast.Attribute) and n.attr == "distributions"
+                   for n in ast.walk(tree))
+    assert not any(m.startswith("torch.distributions")
+                   for m in _imported_modules(path))
+
+
 def test_kernel_wrappers_have_no_fallback_try():
     """A module that loads a kernel library launches its kernel or raises:
     no ``try`` around a launch that could run something else."""
