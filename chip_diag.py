@@ -7,6 +7,7 @@
     python3 chip_diag.py bwd
     python3 chip_diag.py fwd [--other FILE ...] [--pairs 2]
     python3 chip_diag.py ln [--other FILE ...] [--pairs 2]
+    python3 chip_diag.py f16 [--seeds 0 1 2]
 
 ``parity``: the gradients of one batch-2 ResNet-50 v1 training step from
 the same Xavier weights (those of ``chip_smoke.py``'s training phase),
@@ -59,7 +60,13 @@ under torch.profiler (the rows kernel and the column fold separately; a
 kernel launched as a programmatic dependent counts the time it waits for
 the one before it), beside the bytes bound.
 
-All five need a CUDA card and exit non-zero without one.
+``f16``: the readings behind ``chip_smoke.py``'s float16 card-against-CPU
+tolerances, for each seed: the narrow ResNetV1's and the 2-layer BERT's
+logits, losses and update errors (``f16_resnet_card_vs_cpu``,
+``f16_bert_card_vs_cpu``), the CPU's float16 step against its float32
+step beside the ResNet's.  It prints them and holds nothing.
+
+All six need a CUDA card and exit non-zero without one.
 """
 from __future__ import annotations
 
@@ -624,6 +631,27 @@ def ln(others, pairs):
     return 0
 
 
+def f16(seeds):
+    import torch
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import kernels
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["MXNET_FUSED_LAYERNORM"] = "1"
+    kernels.build(kernels.SOURCES)
+    card = cs.card_line()
+    for seed in seeds:
+        for what, fn in (("resnet", cs.f16_resnet_card_vs_cpu),
+                         ("bert", cs.f16_bert_card_vs_cpu)):
+            print("f16 %s, seed %d (%s): %s"
+                  % (what, seed, card, json.dumps(fn(torch, mx, seed))))
+            torch.cuda.empty_cache()
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -639,6 +667,8 @@ def main(argv=None):
     n = sub.add_parser("ln")
     n.add_argument("--other", action="append", default=[])
     n.add_argument("--pairs", type=int, default=2)
+    h = sub.add_parser("f16")
+    h.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -648,6 +678,8 @@ def main(argv=None):
         return parity(args.seed)
     if args.cmd == "bwd":
         return bwd()
+    if args.cmd == "f16":
+        return f16(args.seeds)
     if args.cmd in ("fwd", "ln"):
         others = [os.path.abspath(o) for o in args.other]
         return (fwd if args.cmd == "fwd" else ln)(others, args.pairs)

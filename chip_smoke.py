@@ -19,7 +19,9 @@ and PyTorch built for CUDA.  It:
    CUDA events (L2 flushed between launches): the epilogue forward at the
    shapes the serving path gives it (bucket 8) and the training path gives
    it (batch 32), and the epilogue backward at the training shapes, each
-   kernel also with an NHWC, a bfloat16, a ragged and an unaligned case;
+   kernel also with an NHWC, a bfloat16, a ragged and an unaligned case,
+   and in float16 at the float16 paths' shapes (the forward at bucket 8's
+   and batch 128's, the backward at batch 32's), within 1 ulp;
 4. serving phase: builds ResNet-50 v1 (224x224x3, 1000 classes, float32,
    random weights from ``--seed``) on ``mx.gpu(0)``, serves it through
    ``serve.InferenceServer`` with buckets (1, 2, 4, 8), submits the
@@ -52,7 +54,10 @@ and PyTorch built for CUDA.  It:
    T = 2048, float32, and the edges of the bf16 kernel's tile ring: Tk of
    1, 63 and 129, kv_lens on tile edges and 0, causal with Tq != Tk, D 128
    at T 1024, D 80; LayerNorm also at 1, 9 and 1057 rows, C 2048 and C
-   1001; float16 at BERT's shape, at T 2048 D 128 causal and
+   1001, and float16 x with float16 and with float32 affine at BERT's
+   (12288, 768) and the MLM head's (1824, 768), forward and backward,
+   within 1e-5 plus one float16 ulp; attention in float16 at BERT's
+   shape, at T 2048 D 128 causal and
    with segments, ragged T and kv_lens on tile edges, and D 160, 192 and
    256 in float32, bfloat16 and float16 with the masks and ragged T, and
    at BERT-base's width as 4 heads of 192 and 3 of 256: ``WIDE_CASES``,
@@ -147,6 +152,27 @@ and PyTorch built for CUDA.  It:
    (``wide_encoder_phase``): BERT-base's network with 4 heads of 192 and
    3 of 256, bf16, 24 x 512, one forward and one Adam step each, every
    launch count checked and the loss finite;
+10c. float16 phase (``float16_phases``): models cast whole with
+   ``net.cast("float16")`` (BatchNorm keeps float32 parameters), under
+   ``cudnn.deterministic``: a narrow ResNetV1's eval logits and two
+   ``DataParallelStep`` SGD steps (``multi_precision``) on the card
+   against the CPU, then ResNet-50 v1 built as ``bench.py``'s
+   ``bench_inference`` builds it: the batch-128 eval forward hybridized
+   (one CUDA graph, 16 float16 epilogue launches a call, the eager
+   forward's bits), the same net served by a float16 ``AotModel`` (64
+   float32 requests in bursts, cast into the float16 batch by the
+   server, 16 launches a dispatch, every bucket dispatched and graphed,
+   p50/p99), and its ``DataParallelStep`` at batch 32 as
+   ``_build_train_step(dtype="float16")`` builds it with
+   ``multi_precision`` (graphed against eager to the same bits, 16 + 16
+   launches a step, float32 masters whose float16 rounding the weights
+   are); then a 2-layer BERT's logits and two Adam steps on the card
+   against the CPU, and BERT-base as ``_build_bert_step(dtype=
+   "float16")`` builds it: the MLM forward hybridized (12 attention and 26
+   LayerNorm launches a forward) and its ``DataParallelStep`` with
+   ``Adam(multi_precision=True)`` graphed against eager (12 + 12 and
+   26 + 26 a step).  A spy checks that no plain version got a CUDA operand
+   and that only float16 operands reached the kernels' wrappers;
 11. data-parallel phase (``dp_phases``; it joins a one-rank NCCL group
    with ``mx.parallel.initialize()``, the only group one card allows, and
    leaves it at the end): one f32 ``parallel.DataParallelStep`` of a
@@ -300,7 +326,7 @@ BERT_PARITY_PRED = 19
 # of the larger value (fp32 values that agree within 1e-5, their statistics
 # summed in another order, each rounded once: near 0 a bf16 ulp is far
 # below 1e-5, so an ulp count alone would not do); mu and rstd within 1e-5
-# relative.
+# relative.  float16 as bf16, with one float16 ulp.
 ATTN_F32_O, ATTN_F32_LSE, ATTN_BF16_REL = 2e-5, 1e-5, 2e-2
 # float16 keeps three more bits of mantissa than bf16, so its roundings
 # (the same points) move o an eighth as far: 2e-2 / 4 leaves a factor of 2
@@ -451,8 +477,8 @@ def _operands(torch, gen, shape, axis, dtype, offset):
 
 def _elementwise_err(torch, what, got, want):
     """max |got - want|; f32 must agree within 1e-6 of the largest |want|
-    (the kernels round each operation as the plain versions do), bf16
-    within 1 ulp (the same fp32 value rounded once)."""
+    (the kernels round each operation as the plain versions do), bf16 and
+    f16 within 1 ulp (the same fp32 value rounded once)."""
     check(got.shape == want.shape and got.dtype == want.dtype,
           "%s: kernel gave %s %s" % (what, tuple(got.shape), got.dtype))
     err = (got.float() - want.float()).abs().max().item()
@@ -463,8 +489,8 @@ def _elementwise_err(torch, what, got, want):
     else:
         ulps = (got.view(torch.int16).int()
                 - want.view(torch.int16).int()).abs().max().item()
-        check(ulps <= 1, "%s: kernel is %d bf16 ulps from plain" % (what,
-                                                                    ulps))
+        check(ulps <= 1, "%s: kernel is %d %s ulps from plain"
+              % (what, ulps, str(got.dtype).replace("torch.", "")))
     return err
 
 
@@ -493,6 +519,14 @@ def kernel_phase(torch, fused_norm, card, flush):
                   for shape, n in TRAIN_SHAPES]
     bwd_cases = [("nchw", shape, 1, torch.float32, 0, "train", n)
                  for shape, n in TRAIN_SHAPES]
+    # float16: the forward at bucket 8's and the batch-128
+    # forward's shapes, the backward at the batch-32 step's
+    fwd_cases += [("nchw", shape, 1, torch.float16, 0, path, n)
+                  for path, shapes in (("serve_f16", SERVE_SHAPES),
+                                       ("infer_f16", INFER_F16_SHAPES))
+                  for shape, n in shapes]
+    bwd_cases += [("nchw", shape, 1, torch.float16, 0, "train_f16", n)
+                  for shape, n in TRAIN_SHAPES]
     rows = {"fwd": [], "bwd": []}
     for direction, cases in (("fwd", fwd_cases + extras),
                              ("bwd", bwd_cases + extras)):
@@ -616,18 +650,35 @@ def profile_calls(torch, fn, label, calls=5):
 def serving_phase(torch, mx, fused_norm, seed, n_requests, profile=False):
     """ResNet-50 v1 served through InferenceServer; returns the numbers."""
     import numpy as onp
-    from mxnet_tpu_torch import serve, telemetry
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
 
     mx.random.seed(seed)
     net = resnet50_v1()
     net.initialize(ctx=mx.gpu(0))
-    srv = serve.InferenceServer(
-        net, feature_shape=(3, 224, 224),
-        config=serve.ServeConfig(buckets=BUCKETS, max_queue=64),
-        name="resnet50_v1")
     rng = onp.random.RandomState(seed)
     inputs = rng.uniform(-1, 1, (n_requests, 3, 224, 224)).astype("float32")
+    return serve_requests(torch, mx, fused_norm, net, inputs, "resnet50_v1",
+                          1e-4, profile=profile)
+
+
+def serve_requests(torch, mx, fused_norm, net, inputs, name, tol,
+                   profile=False, dtype="float32"):
+    """``net`` (on the card) served through ``InferenceServer`` by
+    ``AotModel.from_block(net, inputs.shape[1:], dtype=dtype)``: the
+    requests ``inputs`` submitted in bursts as the clients send them (the
+    server casts each row into the ``dtype`` batch), every result against
+    a batch-1 forward of the same net within ``tol`` of its largest
+    |logit|, zero dispatch errors, no quarantine, zero steady-state
+    recompiles, 16 launches a dispatch, every bucket dispatched and
+    captured and the bucket-8 graph the bits of its body run eagerly;
+    returns the numbers."""
+    import numpy as onp
+    from mxnet_tpu_torch import serve, telemetry
+    model = serve.AotModel.from_block(net, inputs.shape[1:], dtype=dtype,
+                                      name=name)
+    srv = serve.InferenceServer(
+        model, config=serve.ServeConfig(buckets=BUCKETS, max_queue=64))
+    n_requests = len(inputs)
     t0 = time.perf_counter()
     srv.start()
     start_s = time.perf_counter() - t0
@@ -668,13 +719,15 @@ def serving_phase(torch, mx, fused_norm, seed, n_requests, profile=False):
               % (launches, n_dispatch))
         first = [round(h.latency_ms(), 3) for h in handles[:6]]
         lat = sorted(h.latency_ms() for h in handles)
-        # the model call per bucket, host batch in, host logits out
+        # the model call per bucket, host batch (in the model's dtype, as
+        # the server assembles it) in, host logits out
+        batches = inputs[:max(BUCKETS)].astype(dtype)
         call_ms = {}
         for b in BUCKETS:
             times = []
             for _ in range(12):
                 t = time.perf_counter()
-                srv._model.run(b, inputs[:b]).cpu()
+                srv._model.run(b, batches[:b]).cpu()
                 times.append(time.perf_counter() - t)
             call_ms[b] = statistics.median(times[2:]) * 1e3
         b8_ms = call_ms[8]
@@ -682,9 +735,9 @@ def serving_phase(torch, mx, fused_norm, seed, n_requests, profile=False):
         check(model.buckets == sorted(BUCKETS)
               and all(g.graphed for g in model._graphs.values()),
               "not every bucket was captured: %r" % model._graphs)
-        x8 = torch.as_tensor(inputs[:8])
+        x8 = torch.as_tensor(batches[:8])
         eager8 = model._graphs[8].run_eager([x8])[0]
-        check(torch.equal(model.run(8, inputs[:8]), eager8),
+        check(torch.equal(model.run(8, batches[:8]), eager8),
               "the bucket-8 graph and its body run eagerly differ")
         times = []
         for _ in range(12):
@@ -694,7 +747,7 @@ def serving_phase(torch, mx, fused_norm, seed, n_requests, profile=False):
         b8_eager_ms = statistics.median(times[2:]) * 1e3
         capture_s = {b: g.capture_s for b, g in sorted(model._graphs.items())}
         profiles = [profile_calls(
-            torch, lambda b=b: srv._model.run(b, inputs[:b]).cpu(),
+            torch, lambda b=b: srv._model.run(b, batches[:b]).cpu(),
             "serving bucket %d" % b) for b in (1, 8)] if profile else []
     finally:
         srv.close()
@@ -702,13 +755,15 @@ def serving_phase(torch, mx, fused_norm, seed, n_requests, profile=False):
     worst = 0.0
     with torch.inference_mode(), mx.autograd.predict_mode():
         for j, o in enumerate(outs):
-            ref = net(mx.nd.array(inputs[j:j + 1], ctx=mx.gpu(0))).asnumpy()[0]
-            check(o[1].shape == (1000,) and onp.isfinite(o[1]).all(),
-                  "request %d: bad logits" % j)
-            rel = float(onp.abs(o[1] - ref).max() / onp.abs(ref).max())
+            ref = net(mx.nd.array(inputs[j:j + 1], ctx=mx.gpu(0),
+                                  dtype=dtype)).astype("float32").asnumpy()[0]
+            got = onp.asarray(o[1], "float32")
+            check(got.shape == (1000,) and onp.isfinite(got).all(),
+                  "%s request %d: bad logits" % (name, j))
+            rel = float(onp.abs(got - ref).max() / onp.abs(ref).max())
             worst = max(worst, rel)
-    check(worst <= 1e-4, "served logits differ from batch-1 forward: rel %.3g"
-          % worst)
+    check(worst <= tol, "%s: served logits differ from batch-1 forward: rel "
+          "%.3g > %g" % (name, worst, tol))
     return {"start_s": start_s, "launches": launches,
             "dispatches": dispatches, "p50_ms": float(onp.percentile(lat, 50)),
             "p99_ms": float(onp.percentile(lat, 99)),
@@ -1007,11 +1062,18 @@ def _peak_ops(torch, dtype, card):
         else fp32_ops_per_s(card)
 
 
-def _bf16_ulp(torch, a, b):
+def _bf16_ulp(torch, a, b, bits=8):
     """One bf16 ulp of max(|a|, |b|), elementwise: 2**(e - 8) for a value
-    m * 2**e with 0.5 <= m < 1."""
+    m * 2**e with 0.5 <= m < 1 (``bits`` 11: a float16 ulp)."""
     _, e = torch.frexp(torch.maximum(a.float().abs(), b.float().abs()))
-    return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - bits)
+
+
+def _half_ulp(torch, a, b):
+    """One ulp of max(|a|, |b|) in a's dtype, bf16 or f16; None for
+    float32."""
+    bits = {torch.bfloat16: 8, torch.float16: 11}.get(a.dtype)
+    return None if bits is None else _bf16_ulp(torch, a, b, bits)
 
 
 # (case, N, C, x dtype, gamma/beta dtype)
@@ -1035,6 +1097,16 @@ LN_CASES = [
     ("n1057", 1057, BERT_UNITS, "bfloat16", "bfloat16"),
     ("c2048", 4096, 2048, "bfloat16", "bfloat16"),
     ("unaligned_c1001", 64, 1001, "bfloat16", "bfloat16"),
+    # float16: BERT-base cast whole (f16 x and affine, the
+    # float16 path's 25 + 1 launches a forward), and f16 x with an f32
+    # affine (y and the cotangent float32)
+    ("f16", BERT_BATCH * BERT_SEQ, BERT_UNITS, "float16", "float16"),
+    ("f16_decoder", BERT_BATCH * BERT_PRED, BERT_UNITS, "float16",
+     "float16"),
+    ("f16_x_f32_affine", BERT_BATCH * BERT_SEQ, BERT_UNITS, "float16",
+     "float32"),
+    ("f16_x_f32_affine_decoder", BERT_BATCH * BERT_PRED, BERT_UNITS,
+     "float16", "float32"),
 ]
 
 
@@ -1251,8 +1323,8 @@ def layernorm_cases(torch, layernorm, card, flush, seed):
                   "%s: kernel gave %s" % (what, y.dtype))
             err = (y.float() - py.float()).abs().max().item()
             excess = (y.float() - py.float()).abs() - LN_F32_ABS
-            if y.dtype == torch.bfloat16:
-                excess = excess - _bf16_ulp(torch, y, py)
+            if _half_ulp(torch, y, py) is not None:
+                excess = excess - _half_ulp(torch, y, py)
             check(excess.max().item() <= 0, "%s: max|err| %.3g beyond the "
                   "tolerance" % (what, err))
             stat = max(((mu - pmu).abs() / pmu.abs().clamp_min(1e-3))
@@ -1446,8 +1518,8 @@ def layernorm_bwd_cases(torch, layernorm, card, flush, seed):
             dx, pdx = got[0].float(), want[0].float()
             err = (dx - pdx).abs().max().item()
             excess = (dx - pdx).abs() - LN_F32_ABS
-            if got[0].dtype == torch.bfloat16:
-                excess = excess - _bf16_ulp(torch, dx, pdx)
+            if _half_ulp(torch, got[0], want[0]) is not None:
+                excess = excess - _half_ulp(torch, got[0], want[0])
             check(excess.max().item() <= 0, "%s: dx max|err| %.3g beyond "
                   "the tolerance" % (what, err))
             sums = max(((a - b).abs().max() / b.abs().max()).item()
@@ -2966,17 +3038,13 @@ def dp_resnet_phase(torch, mx, fused_norm, seed, card, profile=False):
     del step
     torch.cuda.empty_cache()
 
-    def counts(reset=False):
-        if reset:
-            fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
-        return (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES)
     sgd = dict(DP_RESNET_SGD)
     lr = sgd.pop("learning_rate")
     graphed = graphed_vs_eager(
         torch, mx, net, lambda: mx.parallel.DataParallelStep(
             net, ce, _scheduled(mx, mx.optimizer.SGD, lr, **sgd), mesh=None),
         x, y, seed, "ResNet-50 DataParallelStep, SGD momentum",
-        counts=counts, per_step=(16, 16),
+        counts=_epilogue_counts(fused_norm), per_step=(16, 16),
         profile_as="resnet_step" if profile else None, deterministic=True)
 
     def trainer_run(store):
@@ -3390,7 +3458,7 @@ def _kernel_names_check(prof, what):
 
 def graphed_vs_eager(torch, mx, net, make_step, data, label, seed, what,
                      counts=None, per_step=None, profile_as=None,
-                     deterministic=False):
+                     deterministic=False, after=None):
     """``make_step()`` (a fresh DataParallelStep) through its CUDA graph
     and through the same body eagerly, from the same weights and seed:
     GRAPH_STEPS calls each held to the same bits, then GRAPH_TIMED calls
@@ -3398,8 +3466,9 @@ def graphed_vs_eager(torch, mx, net, make_step, data, label, seed, what,
     by ``counts(reset=True)``), ``per_step`` is what each step must add.
     ``deterministic`` runs both under ``cudnn.deterministic`` (cuDNN's
     default backward-filter algorithms accumulate in an order that varies
-    from run to run, eager or not).  The net's weights are left as they
-    were."""
+    from run to run, eager or not).  ``after(step)``, where given, is
+    called with each run's step after its calls.  The net's weights are
+    left as they were."""
     params = sorted(net.collect_params().items())
     w0 = [p.data().astorch().detach().clone() for _, p in params]
     was_deterministic = torch.backends.cudnn.deterministic
@@ -3448,6 +3517,8 @@ def graphed_vs_eager(torch, mx, net, make_step, data, label, seed, what,
                                          calls=3)
             r["profile_kernels"] = _kernel_names_check(r["profile"],
                                                        profile_as)
+        if after is not None:
+            after(step)
         del step
         return r
 
@@ -3509,16 +3580,74 @@ def print_graphed(r, card):
               % (r["what"], sorted(set(r["profile_kernels"]))))
 
 
+def hybridized_calls(torch, mx, net, call, n, counts, what, profile=False):
+    """The forward ``call()`` (a tensor out) ``n`` times eagerly, then
+    ``n`` times after ``net.hybridize()`` through ``_CachedGraph`` (the
+    first warms up and captures), in predict mode, ``counts(reset=True)``
+    just before the graphed calls and ``counts()`` read just after.
+    Checks one capture reported for one key, every output the bits of the
+    first eager one, two replays never the same tensor; returns the ms
+    each way (median after 3 calls), the capture's seconds, peak memory,
+    the launches, the last output and, under ``profile``, a profile of 3
+    graphed calls (each synchronised, the output left on the card)."""
+    from mxnet_tpu_torch import telemetry
+
+    def timed():
+        times, outs = [], []
+        for _ in range(n):
+            t = time.perf_counter()
+            outs.append(call())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return outs, times
+    with mx.autograd.predict_mode():
+        eager_outs, eager_t = timed()
+        net.hybridize()
+        compiles0 = telemetry.compile_counts().get("CachedOp_" + net.name, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts(reset=True)
+        graph_outs, graph_t = timed()
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        compiles = telemetry.compile_counts()["CachedOp_" + net.name] \
+            - compiles0
+        entries = list(net._cached_graph._cache.values())
+        prof = profile_calls(torch, lambda: (call(), torch.cuda.synchronize()),
+                             "%s, graphed" % what, calls=3) \
+            if profile else None
+    check(len(entries) == 1 and entries[0][0][0].graphed,
+          "%s was not captured: %r" % (what, entries))
+    check(compiles == 1, "%s: %d captures reported for one key"
+          % (what, compiles))
+    check(all(torch.equal(o, eager_outs[0]) for o in eager_outs + graph_outs),
+          "%s: the graphed outputs differ from the eager forward's" % what)
+    check(graph_outs[1].data_ptr() != graph_outs[2].data_ptr(),
+          "%s: two replays returned the same tensor" % what)
+    out = {"graphed_ms": statistics.median(graph_t[3:]) * 1e3,
+           "eager_ms": statistics.median(eager_t[3:]) * 1e3,
+           "capture_s": entries[0][0][0].capture_s, "peak_bytes": peak,
+           "launches": launches, "calls": n, "last": graph_outs[-1]}
+    if prof is not None:
+        out["profile"] = prof
+    return out
+
+
+def _epilogue_counts(fused_norm):
+    def counts(reset=False):
+        if reset:
+            fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
+        return (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES)
+    return counts
+
+
 def hybrid_forward_phase(torch, mx, fused_norm, seed, card, profile=False):
     """ResNet-50 v1 as bench.py:bench_inference builds it (Xavier weights
     and deferred shapes on the host, ``reset_ctx`` onto the card,
     ``hybridize()``), its eval-mode forward at batch 32: HYBRID_CALLS
-    calls through ``_CachedGraph`` (the first warms up and captures) with
-    16 epilogue launches a call, the replayed outputs the bits of the same
-    net's eager forward, one capture reported; then eager beside graphed,
-    timed."""
+    calls through ``_CachedGraph`` (``hybridized_calls``) with 16
+    epilogue launches a call; eager beside graphed, timed."""
     import numpy as onp
-    from mxnet_tpu_torch import telemetry
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
     gpu = mx.gpu(0)
     mx.random.seed(seed)
@@ -3531,49 +3660,17 @@ def hybrid_forward_phase(torch, mx, fused_norm, seed, card, profile=False):
     rs = onp.random.RandomState(seed)
     x = mx.nd.array(rs.uniform(size=(HYBRID_BATCH, 3, IMAGE_SIZE,
                                      IMAGE_SIZE)).astype("float32"), ctx=gpu)
-
-    def timed(n):
-        times, outs = [], []
-        for _ in range(n):
-            t = time.perf_counter()
-            outs.append(net(x).astorch())
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-        return outs, times
-    with mx.autograd.predict_mode():
-        eager_outs, eager_t = timed(HYBRID_CALLS)
-        net.hybridize()
-        compiles0 = telemetry.compile_counts().get("CachedOp_" + net.name, 0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fused_norm.LAUNCHES = 0
-        graph_outs, graph_t = timed(HYBRID_CALLS)
-        launches = fused_norm.LAUNCHES
-        peak = torch.cuda.max_memory_allocated()
-        compiles = telemetry.compile_counts()["CachedOp_" + net.name] \
-            - compiles0
-        entries = list(net._cached_graph._cache.values())
-        prof = profile_calls(torch, lambda: net(x).asnumpy(),
-                             "hybridized ResNet-50 forward, graphed",
-                             calls=3) if profile else None
-    check(len(entries) == 1 and entries[0][0][0].graphed,
-          "the hybridized forward was not captured: %r" % entries)
-    check(compiles == 1, "%d captures reported for one key" % compiles)
-    check(launches == 16 * HYBRID_CALLS,
+    out = hybridized_calls(torch, mx, net, lambda: net(x).astorch(),
+                           HYBRID_CALLS, _epilogue_counts(fused_norm),
+                           "hybridized ResNet-50 forward", profile=profile)
+    out["launches"] = out["launches"][0]
+    check(out["launches"] == 16 * HYBRID_CALLS,
           "%d epilogue launches in %d hybridized forwards (want 16 each)"
-          % (launches, HYBRID_CALLS))
-    check(all(torch.equal(o, eager_outs[0]) for o in eager_outs + graph_outs),
-          "the hybridized forward's outputs differ from the eager forward's")
-    check(graph_outs[1].data_ptr() != graph_outs[2].data_ptr(),
-          "two replays returned the same tensor")
-    out = {"graphed_ms": statistics.median(graph_t[3:]) * 1e3,
-           "eager_ms": statistics.median(eager_t[3:]) * 1e3,
-           "capture_s": entries[0][0][0].capture_s, "peak_bytes": peak,
-           "launches": launches, "calls": HYBRID_CALLS}
-    if prof is not None:
-        out["profile"] = prof
-        out["profile_kernels"] = _kernel_names_check(prof, "resnet_forward")
-    del net
+          % (out["launches"], HYBRID_CALLS))
+    if "profile" in out:
+        out["profile_kernels"] = _kernel_names_check(out["profile"],
+                                                     "resnet_forward")
+    del net, out["last"]
     torch.cuda.empty_cache()
     return out
 
@@ -4490,6 +4587,638 @@ def array_phase(torch, mx, logits, seed, card):
             "samplers": samplers, "replays": replays, "dispatch_us": host}
 
 
+# float16 models: ResNet-50 v1 and BERT-base cast whole with
+# net.cast("float16"), as bench.py's bench_inference, _build_train_step and
+# _build_bert_step cast them.  BatchNorm keeps float32 parameters; every
+# other parameter, the data and the activations are float16, so the
+# epilogue and LayerNorm kernels run their float16 instantiations.
+F16_INFER_BATCH = 128               # the reference's fp16 inference batch
+F16_CALLS = 8                       # hybridized forwards each way
+INFER_F16_SHAPES = [((F16_INFER_BATCH,) + chw, n) for chw, n in STAGES]
+# Card against CPU in float16, a narrow ResNetV1 (one bottleneck a stage,
+# widths 8..128, 10 classes) at 32 x 32 and a 2-layer BERT at BERT-base's
+# widths (batch 2, S 128): logits within 1e-2 of the largest |logit| (a
+# float16 ulp or two of a value: the card's reductions and GEMMs sum in
+# another order before each rounding); two steps, each side from the same
+# weights: the losses within rel 1e-2.  After each step what each leaf
+# holds (its float32 master, or the float32 BatchNorm weight) is compared
+# as an update from the start (``_leaf_update_errors``: 0 the same update,
+# 1 none, 2 the opposite sign, about 0.5 a second step left out).  SGD:
+# the worst leaf within F16_SGD_LEAF_REL.  Two float16 steps on two
+# devices differ about as much as a float16 step and a float32 one
+# (BatchNorm's gradients cancel over the batch, so a rounding of dy moves
+# them by percents): over seeds 0-2 on an H100 the worst leaf read 3.3e-3,
+# 5.0e-2 and 8.8e-2 after the first step and 6.1e-2, 0.24 and 0.24 after
+# the second, the CPU's float16 step against its float32 step 0.29, 0.13
+# and 0.10, then 0.68, 0.33 and 0.28 (printed beside it); so this check
+# catches a step left out, a leaf left unmoved or of the wrong sign, not
+# a step in another precision (the spy on the kernels' dtypes and the
+# parameter dtypes check that).  Adam moves each weight by about lr
+# whatever its gradient, so one leaf's update is no measure (one gradient
+# near 0 that rounds to the other sign moves one of LayerNorm's 768
+# gammas by 2 lr): each leaf's first moment, the gradient's running mean,
+# within F16_ADAM_MOMENT_REL (read 1.1e-3 to 1.5e-3 over seeds 0-2), and
+# the update over all leaves within F16_ADAM_UPDATE_REL_L2 (read 1.1e-2
+# to 2.1e-2).
+F16_NARROW = ([1, 1, 1, 1], [8, 16, 32, 64, 128])
+F16_PARITY_BATCH = 16
+F16_PARITY_STEPS = 2
+F16_LOGIT_REL, F16_LOSS_RTOL, F16_SGD_LEAF_REL = 1e-2, 1e-2, 0.4
+F16_ADAM_MOMENT_REL, F16_ADAM_UPDATE_REL_L2 = 1e-2, 0.2
+F16_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+           "multi_precision": True}
+
+
+def _f16_arrays(net):
+    return {k: p.data().astype("float32").asnumpy()
+            for k, p in net._collect_params_with_prefix().items()}
+
+
+def _step_state(step, net, leaf):
+    """Structural name -> a float32 host copy of each trainable weight's
+    optimizer state: ``leaf`` 0 its float32 master under multi_precision
+    (else the weight itself), 1 the state leaf after the master."""
+    names = {id(p): k for k, p in net._collect_params_with_prefix().items()}
+    out = {}
+    for slot, i in enumerate(step._trainable):
+        mp = step._mp_slots[slot]
+        v = step._opt_states[slot][leaf + mp - 1] if leaf or mp \
+            else step._params[i].data().astorch()
+        out[names[id(step._params[i])]] = \
+            v.detach().float().cpu().numpy().copy()
+    return out
+
+
+def _leaf_update_errors(got, want, before):
+    """Per leaf, the L2 error of the update, ||got - want||, over the larger
+    of the reference update's L2 norm ||want - before|| and the whole
+    step's RMS update over as many elements: 0 for the same update, 1 for
+    none, 2 for one of the opposite sign.  A leaf that barely moves (a
+    stem beta whose gradient cancels over the batch) is held to the
+    step's scale, not to its own."""
+    import numpy as onp
+    sq = {k: float(((w - before[k]).astype("float64") ** 2).sum())
+          for k, w in want.items()}
+    mean_sq = sum(sq.values()) / sum(w.size for w in want.values())
+    return {k: float(onp.linalg.norm((got[k] - w).astype("float64")))
+            / max(sq[k], mean_sq * w.size) ** 0.5
+            for k, w in want.items()}
+
+
+def _update_rel_l2(got, want, before):
+    """The relative L2 error of the update over all leaves together."""
+    num = sum(float(((got[k] - want[k]).astype("float64") ** 2).sum())
+              for k in want)
+    den = sum(float(((want[k] - before[k]).astype("float64") ** 2).sum())
+              for k in want)
+    return (num / den) ** 0.5
+
+
+def _worst(errs):
+    k = max(errs, key=errs.get)
+    return k, errs[k]
+
+
+def _drop_key_bias(arrays):
+    """The key third of each fused qkv bias left out: its gradient is 0 in
+    exact arithmetic (softmax is unchanged by a constant added along the
+    keys), so what is there is rounding noise."""
+    import numpy as onp
+    out = dict(arrays)
+    for k, v in arrays.items():
+        if k.endswith("attention.qkv.bias"):
+            e = v.shape[0] // 3
+            out[k] = onp.concatenate([v[:e], v[2 * e:]])
+    return out
+
+
+def _check_f16_dtypes(mx, net, what):
+    """After ``cast("float16")``: float32 for the four parameters of every
+    BatchNorm (and BatchNormAddReLU), float16 for every other."""
+    bn = set()
+
+    def visit(block):
+        if isinstance(block, mx.gluon.nn.BatchNorm):
+            bn.update(id(p) for _, p in block.params.items())
+        for child in block._children.values():
+            visit(child)
+    visit(net)
+    wrong = [k for k, p in net._collect_params_with_prefix().items()
+             if str(p.data().dtype) != ("float32" if id(p) in bn
+                                        else "float16")]
+    check(not wrong, "%s: parameters of the wrong dtype after "
+          "cast('float16'): %s" % (what, wrong[:6]))
+    return len(bn)
+
+
+def _masters_check(torch, step, net, what):
+    """Every float16 weight has a float32 master in the step's state, of
+    which it is the float16 rounding; float32 weights have none."""
+    params = sorted(net.collect_params().items())
+    n_half = 0
+    for slot, i in enumerate(step._trainable):
+        w = params[i][1].data().astorch()
+        check(step._mp_slots[slot] == (w.dtype == torch.float16),
+              "%s: %s multi_precision %s for a %s weight"
+              % (what, params[i][0], step._mp_slots[slot], w.dtype))
+        if step._mp_slots[slot]:
+            master = step._opt_states[slot][0]
+            check(master.dtype == torch.float32
+                  and torch.equal(master.half(), w),
+                  "%s: %s is not its float32 master rounded"
+                  % (what, params[i][0]))
+            n_half += 1
+    check(n_half > 0, "%s: no float16 weight" % what)
+    return n_half
+
+
+class _PlainOnCard:
+    """Counts calls of the four plain versions with a CUDA operand (a
+    float16 operand on the card must launch a kernel or raise, never
+    reach a plain version) and the dtypes that reach the kernels'
+    wrappers, while active."""
+
+    def __init__(self, fused_norm, layernorm):
+        self.modules = ((fused_norm, ("fused_bn_add_relu_epilogue_plain",
+                                      "fused_bn_add_relu_epilogue_bwd_plain",
+                                      "_fwd_kernel",
+                                      "fused_bn_add_relu_epilogue_bwd")),
+                        (layernorm, ("_layer_norm_fwd_plain",
+                                     "_layer_norm_bwd_plain",
+                                     "layer_norm_fwd", "layer_norm_bwd")))
+        self.plain_on_card = 0
+        self.kernel_dtypes = set()
+        self._orig = []
+
+    def __enter__(self):
+        for module, names in self.modules:
+            for name in names:
+                orig = getattr(module, name)
+                self._orig.append((module, name, orig))
+                setattr(module, name, self._spy(name, orig))
+        return self
+
+    def _spy(self, name, orig):
+        def spy(*args, **kwargs):
+            if args[0].device.type == "cuda":
+                if "plain" in name:
+                    self.plain_on_card += 1
+                else:
+                    self.kernel_dtypes.add(str(args[0].dtype)
+                                           .replace("torch.", ""))
+            return orig(*args, **kwargs)
+        return spy
+
+    def __exit__(self, *exc):
+        for module, name, orig in self._orig:
+            setattr(module, name, orig)
+
+
+def _narrow_resnet(mx, ctx):
+    """The narrow ResNetV1, Xavier weights and deferred shapes settled on
+    the host, then on ``ctx``."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tresnet
+    net = tresnet.ResNetV1(tresnet.BottleneckV1, *F16_NARROW, classes=10)
+    with mx.cpu():
+        net.initialize(mx.init.Xavier())
+        with mx.autograd.predict_mode():
+            net(mx.nd.zeros((1, 3, 32, 32)))
+    net.collect_params().reset_ctx(ctx)
+    return net
+
+
+def f16_resnet_card_vs_cpu(torch, mx, seed):
+    """The narrow ResNetV1 cast to float16 on the card and on the CPU from
+    the same weights: eval logits at batch 4 and two DataParallelStep SGD
+    steps with multi_precision at batch F16_PARITY_BATCH; the CPU's
+    float32 step beside it as the floor of what float16 rounding moves.
+    Returns the logits' error, the losses' and, after each step, the worst
+    leaf's update error and the update error over all leaves."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.utils import load_jax_params
+    rs = onp.random.RandomState(seed + 21)
+    x = rs.uniform(-1, 1, (F16_PARITY_BATCH, 3, 32, 32)).astype("float32")
+    y = rs.randint(0, 10, F16_PARITY_BATCH).astype("float32")
+    mx.random.seed(seed)
+    gnet = _narrow_resnet(mx, mx.gpu(0))
+    w32 = _param_arrays(gnet)
+    gnet.cast("float16")
+    w16 = _f16_arrays(gnet)
+
+    def run(net, ctx, dtype):
+        with mx.autograd.predict_mode():
+            logits = net(mx.nd.array(x[:4], ctx=ctx).astype(dtype)) \
+                .astype("float32").asnumpy()
+        sgd = dict(F16_SGD, rescale_grad=1.0 / F16_PARITY_BATCH)
+        step = mx.parallel.DataParallelStep(
+            net, gluon.loss.SoftmaxCrossEntropyLoss(),
+            mx.optimizer.SGD(**sgd), mesh=None)
+        losses, trained = [], []
+        for _ in range(F16_PARITY_STEPS):
+            losses.append(float(step(mx.nd.array(x, ctx=ctx).astype(dtype),
+                                     mx.nd.array(y, ctx=ctx))
+                                .astype("float32").asnumpy()))
+            trained.append(_step_state(step, net, 0))
+        return logits, losses, trained
+    card = run(gnet, mx.gpu(0), "float16")
+    del gnet
+    with mx.cpu():
+        cnet = _narrow_resnet(mx, mx.cpu())
+        load_jax_params(cnet, w32)
+        f32 = run(cnet, mx.cpu(), "float32")
+        load_jax_params(cnet, w32)
+        cnet.cast("float16")
+        cpu = run(cnet, mx.cpu(), "float16")
+    w0 = {k: w16[k] for k in cpu[2][0]}
+    logit_rel = float(onp.abs(card[0] - cpu[0]).max()
+                      / onp.abs(cpu[0]).max())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1]))
+    return {"logit_rel": logit_rel, "loss_rel": loss_rel,
+            "worst_leaf": [_worst(_leaf_update_errors(g, c, w0))
+                           for g, c in zip(card[2], cpu[2])],
+            "update_rel_l2": [_update_rel_l2(g, c, w0)
+                              for g, c in zip(card[2], cpu[2])],
+            "floor_worst_leaf": [_worst(_leaf_update_errors(c, f, w0))
+                                 for c, f in zip(cpu[2], f32[2])],
+            "floor_update_rel_l2": [_update_rel_l2(c, f, w0)
+                                    for c, f in zip(cpu[2], f32[2])],
+            "losses_card": card[1], "losses_cpu": cpu[1]}
+
+
+def f16_resnet_phase(torch, mx, fused_norm, seed, card, profile=False):
+    """ResNet-50 v1 in float16: built as bench.py's bench_inference and
+    _build_train_step build it (Xavier weights and deferred shapes on the
+    host, ``cast("float16")``, ``reset_ctx`` onto the card); (a) its eval
+    forward at batch 128, hybridized and replayed as a CUDA graph, against
+    the same forward eagerly; the same net served through
+    ``InferenceServer`` by a float16 ``AotModel`` (64 requests in bursts of
+    1-8, buckets 1, 2, 4 and 8 graphed); (b) trained through
+    ``DataParallelStep`` (SGD with ``rescale_grad = 1/32`` and
+    ``multi_precision``, batch 32, float16 data), graphed against eager.
+    The narrow card-vs-CPU check runs first.  Everything under
+    ``cudnn.deterministic``; 16 epilogue launches a forward, 16 + 16 a
+    step."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    t0 = time.perf_counter()
+    par = f16_resnet_card_vs_cpu(torch, mx, seed)
+    parity_s = time.perf_counter() - t0
+    print("f16 resnet: card vs CPU, narrow ResNetV1 in float16: eval logits "
+          "rel err %.3g; %d DataParallelStep SGD steps at batch %d: losses "
+          "%s (card) %s (CPU), loss rel err %.3g; after each step the worst "
+          "leaf's update error %s, over all leaves %s (floor, the CPU's "
+          "float16 step vs its float32 step: worst leaf %s, all leaves %s)"
+          % (par["logit_rel"], F16_PARITY_STEPS, F16_PARITY_BATCH,
+             [round(v, 5) for v in par["losses_card"]],
+             [round(v, 5) for v in par["losses_cpu"]], par["loss_rel"],
+             ["%s %.3g" % w for w in par["worst_leaf"]],
+             ["%.3g" % v for v in par["update_rel_l2"]],
+             ["%s %.3g" % w for w in par["floor_worst_leaf"]],
+             ["%.3g" % v for v in par["floor_update_rel_l2"]]))
+    check(par["logit_rel"] <= F16_LOGIT_REL, "f16 ResNet card vs CPU "
+          "logits: rel err %.3g > %g" % (par["logit_rel"], F16_LOGIT_REL))
+    check(par["loss_rel"] <= F16_LOSS_RTOL, "f16 ResNet card vs CPU loss "
+          "rel err %.3g > %g" % (par["loss_rel"], F16_LOSS_RTOL))
+    for i, (leaf, err) in enumerate(par["worst_leaf"]):
+        check(err <= F16_SGD_LEAF_REL, "f16 ResNet card vs CPU, step %d: "
+              "%s's update error %.3g > %g" % (i + 1, leaf, err,
+                                               F16_SGD_LEAF_REL))
+    torch.cuda.empty_cache()
+
+    gpu = mx.gpu(0)
+    mx.random.seed(seed)
+    net = vision.get_model("resnet50_v1", classes=1000)
+    with mx.cpu():
+        net.initialize(mx.init.Xavier())
+        with mx.autograd.predict_mode():
+            net(mx.nd.zeros((1, 3, IMAGE_SIZE, IMAGE_SIZE)))
+    net.cast("float16")
+    net.collect_params().reset_ctx(gpu)
+    check(_check_f16_dtypes(mx, net, "ResNet-50 v1") == 4 * 53,
+          "ResNet-50 v1: not 53 BatchNorms")
+    rs = onp.random.RandomState(seed)
+    x = mx.nd.array(rs.uniform(size=(F16_INFER_BATCH, 3, IMAGE_SIZE,
+                                     IMAGE_SIZE)).astype("float32"),
+                    ctx=gpu).astype("float16")
+    was_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {"parity": par, "parity_s": parity_s}
+    try:
+        # (a) the batch-128 eval forward: eager, then hybridized
+        inf = hybridized_calls(
+            torch, mx, net, lambda: net(x).astorch(), F16_CALLS,
+            _epilogue_counts(fused_norm), "ResNet-50 v1 float16 forward, "
+            "batch %d" % F16_INFER_BATCH, profile=profile)
+        logits = inf.pop("last")
+        check(logits.dtype == torch.float16
+              and tuple(logits.shape) == (F16_INFER_BATCH, 1000)
+              and bool(torch.isfinite(logits).all()),
+              "f16 ResNet forward: %s %s, finite %s"
+              % (logits.dtype, tuple(logits.shape),
+                 bool(torch.isfinite(logits).all())))
+        inf["launches"] = inf["launches"][0]
+        check(inf["launches"] == 16 * F16_CALLS, "%d epilogue launches in "
+              "%d float16 forwards (want 16 each)" % (inf["launches"],
+                                                      F16_CALLS))
+        inf["images_per_s"] = F16_INFER_BATCH * 1e3 / inf["graphed_ms"]
+        if "profile" in inf:
+            inf["profile_kernels"] = _kernel_names_check(inf["profile"],
+                                                         "resnet_forward")
+        out["infer"] = inf
+        del logits
+        torch.cuda.empty_cache()
+
+        # serving: the same net behind a float16 AotModel; its clients
+        # send float32 images, as the float32 phase's do, cast into the
+        # float16 batch as the server assembles it
+        images = onp.random.RandomState(seed + 3).uniform(
+            -1, 1, (N_REQUESTS, 3, IMAGE_SIZE, IMAGE_SIZE)).astype("float32")
+        out["serve"] = serve_requests(torch, mx, fused_norm, net, images,
+                                      "resnet50_v1_f16", F16_LOGIT_REL,
+                                      dtype="float16")
+        net.hybridize(False)
+        torch.cuda.empty_cache()
+
+        # (b) training through DataParallelStep, bench.py's SGD with
+        # multi_precision, float16 data
+        xt = mx.nd.array(rs.uniform(size=(TRAIN_BATCH, 3, IMAGE_SIZE,
+                                          IMAGE_SIZE)).astype("float32"),
+                         ctx=gpu).astype("float16")
+        yt = mx.nd.array(rs.randint(0, 1000, (TRAIN_BATCH,))
+                         .astype("float32"), ctx=gpu)
+        ce = gluon.loss.SoftmaxCrossEntropyLoss()
+        sgd = dict(DP_RESNET_SGD, multi_precision=True)
+        lr = sgd.pop("learning_rate")
+        masters = []
+        out["train"] = graphed_vs_eager(
+            torch, mx, net, lambda: mx.parallel.DataParallelStep(
+                net, ce, _scheduled(mx, mx.optimizer.SGD, lr, **sgd),
+                mesh=None),
+            xt, yt, seed, "ResNet-50 v1 float16 DataParallelStep, SGD "
+            "multi_precision", counts=_epilogue_counts(fused_norm),
+            per_step=(16, 16),
+            profile_as="resnet_step" if profile else None,
+            deterministic=True,
+            after=lambda step: masters.append(_masters_check(
+                torch, step, net, "f16 ResNet step")))
+        out["train"]["masters"] = masters[0]
+        out["train"]["images_per_s"] = \
+            TRAIN_BATCH * 1e3 / out["train"]["graphed_ms"]
+    finally:
+        torch.backends.cudnn.deterministic = was_deterministic
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def f16_bert_card_vs_cpu(torch, mx, seed):
+    """A 2-layer BERT at BERT-base's widths cast to float16, on the card
+    and on the CPU from the same weights: the MLM logits at batch 2, S 128,
+    and two DataParallelStep Adam steps with multi_precision.  Returns the
+    logits' error, the losses' and the worst weight's excess over its
+    tolerance (<= 0 passes)."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
+    from mxnet_tpu_torch.gluon.utils import load_jax_params
+    rs = onp.random.RandomState(seed + 23)
+    S = BERT_PARITY_SEQ
+    tokens = rs.randint(0, BERT_VOCAB, (2, S)).astype("float32")
+    lens = onp.array(BERT_PARITY_LENS, "int32")
+    pos = onp.sort(onp.stack([rs.choice(min(BERT_PARITY_LENS),
+                                        BERT_PARITY_PRED, replace=False)
+                              for _ in range(2)]), 1).astype("int32")
+    labels = rs.randint(0, BERT_VOCAB, (2, BERT_PARITY_PRED)) \
+        .astype("float32")
+
+    def build(ctx):
+        net = BERTModel(vocab_size=BERT_VOCAB, units=BERT_UNITS,
+                        hidden_size=4 * BERT_UNITS,
+                        num_layers=DP_PARITY_LAYERS, num_heads=BERT_HEADS,
+                        max_length=BERT_SEQ, dropout=0.0, use_pooler=False,
+                        use_decoder=True)
+        with mx.cpu():          # weights and deferred shapes on the host
+            net.initialize(mx.init.Xavier())
+            with mx.autograd.predict_mode():
+                net(mx.nd.array(tokens[:1, :8]))
+        net.cast("float16")
+        net.collect_params().reset_ctx(ctx)
+        return net
+
+    def run(net, ctx):
+        args = (mx.nd.array(tokens, ctx=ctx), None, None,
+                mx.nd.array(lens, ctx=ctx, dtype="int32"),
+                mx.nd.array(pos, ctx=ctx, dtype="int32"))
+        with mx.autograd.predict_mode():
+            logits = net(*args)[1].astype("float32").asnumpy()
+        step = mx.parallel.DataParallelStep(
+            net, _mlm_loss(gluon),
+            mx.optimizer.Adam(learning_rate=BERT_LR, multi_precision=True))
+        losses, trained, moments = [], [], []
+        for _ in range(F16_PARITY_STEPS):
+            losses.append(float(step(args, mx.nd.array(labels, ctx=ctx))
+                                .astype("float32").asnumpy()))
+            trained.append(_drop_key_bias(_step_state(step, net, 0)))
+            moments.append(_drop_key_bias(_step_state(step, net, 1)))
+        return logits, losses, trained, moments
+    mx.random.seed(seed)
+    gnet = build(mx.gpu(0))
+    w0 = {k: p.data().asnumpy()
+          for k, p in gnet._collect_params_with_prefix().items()}
+    card = run(gnet, mx.gpu(0))
+    del gnet
+    with mx.cpu():
+        cnet = build(mx.cpu())
+        load_jax_params(cnet, w0)
+        cpu = run(cnet, mx.cpu())
+    check(onp.isfinite(card[0]).all() and all(onp.isfinite(card[1])),
+          "f16 BERT on the card: non-finite logits or loss")
+    w16 = _drop_key_bias({k: v.astype("float32") for k, v in w0.items()})
+    zero = {k: onp.zeros_like(v) for k, v in w16.items()}
+    return {"logit_rel": float(onp.abs(card[0] - cpu[0]).max()
+                               / onp.abs(cpu[0]).max()),
+            "loss_rel": max(abs(a - b) / abs(b)
+                            for a, b in zip(card[1], cpu[1])),
+            "worst_moment": [_worst(_leaf_update_errors(g, c, zero))
+                             for g, c in zip(card[3], cpu[3])],
+            "update_rel_l2": [_update_rel_l2(g, c, w16)
+                              for g, c in zip(card[2], cpu[2])],
+            "worst_leaf": [_worst(_leaf_update_errors(g, c, w16))
+                           for g, c in zip(card[2], cpu[2])],
+            "losses_card": card[1], "losses_cpu": cpu[1]}
+
+
+def f16_bert_phase(torch, mx, attention, layernorm, seed, card,
+                   profile=False):
+    """BERT-base in float16 as bench.py's ``_build_bert_step(dtype=
+    "float16")`` builds it (Xavier weights and deferred shapes on the host,
+    ``cast("float16")``, ``reset_ctx`` onto the card), the fused LayerNorm
+    route: its forward (the MLM logits) at 24 x 512 hybridized and replayed
+    as a CUDA graph against the same forward eagerly, 12 (B, T, H, D)
+    attention and 26 LayerNorm launches a forward; then its
+    ``DataParallelStep`` (Adam, lr 1e-4, ``multi_precision``) graphed
+    against eager, 12 + 12 attention and 26 + 26 LayerNorm launches a
+    step.  The 2-layer card-vs-CPU check runs first."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    os.environ["MXNET_FUSED_LAYERNORM"] = "1"
+    t0 = time.perf_counter()
+    par = f16_bert_card_vs_cpu(torch, mx, seed)
+    parity_s = time.perf_counter() - t0
+    print("f16 bert: card vs CPU, a %d-layer BERT in float16 at batch 2, S "
+          "%d: logits rel err %.3g; %d DataParallelStep Adam steps: losses "
+          "%s (card) %s (CPU), loss rel err %.3g; after each step the "
+          "worst leaf's first-moment error %s, the update error over all "
+          "leaves %s (the worst leaf's update error, not held: %s)"
+          % (DP_PARITY_LAYERS, BERT_PARITY_SEQ, par["logit_rel"],
+             F16_PARITY_STEPS, [round(v, 5) for v in par["losses_card"]],
+             [round(v, 5) for v in par["losses_cpu"]], par["loss_rel"],
+             ["%s %.3g" % w for w in par["worst_moment"]],
+             ["%.3g" % v for v in par["update_rel_l2"]],
+             ["%s %.3g" % w for w in par["worst_leaf"]]))
+    check(par["logit_rel"] <= F16_LOGIT_REL, "f16 BERT card vs CPU logits: "
+          "rel err %.3g > %g" % (par["logit_rel"], F16_LOGIT_REL))
+    check(par["loss_rel"] <= F16_LOSS_RTOL, "f16 BERT card vs CPU loss rel "
+          "err %.3g > %g" % (par["loss_rel"], F16_LOSS_RTOL))
+    for i, ((leaf, err), upd) in enumerate(zip(par["worst_moment"],
+                                               par["update_rel_l2"])):
+        check(err <= F16_ADAM_MOMENT_REL, "f16 BERT card vs CPU, step %d: "
+              "%s's first moment off by %.3g > %g"
+              % (i + 1, leaf, err, F16_ADAM_MOMENT_REL))
+        check(upd <= F16_ADAM_UPDATE_REL_L2, "f16 BERT card vs CPU, step "
+              "%d: update rel L2 err %.3g > %g"
+              % (i + 1, upd, F16_ADAM_UPDATE_REL_L2))
+    torch.cuda.empty_cache()
+
+    tokens, lens, pos = bert_inputs(seed)
+    labels = onp.random.RandomState(seed + 2).randint(
+        0, BERT_VOCAB, (BERT_BATCH, BERT_PRED)).astype("float32")
+    gpu = mx.gpu(0)
+    x = mx.nd.array(tokens, ctx=gpu)
+    vl = mx.nd.array(lens, ctx=gpu, dtype="int32")
+    mp = mx.nd.array(pos, ctx=gpu, dtype="int32")
+    y = mx.nd.array(labels, ctx=gpu)
+    mx.random.seed(seed)
+    net = _bert(mx, use_pooler=False)
+    with mx.cpu():
+        net.initialize(mx.init.Xavier())
+        with mx.autograd.predict_mode():   # deferred shapes, on the host
+            net(mx.nd.array(tokens[:1, :8]), None, None,
+                mx.nd.array([8], dtype="int32"),
+                mx.nd.array([[0, 1]], dtype="int32"))
+    net.cast("float16")
+    net.collect_params().reset_ctx(gpu)
+    _check_f16_dtypes(mx, net, "BERT-base")
+    out = {"parity": par, "parity_s": parity_s}
+
+    def counts(reset=False):
+        if reset:
+            _reset_counts(attention, layernorm)
+        return _bert_counts(attention, layernorm)
+    fwd = hybridized_calls(
+        torch, mx, net, lambda: net(x, None, None, vl, mp)[1].astorch(),
+        F16_CALLS, counts, "BERT-base float16 forward", profile=profile)
+    logits = fwd.pop("last")
+    check(logits.dtype == torch.float16
+          and tuple(logits.shape) == (BERT_BATCH, BERT_PRED, BERT_VOCAB)
+          and bool(torch.isfinite(logits).all()),
+          "f16 BERT forward: %s %s" % (logits.dtype, tuple(logits.shape)))
+    n = F16_CALLS
+    fwd["launches"], bhtd = fwd["launches"]
+    check(fwd["launches"] == (BERT_ATTN_PER_FWD * n, 0, BERT_LN_PER_FWD * n,
+                              0) and bhtd == (0, 0),
+          "f16 BERT forward launches in %d calls: (B, T, H, D) attention fwd "
+          "%d bwd %d, LayerNorm fwd %d bwd %d (want %d and %d a forward), "
+          "(B, H, T, D) %r" % ((n,) + fwd["launches"]
+                               + (BERT_ATTN_PER_FWD, BERT_LN_PER_FWD, bhtd)))
+    fwd["tokens_per_s"] = BERT_BATCH * BERT_SEQ * 1e3 / fwd["graphed_ms"]
+    out["forward"] = fwd
+    del logits
+    net.hybridize(False)
+    torch.cuda.empty_cache()
+
+    masters = []
+    out["step"] = graphed_vs_eager(
+        torch, mx, net, lambda: mx.parallel.DataParallelStep(
+            net, _mlm_loss(gluon),
+            _scheduled(mx, mx.optimizer.Adam, BERT_LR, multi_precision=True),
+            mesh=None),
+        (x, None, None, vl, mp), y, seed,
+        "BERT-base float16 DataParallelStep, Adam multi_precision",
+        counts=lambda reset=False: counts(reset)[0],
+        per_step=(BERT_ATTN_PER_STEP,) * 2 + (BERT_LN_PER_STEP,) * 2,
+        profile_as="bert" if profile else None,
+        after=lambda step: masters.append(_masters_check(
+            torch, step, net, "f16 BERT step")))
+    out["step"]["masters"] = masters[0]
+    out["step"]["tokens_per_s"] = \
+        BERT_BATCH * BERT_SEQ * 1e3 / out["step"]["graphed_ms"]
+    del net
+    del os.environ["MXNET_FUSED_LAYERNORM"]
+    torch.cuda.empty_cache()
+    return out
+
+
+def float16_phases(torch, mx, fused_norm, attention, layernorm, seed, card,
+                   profile):
+    """The float16 paths, their lines printed; returns their numbers and
+    the checks that no float16 operand reached a plain version on the
+    card."""
+    with _PlainOnCard(fused_norm, layernorm) as spy:
+        res = f16_resnet_phase(torch, mx, fused_norm, seed, card,
+                               profile=profile)
+        bert = f16_bert_phase(torch, mx, attention, layernorm, seed, card,
+                              profile=profile)
+    check(spy.plain_on_card == 0, "%d calls of a plain version with a CUDA "
+          "operand on the float16 paths" % spy.plain_on_card)
+    check(spy.kernel_dtypes == {"float16"}, "the kernels' wrappers got "
+          "%s on the float16 paths, want float16 alone"
+          % sorted(spy.kernel_dtypes))
+    inf, srv, tr = res["infer"], res["serve"], res["train"]
+    print("f16 resnet: ResNet-50 v1 float16 eval forward at batch %d "
+          "(hybridize, _CachedGraph): %d calls, epilogue launches %d, the "
+          "eager forward's bits; %.3f ms a call graphed = %.1f images/s, "
+          "%.3f ms eager; capture %.3f s; peak device memory %.2f GiB (%s)"
+          % (F16_INFER_BATCH, inf["calls"], inf["launches"],
+             inf["graphed_ms"], inf["images_per_s"], inf["eager_ms"],
+             inf["capture_s"], inf["peak_bytes"] / 2 ** 30, card))
+    if "profile" in inf:
+        print_profiles([inf["profile"]], card)
+    print("f16 serving: %d requests through a float16 AotModel, start %.2f "
+          "s, dispatches per bucket %s, kernel launches %d, max rel err vs "
+          "batch-1 %.3g; request latency p50 %.3f ms p99 %.3f ms; bucket-8 "
+          "call %.3f ms = %.1f images/s; captures %s s (%s)"
+          % (srv["requests"], srv["start_s"], srv["dispatches"],
+             srv["launches"], srv["max_rel_err"], srv["p50_ms"],
+             srv["p99_ms"], srv["bucket8_ms"], srv["bucket8_images_per_s"],
+             {b: round(v, 3) for b, v in srv["capture_s"].items()}, card))
+    print_graphed(tr, card)
+    print("f16 resnet: training %.1f images/s graphed; %d float16 weights "
+          "with float32 masters in the captured step (%s)"
+          % (tr["images_per_s"], tr["masters"], card))
+    fwd, st = bert["forward"], bert["step"]
+    print("f16 bert: BERT-base float16 forward (MLM logits), %d x %d, "
+          "hybridized: %d calls, launches (B, T, H, D) attention %d, "
+          "LayerNorm %d; %.3f ms graphed = %.0f tokens/s, %.3f ms eager; "
+          "capture %.3f s; peak device memory %.2f GiB (%s)"
+          % (BERT_BATCH, BERT_SEQ, fwd["calls"], fwd["launches"][0],
+             fwd["launches"][2], fwd["graphed_ms"], fwd["tokens_per_s"],
+             fwd["eager_ms"], fwd["capture_s"], fwd["peak_bytes"] / 2 ** 30,
+             card))
+    if "profile" in fwd:
+        print_profiles([fwd["profile"]], card)
+    print_graphed(st, card)
+    print("f16 bert: step %.0f tokens/s graphed; %d float16 weights with "
+          "float32 masters in the captured step (%s)"
+          % (st["tokens_per_s"], st["masters"], card))
+    print("f16: plain versions called with a CUDA operand: %d; dtypes at "
+          "the kernels' wrappers: %s" % (spy.plain_on_card,
+                                         sorted(spy.kernel_dtypes)))
+    return res, bert
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4692,6 +5421,13 @@ def main(argv=None):
     wide = wide_encoder_phase(torch, mx, attention, layernorm, args.seed,
                               card)
     mark("wide heads")
+    # float16 models cast whole (ResNet-50 served, inferred at batch 128
+    # and trained; BERT-base's forward and step): each path's counts from
+    # 0 just before it, read just after
+    f16res, f16bert = float16_phases(torch, mx, fused_norm, attention,
+                                     layernorm, args.seed, card,
+                                     args.profile)
+    mark("float16")
 
     # data-parallel training: one rank, NCCL (the card has no peer here)
     import torch.distributed as dist
@@ -4737,7 +5473,8 @@ def main(argv=None):
         source="mxnet_tpu_torch/csrc/fused_norm.cu",
         replaces="mxnet_tpu/ops/pallas_fused_norm.py:45",
         launches=train["fwd_launches"],
-        max_abs_err=max(r["max_abs_err"] for r in rows["fwd"]),
+        max_abs_err=max(r["max_abs_err"] for r in rows["fwd"]
+                        if r["dtype"] != "float16"),
         bound_by="bytes", library_ms=None,
         launches_by_path={"serving": res["launches"],
                           "hybrid_forward": hyb["launches"],
@@ -4757,8 +5494,10 @@ def main(argv=None):
         source="mxnet_tpu_torch/csrc/fused_norm.cu",
         replaces="mxnet_tpu/ops/pallas_fused_norm.py:52",
         launches=train["bwd_launches"],
-        max_abs_err=max(r["max_abs_err"] for r in rows["bwd"]),
-        max_rel_err_sums=max(r["max_rel_err_sums"] for r in rows["bwd"]),
+        max_abs_err=max(r["max_abs_err"] for r in rows["bwd"]
+                        if r["dtype"] != "float16"),
+        max_rel_err_sums=max(r["max_rel_err_sums"] for r in rows["bwd"]
+                             if r["dtype"] != "float16"),
         bound_by="bytes", library_ms=None,
         launches_by_path={"training": train["bwd_launches"],
                           "dp_resnet": dpr["dp"]["bwd_launches"],
@@ -4799,7 +5538,8 @@ def main(argv=None):
                           "dp_bert": dpb["plain"]["launches"][2],
                           "dp_bert_zero_nccl": dpb["zero"]["launches"][2],
                           "lstm_lm": lm_launches["layernorm"][0]},
-        max_abs_err=max(r["max_abs_err"] for r in ln_rows),
+        max_abs_err=max(r["max_abs_err"] for r in ln_rows
+                        if r["dtype"] != "float16"),
         bound_by="bytes",
         per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 forward "
             "(25 launches at the case 'bert', one at 'bert_decoder'); "
@@ -4820,8 +5560,10 @@ def main(argv=None):
                           "dp_bert": dpb["plain"]["launches"][3],
                           "dp_bert_zero_nccl": dpb["zero"]["launches"][3],
                           "lstm_lm": lm_launches["layernorm"][1]},
-        max_abs_err=max(r["max_abs_err"] for r in ln_bwd_rows),
-        sums_max_rel_err=max(r["sums_max_rel_err"] for r in ln_bwd_rows),
+        max_abs_err=max(r["max_abs_err"] for r in ln_bwd_rows
+                        if r["dtype"] != "float16"),
+        sums_max_rel_err=max(r["sums_max_rel_err"] for r in ln_bwd_rows
+                             if r["dtype"] != "float16"),
         bound_by="bytes",
         per="ms/plain_ms/bound_ms/library_ms: one BERT-base bf16 training "
             "step (25 launches at the case 'bert', one at 'bert_decoder'); "
@@ -4957,7 +5699,10 @@ def main(argv=None):
     for variant, case, path_note, bshd_paths in (
             ("f16", "f16_bert", "the AMP float16 BERT-base step's",
              {"bert_amp_f16": (amp16["attention_launches"],
-                               amp16["attention_bwd_launches"])}),
+                               amp16["attention_bwd_launches"]),
+              "f16_bert_forward": (f16bert["forward"]["launches"][0],
+                                   None),
+              "f16_bert_step": tuple(f16bert["step"]["launches"][:2])}),
             ("d192", "d192_bert", "the D 192 encoder's forward and step",
              {"wide_encoder_d192": (wide[192]["forward_launches"][0]
                                     + wide[192]["step_launches"][0],
@@ -4974,8 +5719,81 @@ def main(argv=None):
             per={"fwd": public_note, "bwd": public_note,
                  "bshd_fwd": note + path_note, "bshd_bwd": note + path_note},
             extra={})
+    # the float16 instantiations: the epilogue forward timed as
+    # one batch-128 forward, its backward as one batch-32 step, LayerNorm
+    # as one BERT-base float16 forward or step (25 launches at "f16", one
+    # at "f16_decoder")
+    inf16, srv16, tr16 = f16res["infer"], f16res["serve"], f16res["train"]
+    f16_fwd_rows = [r for r in rows["fwd"] if r["dtype"] == "float16"]
+    f16_bwd_rows = [r for r in rows["bwd"] if r["dtype"] == "float16"]
+    f16_entries = [
+        dict(name="fused_bn_add_relu_epilogue_f16", route="cuda",
+             source="mxnet_tpu_torch/csrc/fused_norm.cu",
+             replaces="mxnet_tpu/ops/pallas_fused_norm.py:45",
+             launches=inf16["launches"],
+             launches_by_path={"f16_inference": inf16["launches"],
+                               "f16_serving": srv16["launches"],
+                               "f16_training": tr16["launches"][0]},
+             max_abs_err=max(r["max_abs_err"] for r in f16_fwd_rows),
+             bound_by="bytes", library_ms=None,
+             serving=numbers("fwd", "serve_f16"),
+             per="ms/plain_ms/bound_ms: one ResNet-50 v1 float16 forward at "
+                 "batch %d (16 launches at the infer_f16 shapes); serving: "
+                 "one bucket-8 forward; launches: the batch-%d forward's %d "
+                 "graphed calls; library: %s"
+                 % (F16_INFER_BATCH, F16_INFER_BATCH, inf16["calls"],
+                    no_library),
+             shapes=f16_fwd_rows, **numbers("fwd", "infer_f16")),
+        dict(name="fused_bn_add_relu_epilogue_bwd_f16", route="cuda",
+             source="mxnet_tpu_torch/csrc/fused_norm.cu",
+             replaces="mxnet_tpu/ops/pallas_fused_norm.py:52",
+             launches=tr16["launches"][1],
+             launches_by_path={"f16_training": tr16["launches"][1]},
+             max_abs_err=max(r["max_abs_err"] for r in f16_bwd_rows),
+             max_rel_err_sums=max(r["max_rel_err_sums"]
+                                  for r in f16_bwd_rows),
+             bound_by="bytes", library_ms=None,
+             per="ms/plain_ms/bound_ms: one batch-32 ResNet-50 v1 float16 "
+                 "training step (16 launches at the train_f16 shapes); "
+                 "launches: the float16 DataParallelStep's %d graphed "
+                 "steps; library: %s" % (GRAPH_STEPS + GRAPH_TIMED,
+                                         no_library),
+             shapes=f16_bwd_rows, **numbers("bwd", "train_f16"))]
+    ln16_w = {"f16": BERT_LN_PER_FWD - 1, "f16_decoder": 1}
+    for name, ln_rows_, way, replaces, lib in (
+            ("layer_norm_fwd_f16", ln_rows, 2, 34, "layer_norm"),
+            ("layer_norm_bwd_f16", ln_bwd_rows, 3, 47,
+             "the backward of layer_norm")):
+        f16_ln = [r for r in ln_rows_ if r["dtype"] == "float16"]
+        by_path = {"f16_bert_step": f16bert["step"]["launches"][way]}
+        if way == 2:
+            by_path["f16_bert_forward"] = f16bert["forward"]["launches"][2]
+        entry = dict(
+            name=name, route="cuda",
+            source="mxnet_tpu_torch/csrc/layernorm.cu",
+            replaces="mxnet_tpu/ops/pallas_layernorm.py:%d" % replaces,
+            launches=by_path.get("f16_bert_forward",
+                                 by_path["f16_bert_step"]),
+            launches_by_path=by_path,
+            max_abs_err=max(r["max_abs_err"] for r in f16_ln),
+            bound_by="bytes",
+            per="ms/plain_ms/bound_ms/library_ms: one BERT-base float16 %s "
+                "(25 launches at the case 'f16', one at 'f16_decoder'); "
+                "launches: the float16 BERT %s; library: "
+                "torch.nn.functional.%s in float16"
+                % ("forward" if way == 2 else "training step",
+                   "forward's %d graphed calls" % f16bert["forward"]["calls"]
+                   if way == 2 else "step's %d graphed steps"
+                   % (GRAPH_STEPS + GRAPH_TIMED), lib),
+            shapes=f16_ln,
+            **{k: per_forward(f16_ln, ln16_w, k)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
+        if way == 3:
+            entry["sums_max_rel_err"] = max(r["sums_max_rel_err"]
+                                            for r in f16_ln)
+        f16_entries.append(entry)
     entries = [fwd_entry, bwd_entry, ln_entry, ln_bwd_entry] \
-        + attention_list
+        + f16_entries + attention_list
     for e in entries:
         check(e["launches"] > 0, "%s: launched no time on its path"
               % e["name"])

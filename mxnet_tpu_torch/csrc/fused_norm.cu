@@ -9,17 +9,19 @@
 //
 // over a contiguous tensor whose channel axis has C entries and `trail`
 // elements after it (H*W for NCHW, 1 for NHWC or a 2-D (rows, C) view).  The
-// math is fp32; x, r and y are all f32 or all bf16; scale and shift are fp32.
+// math is fp32; x, r and y are all f32, all bf16 or all f16; scale and shift
+// are fp32.  A 16-bit y is the fp32 value rounded once to nearest even: an f16
+// value past 65504 becomes inf, as the TPU kernel's astype gives.
 //
 // What bounds it: device-memory bytes.  Every element reads x and r once and
-// writes y once (12 B in f32, 6 B in bf16).  scale and shift are C floats
+// writes y once (12 B in f32, 6 B in bf16 or f16).  scale and shift are C floats
 // each, a few KB that stay in L1/L2, and the arithmetic (one multiply, two
 // adds, a max) is far below the card's rate.
 //
 // Design: a simple vectorised pass.  A flat grid-stride loop moves one
-// 16-byte vector of x, r and y per thread per step (4 f32 or 8 bf16) when the
-// three pointers are 16-byte aligned, and a scalar loop covers the tail (or
-// everything, when they are not aligned).  The channel index comes from the
+// 16-byte vector of x, r and y per thread per step (4 f32, or 8 bf16 or f16)
+// when the three pointers are 16-byte aligned, and a scalar loop covers the
+// tail (or everything, when they are not aligned).  The channel index comes from the
 // flat index, once per vector, and is carried across the vector's elements,
 // so scale and shift are read per channel: the TPU kernel's caller instead
 // repeated them per trailing element in device memory.  The TPU kernel's
@@ -30,8 +32,8 @@
 //
 // The multiply and the two adds are rounded one at a time (__fmul_rn,
 // __fadd_rn: no fused multiply-add), in the order the plain PyTorch version
-// uses, so an f32 result equals the plain version's bit for bit and a bf16
-// result rounds the same fp32 value once.
+// uses, so an f32 result equals the plain version's bit for bit and a bf16 or
+// f16 result rounds the same fp32 value once.
 //
 // Backward.  Replaces the TPU kernel _epi_bwd_kernel (same file, launched by
 // pallas_epilogue_bwd).  From the forward's x and y and the cotangent ct:
@@ -41,7 +43,7 @@
 //
 // dx and dr are in x's dtype, dscale and dshift fp32.  What bounds it:
 // device-memory bytes, as the forward: x, y and ct are read once, dx and dr
-// written once (20 B an element in f32, 10 B in bf16).
+// written once (20 B an element in f32, 10 B in bf16 or f16).
 //
 // What is new against the TPU kernel: that kernel carries the per-channel
 // sums in VMEM scratch across the sequential row-block axis of its grid.
@@ -72,6 +74,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -89,6 +92,16 @@ struct BF16 {
   }
   static __device__ __forceinline__ raw from_f(float v) {
     return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+};
+
+struct F16 {
+  typedef unsigned short raw;
+  static __device__ __forceinline__ float to_f(raw v) {
+    return __half2float(__ushort_as_half(v));
+  }
+  static __device__ __forceinline__ raw from_f(float v) {
+    return __half_as_ushort(__float2half_rn(v));
   }
 };
 
@@ -366,7 +379,8 @@ void launch_bwd_indexed(const void* x, const void* scale, const void* y,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t as int (0 = ok).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns a cudaError_t as int
+// (0 = ok).
 extern "C" int mx_fused_bn_add_relu_fwd(const void* x, const void* scale,
                                         const void* shift, const void* r,
                                         void* y, long long n, long long C,
@@ -380,6 +394,9 @@ extern "C" int mx_fused_bn_add_relu_fwd(const void* x, const void* scale,
       break;
     case 1:
       launch_indexed<BF16>(x, scale, shift, r, y, n, C, trail, s);
+      break;
+    case 2:
+      launch_indexed<F16>(x, scale, shift, r, y, n, C, trail, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -396,10 +413,10 @@ extern "C" long long mx_fused_bn_add_relu_bwd_workspace(long long n,
   return 2 * bwd_plan(n, C, trail).splits * C;
 }
 
-// x, y, ct, dx, dr: n elements of `dtype` (0 = float32, 1 = bfloat16);
-// scale, ds, dt: C floats; workspace: workspace_floats floats, at least
-// mx_fused_bn_add_relu_bwd_workspace(n, C, trail).  Returns a cudaError_t as
-// int (0 = ok).
+// x, y, ct, dx, dr: n elements of `dtype` (0 = float32, 1 = bfloat16,
+// 2 = float16); scale, ds, dt: C floats; workspace: workspace_floats floats,
+// at least mx_fused_bn_add_relu_bwd_workspace(n, C, trail).  Returns a
+// cudaError_t as int (0 = ok).
 extern "C" int mx_fused_bn_add_relu_bwd(const void* x, const void* scale,
                                         const void* y, const void* ct,
                                         void* dx, void* dr, void* ds, void* dt,
@@ -421,6 +438,10 @@ extern "C" int mx_fused_bn_add_relu_bwd(const void* x, const void* scale,
     case 1:
       launch_bwd_indexed<BF16>(x, scale, y, ct, dx, dr, ds, dt, ws, n, C,
                                trail, p, s);
+      break;
+    case 2:
+      launch_bwd_indexed<F16>(x, scale, y, ct, dx, dr, ds, dt, ws, n, C,
+                              trail, p, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

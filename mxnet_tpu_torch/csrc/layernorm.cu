@@ -7,12 +7,14 @@
 //     y = (x - mu) * rstd * gamma + beta
 //
 // in fp32, y cast once to its dtype, and mu and rstd written as (N,) fp32
-// beside it.  x is f32 or bf16; gamma and beta share one dtype, f32 or bf16;
-// y is bf16 when x and gamma are both bf16 and f32 otherwise (the type
-// promotion of (x, gamma, beta) that the TPU kernel's caller applies).
+// beside it.  x is f32, bf16 or f16; gamma and beta share one dtype, f32, bf16
+// or f16; y is the type promotion of (x, gamma, beta) that the TPU kernel
+// applies (jnp.result_type): x's dtype when gamma's is the same, f32
+// otherwise (bf16 with f16 promotes to f32 too).  An f16 value past 65504
+// rounds to inf, as astype gives.
 //
 // What bounds it: device-memory bytes.  Each element is read once and written
-// once (4 B in bf16, 8 B in f32) and each row writes 8 B of statistics;
+// once (4 B in bf16 or f16, 8 B in f32) and each row writes 8 B of statistics;
 // about eight operations an element are far below the card's rate.  At
 // BERT-base's (12288, 768) bf16 that is 37.8 MB, 11.3 us at 3.35 TB/s.
 //
@@ -21,14 +23,17 @@
 // in one warp's registers, so the row is read from device memory once and
 // the two-pass variance (mean first, then the squared deviations) costs no
 // second read.  Lane l holds the chunks l, l + 32, l + 64, ... of VEC
-// elements, loaded with 16-byte loads (8 bf16 or 4 f32) when C is a multiple
-// of VEC and every pointer is 16-byte aligned, one element at a time
+// elements, loaded with 16-byte loads (8 bf16 or f16, or 4 f32) when C is a
+// multiple of VEC and every pointer is 16-byte aligned, one element at a time
 // otherwise.  The sums fold across the warp with shuffles.  C above 2048
 // (64 values a lane) is not taken: the caller routes such rows to the
 // composed LayerNorm, as the JAX package does past its VMEM budget.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -37,9 +42,11 @@ constexpr int kMaxPerLane = 64;           // C <= 32 * 64 = 2048
 constexpr int kMaxChannels = 32 * kMaxPerLane;
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(f16 v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
@@ -48,6 +55,10 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ f16 from_f<f16>(float v) {
+  return __float2half_rn(v);
 }
 
 // VEC elements at p as fp32; 16-byte loads when they span whole 16 bytes
@@ -174,7 +185,7 @@ void launch(const void* x, const void* g, const void* b, void* y, float* mu,
 //     dgamma = sum over rows of ct * xhat;  dbeta = sum of ct    (fp32)
 //
 // What bounds it: device-memory bytes.  x and ct are read once and dx
-// written once (6 B an element in bf16, 12 in f32); at BERT-base's
+// written once (6 B an element in bf16 or f16, 12 in f32); at BERT-base's
 // (12288, 768) bf16 that is 57 MB, 17 us at 3.35 TB/s.
 //
 // Design: a grid of one block of eight warps an SM (ln_bwd_grid), each
@@ -231,7 +242,12 @@ struct RawVec {
   __device__ __forceinline__ float get(int i) const {
     if constexpr (sizeof(T) == 4) {
       return __uint_as_float(w[i]);
+    } else if constexpr (std::is_same<T, f16>::value) {
+      const uint32_t word = w[i >> 1];
+      return __half2float(__ushort_as_half(
+          (unsigned short)((i & 1) ? (word >> 16) : (word & 0xffffu))));
     } else {
+      // bf16: the upper 16 bits of an fp32
       const uint32_t word = w[i >> 1];
       return __uint_as_float((i & 1) ? (word & 0xffff0000u) : (word << 16));
     }
@@ -497,35 +513,62 @@ int launch_bwd(const void* x, const void* g, const float* mu,
                                  grid, C);
 }
 
+// the element type of a dtype code (0 = float32, 1 = bfloat16,
+// 2 = float16) and the type of y for x and gamma of two such types: x's type
+// when both are the same, float32 otherwise, as jnp.result_type promotes
+template <int Code>
+using Elem = std::conditional_t<Code == 0, float,
+                                std::conditional_t<Code == 1, bf16, f16>>;
+template <int XC, int GC>
+using Out = std::conditional_t<XC == GC, Elem<XC>, float>;
+
+// the forward and the backward for the dtype codes (XC, GC) of x and gamma
+template <int XC, int GC>
+int fwd_typed(const void* x, const void* g, const void* b, void* y, float* mu,
+              float* rstd, long long N, int C, float eps, cudaStream_t s) {
+  launch<Elem<XC>, Elem<GC>, Out<XC, GC>>(x, g, b, y, mu, rstd, N, C, eps, s);
+  return (int)cudaGetLastError();
+}
+
+template <int XC, int GC>
+int bwd_typed(const void* x, const void* g, const float* mu,
+              const float* rstd, const void* ct, void* dx, float* ws,
+              float* dg, float* db, long long N, int C, cudaStream_t s) {
+  return launch_bwd<Elem<XC>, Elem<GC>, Out<XC, GC>>(x, g, mu, rstd, ct, dx,
+                                                     ws, dg, db, N, C, s);
+}
+
+// indexed by x_dtype * 3 + g_dtype
+constexpr decltype(&fwd_typed<0, 0>) kFwd[9] = {
+    fwd_typed<0, 0>, fwd_typed<0, 1>, fwd_typed<0, 2>,
+    fwd_typed<1, 0>, fwd_typed<1, 1>, fwd_typed<1, 2>,
+    fwd_typed<2, 0>, fwd_typed<2, 1>, fwd_typed<2, 2>};
+constexpr decltype(&bwd_typed<0, 0>) kBwd[9] = {
+    bwd_typed<0, 0>, bwd_typed<0, 1>, bwd_typed<0, 2>,
+    bwd_typed<1, 0>, bwd_typed<1, 1>, bwd_typed<1, 2>,
+    bwd_typed<2, 0>, bwd_typed<2, 1>, bwd_typed<2, 2>};
+
 }  // namespace
 
 // The largest C the kernel takes.
 extern "C" int mx_layer_norm_max_channels() { return kMaxChannels; }
 
-// x: N rows of C elements of x_dtype (0 = float32, 1 = bfloat16); gamma and
-// beta: C elements of g_dtype; y: N rows of C elements, bfloat16 when both
-// dtypes are 1 and float32 otherwise; mu, rstd: N floats.  Returns a
-// cudaError_t as int (0 = ok).
+// x: N rows of C elements of x_dtype (0 = float32, 1 = bfloat16,
+// 2 = float16); gamma and beta: C elements of g_dtype; y: N rows of C
+// elements of x_dtype when the two dtypes are the same and float32
+// otherwise; mu, rstd: N floats.  Returns a cudaError_t as int (0 = ok).
 extern "C" int mx_layer_norm_fwd(const void* x, const void* gamma,
                                  const void* beta, void* y, void* mu,
                                  void* rstd, long long N, int C, float eps,
                                  int x_dtype, int g_dtype, void* stream) {
-  if (N < 0 || C <= 0 || C > kMaxChannels || x_dtype < 0 || x_dtype > 1 ||
-      g_dtype < 0 || g_dtype > 1)
+  if (N < 0 || C <= 0 || C > kMaxChannels || x_dtype < 0 || x_dtype > 2 ||
+      g_dtype < 0 || g_dtype > 2)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(mu);
   float* r = static_cast<float*>(rstd);
-  if (x_dtype == 0 && g_dtype == 0)
-    launch<float, float, float>(x, gamma, beta, y, m, r, N, C, eps, s);
-  else if (x_dtype == 0)
-    launch<float, bf16, float>(x, gamma, beta, y, m, r, N, C, eps, s);
-  else if (g_dtype == 0)
-    launch<bf16, float, float>(x, gamma, beta, y, m, r, N, C, eps, s);
-  else
-    launch<bf16, bf16, bf16>(x, gamma, beta, y, m, r, N, C, eps, s);
-  return (int)cudaGetLastError();
+  return kFwd[x_dtype * 3 + g_dtype](x, gamma, beta, y, m, r, N, C, eps, s);
 }
 
 // Rows of fp32 workspace mx_layer_norm_bwd needs for N rows (each of 2 C
@@ -537,8 +580,8 @@ extern "C" long long mx_layer_norm_bwd_blocks(long long N) {
 
 // The backward of mx_layer_norm_fwd.  x: N rows of C elements of x_dtype;
 // gamma: C elements of g_dtype; mu, rstd: the forward's N floats; ct: N rows
-// of C elements, bfloat16 when both dtypes are 1 and float32 otherwise (the
-// dtype of y); dx: N rows of C elements of x_dtype; ws: 2 C
+// of C elements in the dtype of y (x_dtype when the two dtypes are the same,
+// float32 otherwise); dx: N rows of C elements of x_dtype; ws: 2 C
 // mx_layer_norm_bwd_blocks(N) floats of scratch; dgamma, dbeta: C floats.
 // Returns a cudaError_t as int (0 = ok).
 extern "C" int mx_layer_norm_bwd(const void* x, const void* gamma,
@@ -547,8 +590,8 @@ extern "C" int mx_layer_norm_bwd(const void* x, const void* gamma,
                                  void* dgamma, void* dbeta, long long N,
                                  int C, int x_dtype, int g_dtype,
                                  void* stream) {
-  if (N < 0 || C <= 0 || C > kMaxChannels || x_dtype < 0 || x_dtype > 1 ||
-      g_dtype < 0 || g_dtype > 1)
+  if (N < 0 || C <= 0 || C > kMaxChannels || x_dtype < 0 || x_dtype > 2 ||
+      g_dtype < 0 || g_dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mu);
@@ -562,15 +605,6 @@ extern "C" int mx_layer_norm_bwd(const void* x, const void* gamma,
       err = cudaMemsetAsync(db, 0, C * sizeof(float), s);
     return (int)err;
   }
-  if (x_dtype == 0 && g_dtype == 0)
-    return launch_bwd<float, float, float>(x, gamma, m, r, ct, dx, w, dg, db,
-                                           N, C, s);
-  if (x_dtype == 0)
-    return launch_bwd<float, bf16, float>(x, gamma, m, r, ct, dx, w, dg, db,
-                                          N, C, s);
-  if (g_dtype == 0)
-    return launch_bwd<bf16, float, float>(x, gamma, m, r, ct, dx, w, dg, db,
-                                          N, C, s);
-  return launch_bwd<bf16, bf16, bf16>(x, gamma, m, r, ct, dx, w, dg, db, N,
-                                      C, s);
+  return kBwd[x_dtype * 3 + g_dtype](x, gamma, m, r, ct, dx, w, dg, db, N, C,
+                                     s);
 }

@@ -9,10 +9,13 @@ and layers come with later slices.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as onp
 import torch
 
 from ... import autograd
+from ...base import torch_dtype
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
@@ -134,6 +137,13 @@ class Dropout(HybridBlock):
         return "Dropout(p = %s, axes=%s)" % (self._rate, self._axes)
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(c, dtype):
+    """The Python number ``c`` rounded to ``dtype`` (exact in fp32, so a
+    product with it rounds once, as the JAX package's weak scalar does)."""
+    return float(torch.tensor(c, dtype=torch.float64).to(dtype))
+
+
 class BatchNorm(HybridBlock):
     """Batch normalization with moving statistics.  In training mode the
     op returns the batch statistics and this layer updates the moving
@@ -172,16 +182,33 @@ class BatchNorm(HybridBlock):
         for p in (self.gamma, self.beta, self.running_mean, self.running_var):
             p._finish_deferred_init((c,))
 
+    def cast(self, dtype):
+        """As ``Block.cast``, except that float16 keeps the four
+        parameters in float32, as the JAX package's BatchNorm does: the
+        moving statistics are then averaged in float32 and the folded
+        scale and shift start from float32 values.  The cached graph is
+        dropped (``HybridBlock.cast``)."""
+        if torch_dtype(dtype) == torch.float16:
+            dtype = "float32"
+        super().cast(dtype)
+
     def _update_moving(self, running_mean, running_var, mean, var):
         """Moving averages from the (detached) batch statistics, outside
-        any recorded graph, so no step's graph outlives its backward."""
+        any recorded graph, so no step's graph outlives its backward.  Each
+        product takes the momentum rounded to its operand's dtype, as a
+        Python scalar meets an array in the JAX package: the float16
+        statistics of a float16 net are scaled by float16(1 - m), rounded
+        to float16 and added to the float32 averages."""
         if autograd.is_training() and not self._kwargs["use_global_stats"]:
             m = self._momentum
             with torch.no_grad():
-                self.running_mean.set_data(
-                    running_mean._data * m + mean._data.detach() * (1 - m))
-                self.running_var.set_data(
-                    running_var._data * m + var._data.detach() * (1 - m))
+                for param, run, stat in ((self.running_mean, running_mean,
+                                          mean),
+                                         (self.running_var, running_var,
+                                          var)):
+                    r, b = run._data, stat._data.detach()
+                    param.set_data(r * _rounded(m, r.dtype)
+                                   + b * _rounded(1 - m, b.dtype))
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         out, mean, var = F.BatchNorm(x, gamma, beta, running_mean,

@@ -386,8 +386,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
     ``lse`` and the cotangent ``do`` of o, in the dtypes of q, k and v.
     Launches the CUDA backward for CUDA tensors and runs the plain version
     for CPU tensors.  The kernels take q, k, v, o and do of one dtype,
-    float32, bfloat16 or float16, contiguous, D <= 256 (zero-padded to 64,
-    128, 192 or 256 here), and raise on anything else."""
+    float32, bfloat16 or float16, D <= 256 (zero-padded to 64, 128, 192 or
+    256 here; contiguous where D is one of those), and raise on anything
+    else."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3] \
             or o.shape != q.shape or do.shape != q.shape \
@@ -397,7 +398,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
                          % ", ".join(str(tuple(t.shape))
                                      for t in (q, k, v, o, lse, do)))
     _check_segments(q, k, q_segments, kv_segments)
-    device, code = _kernel_operands("flash_attention_bwd", (q, k, v, o, do))
+    # a head dim the kernels pad is copied into padded operands below, so
+    # only an unpadded one must arrive contiguous (the forward's o at such
+    # a D is a view of its padded output)
+    device, code = _kernel_operands("flash_attention_bwd", (q, k, v, o, do),
+                                    contiguous=q.shape[3] in _HEAD_DIMS)
     if code is None:
         return _flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
                                           kv_lens, q_segments, kv_segments)

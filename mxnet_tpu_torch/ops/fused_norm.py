@@ -17,8 +17,8 @@ cotangent ``ct``:
 :func:`fused_bn_add_relu_epilogue` is differentiable in all four operands:
 torch carries ``dscale``/``dshift`` on through the folded batch statistics
 into the data, gamma and beta.  On CUDA tensors its forward and backward
-launch the hand-written kernels in ``csrc/fused_norm.cu`` (float32 or
-bfloat16) or raise; on CPU tensors they run the plain versions.  Both
+launch the hand-written kernels in ``csrc/fused_norm.cu`` (float32,
+bfloat16 or float16) or raise; on CPU tensors they run the plain versions.  Both
 kernels take the per-channel vectors as they are, with the channel count
 and the number of trailing elements after the channel axis, so NCHW and
 NHWC need no transpose and no repeated scale/shift in device memory.
@@ -42,7 +42,7 @@ __all__ = ["fused_bn_add_relu_epilogue", "fused_bn_add_relu_epilogue_plain",
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _FNS = {}
 
 
@@ -108,8 +108,8 @@ def _device_of(name, tensors):
 def _kernel_dtype(name, x, *same):
     code = _DTYPE_CODE.get(x.dtype)
     if code is None or any(t.dtype != x.dtype for t in same):
-        raise MXNetError("%s: the CUDA kernel takes float32 or bfloat16 "
-                         "operands of one dtype, got %s"
+        raise MXNetError("%s: the CUDA kernel takes float32, bfloat16 or "
+                         "float16 operands of one dtype, got %s"
                          % (name, [str(t.dtype) for t in (x,) + same]))
     return code
 

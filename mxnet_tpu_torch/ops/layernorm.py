@@ -17,8 +17,8 @@ cotangent ``ct`` of y:
     dgamma = sum over rows of ct * xhat;  dbeta = sum of ct   (fp32)
 
 :func:`layer_norm_fwd` and :func:`layer_norm_bwd` launch the hand-written
-kernels of ``csrc/layernorm.cu`` for CUDA tensors (f32 or bf16 x, gamma
-and beta of one of those dtypes) or raise, and run their plain versions
+kernels of ``csrc/layernorm.cu`` for CUDA tensors (f32, bf16 or f16 x,
+gamma and beta of one of those dtypes) or raise, and run their plain versions
 for CPU tensors.  :func:`fused_layer_norm` pairs the two as one
 ``torch.autograd.Function``, whose backward casts dgamma and dbeta to the
 dtypes of gamma and beta, as the JAX package's ``_fln_bwd`` does.
@@ -39,7 +39,7 @@ __all__ = ["fused_layer_norm", "layer_norm_fwd", "layer_norm_bwd",
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the largest C the kernel takes: one warp holds a row in its registers,
 # 64 values a lane (csrc/layernorm.cu, mx_layer_norm_max_channels)
 MAX_CHANNELS = 2048
@@ -140,8 +140,9 @@ def layer_norm_fwd(x2d, gamma, beta, eps):
     x_code = _DTYPE_CODE.get(x2d.dtype)
     g_code = _DTYPE_CODE.get(gamma.dtype)
     if x_code is None or g_code is None or beta.dtype != gamma.dtype:
-        raise MXNetError("layer_norm_fwd: the CUDA kernel takes float32 or "
-                         "bfloat16 x and gamma and beta of one such dtype, "
+        raise MXNetError("layer_norm_fwd: the CUDA kernel takes float32, "
+                         "bfloat16 or float16 x and gamma and beta of one "
+                         "such dtype, "
                          "got %s, %s, %s" % (x2d.dtype, gamma.dtype,
                                              beta.dtype))
     if not (x2d.is_contiguous() and gamma.is_contiguous()
@@ -196,8 +197,9 @@ def layer_norm_bwd(x2d, gamma, mu, rstd, ct2d):
     if x_code is None or g_code is None \
             or ct2d.dtype != torch.promote_types(x2d.dtype, gamma.dtype) \
             or mu.dtype != torch.float32 or rstd.dtype != torch.float32:
-        raise MXNetError("layer_norm_bwd: the CUDA kernel takes float32 or "
-                         "bfloat16 x and gamma, ct in their promotion and "
+        raise MXNetError("layer_norm_bwd: the CUDA kernel takes float32, "
+                         "bfloat16 or float16 x and gamma, ct in their "
+                         "promotion and "
                          "float32 mu and rstd, got %s, %s, %s, %s, %s"
                          % (x2d.dtype, gamma.dtype, ct2d.dtype, mu.dtype,
                             rstd.dtype))

@@ -55,10 +55,12 @@ def dot(lhs, rhs, transpose_a: bool = False, transpose_b: bool = False):
 
 @register("batch_dot")
 def batch_dot(lhs, rhs, transpose_a: bool = False, transpose_b: bool = False):
-    """Batched matrix product over the leading axes."""
+    """Batched matrix product over the leading axes, in the operands'
+    common dtype (float32 probabilities against float16 values give
+    float32, as ``jnp.matmul`` promotes)."""
     a = lhs.transpose(-1, -2) if transpose_a else lhs
     b = rhs.transpose(-1, -2) if transpose_b else rhs
-    return torch.matmul(a, b)
+    return _matmul(a, b)
 
 
 @register("transpose")

@@ -52,9 +52,17 @@ def _tup(v, n):
 @register("FullyConnected", aliases=("fully_connected",))
 def fully_connected(data, weight, bias=None, num_hidden: int = 0,
                     no_bias: bool = False, flatten: bool = True):
-    """y = x·Wᵀ + b, flattening all but the batch axis when ``flatten``."""
+    """y = x·Wᵀ + b, flattening all but the batch axis when ``flatten``.
+    Operands of several dtypes meet in their promotion, as ``jnp.matmul``
+    and the bias add promote in the JAX op (float32 attention output
+    against float16 weights gives float32)."""
     x = data.reshape(data.shape[0], -1) if flatten and data.dim() > 2 else data
-    return F.linear(x, weight, None if no_bias else bias)
+    bias = None if no_bias else bias
+    if x.dtype == weight.dtype and (bias is None or bias.dtype == x.dtype):
+        return F.linear(x, weight, bias)
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    y = F.linear(x.to(dt), weight.to(dt))
+    return y if bias is None else y + bias
 
 
 @register("Convolution", aliases=("convolution",))

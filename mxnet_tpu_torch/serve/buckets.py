@@ -76,7 +76,8 @@ def plan_buckets(n: int, buckets: Sequence[int],
 
 def pad_batch(rows: Sequence[onp.ndarray], bucket: int,
               feature_shape: tuple, dtype) -> onp.ndarray:
-    """Zero-padded ``(bucket,) + feature_shape`` batch of ``rows``."""
+    """Zero-padded ``(bucket,) + feature_shape`` batch of ``rows`` in
+    ``dtype``, each row cast as it is copied in."""
     if len(rows) > bucket:
         raise MXNetError("pad_batch: %d rows exceed bucket %d"
                          % (len(rows), bucket))

@@ -1145,3 +1145,146 @@ def test_array_ops_capture_in_a_hybridized_block_on_cuda():
         for got, want in zip(out[:5], eager[:5]):
             assert torch.equal(got.astorch(), want.astorch())
     assert not torch.equal(runs[1][5].astorch(), runs[2][5].astorch())
+
+
+def _ulps16(a, b):
+    """The largest distance in ulps between two 16-bit float tensors of
+    one sign pattern (their bits read as integers)."""
+    return (a.view(torch.int16).int() - b.view(torch.int16).int()) \
+        .abs().max().item()
+
+
+@pytest.mark.cuda
+def test_float16_epilogue_kernels_match_plain_on_cuda():
+    """The float16 instantiations of the epilogue kernels: forward and
+    backward within 1 ulp of the plain version (the same fp32 value
+    rounded once), dscale/dshift within rel 1e-5, the backward twice to
+    the same bits; NCHW, NHWC, a ragged and an unaligned case, each a
+    launch; values past 65504 become inf, as astype gives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(13)
+    for shape, axis, off in [((4, 64, 7, 7), 1, 0), ((3, 5, 5, 40), 3, 0),
+                             ((2, 3, 37), 1, 0), ((2, 64, 7, 7), 1, 1)]:
+        n = 1
+        for d in shape:
+            n *= d
+        c = shape[axis]
+
+        def rand():
+            v = torch.randn(n + off, device=dev, generator=g) * 4
+            return v.half()[off:].view(shape)
+        x, r, ct = rand(), rand(), rand()
+        s = torch.rand(c, device=dev, generator=g) + 0.5
+        t = torch.randn(c, device=dev, generator=g)
+        fwd, bwd = TFN.LAUNCHES, TFN.BWD_LAUNCHES
+        y = TFN.fused_bn_add_relu_epilogue(x, s, t, r, axis)
+        got = TFN.fused_bn_add_relu_epilogue_bwd(x, s, y, ct, axis)
+        again = TFN.fused_bn_add_relu_epilogue_bwd(x, s, y, ct, axis)
+        torch.cuda.synchronize()
+        assert (TFN.LAUNCHES, TFN.BWD_LAUNCHES) == (fwd + 1, bwd + 2)
+        assert y.dtype == torch.float16
+        assert _ulps16(y, TFN.fused_bn_add_relu_epilogue_plain(
+            x, s, t, r, axis)) <= 1
+        want = TFN.fused_bn_add_relu_epilogue_bwd_plain(x, s, y, ct, axis)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for a, b in zip(got[:2], want[:2]):
+            assert a.dtype == torch.float16 and _ulps16(a, b) <= 1
+        for a, b in zip(got[2:], want[2:]):
+            assert a.dtype == torch.float32
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+    x = torch.full((2, 8, 3, 3), 40000.0, device=dev).half()
+    y = TFN.fused_bn_add_relu_epilogue(x, torch.full((8,), 2.0, device=dev),
+                                       torch.zeros(8, device=dev), x, 1)
+    assert torch.isinf(y).all()
+
+
+@pytest.mark.cuda
+def test_float16_layernorm_kernels_match_plain_on_cuda():
+    """The LayerNorm kernels for every pair of x and gamma/beta dtypes
+    with float16 in it: y in their promotion and within 1e-5 plus one ulp
+    of its dtype of the plain version, dx in x's dtype likewise, dgamma
+    and dbeta fp32 within rel 1e-5, the backward twice to the same bits;
+    one row, a row past a block of eight, C 768 (16-byte loads), C 1001
+    (one element a load) and C 2048 (the shared-memory sums)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(14)
+    mant = {torch.float32: 23, torch.bfloat16: 7, torch.float16: 10}
+
+    def tol(a, b):
+        _, e = torch.frexp(torch.maximum(a.float().abs(), b.float().abs()))
+        return 1e-5 + torch.ldexp(torch.ones_like(e, dtype=torch.float32),
+                                  e - 1 - mant[a.dtype])
+    f16, bf16, f32 = torch.float16, torch.bfloat16, torch.float32
+    for (N, C), xd, gd in [((9, 768), f16, f16), ((1, 768), f16, f32),
+                           ((1057, 768), f16, f16), ((64, 1001), f16, f16),
+                           ((33, 2048), f16, f16), ((9, 768), f32, f16),
+                           ((9, 768), bf16, f16), ((9, 768), f16, bf16)]:
+        x = (torch.randn((N, C), device=dev, generator=g) * 2 + 0.5).to(xd)
+        ga = (torch.rand(C, device=dev, generator=g) + 0.5).to(gd)
+        be = (torch.rand(C, device=dev, generator=g) - 0.5).to(gd)
+        fwd, bwd = TL.LAUNCHES, TL.BWD_LAUNCHES
+        y, mu, rstd = TL.layer_norm_fwd(x, ga, be, 1e-5)
+        py, _, _ = TL._layer_norm_fwd_plain(x, ga, be, 1e-5)
+        assert y.dtype == py.dtype == torch.promote_types(xd, gd)
+        assert ((y.float() - py.float()).abs() <= tol(y, py)).all()
+        ct = torch.randn((N, C), device=dev, generator=g).to(y.dtype)
+        got = TL.layer_norm_bwd(x, ga, mu, rstd, ct)
+        again = TL.layer_norm_bwd(x, ga, mu, rstd, ct)
+        torch.cuda.synchronize()
+        assert (TL.LAUNCHES, TL.BWD_LAUNCHES) == (fwd + 1, bwd + 2)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        want = TL._layer_norm_bwd_plain(x, ga, mu, rstd, ct)
+        assert [a.dtype for a in got] == [xd, f32, f32]
+        assert ((got[0].float() - want[0].float()).abs()
+                <= tol(got[0], want[0])).all()
+        for a, b in zip(got[1:], want[1:]):
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_float16_narrow_resnet_on_cuda_matches_cpu(tf32_off):
+    """``chip_smoke.f16_resnet_card_vs_cpu``: a narrow ResNetV1 cast to
+    float16 (BatchNorm float32) on the card against the CPU from the same
+    weights, its eval logits and two SGD steps with multi_precision held
+    to chip_smoke's tolerances, through both float16 epilogue kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mxnet_tpu_torch as mx
+    cs = _chip_smoke()
+    fwd, bwd = TFN.LAUNCHES, TFN.BWD_LAUNCHES
+    r = cs.f16_resnet_card_vs_cpu(torch, mx, 15)
+    assert TFN.LAUNCHES > fwd and TFN.BWD_LAUNCHES > bwd
+    assert r["logit_rel"] <= cs.F16_LOGIT_REL
+    assert r["loss_rel"] <= cs.F16_LOSS_RTOL
+    assert all(err <= cs.F16_SGD_LEAF_REL for _, err in r["worst_leaf"])
+
+
+@pytest.mark.cuda
+def test_public_attention_backward_at_a_padded_head_dim_on_cuda():
+    """``flash_attention`` under autograd at D 80 (the kernels pad it to
+    128): the backward takes the forward's o, a view of its padded
+    output, and launches; dq, dk and dv within 1e-2 of the largest |plain
+    gradient| (bf16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(16)
+    q, k, v = ((torch.rand((2, 3, 256, 80), device=dev, generator=g) * 2
+                - 1).to(torch.bfloat16).requires_grad_() for _ in range(3))
+    ct = torch.randn((2, 3, 256, 80), device=dev, generator=g) \
+        .to(torch.bfloat16)
+    before = (TA.LAUNCHES, TA.BWD_LAUNCHES)
+    got = torch.autograd.grad(TA.flash_attention(q, k, v), (q, k, v), ct)
+    torch.cuda.synchronize()
+    assert (TA.LAUNCHES, TA.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    o, _ = TA._flash_attention_plain(qf, kf, vf)
+    want = torch.autograd.grad(o, (qf, kf, vf), ct.float())
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        err = (a.float() - w).abs().max().item()
+        assert err <= 1e-2 * w.abs().max().item()
