@@ -4,8 +4,9 @@
 
     python3 chip_diag.py parity [--seed 0]
     python3 chip_diag.py ab --parent DIR [--pairs 2]
-    python3 chip_diag.py bwd
-    python3 chip_diag.py fwd [--other FILE ...] [--pairs 2]
+    python3 chip_diag.py bwd [--other FILE ...] [--pairs 2] [--skip-bf16]
+    python3 chip_diag.py fwd [--other FILE ...] [--pairs 2] [--skip-bf16]
+    python3 chip_diag.py bert32 [--other FILE ...]
     python3 chip_diag.py ln [--other FILE ...] [--pairs 2]
     python3 chip_diag.py f16 [--seeds 0 1 2]
 
@@ -35,7 +36,15 @@ the cycles a tile of each phase of the dK/dV kernel's loop, from
 ``csrc/flash_attention.cu`` (built into the git-ignored ``_build/``)
 sums over the blocks for warp 0 -- once as the kernel is, and once with
 every tile sent through the general masked exponential loop (a mask test
-an element), which the kernel keeps for causal and segment masks.
+an element), which the kernel keeps for causal and segment masks.  Then
+the float32 backward (the three-TF32 kernels) of this checkout's source
+and of each ``--other`` version, built side by side, through the port's
+(B, T, H, D) wrapper at BERT-base's float32 layer (q, k and v views of
+one projection output, ``bench.py``'s valid lengths) and at (2, 1024,
+1024, 8, 128): each build's error against the plain version, whether it
+gives this build's bits, its ms in turns and its device ms a call by
+kernel under torch.profiler.  ``--skip-bf16`` runs the float32 part
+alone.
 
 ``fwd``: the bf16 flash-attention forward of this checkout's
 ``csrc/flash_attention.cu`` beside other versions of it (``--other``,
@@ -48,7 +57,16 @@ output, ``bench.py``'s valid lengths), at its (B, H, T, D) shape (24, 12,
 error against the plain version, whether each ``--other`` gives the same
 bits as this one, each build's forward registers, and their times in
 turns (each build in order, then in reverse, for ``--pairs 2``) as
-``chip_smoke.py`` times a kernel.
+``chip_smoke.py`` times a kernel.  Then the float32 forward of each
+build at the float32 cases of ``bwd`` (``--skip-bf16``: these alone).
+
+``bert32``: ``chip_smoke.py``'s float32 BERT-base phase (the hybridized
+MLM forward and the ``DataParallelStep`` Adam step at 24 x 512, graphed
+against eager, with ``--profile``'s breakdown and the float32 attention
+kernels' share of the device time) once with this checkout's
+``csrc/flash_attention.cu`` and once with each ``--other`` version (e.g.
+the parent commit's: the C entries must match), so that the step's
+change is measured beside the kernels'.
 
 ``ln``: the bf16 LayerNorm backward at (12288, 768) and (1824, 768) --
 BERT-base's rows and its masked-LM head's -- of this checkout's
@@ -66,7 +84,7 @@ logits, losses and update errors (``f16_resnet_card_vs_cpu``,
 ``f16_bert_card_vs_cpu``), the CPU's float16 step against its float32
 step beside the ResNet's.  It prints them and holds nothing.
 
-All six need a CUDA card and exit non-zero without one.
+All seven need a CUDA card and exit non-zero without one.
 """
 from __future__ import annotations
 
@@ -317,7 +335,7 @@ def _instrumented_libs():
     return libs
 
 
-def bwd():
+def bwd(others, pairs, skip_bf16):
     import ctypes
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -326,6 +344,16 @@ def bwd():
     from mxnet_tpu_torch.ops import attention as TA
     card = cs.card_line()
     print("card: %s" % card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not skip_bf16:
+        bf16_bwd(torch, ProfilerActivity, profile, ctypes, cs, TA, card)
+    f32_turns(_builds(others, "bwd"), pairs, "bwd", card)
+    return 0
+
+
+def bf16_bwd(torch, ProfilerActivity, profile, ctypes, cs, TA, card):
+    """The bf16 backward's device ms by kernel and the dK/dV kernel's
+    cycles a tile by phase (see the module's note)."""
     libs = _instrumented_libs()
     _, bench_lens, _ = cs.bert_inputs(0)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -380,7 +408,6 @@ def bwd():
         TA._FNS.clear()
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
-    return 0
 
 
 def _build_side_by_side(sources, what="fwd", kernel_prefix="flash_fwd"):
@@ -441,24 +468,29 @@ def _compare(outs):
     return "; ".join("%s: %s" % kv for kv in out.items())
 
 
-def fwd(others, pairs):
-    import ctypes
+def fwd(others, pairs, skip_bf16):
     import torch
     sys.path.insert(0, HERE)
     import chip_smoke as cs
-    from mxnet_tpu_torch import kernels
-    from mxnet_tpu_torch.ops import attention as TA
     card = cs.card_line()
     print("card: %s" % card)
-    sources = _other_sources(
-        os.path.join(kernels.CSRC_DIR, "flash_attention.cu"), others)
-    builds = _build_side_by_side(sources)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = _builds(others, "fwd")
+    if not skip_bf16:
+        bf16_fwd(libs, pairs, card)
+    f32_turns(libs, pairs, "fwd", card)
+    return 0
+
+
+def bf16_fwd(libs, pairs, card):
+    """The bf16 forward of each build of ``libs`` ({name: library path})
+    at BERT's shapes and T 2048 (see the module's note)."""
+    import ctypes
+    import torch
+    import chip_smoke as cs
+    from mxnet_tpu_torch.ops import attention as TA
     fns = {}
-    for name, (lib, report) in builds.items():
-        for r in report:
-            print("ptxas %s: %s: %s registers, spill %d/%d bytes" % (
-                name, r["kernel"], r["registers"], r["spill_stores"],
-                r["spill_loads"]))
+    for name, lib in libs.items():
         dll = ctypes.CDLL(lib)
         fn = dll.mx_flash_attention_fwd
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
@@ -529,6 +561,175 @@ def fwd(others, pairs):
                   _compare(outs),
                   json.dumps({n: t for n, t in times.items()}), card))
         del q, k, v, o, lse, outs, po, plse
+        torch.cuda.empty_cache()
+
+
+# the float32 cases of chip_smoke.ATTN_BSHD_CASES that ``fwd`` and ``bwd``
+# run on each build: BERT-base's float32 layer and (2, 1024, 1024, 8, 128)
+F32_CASES = ("f32_bert", "f32_t1024_d128")
+
+
+def _use_library(path):
+    """Point the port's attention wrappers at the library at ``path`` (a
+    build of some version of ``csrc/flash_attention.cu`` with the same C
+    entries); returns their typed entries."""
+    import ctypes
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.ops import attention as TA
+    kernels._LIBS["flash_attention"] = ctypes.CDLL(path)
+    TA._FNS.clear()
+    TA._kernel_fn()
+    return dict(TA._FNS)
+
+
+def f32_turns(libs, pairs, direction, card):
+    """The float32 (B, T, H, D) forward (``direction`` "fwd") or backward
+    ("bwd") of each build of ``libs`` ({name: library path}, "this"
+    first) through the port's wrappers at F32_CASES: each build's error
+    against the plain version (forward: o and lse absolute; backward: dq,
+    dk and dv over the largest |plain|), whether it gives this build's
+    bits, its ms in turns and, for the backward, its device ms a call by
+    kernel under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke as cs
+    from mxnet_tpu_torch.ops import attention as TA
+    fns = {name: _use_library(path) for name, path in libs.items()}
+    names = list(fns)
+    order = _order(names, pairs)
+    cases = {c[0]: c for c in cs.ATTN_BSHD_CASES}
+    _, bench_lens, _ = cs.bert_inputs(0)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    flush = torch.empty(cs.L2_FLUSH_BYTES // 4, device="cuda")
+    for label in F32_CASES:
+        case = cases[label]
+        q, k, v, do, kw, _ = cs._bshd_operands(torch, TA, gen, case,
+                                               bench_lens)
+        with torch.no_grad():
+            po, plse = TA._flash_attention_bshd_plain(q, k, v, **kw)
+            want = TA._flash_attention_bshd_bwd_plain(
+                q, k, v, po, plse, do, **kw) if direction == "bwd" else None
+
+            def call(name):
+                TA._FNS.clear()
+                TA._FNS.update(fns[name])
+                if direction == "fwd":
+                    return TA.flash_attention_bshd_fwd(q, k, v, **kw)
+                return TA.flash_attention_bshd_bwd(q, k, v, po, plse, do,
+                                                   **kw)
+            outs, errs = {}, {}
+            for name in names:
+                got = call(name)
+                torch.cuda.synchronize()
+                outs[name] = tuple(t.clone() for t in got)
+                if direction == "fwd":
+                    errs[name] = [float("%.3g" % (a - b).abs().max().item())
+                                  for a, b in zip(got, (po, plse))]
+                else:
+                    errs[name] = [float("%.3g" % (
+                        (a - b).abs().max() / b.abs().max()).item())
+                        for a, b in zip(got, want)]
+            times = {name: [] for name in names}
+            for name in order:
+                times[name].append(cs.time_cuda(torch, lambda: call(name),
+                                                flush))
+            sdpa = _sdpa_kernels(torch, profile, ProfilerActivity, TA, q, k,
+                                 v, do, kw, direction)
+            split = {}
+            for name in names if direction == "bwd" else ():
+                call(name)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(10):
+                        call(name)
+                    torch.cuda.synchronize()
+                split[name] = {}
+                for e in prof.key_averages():
+                    m = re.search(r"flash_bwd_\w+", e.key)
+                    if m and e.device_time_total > 0:
+                        split[name][m.group()] = round(
+                            e.device_time_total / e.count / 1e3, 4)
+        print("%s f32 %s %s: %s against the plain version %s; %s; ms in "
+              "turns %s%s; scaled_dot_product_attention's kernels (device "
+              "ms a call) %s  (%s)" % (
+                  direction, label, tuple(case[1:6]),
+                  "o and lse abs err" if direction == "fwd"
+                  else "dq, dk, dv err over the largest |plain|",
+                  json.dumps(errs), _compare(outs), json.dumps(times),
+                  "; device ms a call by kernel %s" % json.dumps(split)
+                  if split else "", json.dumps(sdpa), card))
+        del q, k, v, do, po, plse, want, outs
+        torch.cuda.empty_cache()
+    TA._FNS.clear()
+
+
+def _sdpa_kernels(torch, profile, ProfilerActivity, TA, q, k, v, do, kw,
+                  direction):
+    """The device kernels of one scaled_dot_product_attention call (its
+    backward too for ``direction`` "bwd") on the (B, H, T, D) views of the
+    same float32 operands with the same boolean mask, as torch.profiler
+    names them: {name: device ms a call}, the mean of 5 calls."""
+    import torch.nn.functional as F
+    B, Tq, H, _ = q.shape
+    mask = TA._visible(B, Tq, k.shape[1], q.device, kw.get("causal", False),
+                       kw.get("kv_lens"), None, None)
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+
+    def once():
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            if direction == "bwd":
+                torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2))
+    once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            once()
+        torch.cuda.synchronize()
+    return {e.key[:120]: round(e.device_time_total / 5 / 1e3, 4)
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def _builds(others, what):
+    """This checkout's ``csrc/flash_attention.cu`` and ``others`` built side
+    by side: {name: library path}, with the attention kernels' ptxas lines
+    printed."""
+    from mxnet_tpu_torch import kernels
+    builds = _build_side_by_side(_other_sources(
+        os.path.join(kernels.CSRC_DIR, "flash_attention.cu"), others),
+        what=what, kernel_prefix="flash_")
+    for name, (lib, report) in builds.items():
+        for r in report:
+            print("ptxas %s: %s: %s registers, spill %d/%d bytes" % (
+                name, r["kernel"], r["registers"], r["spill_stores"],
+                r["spill_loads"]))
+    return {name: lib for name, (lib, _) in builds.items()}
+
+
+def bert32(others):
+    import torch
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.ops import attention as TA
+    from mxnet_tpu_torch.ops import layernorm
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.build(kernels.SOURCES)
+    card = cs.card_line()
+    libs = _builds(others, "bert32")
+    # another version's kernels carry other names: the profile checks ask
+    # only for some attention kernel each way
+    cs.PROFILE_KERNELS["bert_f32_forward"] = ("flash_fwd_", "ln_fwd")
+    cs.PROFILE_KERNELS["bert_f32"] = ("flash_fwd_", "flash_bwd_", "ln_bwd")
+    for name, path in libs.items():
+        _use_library(path)
+        print("bert32: %s's flash_attention.cu" % name)
+        cs.print_f32_bert(cs.f32_bert_phase(torch, mx, TA, layernorm, 0,
+                                            card, profile=True), card)
         torch.cuda.empty_cache()
     return 0
 
@@ -660,10 +861,13 @@ def main(argv=None):
     a = sub.add_parser("ab")
     a.add_argument("--parent", required=True)
     a.add_argument("--pairs", type=int, default=2)
-    sub.add_parser("bwd")
-    f = sub.add_parser("fwd")
-    f.add_argument("--other", action="append", default=[])
-    f.add_argument("--pairs", type=int, default=2)
+    for name in ("bwd", "fwd"):
+        f = sub.add_parser(name)
+        f.add_argument("--other", action="append", default=[])
+        f.add_argument("--pairs", type=int, default=2)
+        f.add_argument("--skip-bf16", action="store_true")
+    b = sub.add_parser("bert32")
+    b.add_argument("--other", action="append", default=[])
     n = sub.add_parser("ln")
     n.add_argument("--other", action="append", default=[])
     n.add_argument("--pairs", type=int, default=2)
@@ -676,13 +880,16 @@ def main(argv=None):
         return 2
     if args.cmd == "parity":
         return parity(args.seed)
-    if args.cmd == "bwd":
-        return bwd()
     if args.cmd == "f16":
         return f16(args.seeds)
-    if args.cmd in ("fwd", "ln"):
-        others = [os.path.abspath(o) for o in args.other]
-        return (fwd if args.cmd == "fwd" else ln)(others, args.pairs)
+    others = [os.path.abspath(o) for o in getattr(args, "other", [])]
+    if args.cmd in ("fwd", "bwd"):
+        return (fwd if args.cmd == "fwd" else bwd)(others, args.pairs,
+                                                   args.skip_bf16)
+    if args.cmd == "bert32":
+        return bert32(others)
+    if args.cmd == "ln":
+        return ln(others, args.pairs)
     return ab(os.path.abspath(args.parent), args.pairs)
 
 

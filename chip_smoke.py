@@ -10,10 +10,12 @@ and PyTorch built for CUDA.  It:
    CUDA versions and the TF32 flags, and turns TF32 off for the whole run;
 2. builds every CUDA kernel of the package from ``mxnet_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel), prints the build time and each
-   kernel's registers and spills from ``-Xptxas -v`` (a spill in a Hopper
-   attention kernel, forward or backward, fails the run), and the blocks
-   an SM and shared memory a block of the Hopper attention kernels (bf16
-   and f16);
+   kernel's registers and spills from ``-Xptxas -v`` (a spill in an
+   attention kernel, the 16-bit Hopper ones or the float32 three-TF32
+   ones, forward or backward, fails the run), the blocks an SM and shared
+   memory a block of the attention kernels (bf16, f16 and f32), and the
+   count of ``HMMA`` TF32 instructions in each float32 kernel's SASS
+   (``cuobjdump -sass``; none in one fails the run);
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card and times kernel, plain version and the memory-bandwidth bound with
    CUDA events (L2 flushed between launches): the epilogue forward at the
@@ -173,6 +175,13 @@ and PyTorch built for CUDA.  It:
    ``Adam(multi_precision=True)`` graphed against eager (12 + 12 and
    26 + 26 a step).  A spy checks that no plain version got a CUDA operand
    and that only float16 operands reached the kernels' wrappers;
+10d. float32 BERT-base phase (``f32_bert_phase``, TF32 off): BERT-base
+   as ``_build_bert_step(dtype="float32")`` builds it at 24 x 512, its
+   hybridized MLM forward (12 float32 attention and 26 LayerNorm launches
+   a forward) and its ``DataParallelStep`` Adam step (lr 1e-4, 12 + 12
+   and 26 + 26 a step), each graphed against eager, the loss falling;
+   ``--profile`` adds the float32 attention kernels' share of each one's
+   device time;
 11. data-parallel phase (``dp_phases``; it joins a one-rank NCCL group
    with ``mx.parallel.initialize()``, the only group one card allows, and
    leaves it at the end): one f32 ``parallel.DataParallelStep`` of a
@@ -334,9 +343,14 @@ ATTN_F16_REL = 5e-3
 LN_F32_ABS, LN_STAT_REL = 1e-5, 1e-5
 BF16_PEAK_OPS = 989e12                  # H100 SXM tensor cores, dense (bf16
                                         # and fp16 alike)
+# float32 on the tensor cores: 495 TFLOP/s of TF32, dense, three TF32
+# products for each float32 product (the float32 kernels' split)
+TF32_PEAK_OPS = 495e12
 # The backward kernels against their plain versions.  Attention: dq, dk and
-# dv within 1e-5 of the largest |plain value| in f32 (fp32 sums in another
-# order; 1.7e-7 measured) and 1e-2 in bf16 (p and ds are rounded to bf16
+# dv within 1e-5 of the largest |plain value| in f32 (three TF32 products
+# for each float32 product, each tile's sums started from 0 on the tensor
+# cores and added in fp32; 3.3e-6 to 6.5e-6 measured, 6.1e-6 at T 1024)
+# and 1e-2 in bf16 (p and ds are rounded to bf16
 # before their products on both sides, from fp32 values summed in another
 # order, so a rounding can fall either way: an ulp is 2**-8 of a value;
 # 3.3e-3 measured).  LayerNorm: dx as the forward's y; dgamma and dbeta
@@ -991,6 +1005,8 @@ ATTN_CASES = [
     ("bert", 24, 12, 512, 512, 64, "bfloat16", False, "bench", False),
     ("b32_s128", 32, 12, 128, 128, 64, "bfloat16", False, None, False),
     ("f32", 2, 12, 128, 128, 64, "float32", False, None, False),
+    # BERT-base's float32 layer (the float32 BERT phase's shape)
+    ("f32_bert", 24, 12, 512, 512, 64, "float32", False, "bench", False),
     ("causal", 2, 12, 512, 512, 64, "bfloat16", True, None, False),
     ("segments", 2, 12, 256, 256, 64, "bfloat16", False, None, True),
     ("lens_0_and_past_tk", 2, 12, 256, 256, 64, "bfloat16", False,
@@ -1056,10 +1072,26 @@ def _bwd_rel_tol(torch, dtype):
 
 def _peak_ops(torch, dtype, card):
     """The card's peak rate for operands of ``dtype``: the tensor cores'
-    for bf16 and fp16 (whatever kernel runs), fp32 FMAs for float32 (TF32
-    off)."""
-    return BF16_PEAK_OPS if dtype in (torch.bfloat16, torch.float16) \
-        else fp32_ops_per_s(card)
+    for bf16 and fp16, and for float32 a third of their TF32 rate (three
+    TF32 products a float32 product, as the float32 kernels run them;
+    ``_ffma_bound_ms`` gives the bound on fp32 FMAs beside it)."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return BF16_PEAK_OPS
+    return TF32_PEAK_OPS / 3
+
+
+def _ffma_note(ms):
+    return "" if ms is None else " ffma bound %.4f" % ms
+
+
+def _ffma_bound_ms(torch, dtype, card, nbytes, ops):
+    """For float32 operands, the bound with the operations on fp32 FMAs
+    outside the tensor cores (67 TFLOP/s): the larger of the bytes over the
+    memory rate and the operations over that rate; None otherwise."""
+    if dtype != torch.float32:
+        return None
+    return max(nbytes / memory_bytes_per_s(card),
+               ops / fp32_ops_per_s(card)) * 1e3
 
 
 def _bf16_ulp(torch, a, b, bits=8):
@@ -1121,6 +1153,7 @@ ATTN_BWD_CASES = [
     ("f32", 2, 12, 128, 128, 64, "float32", False, None, False),
     ("f32_d128_causal_lens", 2, 4, 256, 200, 128, "float32", True, (0, 150),
      False),
+    ("f32_bert", 24, 12, 512, 512, 64, "float32", False, "bench", False),
     ("causal", 2, 12, 512, 512, 64, "bfloat16", True, None, False),
     ("segments", 2, 12, 256, 256, 64, "bfloat16", False, None, True),
     ("lens_0_and_past_tk", 2, 12, 256, 256, 64, "bfloat16", False,
@@ -1150,33 +1183,62 @@ ATTN_BWD_CASES = [
     ("f16_tk65_lens_64_0", 2, 3, 100, 65, 128, "float16", False, (64, 0),
      False),
 ] + WIDE_CASES
-# the Hopper attention kernels, which must not spill registers
+# the Hopper attention kernels, which must not spill registers: the
+# 16-bit wgmma kernels and the float32 three-TF32 mma.sync ones
 HOPPER_KERNELS = ("flash_fwd_hopper", "flash_bwd_q_hopper",
                   "flash_bwd_kv_hopper")
+TF32_KERNELS = ("flash_fwd_tf32", "flash_bwd_q_tf32", "flash_bwd_kv_tf32")
+
+
+def tf32_sass_check(kernels):
+    """The float32 attention kernels' SASS (``cuobjdump -sass`` of the
+    built library) holds tensor-core TF32 products (``HMMA.1688.F32.TF32``)
+    in every instantiation: {kernel: count of HMMA TF32 instructions}.
+    Fails the run where a float32 kernel has none."""
+    import re
+    import shutil
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump") or tool
+    sass = subprocess.run([tool, "-sass", kernels.library_path(
+        "flash_attention")], capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = kernels._kernel_name(part.split(None, 1)[0])
+        if name.startswith(TF32_KERNELS):
+            counts[name] = len(re.findall(r"HMMA\.\S*TF32", part))
+    check(len(counts) == 12, "cuobjdump found %d float32 attention kernels "
+          "(%s), want 12 (3 kernels x 4 head dims)" % (len(counts),
+                                                       sorted(counts)))
+    for name, n in sorted(counts.items()):
+        check(n > 0, "%s: no HMMA TF32 instruction in its SASS" % name)
+    return counts
 
 
 def hopper_occupancy(torch, attention):
-    """Blocks an SM and shared memory a block of the Hopper forward and
-    backward kernels (bf16 and f16, D 64 to 256), as the CUDA runtime
-    reports them for the built kernels."""
+    """Blocks an SM and shared memory a block of the attention forward
+    and backward kernels (the wgmma ones for bf16 and f16, the three-TF32
+    ones for f32, D 64 to 256), as the CUDA runtime reports them for the
+    built kernels."""
     import ctypes
     fwd = attention._kernel_fn("fwd_occupancy")
     bwd = attention._kernel_fn("bwd_occupancy")
-    for dt, code in (("bf16", 1), ("f16", 2)):
+    for dt, code in (("bf16", 1), ("f16", 2), ("f32", 0)):
+        kind = "tf32" if code == 0 else "hopper"
         for D in (64, 128, 192, 256):
             out = (ctypes.c_int * 4)()
             rc = fwd(D, code, out)
             check(rc == 0, "flash_attention_fwd occupancy query failed: "
                   "CUDA error %d" % rc)
-            print("flash_fwd_hopper %s D %d: %d blocks an SM, %d bytes of "
-                  "shared memory a block" % (dt, D, out[0], out[1]))
+            print("flash_fwd_%s %s D %d: %d blocks an SM, %d bytes of "
+                  "shared memory a block" % (kind, dt, D, out[0], out[1]))
             rc = bwd(D, code, out)
             check(rc == 0, "flash_attention_bwd occupancy query failed: "
                   "CUDA error %d" % rc)
-            print("flash_bwd_q_hopper %s D %d: %d blocks an SM, %d bytes of "
-                  "shared memory a block; flash_bwd_kv_hopper %s D %d: %d "
-                  "blocks an SM, %d bytes" % (dt, D, out[0], out[1], dt, D,
-                                              out[2], out[3]))
+            print("flash_bwd_q_%s %s D %d: %d blocks an SM, %d bytes of "
+                  "shared memory a block; flash_bwd_kv_%s %s D %d: %d "
+                  "blocks an SM, %d bytes" % (kind, dt, D, out[0], out[1],
+                                              kind, dt, D, out[2], out[3]))
 
 
 def attention_cases(torch, attention, card, flush, seed):
@@ -1251,6 +1313,8 @@ def attention_cases(torch, attention, card, flush, seed):
                "segments": seg, "max_abs_err": err, "lse_max_abs_err": lse_err,
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound_ms,
+               "ffma_bound_ms": _ffma_bound_ms(torch, dtype, card, nbytes,
+                                               ops),
                "bound_by": "bytes" if nbytes / bw > ops / peak
                else "operations", "visible_pairs": pairs * H,
                "tflops": ops / ms / 1e9, "host_us": host,
@@ -1260,9 +1324,10 @@ def attention_cases(torch, attention, card, flush, seed):
         rows.append(row)
         print("kernel attention %-18s %-26s %-8s err %.3g lse err %.3g  "
               "kernel %.4f ms (%.1f TFLOP/s)  plain %.4f ms  sdpa %.4f ms  "
-              "bound %.4f ms (%s)  host/call %.1f us  (%s)"
+              "bound %.4f ms (%s)%s  host/call %.1f us  (%s)"
               % (name, (B, H, Tq, Tk, D), dt, err, lse_err, ms, row["tflops"],
-                 plain_ms, library_ms, bound_ms, row["bound_by"], host, card))
+                 plain_ms, library_ms, bound_ms, row["bound_by"],
+                 _ffma_note(row["ffma_bound_ms"]), host, card))
         del q, k, v, o, lse, po, plse, mask
         torch.cuda.empty_cache()
     return rows
@@ -1468,15 +1533,18 @@ def attention_bwd_cases(torch, attention, card, flush, seed):
                "segments": seg, "max_abs_err": err, "max_rel_err": rel,
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound_ms,
+               "ffma_bound_ms": _ffma_bound_ms(torch, q.dtype, card, nbytes,
+                                               ops),
                "bound_by": "bytes" if nbytes / bw > ops / peak
                else "operations", "visible_pairs": pairs * H,
                "tflops": ops / ms / 1e9, "host_us": host}
         rows.append(row)
         print("kernel attention bwd %-20s %-26s %-8s err %.3g (rel %.3g)  "
               "kernel %.4f ms (%.1f TFLOP/s)  plain %.4f ms  sdpa bwd %.4f "
-              "ms  bound %.4f ms (%s)  host/call %.1f us  (%s)"
+              "ms  bound %.4f ms (%s)%s  host/call %.1f us  (%s)"
               % (name, (B, H, Tq, Tk, D), dt, err, rel, ms, row["tflops"],
-                 plain_ms, library_ms, bound_ms, row["bound_by"], host, card))
+                 plain_ms, library_ms, bound_ms, row["bound_by"],
+                 _ffma_note(row["ffma_bound_ms"]), host, card))
         del q, k, v, do, o, lse, mask
         torch.cuda.empty_cache()
     return rows
@@ -1570,6 +1638,8 @@ ATTN_BSHD_CASES = [
     ("t2048_d128_causal", 1, 2048, 2048, 16, 128, "bfloat16", True, None,
      False),
     ("f32_t1024_d128", 2, 1024, 1024, 8, 128, "float32", False, None, False),
+    # BERT-base's float32 layer, q, k and v views of the projection
+    ("f32_bert", 24, 512, 512, 12, 64, "float32", False, "bench", True),
     ("d80", 2, 256, 256, 12, 80, "bfloat16", False, (256, 100), False),
     ("tk65_lens_64_0", 2, 100, 65, 3, 64, "bfloat16", False, (64, 0), False),
     ("tk129_lens_128", 2, 130, 129, 3, 64, "bfloat16", False, (128, 129),
@@ -1755,20 +1825,25 @@ def attention_bshd_cases(torch, attention, card, flush, seed):
                "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
                "bwd_library_ms": bwd_library_ms,
                "bwd_bound_ms": max(b_bytes / bw, b_ops / peak) * 1e3,
+               "ffma_bound_ms": _ffma_bound_ms(torch, dtype, card, f_bytes,
+                                               f_ops),
+               "bwd_ffma_bound_ms": _ffma_bound_ms(torch, dtype, card,
+                                                   b_bytes, b_ops),
                "bwd_bound_by": "bytes" if b_bytes / bw > b_ops / peak
                else "operations", "bwd_tflops": b_ops / bwd_ms / 1e9,
                "visible_pairs": pairs * H, "host_us": host}
         rows.append(row)
         print("kernel attention bshd %-18s %-24s %-8s fwd err %.3g (lse "
               "%.3g) kernel %.4f ms (%.1f TFLOP/s) plain %.4f sdpa %.4f "
-              "bound %.4f (%s); bwd err %.3g (rel %.3g) kernel %.4f ms (%.1f "
-              "TFLOP/s) plain %.4f sdpa bwd %.4f bound %.4f (%s); host/call "
-              "%.1f us  (%s)"
+              "bound %.4f (%s)%s; bwd err %.3g (rel %.3g) kernel %.4f ms "
+              "(%.1f TFLOP/s) plain %.4f sdpa bwd %.4f bound %.4f (%s)%s; "
+              "host/call %.1f us  (%s)"
               % (name, (B, Tq, Tk, H, D), dt, err, lse_err, ms, row["tflops"],
                  plain_ms, library_ms, row["bound_ms"], row["bound_by"],
-                 bwd_err, bwd_rel, bwd_ms, row["bwd_tflops"], bwd_plain_ms,
-                 bwd_library_ms, row["bwd_bound_ms"], row["bwd_bound_by"],
-                 host, card))
+                 _ffma_note(row["ffma_bound_ms"]), bwd_err, bwd_rel, bwd_ms,
+                 row["bwd_tflops"], bwd_plain_ms, bwd_library_ms,
+                 row["bwd_bound_ms"], row["bwd_bound_by"],
+                 _ffma_note(row["bwd_ffma_bound_ms"]), host, card))
         del q, k, v, do, o, lse, buf, grad, out
         torch.cuda.empty_cache()
     return rows
@@ -1836,6 +1911,11 @@ PUBLIC_OP_CASES = {
              False, "bench", "float16"), PUBLIC_OP_LONG + ("float16",)],
     "d192": [(BERT_BATCH, BERT_SEQ, 4, 192, False, "bench", "bfloat16")],
     "d256": [(BERT_BATCH, BERT_SEQ, 3, 256, False, "bench", "bfloat16")],
+    # float32 on the three-TF32 kernels: BERT-base's layer and the
+    # (2, 1024, 8, 128) case
+    "f32": [(BERT_BATCH, BERT_SEQ, BERT_HEADS, BERT_UNITS // BERT_HEADS,
+             False, "bench", "float32"), (2, 1024, 8, 128, False, None,
+                                          "float32")],
 }
 
 
@@ -1845,7 +1925,8 @@ def public_op_phase(torch, mx, attention, seed, card):
     arrays and ``nd.flash_attention`` on the same arrays transposed,
     forward and backward, for each variant of ``PUBLIC_OP_CASES``: bf16 at
     BERT-base's shape and valid lengths and at (1, 2048, 16, 128) causal,
-    the same in float16, and D 192 and 256 at BERT-base's width.  The
+    the same in float16, D 192 and 256 at BERT-base's width, and float32
+    at BERT-base's shape and at (2, 1024, 8, 128).  The
     counts start from 0 just before each variant and are read just after;
     each op launches its own kernels once a case each way, and the two
     ops' outputs and gradients agree.  Returns the launches by variant,
@@ -3435,6 +3516,9 @@ HYBRID_CALLS = 13
 # names in a replay's profile that show the hand kernels ran inside it
 PROFILE_KERNELS = {
     "bert": ("flash_fwd_hopper", "flash_bwd_", "ln_bwd"),
+    "bert_f32": ("flash_fwd_tf32", "flash_bwd_q_tf32", "flash_bwd_kv_tf32",
+                 "ln_bwd"),
+    "bert_f32_forward": ("flash_fwd_tf32", "ln_fwd"),
     "resnet_step": ("epi_fwd_kernel", "epi_bwd_"),
     "resnet_forward": ("epi_fwd_kernel",)}
 
@@ -3490,14 +3574,15 @@ def graphed_vs_eager(torch, mx, net, make_step, data, label, seed, what,
         first_s = time.perf_counter() - t
         rates = [step._opt.learning_rate]
         weights = [p.data().astorch().detach().clone() for _, p in params]
-        times = []
+        times, later = [], []
         for _ in range(GRAPH_TIMED):
             t = time.perf_counter()
-            call(data, label)
+            later.append(call(data, label).astorch())
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
         n = GRAPH_STEPS + GRAPH_TIMED
         r = {"losses": losses, "weights": weights,
+             "losses_all": [float(v.float()) for v in losses + later],
              "step_ms": statistics.median(times) * 1e3,
              "peak_bytes": torch.cuda.max_memory_allocated(),
              "first_calls_s": first_s, "rate_last": rates[-1],
@@ -3548,7 +3633,8 @@ def graphed_vs_eager(torch, mx, net, make_step, data, label, seed, what,
            "capture_s": g["capture_s"][0],
            "graphed_peak_bytes": g["peak_bytes"],
            "eager_peak_bytes": e["peak_bytes"], "rate_last": g["rate_last"],
-           "launches": g.get("launches"), "deterministic": deterministic}
+           "launches": g.get("launches"), "deterministic": deterministic,
+           "losses_all": g["losses_all"]}
     if "profile" in g:
         out["profile"] = g["profile"]
         out["profile_kernels"] = g["profile_kernels"]
@@ -5050,6 +5136,34 @@ def f16_bert_card_vs_cpu(torch, mx, seed):
             "losses_card": card[1], "losses_cpu": cpu[1]}
 
 
+def _bench_bert(mx, seed, dtype):
+    """BERT-base as bench.py's ``_build_bert_step(dtype=...)`` builds it:
+    Xavier weights from ``seed`` and deferred shapes settled on the host,
+    ``cast(dtype)`` unless float32, ``reset_ctx`` onto the card; with
+    bench.py's config-5 inputs there ((x, valid lengths, masked positions),
+    and random labels)."""
+    import numpy as onp
+    tokens, lens, pos = bert_inputs(seed)
+    labels = onp.random.RandomState(seed + 2).randint(
+        0, BERT_VOCAB, (BERT_BATCH, BERT_PRED)).astype("float32")
+    gpu = mx.gpu(0)
+    inputs = (mx.nd.array(tokens, ctx=gpu),
+              mx.nd.array(lens, ctx=gpu, dtype="int32"),
+              mx.nd.array(pos, ctx=gpu, dtype="int32"))
+    mx.random.seed(seed)
+    net = _bert(mx, use_pooler=False)
+    with mx.cpu():
+        net.initialize(mx.init.Xavier())
+        with mx.autograd.predict_mode():   # deferred shapes, on the host
+            net(mx.nd.array(tokens[:1, :8]), None, None,
+                mx.nd.array([8], dtype="int32"),
+                mx.nd.array([[0, 1]], dtype="int32"))
+    if dtype != "float32":
+        net.cast(dtype)
+    net.collect_params().reset_ctx(gpu)
+    return net, inputs, mx.nd.array(labels, ctx=gpu)
+
+
 def f16_bert_phase(torch, mx, attention, layernorm, seed, card,
                    profile=False):
     """BERT-base in float16 as bench.py's ``_build_bert_step(dtype=
@@ -5061,7 +5175,6 @@ def f16_bert_phase(torch, mx, attention, layernorm, seed, card,
     ``DataParallelStep`` (Adam, lr 1e-4, ``multi_precision``) graphed
     against eager, 12 + 12 attention and 26 + 26 LayerNorm launches a
     step.  The 2-layer card-vs-CPU check runs first."""
-    import numpy as onp
     from mxnet_tpu_torch import gluon
     os.environ["MXNET_FUSED_LAYERNORM"] = "1"
     t0 = time.perf_counter()
@@ -5092,24 +5205,7 @@ def f16_bert_phase(torch, mx, attention, layernorm, seed, card,
               % (i + 1, upd, F16_ADAM_UPDATE_REL_L2))
     torch.cuda.empty_cache()
 
-    tokens, lens, pos = bert_inputs(seed)
-    labels = onp.random.RandomState(seed + 2).randint(
-        0, BERT_VOCAB, (BERT_BATCH, BERT_PRED)).astype("float32")
-    gpu = mx.gpu(0)
-    x = mx.nd.array(tokens, ctx=gpu)
-    vl = mx.nd.array(lens, ctx=gpu, dtype="int32")
-    mp = mx.nd.array(pos, ctx=gpu, dtype="int32")
-    y = mx.nd.array(labels, ctx=gpu)
-    mx.random.seed(seed)
-    net = _bert(mx, use_pooler=False)
-    with mx.cpu():
-        net.initialize(mx.init.Xavier())
-        with mx.autograd.predict_mode():   # deferred shapes, on the host
-            net(mx.nd.array(tokens[:1, :8]), None, None,
-                mx.nd.array([8], dtype="int32"),
-                mx.nd.array([[0, 1]], dtype="int32"))
-    net.cast("float16")
-    net.collect_params().reset_ctx(gpu)
+    net, (x, vl, mp), y = _bench_bert(mx, seed, "float16")
     _check_f16_dtypes(mx, net, "BERT-base")
     out = {"parity": par, "parity_s": parity_s}
 
@@ -5219,6 +5315,122 @@ def float16_phases(torch, mx, fused_norm, attention, layernorm, seed, card,
     return res, bert
 
 
+# the float32 BERT-base path (f32_bert_phase): hybridized forwards each way
+F32_BERT_CALLS = 13
+
+
+def _attention_share(prof):
+    """The device ms a call of the attention kernels in a profile, and
+    their share of the device's busy time."""
+    ms = sum(t for name, t, _ in prof["kernels"] if "flash_" in name)
+    return {"attention_ms": ms, "busy_ms": prof["device_busy_ms"],
+            "share": ms / prof["device_busy_ms"]}
+
+
+def f32_bert_phase(torch, mx, attention, layernorm, seed, card,
+                   profile=False):
+    """BERT-base in float32 as bench.py's ``_build_bert_step(dtype=
+    "float32")`` builds it (Xavier weights and deferred shapes on the host,
+    ``reset_ctx`` onto the card), the fused LayerNorm route, TF32 off, at 24
+    x 512 with bench.py's valid lengths and 76 masked positions a row: its
+    MLM forward hybridized and replayed as a CUDA graph against the same
+    forward eagerly, 12 (B, T, H, D) attention and 26 LayerNorm launches a
+    forward; then its ``DataParallelStep`` without a mesh (Adam, lr 1e-4,
+    float32 weights and state) graphed against eager, 12 + 12 attention and
+    26 + 26 LayerNorm launches a step, the loss falling by BERT_LOSS_FALL
+    over the graphed run's steps.  Under ``profile``, the share of the
+    forward's and the step's device time that the float32 attention
+    kernels take."""
+    from mxnet_tpu_torch import gluon
+    check(not (torch.backends.cuda.matmul.allow_tf32
+               or torch.backends.cudnn.allow_tf32),
+          "the float32 BERT phase runs with TF32 off")
+    os.environ["MXNET_FUSED_LAYERNORM"] = "1"
+    net, (x, vl, mp), y = _bench_bert(mx, seed, "float32")
+
+    def counts(reset=False):
+        if reset:
+            _reset_counts(attention, layernorm)
+        return _bert_counts(attention, layernorm)
+    fwd = hybridized_calls(
+        torch, mx, net, lambda: net(x, None, None, vl, mp)[1].astorch(),
+        F32_BERT_CALLS, counts, "BERT-base float32 forward", profile=profile)
+    logits = fwd.pop("last")
+    check(logits.dtype == torch.float32
+          and tuple(logits.shape) == (BERT_BATCH, BERT_PRED, BERT_VOCAB)
+          and bool(torch.isfinite(logits).all()),
+          "f32 BERT forward: %s %s" % (logits.dtype, tuple(logits.shape)))
+    n = F32_BERT_CALLS
+    fwd["launches"], bhtd = fwd["launches"]
+    check(fwd["launches"] == (BERT_ATTN_PER_FWD * n, 0, BERT_LN_PER_FWD * n,
+                              0) and bhtd == (0, 0),
+          "f32 BERT forward launches in %d calls: (B, T, H, D) attention fwd "
+          "%d bwd %d, LayerNorm fwd %d bwd %d (want %d and %d a forward), "
+          "(B, H, T, D) %r" % ((n,) + fwd["launches"]
+                               + (BERT_ATTN_PER_FWD, BERT_LN_PER_FWD, bhtd)))
+    fwd["tokens_per_s"] = BERT_BATCH * BERT_SEQ * 1e3 / fwd["graphed_ms"]
+    if "profile" in fwd:
+        fwd["profile_kernels"] = _kernel_names_check(fwd["profile"],
+                                                     "bert_f32_forward")
+        fwd["attention"] = _attention_share(fwd["profile"])
+    del logits
+    net.hybridize(False)
+    torch.cuda.empty_cache()
+
+    step = graphed_vs_eager(
+        torch, mx, net, lambda: mx.parallel.DataParallelStep(
+            net, _mlm_loss(gluon),
+            mx.optimizer.Adam(learning_rate=BERT_LR), mesh=None),
+        (x, None, None, vl, mp), y, seed,
+        "BERT-base float32 DataParallelStep, Adam",
+        counts=lambda reset=False: counts(reset)[0],
+        per_step=(BERT_ATTN_PER_STEP,) * 2 + (BERT_LN_PER_STEP,) * 2,
+        profile_as="bert_f32" if profile else None)
+    losses = step["losses_all"]
+    check(min(losses[-LOSS_WINDOW:]) < losses[0] - BERT_LOSS_FALL,
+          "f32 BERT step: loss did not fall by %g: %r"
+          % (BERT_LOSS_FALL, losses))
+    step["tokens_per_s"] = BERT_BATCH * BERT_SEQ * 1e3 / step["graphed_ms"]
+    if "profile" in step:
+        step["attention"] = _attention_share(step["profile"])
+    del net
+    del os.environ["MXNET_FUSED_LAYERNORM"]
+    torch.cuda.empty_cache()
+    return {"forward": fwd, "step": step}
+
+
+def print_f32_bert(r, card):
+    fwd, st = r["forward"], r["step"]
+    print("f32 bert: BERT-base float32 forward (MLM logits), %d x %d, "
+          "hybridized: %d calls, launches (B, T, H, D) attention %d, "
+          "LayerNorm %d; %.3f ms graphed = %.0f tokens/s, %.3f ms eager; "
+          "capture %s s; peak device memory %.2f GiB (%s)"
+          % (BERT_BATCH, BERT_SEQ, fwd["calls"], fwd["launches"][0],
+             fwd["launches"][2], fwd["graphed_ms"], fwd["tokens_per_s"],
+             fwd["eager_ms"], fwd["capture_s"] and round(fwd["capture_s"], 3),
+             fwd["peak_bytes"] / 2 ** 30, card))
+    print("f32 bert: %s: %d steps through the CUDA graph and through the "
+          "same body eagerly, Adam lr %g: same bits %s, losses %s; step "
+          "%.3f ms graphed = %.0f tokens/s, %.3f ms eager (median of %d "
+          "each); capture %s s; peak device memory %.2f GiB graphed, %.2f "
+          "GiB eager; launches (B, T, H, D) attention fwd %d bwd %d, "
+          "LayerNorm fwd %d bwd %d (%s)"
+          % (st["what"], GRAPH_STEPS + GRAPH_TIMED, BERT_LR, st["same_bits"],
+             [round(v, 4) for v in st["losses_all"]], st["graphed_ms"],
+             st["tokens_per_s"], st["eager_ms"], GRAPH_TIMED,
+             st["capture_s"] and round(st["capture_s"], 3),
+             st["graphed_peak_bytes"] / 2 ** 30,
+             st["eager_peak_bytes"] / 2 ** 30, *st["launches"], card))
+    for what, p in (("forward", fwd), ("step", st)):
+        if "profile" not in p:
+            continue
+        print_profiles([p["profile"]], card)
+        a = p["attention"]
+        print("f32 bert: the float32 attention kernels take %.3f ms of the "
+              "%s's %.3f ms of device time (share %.3f) (%s)"
+              % (a["attention_ms"], what, a["busy_ms"], a["share"], card))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5261,11 +5473,13 @@ def main(argv=None):
             print("ptxas %s: %s: %s registers, spill %d/%d bytes "
                   "(stores/loads)" % (name, r["kernel"], r["registers"],
                                       r["spill_stores"], r["spill_loads"]))
-            check(not (r["kernel"].startswith(HOPPER_KERNELS)
+            check(not (r["kernel"].startswith(HOPPER_KERNELS + TF32_KERNELS)
                        and r["spill_stores"] + r["spill_loads"]),
                   "%s spills registers" % r["kernel"])
     print("kernels built in %.2f s: %s" % (build_s, ", ".join(kernels.SOURCES)))
     hopper_occupancy(torch, attention)
+    print("sass: HMMA TF32 instructions of the float32 attention kernels: %s"
+          % json.dumps(tf32_sass_check(kernels)))
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     clock = [("build", time.perf_counter() - t0)]
@@ -5428,6 +5642,12 @@ def main(argv=None):
                                      layernorm, args.seed, card,
                                      args.profile)
     mark("float16")
+    # BERT-base in float32 on the three-TF32 attention kernels: counts from
+    # 0 just before each of its paths, read just after
+    f32bert = f32_bert_phase(torch, mx, attention, layernorm, args.seed,
+                             card, profile=args.profile)
+    print_f32_bert(f32bert, card)
+    mark("float32 bert")
 
     # data-parallel training: one rank, NCCL (the card has no peer here)
     import torch.distributed as dist
@@ -5513,15 +5733,14 @@ def main(argv=None):
         return sum(r[key] * weights.get(r["case"], 0) for r in rows_)
 
     def variant_of(row):
-        """The kernel variant a case runs: f32 and bf16 at D <= 128 (the
-        rows of the earlier entries), f16 at D <= 128, and D 192 (from
-        129) and 256 (from 193) in every dtype."""
+        """The kernel variant a case runs: bf16, f16 and f32 at D <= 128,
+        and D 192 (from 129) and 256 (from 193) in every dtype."""
         D = row["shape"][4]
         if D > 192:
             return "d256"
         if D > 128:
             return "d192"
-        return {"float16": "f16"}.get(row["dtype"], "bf16_f32")
+        return {"float16": "f16", "float32": "f32"}.get(row["dtype"], "bf16")
 
     # a BERT-base forward: 25 LayerNorm launches on 24 x 512 rows and one
     # on the 24 x 76 masked rows
@@ -5576,7 +5795,7 @@ def main(argv=None):
     def attention_entries(variant, case, bhtd_paths, bshd_paths, per,
                           extra):
         """The four entries of one attention kernel variant, named with
-        ``_<variant>`` (no suffix for bf16/f32 at D <= 128): the
+        ``_<variant>`` (no suffix for bf16 at D <= 128): the
         (B, H, T, D) forward and backward and the (B, T, H, D) pair, each
         timed as 12 launches at ``case``.  ``bhtd_paths`` and
         ``bshd_paths`` map each path beside the public op to its
@@ -5584,9 +5803,8 @@ def main(argv=None):
         a (B, H, T, D) entry's launches are the public op's, a
         (B, T, H, D) entry's those of its first path that way.  ``per``
         and ``extra`` hold each entry's note and further keys."""
-        suffix = "" if variant == "bf16_f32" else "_" + variant
-        pub = public["by_variant"]["bf16" if variant == "bf16_f32"
-                                   else variant]
+        suffix = "" if variant == "bf16" else "_" + variant
+        pub = public["by_variant"][variant]
         w = {case: BERT_ATTN_PER_FWD}
         a_rows = [r for r in attn_rows if variant_of(r) == variant]
         b_rows = [r for r in attn_bwd_rows if variant_of(r) == variant]
@@ -5596,8 +5814,11 @@ def main(argv=None):
             return [r for r in rows_ if r["case"] == case][0]
 
         def timed(rows_, prefix=""):
-            return {k: per_forward(rows_, w, prefix + k)
-                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            # float32 also gives the bound on fp32 FMAs beside the
+            # three-TF32 one
+            keys = ("ms", "plain_ms", "bound_ms", "library_ms") + \
+                (("ffma_bound_ms",) if variant == "f32" else ())
+            return {k: per_forward(rows_, w, prefix + k) for k in keys}
 
         def by_path(paths, way, public_op):
             out = {k: v[way] for k, v in paths.items() if v[way] is not None}
@@ -5649,10 +5870,10 @@ def main(argv=None):
                  **timed(s_rows, "bwd_")),
         ]
 
-    # bf16 and f32 at D <= 128: 12 launches a BERT-base layer stack at the
-    # case "bert"
+    # bf16 at D <= 128: 12 launches a BERT-base layer stack at the case
+    # "bert"
     attention_list = attention_entries(
-        "bf16_f32", "bert",
+        "bf16", "bert",
         bhtd_paths={"bert_forward": (bert["bhtd_attention_launches"], None),
                     "bert_training": btrain["bhtd_attention_launches"],
                     "lstm_lm": lm_launches["attention"]},
@@ -5692,10 +5913,10 @@ def main(argv=None):
                          % btrain["steps"]},
         extra={"fwd": {"short_seq_vs_composed": side_by_side},
                "bshd_fwd": {"sublayer_vs_bhtd": sublayer}})
-    # the variants this slice added: float16, and D 192 and 256 (bf16 at
-    # BERT-base's width; every dtype in the cases), each timed as 12
-    # launches at its BERT-width case, its launches from the path that
-    # runs it
+    # the other variants: float16, float32 (the three-TF32 kernels), and D
+    # 192 and 256 (bf16 at BERT-base's width; every dtype in the cases),
+    # each timed as 12 launches at its BERT-width case, its launches from
+    # the path that runs it
     for variant, case, path_note, bshd_paths in (
             ("f16", "f16_bert", "the AMP float16 BERT-base step's",
              {"bert_amp_f16": (amp16["attention_launches"],
@@ -5703,6 +5924,9 @@ def main(argv=None):
               "f16_bert_forward": (f16bert["forward"]["launches"][0],
                                    None),
               "f16_bert_step": tuple(f16bert["step"]["launches"][:2])}),
+            ("f32", "f32_bert", "the float32 BERT-base forward's and step's",
+             {"f32_bert_forward": (f32bert["forward"]["launches"][0], None),
+              "f32_bert_step": tuple(f32bert["step"]["launches"][:2])}),
             ("d192", "d192_bert", "the D 192 encoder's forward and step",
              {"wide_encoder_d192": (wide[192]["forward_launches"][0]
                                     + wide[192]["step_launches"][0],

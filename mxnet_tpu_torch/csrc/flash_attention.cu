@@ -42,8 +42,9 @@
 //   so the same tiles serve both.  At D 192 and 256 O takes 96 and 128 fp32
 //   registers a thread, so the kernel is compiled for one block an SM
 //   (Fwd16 below).
-// - float32: flash_fwd_f32, scalar fp32 FMAs (TF32 is off, so float32 has
-//   no tensor-core path).
+// - float32, at every D: flash_fwd_tf32, on the tensor cores through
+//   mma.sync with three TF32 products for each float32 product (the
+//   float32 section below).
 //
 // flash_fwd_hopper runs on Hopper's asynchronous units, with one warpgroup
 // (128 threads) a block owning 64 query rows:
@@ -73,11 +74,6 @@
 //   written into the Q tile's buffer in the swizzled layout and stored by
 //   TMA, which clips the rows past Tq; lse = m + log(l) goes out from
 //   registers.
-// flash_fwd_f32: a 256-thread block computes the 64 x 64 score tile into
-// shared memory (4 x 4 per thread), four threads a row take the online
-// softmax, and each thread accumulates a 4 x (D/16) slice of the output.
-// Its shared memory, 64 x (D + 1) fp32 Q and K tiles, a 64 x D V tile and
-// the score tile, is 214,272 bytes at D 256, within a block's 232,448.
 //
 // What bounds it at BERT-base (B 24, H 12, T 512, D 64, bf16): bytes,
 // narrowly.  4 B H T^2 D = 19.3 GFLOP a layer is 19.5 us at 989 TFLOP/s; q,
@@ -212,152 +208,6 @@ __device__ __forceinline__ float2 unpack2(uint32_t w) {
     return __half22float2(*reinterpret_cast<__half2*>(&w));
 }
 
-template <int D>
-constexpr size_t f32_smem_bytes() {
-  return ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) + (size_t)BK * D +
-          (size_t)BQ * (BK + 1) + 2 * BQ) * sizeof(float);
-}
-
-// f32 with scalar FMAs (256 threads, 64 query rows a block).  Thread
-// roles: the score tile and the output tile by (tid / 16, tid % 16): rows
-// 4 (tid / 16) .. + 3, columns tid % 16 + 16 j; the softmax by (tid / 4,
-// tid % 4): one row, 16 of its keys.
-template <int D>
-__global__ void __launch_bounds__(256) flash_fwd_f32(StridedParams p) {
-  constexpr int LQ = D + 1;      // row stride of the Q and K tiles
-  constexpr int LS = BK + 1;     // row stride of the score tile
-  constexpr int DJ = D / 16;     // output columns a thread holds
-  extern __shared__ __align__(16) float smf[];
-  float* sQ = smf;
-  float* sK = sQ + BQ * LQ;
-  float* sV = sK + BK * LQ;
-  float* sS = sV + BK * D;
-  float* sCorr = sS + BQ * LS;
-  float* sL = sCorr + BQ;
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x / p.n_qtiles;
-  const int q0 = (blockIdx.x % p.n_qtiles) * BQ;
-  const int b = bh / p.H, hd = bh % p.H;
-  const float* q = head_ptr(static_cast<const float*>(p.q), p.sq, b, hd);
-  const float* k = head_ptr(static_cast<const float*>(p.k), p.sk, b, hd);
-  const float* v = head_ptr(static_cast<const float*>(p.v), p.sv, b, hd);
-
-  for (int i = tid; i < BQ * D; i += 256) {
-    const int r = i / D, c = i % D;
-    sQ[r * LQ + c] =
-        q0 + r < p.Tq ? q[(size_t)(q0 + r) * p.sq.t + c] : 0.f;
-  }
-  const int tr = tid / 16, tc = tid % 16;    // score and output tiles
-  const int sr = tid / 4, sp = tid % 4;      // softmax: row, quarter
-  float m_run = kNegInf, l_part = 0.f;
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  const int kvlen = valid_keys(p, b);
-  const int n_tiles = key_tiles(p, kvlen, q0);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * BK;
-    __syncthreads();
-    for (int i = tid; i < BK * D; i += 256) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < p.Tk;
-      sK[r * LQ + c] = in ? k[(size_t)(k0 + r) * p.sk.t + c] : 0.f;
-      sV[r * D + c] = in ? v[(size_t)(k0 + r) * p.sv.t + c] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = sQ[(tr * 4 + i) * LQ + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = sK[(tc + 16 * j) * LQ + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] += qa[i] * kb[j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sS[(tr * 4 + i) * LS + tc + 16 * j] = sc[i][j];
-    __syncthreads();
-
-    const bool full = tile_unmasked(p, kvlen, q0, k0);
-    float x[16];
-    float mx = kNegInf;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      float val = sS[sr * LS + sp * 16 + c] * p.scale;
-      if (!full && !visible(p, b, kvlen, q0 + sr, k0 + sp * 16 + c))
-        val = kNegInf;
-      x[c] = val;
-      mx = fmaxf(mx, val);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_run, mx);
-    const float corr = expf(m_run - m_new);
-    m_run = m_new;
-    l_part *= corr;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      const float pv = x[c] == kNegInf ? 0.f : expf(x[c] - m_new);
-      l_part += pv;
-      sS[sr * LS + sp * 16 + c] = pv;
-    }
-    if (sp == 0) sCorr[sr] = corr;
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float cr = sCorr[tr * 4 + i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= cr;
-    }
-    for (int c = 0; c < BK; ++c) {
-      float pa[4], vb[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = sS[(tr * 4 + i) * LS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vb[j] = sV[c * D + tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] += pa[i] * vb[j];
-    }
-  }
-
-  l_part += __shfl_xor_sync(0xffffffffu, l_part, 1);
-  l_part += __shfl_xor_sync(0xffffffffu, l_part, 2);
-  __syncthreads();
-  if (sp == 0) sL[sr] = l_part;
-  if (sp == 0 && q0 + sr < p.Tq)
-    p.lse[(size_t)bh * p.Tq + q0 + sr] =
-        l_part > 0.f ? m_run + logf(l_part) : 0.f;
-  __syncthreads();
-  float* o = head_ptr(static_cast<float*>(p.o), p.so, b, hd);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = tr * 4 + i;
-    if (q0 + r >= p.Tq) continue;
-    const float den = sL[r] > 0.f ? sL[r] : 1.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      o[(size_t)(q0 + r) * p.so.t + tc + 16 * j] = acc[i][j] / den;
-  }
-}
-
 // `blocks` blocks of `kernel` with `smem` bytes of dynamic shared memory
 // (above 48 KB only after the opt-in below) on stream s
 template <typename Kernel, typename... Args>
@@ -392,10 +242,10 @@ int launch(Kernel kernel, long long blocks, int threads, size_t smem,
 // form, deterministic (no atomics): a dQ kernel, a block per 64-query tile
 // streaming the K/V tiles, and a dK/dV kernel, a block per 64-key tile
 // streaming the Q/dO tiles, both recomputing p from lse.  The bf16 dQ
-// kernel also computes delta for its rows and writes it, with lse times
-// log2(e), into arrays padded to whole 64-row tiles for the dK/dV kernel,
-// launched after it; the f32 path runs flash_bwd_delta_f32 first.  Keys
-// past a row's valid length get dk = dv = 0.
+// and float32 dQ kernels also compute delta for their rows and write it,
+// with lse times log2(e), into arrays padded to whole 64-row tiles for the
+// dK/dV kernel, launched after it.  Keys past a row's valid length get dk =
+// dv = 0.
 //
 // What bounds it at BERT-base (B 24, H 12, T 512, D 64, bf16, bench.py's
 // valid lengths): bytes, narrowly.  q, o, dO and dq whole and k, v, dk and
@@ -476,14 +326,12 @@ int launch(Kernel kernel, long long blocks, int threads, size_t smem,
 // blocks share a tile, each recomputing S and dP over the whole D (DOUT in
 // Bwd16 below).
 //
-// float32 (flash_bwd_kv_f32, flash_bwd_q_f32) runs scalar FMAs (TF32 off)
-// with synchronous staging; it is not on the BERT path.  Its four 64 x (D
-// + 1) fp32 tiles would take 296,960 bytes of shared memory at D 256, so
-// above D 128 its tiles take 32 rows (R, see f32_bwd_rows).
+// float32 takes flash_bwd_q_tf32 and flash_bwd_kv_tf32 (the float32
+// section below): the same split, on mma.sync with three TF32 products for
+// each float32 product.
 
 struct BwdParams : StridedParams {
   const void* dout;    // dO, the shape of o
-  const float* delta;  // f32: rowsum(dO * O), (B, H, Tq) contiguous
   void* dq;            // the shape of q
   void* dk;            // the shape of k
   void* dv;            // the shape of v
@@ -492,28 +340,6 @@ struct BwdParams : StridedParams {
 };
 
 constexpr float kLog2e = 1.4426950408889634f;
-
-// f32: delta[bh, t] = sum_d dO[bh, t, d] * O[bh, t, d] in fp32, a warp a
-// row (the Hopper kernels compute delta in the dQ kernel)
-__global__ void __launch_bounds__(128)
-flash_bwd_delta_f32(const BwdParams p, long long rows, int D) {
-  const long long row = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int bh = (int)(row / p.Tq), t = (int)(row % p.Tq);
-  const int b = bh / p.H, hd = bh % p.H;
-  const float* o = head_ptr(static_cast<const float*>(p.o), p.so, b, hd) +
-                   (size_t)t * p.so.t;
-  const float* dout =
-      head_ptr(static_cast<const float*>(p.dout), p.sdo, b, hd) +
-      (size_t)t * p.sdo.t;
-  float s = 0.f;
-  for (int d = lane; d < D; d += 32) s += o[d] * dout[d];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) const_cast<float*>(p.delta)[row] = s;
-}
 
 // the first Q tile of `rows` rows that sees any key of the K tile at k0
 // (causal: the rows r >= k0)
@@ -1487,301 +1313,915 @@ flash_bwd_q_hopper(const __grid_constant__ HopperBwd hp) {
   }
 }
 
-// an R-row tile of a float array with rows `ld` elements apart into
-// shared memory with row stride D + 1, zeros past `rows_valid`
-template <int R, int D>
-__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
-                                               long long ld, int r0,
-                                               int rows_valid, int tid) {
-  for (int i = tid; i < R * D; i += 256) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] =
-        r0 + r < rows_valid ? src[(size_t)(r0 + r) * ld + c] : 0.f;
+// ---------------------------------------------------------------------------
+// float32: three TF32 products on mma.sync
+// ---------------------------------------------------------------------------
+//
+// The float32 forward (flash_fwd_tf32) and backward (flash_bwd_q_tf32,
+// flash_bwd_kv_tf32) replace the same TPU kernels as the 16-bit ones above
+// (_fwd_kernel_single and _fwd_kernel; _dqkv_single_kernel,
+// _dqkv_fused_kernel, _dq_kernel and _dkv_kernel) in float32, for both
+// entries and every mask, with the 16-bit designs' split: a forward block
+// of 64 query rows streaming K/V tiles; a dQ block of 64 query rows
+// streaming K/V tiles, which also writes delta and lse * log2(e) for the
+// dK/dV block of 64 keys streaming Q/dO tiles, launched after it.  No
+// atomics: a second run gives the same bits.
+//
+// What bounds them.  Float32 FMAs peak at 67 TFLOP/s on this card; the
+// tensor cores take TF32 (8-bit exponent, 10 stored mantissa bits) at 495
+// TFLOP/s dense.  One TF32 product keeps 11 significant bits, too few for
+// float32 (every check of the port runs with TF32 off).  So each operand x
+// is split into big = tf32(x), rounded to nearest with ties away from zero,
+// and small = x - big, and each float32 product a b becomes small_a big_b
+// + big_a small_b + big_a big_b (mma3 below: the two small terms first),
+// summed in fp32 by the tensor cores.  big + small holds about 22 of x's
+// 24 bits; the dropped small_a small_b is below 2^-22 of the product, so a
+// product is good to about 5e-7 relative, well inside the float32 checks
+// (o 2e-5 and lse 1e-5 absolute, gradients 1e-5 of the largest).  Three
+// TF32 products at 495 TFLOP/s are 165 TFLOP/s of float32 work, 2.5x the
+// FFMA peak.  The earlier scalar-FMA kernels were bound by shared memory
+// (8 loads for 16 FMAs), one block an SM and synchronous staging; these
+// feed each 4-byte load into 16 to 64 multiply-adds of an m16n8k8 product.
+//
+// What the measurements on an H100 changed (chip_diag.py fwd and bwd, each
+// version against the others in turns):
+// - The split, not the products, is the cost: with the operands' bits
+//   passed unsplit (wrong results, three products kept) the kernels ran
+//   1.8-1.9x faster.  cvt.rna.tf32.f32 is a conversion instruction, far
+//   slower than integer or fp32 ones, so big is computed as cvt.rna
+//   rounds it but on the integer pipe (half a TF32 ulp added to the bit
+//   pattern, the low 13 bits cleared), and small is passed as its fp32
+//   bits, which the tensor core reads as TF32 (its top 19 bits: small
+//   truncated, about 2^-22 of x).  The same errors, and 1.4-1.5x the
+//   speed of two cvt.rna.  A big truncated too was 1.1x faster again but
+//   doubled the backward's error (9.5e-6 of the 1e-5 check at T 1024).
+// - The tensor cores' fp32 sums truncate: chained over a 1024-key row,
+//   dq read 1.48e-5 of its largest value.  So each streamed tile's
+//   products (P V, dS K, P^T dO, dS^T Q) start from 0 on the tensor cores
+//   and are added to the running O (with its rescaling, one fmaf), dQ, dK
+//   or dV in fp32: 6.0e-6 at T 1024.  Likewise S and dP (S^T, dP^T) are
+//   summed in chunks of 64 dims: chained over D 256, a gradient read
+//   1.03e-5 of its largest.
+//
+// Why mma.sync (m16n8k8, TF32 in, fp32 accumulate) and not wgmma: a TF32
+// wgmma reads shared-memory operands K-major only, and several products
+// here need the other order (V in O += P V; K, Q and dO in the backward),
+// which TMA cannot transpose.  With mma.sync each lane loads its own
+// fragment from any layout.
+//
+// Fragments (g = lane / 4, t = lane % 4): A (16 x 8) a0..a3 at (g, t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4); B (8 x 8) b0, b1 at (k = t, n =
+// g) and (t + 4, g); C (16 x 8) c0..c3 at (g, 2t), (g, 2t + 1), (g + 8,
+// 2t), (g + 8, 2t + 1).  A warp owns 16 rows of the block's resident tile,
+// so its accumulators hold whole rows: the softmax's row max and sum need
+// only the shuffles among a row's four lanes.
+//
+// P and dS stay in registers.  In lane (g, t) the accumulator of S's n-tile
+// j holds keys 8j + 2t and 8j + 2t + 1; the next product sums over keys, so
+// its A fragment takes key 8j + 2t as k = t and 8j + 2t + 1 as k = t + 4
+// (acc_a), and its B operand loads its key rows in that order (load_b_n:
+// row 2t as k = t, row 2t + 1 as k = t + 4).  P V, dS K, P^T dO and dS^T Q
+// run straight from the accumulators, with no shuffle and no trip through
+// shared memory.
+//
+// Staging.  Tiles go into shared memory with rows of LD = D + 4 floats
+// (DOUT + 4 for a column slice of V), by 16-byte cp.async, rows past T
+// zero-filled through the copy's source size; a ring of two stages of the
+// streamed tiles, so the next tile's copies run under this tile's
+// products.  LD keeps each row 16-byte aligned, and since LD = 4 (mod 32)
+// every fragment load is free of bank conflicts: row-major A (Q, dO, K, V
+// as the resident operand) and K-major B (K, V, Q, dO as the streamed
+// operand of S, dP, S^T, dP^T) read [r + g][c + t] and [r + g][c + t + 4],
+// bank 4g + t (+ 4) mod 32, the 32 lanes on 32 banks; N-major B (V for P V,
+// K for dS K, dO for P^T dO, Q for dS^T Q) reads [k + 2t][n + g] and
+// [k + 2t + 1][n + g], bank 8t + g (+ 4) mod 32, 32 banks again.
+//
+// The softmax is online, in fp32 on the accumulator fragments, with exp2
+// on the special-function unit (ex2.approx) and log2(e) folded into the
+// scale; a tile with no masked pair skips the mask tests, one masked only
+// by lengths tests each key (and query), and causal and segment tiles test
+// each element, as in the 16-bit kernels.
+//
+// Tiles (F32Tiles below; 4 warps, 128 threads a block; a 16-row warp tile
+// of an N-column product holds N / 2 fp32 accumulators a thread).  The
+// forward's K/V tiles take 64 keys at D 64 and 32 above; above D 128 O is
+// split into column slices of 96 (D 192) or 64 (D 256), each a block that
+// recomputes S over the whole D.  The dQ kernel streams 64 keys at D 64
+// and 16 above (Q and dO resident), in slices of 96 and 64 above D 128;
+// the dK/dV kernel 32 queries at D 64, 8 at D 128 (dK and dV take 128
+// registers a thread; with 16 the kernel spilled, and 8 cost 6%) and 16
+// above (K and V resident), and above D 128 each block accumulates a
+// 64-column slice of dK and dV (DOUT), as the 16-bit backward does (a
+// slice at D 128 cost 25%).  Shared memory (the resident tiles and two
+// stages): forward 87,040 bytes at D 64 and 101,376 at D 128 (two blocks
+// an SM), 125,952 and 150,528 at D 192 and 256; dQ 104,448, 101,376,
+// 150,528 and 199,680; dK/dV 70,144, 84,608, 150,784 and 199,936.  No
+// kernel spills (chip_smoke.py prints ptxas's registers and fails on a
+// spill); the unrolled loops are bounded where a whole unroll's hoisted
+// loads or staging addresses would not fit 255 registers.
+
+// x split into big = tf32(x), rounded to nearest with ties away from zero
+// (cvt.rna.tf32.f32's result, computed on the integer pipe: half a TF32
+// ulp added to the bit pattern, the low 13 bits cleared), and small = x -
+// big, exact in fp32, whose bits the tensor core reads as TF32 (its top 19
+// bits: small truncated)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// an m16n8k8 A fragment (four values a lane) and B fragment (two), split
+struct FragA {
+  uint32_t big[4], small[4];
+};
+struct FragB {
+  uint32_t big[2], small[2];
+};
+
+// d += a b on the tensor cores, TF32 in, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b to about float32 accuracy: the two small terms, then big big
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(d, a.small, b.big);
+  mma_tf32(d, a.big, b.small);
+  mma_tf32(d, a.big, b.big);
+}
+
+// the A fragment of rows r0 .. r0 + 15, columns k0 .. k0 + 7 of a
+// row-major tile of row stride LD
+template <int LD>
+__device__ __forceinline__ void load_a(FragA& f, const float* tile, int r0,
+                                       int k0, int g, int t) {
+  const float* x = tile + (r0 + g) * LD + k0 + t;
+  split_tf32(x[0], f.big[0], f.small[0]);
+  split_tf32(x[8 * LD], f.big[1], f.small[1]);
+  split_tf32(x[4], f.big[2], f.small[2]);
+  split_tf32(x[8 * LD + 4], f.big[3], f.small[3]);
+}
+
+// the B fragment (k0 .. k0 + 7 by n0 .. n0 + 7) of a K-major tile: row n,
+// column k (K in S = Q K^T)
+template <int LD>
+__device__ __forceinline__ void load_b_k(FragB& f, const float* tile, int n0,
+                                         int k0, int g, int t) {
+  const float* x = tile + (n0 + g) * LD + k0 + t;
+  split_tf32(x[0], f.big[0], f.small[0]);
+  split_tf32(x[4], f.big[1], f.small[1]);
+}
+
+// the B fragment of an N-major tile: row k, column n (V in O = P V), its
+// rows in acc_a's order: k = t is row k0 + 2t, k = t + 4 row k0 + 2t + 1
+template <int LD>
+__device__ __forceinline__ void load_b_n(FragB& f, const float* tile, int k0,
+                                         int n0, int g, int t) {
+  const float* x = tile + (k0 + 2 * t) * LD + n0 + g;
+  split_tf32(x[0], f.big[0], f.small[0]);
+  split_tf32(x[LD], f.big[1], f.small[1]);
+}
+
+// acc += part, element by element in fp32
+template <int N>
+__device__ __forceinline__ void add_acc(float (&acc)[N][4],
+                                        const float (&part)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] += part[n][i];
+}
+
+// the accumulator of an n-tile (columns 2t and 2t + 1 of rows g and g + 8
+// in lane (g, t)) as the A fragment of the next product over its columns:
+// column 2t is k = t, column 2t + 1 is k = t + 4
+__device__ __forceinline__ void acc_a(FragA& f, const float (&c)[4]) {
+  split_tf32(c[0], f.big[0], f.small[0]);
+  split_tf32(c[2], f.big[1], f.small[1]);
+  split_tf32(c[1], f.big[2], f.small[2]);
+  split_tf32(c[3], f.big[3], f.small[3]);
+}
+
+// 16 bytes from global memory into shared memory, asynchronously; `bytes`
+// 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread's copies are
+// pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows r0 .. r0 + R - 1, columns c0 .. c0 + C - 1 of a float operand whose
+// rows lie `ld` elements apart from `src` (row 0 of one head) into `dst`
+// with row stride LD, by the block's 128 threads; rows at or past `rows`
+// are zero-filled (a source size of 0, pointed at row 0)
+template <int R, int C, int LD>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           long long ld, int r0, int rows,
+                                           int c0, int tid) {
+  constexpr int CH = C / 4;                 // 16-byte chunks a row
+  static_assert((R * CH) % 128 == 0, "whole chunks a thread");
+  // unrolled by 4, not whole: a whole unroll computes every address first
+  // (64 pointers a thread for a 64 x 256 tile) and spills
+#pragma unroll 4
+  for (int j = 0; j < R * CH / 128; ++j) {
+    const int i = tid + 128 * j;
+    const int r = i / CH, c = (i % CH) * 4;
+    const bool in = r0 + r < rows;
+    cp_async16(dst + r * LD + c,
+               src + (in ? (size_t)(r0 + r) * ld + c0 + c : 0), in ? 16 : 0);
   }
 }
 
-template <int D, int R>
-constexpr size_t bwd_kv_f32_smem_bytes() {
-  return (4 * (size_t)R * (D + 1) + 2 * (size_t)R * (R + 1) + 2 * R) *
-         sizeof(float);
-}
+// The tiles of the float32 kernels at head dim D (the reasons are in the
+// note above).  FWD_K: keys a K/V tile of the forward; FWD_DOUT: the output
+// columns of a forward block; Q_K: keys a K/V tile of the dQ kernel; Q_DOUT:
+// the dQ columns of a block; KV_R: queries a Q/dO tile of the dK/dV
+// kernel; KV_DOUT: the dK and dV columns of a block; *_MINB: blocks an SM
+// each kernel is compiled for (at most 255 registers a thread for 1 and 2).
+template <int D>
+struct F32Tiles;
+template <>
+struct F32Tiles<64> {
+  static constexpr int FWD_K = 64, FWD_DOUT = 64, FWD_MINB = 2;
+  static constexpr int Q_K = 64, Q_DOUT = 64, Q_MINB = 2;
+  static constexpr int KV_R = 32, KV_DOUT = 64, KV_MINB = 2;
+};
+template <>
+struct F32Tiles<128> {
+  static constexpr int FWD_K = 32, FWD_DOUT = 128, FWD_MINB = 2;
+  static constexpr int Q_K = 16, Q_DOUT = 128, Q_MINB = 2;
+  static constexpr int KV_R = 8, KV_DOUT = 128, KV_MINB = 2;
+};
+template <>
+struct F32Tiles<192> {
+  static constexpr int FWD_K = 32, FWD_DOUT = 96, FWD_MINB = 1;
+  static constexpr int Q_K = 16, Q_DOUT = 96, Q_MINB = 1;
+  static constexpr int KV_R = 16, KV_DOUT = 64, KV_MINB = 1;
+};
+template <>
+struct F32Tiles<256> {
+  static constexpr int FWD_K = 32, FWD_DOUT = 64, FWD_MINB = 1;
+  static constexpr int Q_K = 16, Q_DOUT = 64, Q_MINB = 1;
+  static constexpr int KV_R = 16, KV_DOUT = 64, KV_MINB = 1;
+};
 
-// dK and dV of one tile of R keys in f32 with scalar FMAs (256 threads),
-// streaming Q and dO tiles of R rows.  R is 64, or 32 where four 64 x (D +
-// 1) fp32 tiles would not fit a block's shared memory (D > 128).  Thread
-// roles: the R x R S^T tile and the dK/dV tile by (tid / 16, tid % 16):
-// keys RT (tid / 16) .. + RT - 1 (RT = R / 16), queries and columns tid %
-// 16 + 16 j.
-template <int D, int R>
-__global__ void __launch_bounds__(256) flash_bwd_kv_f32(BwdParams p) {
-  constexpr int LQ = D + 1;
-  constexpr int LS = R + 1;
-  constexpr int DJ = D / 16;
-  constexpr int RT = R / 16;
+// shared memory of flash_fwd_tf32, in floats: the Q tile (64 x LQ), then
+// two stages of a K tile (KT x LQ) and a V column slice (KT x LV)
+template <int D, int KT, int DOUT>
+struct FwdF32Smem {
+  static constexpr int LQ = D + 4, LV = DOUT + 4;
+  static constexpr int KV = 64 * LQ;                   // + s * STAGE
+  static constexpr int V = KT * LQ;                    // within a stage
+  static constexpr int STAGE = KT * LQ + KT * LV;
+  static constexpr size_t BYTES = (size_t)(KV + 2 * STAGE) * sizeof(float);
+};
+
+// o and lse of the 64 query rows q0 .. q0 + 63 in float32, output columns
+// c0 .. c0 + DOUT - 1 (D / DOUT blocks a tile, each computing S whole).
+// Per K tile of KT keys: S = Q K^T, x = S scale log2(e) (-1e30 where
+// masked), the running row max m (in those units) and sum l, P = exp2(x -
+// m), O = O exp2(m_old - m) + P V, every product as three TF32 products.
+// Accumulator element [j][i] of a thread: row row0 + 8 (i >> 1), key (or
+// column) 8 j + 2 t + (i & 1).
+template <int D, int KT, int DOUT, int MINB>
+__global__ void __launch_bounds__(128, MINB)
+flash_fwd_tf32(const StridedParams p, float scale_log2) {
+  using L = FwdF32Smem<D, KT, DOUT>;
+  constexpr int LQ = L::LQ, LV = L::LV, NT = KT / 8, NO = DOUT / 8;
+  // S's 64-dim chunks and their k-steps unrolled: all up to D 128; above,
+  // one chunk at a time, four k-steps, so that the loads hoisted ahead of
+  // the products do not exhaust the registers
+  constexpr int KC = D <= 128 ? D / 64 : 1, KU = D <= 128 ? 8 : 4;
   extern __shared__ __align__(16) float smf[];
-  float* sK = smf;
-  float* sV = sK + R * LQ;
-  float* sQ = sV + R * LQ;
-  float* sdO = sQ + R * LQ;
-  float* sP = sdO + R * LQ;
-  float* sDS = sP + R * LS;
-  float* sLse = sDS + R * LS;
-  float* sDelta = sLse + R;
-
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  const int bh = blockIdx.x / p.n_ktiles;
-  const int k0 = (blockIdx.x % p.n_ktiles) * R;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile = blockIdx.x / (D / DOUT);
+  const int c0 = (blockIdx.x % (D / DOUT)) * DOUT;
+  const int bh = tile / p.n_qtiles;
+  const int q0 = (tile % p.n_qtiles) * 64;
   const int b = bh / p.H, hd = bh % p.H;
   const float* q = head_ptr(static_cast<const float*>(p.q), p.sq, b, hd);
   const float* k = head_ptr(static_cast<const float*>(p.k), p.sk, b, hd);
   const float* v = head_ptr(static_cast<const float*>(p.v), p.sv, b, hd);
-  const float* dout = head_ptr(static_cast<const float*>(p.dout), p.sdo, b, hd);
-  const float* lse = p.lse + (size_t)bh * p.Tq;
-  const float* delta = p.delta + (size_t)bh * p.Tq;
-
-  stage_rows_f32<R, D>(sK, k, p.sk.t, k0, p.Tk, tid);
-  stage_rows_f32<R, D>(sV, v, p.sv.t, k0, p.Tk, tid);
-  float dk[RT][DJ], dv[RT][DJ];
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
-
   const int kvlen = valid_keys(p, b);
-  const int it_end = k0 < kvlen ? p.n_qtiles : 0;
-  for (int it = first_query_tile(p, k0, R); it < it_end; ++it) {
-    const int q0 = it * R;
-    __syncthreads();
-    stage_rows_f32<R, D>(sQ, q, p.sq.t, q0, p.Tq, tid);
-    stage_rows_f32<R, D>(sdO, dout, p.sdo.t, q0, p.Tq, tid);
-    for (int i = tid; i < R; i += 256) {
-      const bool in = q0 + i < p.Tq;
-      sLse[i] = in ? lse[q0 + i] : 0.f;
-      sDelta[i] = in ? delta[q0 + i] : 0.f;
-    }
-    __syncthreads();
+  const int n_tiles = key_tiles<64, KT>(p, kvlen, q0);
+  const float* sq = smf;
 
-    float st[RT][RT], dpt[RT][RT];
+  auto stage_kv = [&](int j) {
+    float* sk = smf + L::KV + (j & 1) * L::STAGE;
+    stage_tile<KT, D, LQ>(sk, k, p.sk.t, j * KT, p.Tk, 0, tid);
+    stage_tile<KT, DOUT, LV>(sk + L::V, v, p.sv.t, j * KT, p.Tk, c0, tid);
+  };
+  if (n_tiles > 0) {
+    stage_tile<64, D, LQ>(smf, q, p.sq.t, q0, p.Tq, 0, tid);
+    stage_kv(0);
+  }
+  cp_async_commit();
+
+  const int row0 = q0 + warp * 16 + g;      // this thread's rows: row0, +8
+  const float c = scale_log2;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};                  // this thread's share of the sum
+  float o[NO][4];
 #pragma unroll
-    for (int i = 0; i < RT; ++i)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-      for (int j = 0; j < RT; ++j) st[i][j] = dpt[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float ka[RT], va[RT], qb[RT], ob[RT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        ka[i] = sK[(tr * RT + i) * LQ + d];
-        va[i] = sV[(tr * RT + i) * LQ + d];
-      }
-#pragma unroll
-      for (int j = 0; j < RT; ++j) {
-        qb[j] = sQ[(tc + 16 * j) * LQ + d];
-        ob[j] = sdO[(tc + 16 * j) * LQ + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < RT; ++j) {
-          st[i][j] += ka[i] * qb[j];
-          dpt[i][j] += va[i] * ob[j];
-        }
-    }
-    const bool full = tile_unmasked<R, R>(p, kvlen, q0, k0);
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-#pragma unroll
-      for (int j = 0; j < RT; ++j) {
-        const int qc = tc + 16 * j;
-        float pv = 0.f;
-        if (full || visible(p, b, kvlen, q0 + qc, k0 + tr * RT + i))
-          pv = expf(st[i][j] * p.scale - sLse[qc]);
-        sP[(tr * RT + i) * LS + qc] = pv;
-        sDS[(tr * RT + i) * LS + qc] =
-            pv * (dpt[i][j] - sDelta[qc]) * p.scale;
-      }
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    // tile j + 1's copies go out under tile j's products
+    if (j + 1 < n_tiles) {
+      stage_kv(j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    for (int c = 0; c < R; ++c) {
-      float pa[RT], da[RT], ob[DJ], qb[DJ];
+    const float* sk = smf + L::KV + (j & 1) * L::STAGE;
+    const float* sv = sk + L::V;
+    const int k0 = j * KT;
+
+    float s[NT][4];
 #pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        pa[i] = sP[(tr * RT + i) * LS + c];
-        da[i] = sDS[(tr * RT + i) * LS + c];
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+    // S in chunks of 64 dims, each summed from 0 on the tensor cores and
+    // added in fp32 (their own sums truncate: a chain over the whole D read
+    // 1.03e-5 of the largest gradient at D 256)
+#pragma unroll KC
+    for (int ch = 0; ch < D / 64; ++ch) {
+      float sc[NT][4] = {};
+#pragma unroll KU
+      for (int kk = 8 * ch; kk < 8 * ch + 8; ++kk) {
+        FragA a;
+        load_a<LQ>(a, sq, warp * 16, kk * 8, g, t);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          FragB bk;
+          load_b_k<LQ>(bk, sk, n * 8, kk * 8, g, t);
+          mma3(sc[n], a, bk);
+        }
       }
+      add_acc(s, sc);
+    }
+
+    // the softmax: a tile with no masked pair takes the loop without mask
+    // tests, one masked only by the valid length a loop with a test a key
+    float mx[2] = {kNegInf, kNegInf};
+    if (k0 + KT <= kvlen && p.qseg == nullptr &&
+        (!p.causal || q0 >= k0 + KT - 1)) {
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        ob[j] = sdO[c * LQ + tc + 16 * j];
-        qb[j] = sQ[c * LQ + tc + 16 * j];
-      }
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int i = 0; i < RT; ++i)
+        for (int i = 0; i < 4; ++i) {
+          s[n][i] *= c;
+          mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
+        }
+    } else if (!p.causal && p.qseg == nullptr) {
 #pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          dv[i][j] += pa[i] * ob[j];
-          dk[i][j] += da[i] * qb[j];
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = k0 + 8 * n + 2 * t + (i & 1);
+          s[n][i] = key < kvlen ? s[n][i] * c : kNegInf;
+          mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = k0 + 8 * n + 2 * t + (i & 1);
+          s[n][i] = visible(p, b, kvlen, row0 + 8 * (i >> 1), key)
+                        ? s[n][i] * c
+                        : kNegInf;
+          mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
         }
     }
+    // the new row max over the row's four lanes; a row that has seen no
+    // key yet subtracts 0, so its masked entries give exp2(-1e30) = 0
+    float sub[2], corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      sub[h] = m_new == kNegInf ? 0.f : m_new;
+      corr[h] = fast_exp2(m[h] - sub[h]);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = fast_exp2(s[n][i] - sub[i >> 1]);
+        l[i >> 1] += s[n][i];
+      }
+
+    // O = O corr + P V, P straight from the accumulators; each n-tile's
+    // sum over the tile's keys starts from 0 on the tensor cores and is
+    // added to O in fp32
+    FragA pa[NT];
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) acc_a(pa[kk], s[kk]);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        FragB bv;
+        load_b_n<LV>(bv, sv, kk * 8, n * 8, g, t);
+        mma3(acc, pa[kk], bv);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        o[n][i] = fmaf(o[n][i], corr[i >> 1], acc[i]);
+    }
+    __syncthreads();                        // the stage is free again
+  }
+
+  // O = acc / l; a row that sees no key gives o = 0 and lse = 0
+  float* op = head_ptr(static_cast<float*>(p.o), p.so, b, hd);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float den = l[h] > 0.f ? l[h] : 1.f;
+    const int row = row0 + 8 * h;
+    if (row >= p.Tq) continue;
+    float* orow = op + (size_t)row * p.so.t + c0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(o[n][2 * h] / den, o[n][2 * h + 1] / den);
+    if (t == 0 && c0 == 0)
+      p.lse[(size_t)bh * p.Tq + row] =
+          l[h] > 0.f ? m[h] * kLn2 + logf(l[h]) : 0.f;
+  }
+}
+
+// shared memory of flash_bwd_q_tf32, in floats: Q and dO (64 x LQ), then
+// two stages of K and V tiles (KT x LQ)
+template <int D, int KT>
+struct QF32Smem {
+  static constexpr int LQ = D + 4;
+  static constexpr int DO = 64 * LQ;
+  static constexpr int KV = 2 * 64 * LQ;               // + s * STAGE
+  static constexpr int STAGE = 2 * KT * LQ;
+  static constexpr size_t BYTES = (size_t)(KV + 2 * STAGE) * sizeof(float);
+};
+
+// dQ of the 64 query rows q0 .. q0 + 63 in float32, columns c0 .. c0 +
+// DOUT - 1.  Per K tile of KT keys: S = Q K^T and dP = dO V^T, P =
+// exp2(S scale log2 e - lse2) (0 where masked), dS = P (dP - delta)
+// scale, dQ += dS K.  The prologue computes delta = rowsum(dO * O) of the
+// block's rows and (the first column slice) writes it with lse2 = lse *
+// log2(e) into the padded arrays (0 past Tq) that flash_bwd_kv_tf32 reads.
+// Accumulator element [j][i]: row row0 + 8 (i >> 1), key 8 j + 2 t + (i &
+// 1).
+template <int D, int KT, int DOUT, int MINB>
+__global__ void __launch_bounds__(128, MINB)
+flash_bwd_q_tf32(const BwdParams p, float* delta, float* lse2, int tq_pad,
+                 float scale_log2) {
+  using L = QF32Smem<D, KT>;
+  constexpr int LQ = L::LQ, NT = KT / 8, NO = DOUT / 8;
+  constexpr int KC = D <= 128 ? D / 64 : 1, KU = D <= 128 ? 8 : 4;
+  extern __shared__ __align__(16) float smf[];
+  __shared__ float s_delta[64];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile = blockIdx.x / (D / DOUT);
+  const int c0 = (blockIdx.x % (D / DOUT)) * DOUT;
+  const int bh = tile / p.n_qtiles;
+  const int q0 = (tile % p.n_qtiles) * 64;
+  const int b = bh / p.H, hd = bh % p.H;
+  const float* q = head_ptr(static_cast<const float*>(p.q), p.sq, b, hd);
+  const float* k = head_ptr(static_cast<const float*>(p.k), p.sk, b, hd);
+  const float* v = head_ptr(static_cast<const float*>(p.v), p.sv, b, hd);
+  const float* dout =
+      head_ptr(static_cast<const float*>(p.dout), p.sdo, b, hd);
+  const int kvlen = valid_keys(p, b);
+  const int n_tiles = key_tiles<64, KT>(p, kvlen, q0);
+  const float* sq = smf;
+  const float* sdo = smf + L::DO;
+
+  auto stage_kv = [&](int j) {
+    float* sk = smf + L::KV + (j & 1) * L::STAGE;
+    stage_tile<KT, D, LQ>(sk, k, p.sk.t, j * KT, p.Tk, 0, tid);
+    stage_tile<KT, D, LQ>(sk + KT * LQ, v, p.sv.t, j * KT, p.Tk, 0, tid);
+  };
+  if (n_tiles > 0) {
+    stage_tile<64, D, LQ>(smf, q, p.sq.t, q0, p.Tq, 0, tid);
+    stage_tile<64, D, LQ>(smf + L::DO, dout, p.sdo.t, q0, p.Tq, 0, tid);
+    stage_kv(0);
+  }
+  cp_async_commit();
+
+  // delta of the block's 64 rows, two threads a row, while the first tiles
+  // load
+  {
+    const int r = tid >> 1, row = q0 + r;
+    float sum = 0.f;
+    if (row < p.Tq) {
+      const int h0 = (tid & 1) * (D / 2);
+      const float4* o4 = reinterpret_cast<const float4*>(
+          head_ptr(static_cast<const float*>(p.o), p.so, b, hd) +
+          (size_t)row * p.so.t + h0);
+      const float4* d4 = reinterpret_cast<const float4*>(
+          dout + (size_t)row * p.sdo.t + h0);
+#pragma unroll 4
+      for (int i = 0; i < D / 8; ++i) {
+        const float4 a = o4[i], e = d4[i];
+        sum += a.x * e.x + a.y * e.y + a.z * e.z + a.w * e.w;
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if ((tid & 1) == 0) s_delta[r] = sum;
+    if ((tid & 1) == 0 && c0 == 0) {
+      const size_t at = (size_t)bh * tq_pad + row;
+      delta[at] = sum;
+      lse2[at] = row < p.Tq ? p.lse[(size_t)bh * p.Tq + row] * kLog2e : 0.f;
+    }
+  }
+  __syncthreads();
+  const int row0 = q0 + warp * 16 + g;      // this thread's rows: row0, +8
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    lse_r[h] = row < p.Tq ? p.lse[(size_t)bh * p.Tq + row] * kLog2e : 0.f;
+    dl_r[h] = s_delta[row - q0];
+  }
+  float dq[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      stage_kv(j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sk = smf + L::KV + (j & 1) * L::STAGE;
+    const float* sv = sk + KT * LQ;
+    const int k0 = j * KT;
+
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+    // S and dP in chunks of 64 dims, as in flash_fwd_tf32
+#pragma unroll KC
+    for (int ch = 0; ch < D / 64; ++ch) {
+      float sc[NT][4] = {}, dc[NT][4] = {};
+#pragma unroll KU
+      for (int kk = 8 * ch; kk < 8 * ch + 8; ++kk) {
+        FragA aq, ad;
+        load_a<LQ>(aq, sq, warp * 16, kk * 8, g, t);
+        load_a<LQ>(ad, sdo, warp * 16, kk * 8, g, t);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          FragB bk, bv;
+          load_b_k<LQ>(bk, sk, n * 8, kk * 8, g, t);
+          mma3(sc[n], aq, bk);
+          load_b_k<LQ>(bv, sv, n * 8, kk * 8, g, t);
+          mma3(dc[n], ad, bv);
+        }
+      }
+      add_acc(s, sc);
+      add_acc(dp, dc);
+    }
+
+    // P; a tile with no masked pair takes the loop without mask tests, one
+    // masked only by the valid length and Tq a loop with a test a key and
+    // a query
+    if (tile_unmasked<64, KT>(p, kvlen, q0, k0)) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[n][i] = fast_exp2(s[n][i] * scale_log2 - lse_r[i >> 1]);
+    } else if (!p.causal && p.qseg == nullptr) {
+      const bool row_in[2] = {row0 < p.Tq, row0 + 8 < p.Tq};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[n][i] = row_in[i >> 1] && k0 + 8 * n + 2 * t + (i & 1) < kvlen
+                        ? fast_exp2(s[n][i] * scale_log2 - lse_r[i >> 1])
+                        : 0.f;
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[n][i] = visible(p, b, kvlen, row0 + 8 * (i >> 1),
+                            k0 + 8 * n + 2 * t + (i & 1))
+                        ? fast_exp2(s[n][i] * scale_log2 - lse_r[i >> 1])
+                        : 0.f;
+    }
+    // dS, then dQ += dS K with dS straight from the accumulators
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        dp[n][i] = s[n][i] * (dp[n][i] - dl_r[i >> 1]) * p.scale;
+    FragA da[NT];
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) acc_a(da[kk], dp[kk]);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        FragB bk;
+        load_b_n<LQ>(bk, sk, kk * 8, c0 + n * 8, g, t);
+        mma3(acc, da[kk], bk);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dq[n][i] += acc[i];
+    }
+    __syncthreads();                        // the stage is free again
+  }
+
+  float* dqp = head_ptr(static_cast<float*>(p.dq), p.sdq, b, hd);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= p.Tq) continue;
+    float* r = dqp + (size_t)row * p.sdq.t + c0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(r + 8 * n) =
+          make_float2(dq[n][2 * h], dq[n][2 * h + 1]);
+  }
+}
+
+// shared memory of flash_bwd_kv_tf32, in floats: K and V (64 x LQ), then
+// two stages of Q and dO tiles (RT x LQ) with their lse2 and delta (RT
+// each)
+template <int D, int RT>
+struct KvF32Smem {
+  static constexpr int LQ = D + 4;
+  static constexpr int V = 64 * LQ;
+  static constexpr int QS = 2 * 64 * LQ;               // + s * STAGE
+  static constexpr int DO = RT * LQ;                   // within a stage
+  static constexpr int LSE = 2 * RT * LQ;              // within a stage
+  static constexpr int STAGE = 2 * RT * LQ + 2 * RT;
+  static constexpr size_t BYTES = (size_t)(QS + 2 * STAGE) * sizeof(float);
+};
+
+// dK and dV of the 64 keys k0 .. k0 + 63 in float32, columns c0 .. c0 +
+// DOUT - 1.  Per Q tile of RT queries: S^T = K Q^T and dP^T = V dO^T, P^T
+// = exp2(S^T scale log2 e - lse2) (0 where masked), dS^T = P^T (dP^T -
+// delta) scale, dV += P^T dO and dK += dS^T Q.  Accumulator element [j][i]:
+// key key0 + 8 (i >> 1), query q0 + 8 j + 2 t + (i & 1).
+template <int D, int RT, int DOUT, int MINB>
+__global__ void __launch_bounds__(128, MINB)
+flash_bwd_kv_tf32(const BwdParams p, const float* delta, const float* lse2,
+                  int tq_pad, float scale_log2) {
+  using L = KvF32Smem<D, RT>;
+  constexpr int LQ = L::LQ, NR = RT / 8, NO = DOUT / 8;
+  constexpr int KC = D <= 128 ? D / 64 : 1, KU = D <= 128 ? 8 : 4;
+  extern __shared__ __align__(16) float smf[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile = blockIdx.x / (D / DOUT);
+  const int c0 = (blockIdx.x % (D / DOUT)) * DOUT;
+  const int bh = tile / p.n_ktiles;
+  const int k0 = (tile % p.n_ktiles) * 64;
+  const int b = bh / p.H, hd = bh % p.H;
+  const float* q = head_ptr(static_cast<const float*>(p.q), p.sq, b, hd);
+  const float* k = head_ptr(static_cast<const float*>(p.k), p.sk, b, hd);
+  const float* v = head_ptr(static_cast<const float*>(p.v), p.sv, b, hd);
+  const float* dout =
+      head_ptr(static_cast<const float*>(p.dout), p.sdo, b, hd);
+  const int kvlen = valid_keys(p, b);
+  const int it0 = first_query_tile(p, k0, RT);
+  // keys at or past the valid length see nothing: dK = dV = 0
+  const int n_tiles = (k0 < kvlen ? (p.Tq + RT - 1) / RT : 0) - it0;
+  const float* sk = smf;
+  const float* sv = smf + L::V;
+
+  auto stage_q = [&](int n) {
+    const int it = it0 + n;
+    float* sq = smf + L::QS + (n & 1) * L::STAGE;
+    stage_tile<RT, D, LQ>(sq, q, p.sq.t, it * RT, p.Tq, 0, tid);
+    stage_tile<RT, D, LQ>(sq + L::DO, dout, p.sdo.t, it * RT, p.Tq, 0, tid);
+    const size_t row = (size_t)bh * tq_pad + (size_t)it * RT;
+    if (tid < RT / 4)
+      cp_async16(sq + L::LSE + 4 * tid, lse2 + row + 4 * tid, 16);
+    else if (tid < RT / 2)
+      cp_async16(sq + L::LSE + 4 * tid, delta + row + 4 * tid - RT, 16);
+  };
+  if (n_tiles > 0) {
+    stage_tile<64, D, LQ>(smf, k, p.sk.t, k0, p.Tk, 0, tid);
+    stage_tile<64, D, LQ>(smf + L::V, v, p.sv.t, k0, p.Tk, 0, tid);
+    stage_q(0);
+  }
+  cp_async_commit();
+
+  const int key0 = k0 + warp * 16 + g;      // this thread's keys: key0, +8
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
+
+  for (int n_ = 0; n_ < n_tiles; ++n_) {
+    if (n_ + 1 < n_tiles) {
+      stage_q(n_ + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sq = smf + L::QS + (n_ & 1) * L::STAGE;
+    const float* sdo = sq + L::DO;
+    const float* slse = sq + L::LSE;
+    const float* sdl = slse + RT;
+    const int q0 = (it0 + n_) * RT;
+
+    float st[NR][4], dpt[NR][4];
+#pragma unroll
+    for (int n = 0; n < NR; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[n][i] = dpt[n][i] = 0.f;
+    // S^T and dP^T in chunks of 64 dims, as in flash_fwd_tf32
+#pragma unroll KC
+    for (int ch = 0; ch < D / 64; ++ch) {
+      float sc[NR][4] = {}, dc[NR][4] = {};
+#pragma unroll KU
+      for (int kk = 8 * ch; kk < 8 * ch + 8; ++kk) {
+        FragA ak, av;
+        load_a<LQ>(ak, sk, warp * 16, kk * 8, g, t);
+        load_a<LQ>(av, sv, warp * 16, kk * 8, g, t);
+#pragma unroll
+        for (int n = 0; n < NR; ++n) {
+          FragB bq, bo;
+          load_b_k<LQ>(bq, sq, n * 8, kk * 8, g, t);
+          mma3(sc[n], ak, bq);
+          load_b_k<LQ>(bo, sdo, n * 8, kk * 8, g, t);
+          mma3(dc[n], av, bo);
+        }
+      }
+      add_acc(st, sc);
+      add_acc(dpt, dc);
+    }
+
+    // P^T; a tile with no masked pair takes the loop without mask tests,
+    // one masked only by the valid length and Tq a loop with a test a key
+    // and a query
+    const bool key_in[2] = {key0 < kvlen, key0 + 8 < kvlen};
+    if (tile_unmasked<RT>(p, kvlen, q0, k0)) {
+#pragma unroll
+      for (int n = 0; n < NR; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          st[n][i] = fast_exp2(st[n][i] * scale_log2 -
+                               slse[8 * n + 2 * t + (i & 1)]);
+    } else if (!p.causal && p.qseg == nullptr) {
+#pragma unroll
+      for (int n = 0; n < NR; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qc = 8 * n + 2 * t + (i & 1);
+          st[n][i] = key_in[i >> 1] && q0 + qc < p.Tq
+                         ? fast_exp2(st[n][i] * scale_log2 - slse[qc])
+                         : 0.f;
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NR; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qc = 8 * n + 2 * t + (i & 1);
+          st[n][i] = visible(p, b, kvlen, q0 + qc, key0 + 8 * (i >> 1))
+                         ? fast_exp2(st[n][i] * scale_log2 - slse[qc])
+                         : 0.f;
+        }
+    }
+    // dS^T, then dV += P^T dO and dK += dS^T Q from the accumulators
+#pragma unroll
+    for (int n = 0; n < NR; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        dpt[n][i] = st[n][i] *
+                    (dpt[n][i] - sdl[8 * n + 2 * t + (i & 1)]) * p.scale;
+    // P^T's fragments for dV, then dS^T's for dK: one set live at a time
+    FragA pa[NR], da[NR];
+#pragma unroll
+    for (int kk = 0; kk < NR; ++kk) acc_a(pa[kk], st[kk]);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NR; ++kk) {
+        FragB bo;
+        load_b_n<LQ>(bo, sdo, kk * 8, c0 + n * 8, g, t);
+        mma3(acc, pa[kk], bo);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dv[n][i] += acc[i];
+    }
+#pragma unroll
+    for (int kk = 0; kk < NR; ++kk) acc_a(da[kk], dpt[kk]);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NR; ++kk) {
+        FragB bq;
+        load_b_n<LQ>(bq, sq, kk * 8, c0 + n * 8, g, t);
+        mma3(acc, da[kk], bq);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dk[n][i] += acc[i];
+    }
+    __syncthreads();                        // the stage is free again
   }
 
   float* dkp = head_ptr(static_cast<float*>(p.dk), p.sdk, b, hd);
   float* dvp = head_ptr(static_cast<float*>(p.dv), p.sdv, b, hd);
 #pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int key = k0 + tr * RT + i;
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
     if (key >= p.Tk) continue;
+    float* kr = dkp + (size_t)key * p.sdk.t + c0 + 2 * t;
+    float* vr = dvp + (size_t)key * p.sdv.t + c0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dkp[(size_t)key * p.sdk.t + tc + 16 * j] = dk[i][j];
-      dvp[(size_t)key * p.sdv.t + tc + 16 * j] = dv[i][j];
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<float2*>(kr + 8 * n) =
+          make_float2(dk[n][2 * h], dk[n][2 * h + 1]);
+      *reinterpret_cast<float2*>(vr + 8 * n) =
+          make_float2(dv[n][2 * h], dv[n][2 * h + 1]);
     }
   }
 }
 
-template <int D, int R>
-constexpr size_t bwd_q_f32_smem_bytes() {
-  return (4 * (size_t)R * (D + 1) + (size_t)R * (R + 1) + 2 * R) *
-         sizeof(float);
-}
-
-// dQ of one tile of R queries in f32 with scalar FMAs (256 threads),
-// streaming K and V tiles of R keys: R and the thread roles of
-// flash_bwd_kv_f32 with query rows for key rows.
-template <int D, int R>
-__global__ void __launch_bounds__(256) flash_bwd_q_f32(BwdParams p) {
-  constexpr int LQ = D + 1;
-  constexpr int LS = R + 1;
-  constexpr int DJ = D / 16;
-  constexpr int RT = R / 16;
-  extern __shared__ __align__(16) float smf[];
-  float* sQ = smf;
-  float* sdO = sQ + R * LQ;
-  float* sK = sdO + R * LQ;
-  float* sV = sK + R * LQ;
-  float* sDS = sV + R * LQ;
-  float* sLse = sDS + R * LS;
-  float* sDelta = sLse + R;
-
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  const int bh = blockIdx.x / p.n_qtiles;
-  const int q0 = (blockIdx.x % p.n_qtiles) * R;
-  const int b = bh / p.H, hd = bh % p.H;
-  const float* q = head_ptr(static_cast<const float*>(p.q), p.sq, b, hd);
-  const float* k = head_ptr(static_cast<const float*>(p.k), p.sk, b, hd);
-  const float* v = head_ptr(static_cast<const float*>(p.v), p.sv, b, hd);
-  const float* dout = head_ptr(static_cast<const float*>(p.dout), p.sdo, b, hd);
-
-  stage_rows_f32<R, D>(sQ, q, p.sq.t, q0, p.Tq, tid);
-  stage_rows_f32<R, D>(sdO, dout, p.sdo.t, q0, p.Tq, tid);
-  for (int i = tid; i < R; i += 256) {
-    const bool in = q0 + i < p.Tq;
-    sLse[i] = in ? p.lse[(size_t)bh * p.Tq + q0 + i] : 0.f;
-    sDelta[i] = in ? p.delta[(size_t)bh * p.Tq + q0 + i] : 0.f;
-  }
-  float acc[RT][DJ];
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  const int kvlen = valid_keys(p, b);
-  const int n_tiles = key_tiles<R, R>(p, kvlen, q0);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * R;
-    __syncthreads();
-    stage_rows_f32<R, D>(sK, k, p.sk.t, k0, p.Tk, tid);
-    stage_rows_f32<R, D>(sV, v, p.sv.t, k0, p.Tk, tid);
-    __syncthreads();
-
-    float sc[RT][RT], dps[RT][RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < RT; ++j) sc[i][j] = dps[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qa[RT], oa[RT], kb[RT], vb[RT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        qa[i] = sQ[(tr * RT + i) * LQ + d];
-        oa[i] = sdO[(tr * RT + i) * LQ + d];
-      }
-#pragma unroll
-      for (int j = 0; j < RT; ++j) {
-        kb[j] = sK[(tc + 16 * j) * LQ + d];
-        vb[j] = sV[(tc + 16 * j) * LQ + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < RT; ++j) {
-          sc[i][j] += qa[i] * kb[j];
-          dps[i][j] += oa[i] * vb[j];
-        }
-    }
-    const bool full = tile_unmasked<R, R>(p, kvlen, q0, k0);
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int r = tr * RT + i;
-#pragma unroll
-      for (int j = 0; j < RT; ++j) {
-        float pv = 0.f;
-        if (full || visible(p, b, kvlen, q0 + r, k0 + tc + 16 * j))
-          pv = expf(sc[i][j] * p.scale - sLse[r]);
-        sDS[r * LS + tc + 16 * j] = pv * (dps[i][j] - sDelta[r]) * p.scale;
-      }
-    }
-    __syncthreads();
-    for (int c = 0; c < R; ++c) {
-      float da[RT], kb[DJ];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) da[i] = sDS[(tr * RT + i) * LS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kb[j] = sK[c * LQ + tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] += da[i] * kb[j];
-    }
-  }
-
-  float* dq = head_ptr(static_cast<float*>(p.dq), p.sdq, b, hd);
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int row = q0 + tr * RT + i;
-    if (row >= p.Tq) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      dq[(size_t)row * p.sdq.t + tc + 16 * j] = acc[i][j];
-  }
-}
-
-// the rows of the f32 backward's tiles at head dim D: four 64 x (D + 1)
-// fp32 tiles fit a block's 227 KB up to D 128 (D 192 would leave 1 KB,
-// D 256 not fit), so above it the tiles take 32 rows
 template <int D>
-constexpr int f32_bwd_rows() {
-  return D <= 128 ? 64 : 32;
+struct F32Kernels {
+  using C = F32Tiles<D>;
+  static constexpr auto fwd =
+      flash_fwd_tf32<D, C::FWD_K, C::FWD_DOUT, C::FWD_MINB>;
+  static constexpr auto q = flash_bwd_q_tf32<D, C::Q_K, C::Q_DOUT, C::Q_MINB>;
+  static constexpr auto kv =
+      flash_bwd_kv_tf32<D, C::KV_R, C::KV_DOUT, C::KV_MINB>;
+  static constexpr size_t fwd_smem =
+      FwdF32Smem<D, C::FWD_K, C::FWD_DOUT>::BYTES;
+  static constexpr size_t q_smem = QF32Smem<D, C::Q_K>::BYTES;
+  static constexpr size_t kv_smem = KvF32Smem<D, C::KV_R>::BYTES;
+};
+
+// the float32 forward of head dim D
+template <int D>
+int launch_fwd_tf32(StridedParams p, int BH, cudaStream_t s) {
+  using K = F32Kernels<D>;
+  p.n_qtiles = (p.Tq + 63) / 64;
+  return launch(K::fwd, (long long)BH * p.n_qtiles * (D / K::C::FWD_DOUT),
+                128, K::fwd_smem, s, p, p.scale * kLog2e);
 }
 
-// delta, dQ, then dK and dV, in f32
+// dQ (with delta and lse2 into the scratch), then dK and dV, in float32
 template <int D>
-int launch_bwd_f32(BwdParams p, int BH, cudaStream_t s) {
-  constexpr int R = f32_bwd_rows<D>();
-  const long long rows = (long long)BH * p.Tq;
-  if (rows > 0) {
-    flash_bwd_delta_f32<<<(unsigned)((rows + 3) / 4), 128, 0, s>>>(p, rows,
-                                                                   D);
-    const int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-  }
-  p.n_qtiles = (p.Tq + R - 1) / R;
-  p.n_ktiles = (p.Tk + R - 1) / R;
-  int rc = launch(flash_bwd_q_f32<D, R>, (long long)BH * p.n_qtiles, 256,
-                  bwd_q_f32_smem_bytes<D, R>(), s, p);
+int launch_bwd_tf32(BwdParams p, float* delta, float* lse2, int tq_pad,
+                    int BH, cudaStream_t s) {
+  using K = F32Kernels<D>;
+  const float c = p.scale * kLog2e;
+  int rc = launch(K::q, (long long)BH * p.n_qtiles * (D / K::C::Q_DOUT), 128,
+                  K::q_smem, s, p, delta, lse2, tq_pad, c);
   if (rc != 0) return rc;
-  return launch(flash_bwd_kv_f32<D, R>, (long long)BH * p.n_ktiles, 256,
-                bwd_kv_f32_smem_bytes<D, R>(), s, p);
+  return launch(K::kv, (long long)BH * p.n_ktiles * (D / K::C::KV_DOUT), 128,
+                K::kv_smem, s, p, (const float*)delta, (const float*)lse2,
+                tq_pad, c);
 }
 
 // cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
@@ -1996,26 +2436,19 @@ int fwd_16(StridedParams& p, int BH, int D, cudaStream_t s) {
   return launch_fwd_hopper<DT, 256>(p, BH, s);
 }
 
-// the f32 forward of head dim D
-template <int D>
-int launch_fwd_f32(StridedParams p, int BH, cudaStream_t s) {
-  p.n_qtiles = (p.Tq + BQ - 1) / BQ;
-  return launch(flash_fwd_f32<D>, (long long)BH * p.n_qtiles, 256,
-                f32_smem_bytes<D>(), s, p);
-}
-
 // The forward over operands with strides (B H of them, B = BH / H), D = 64,
 // 128, 192 or 256, of `dtype` (0 = float32, 1 = bfloat16, 2 = float16): the
-// Hopper kernel for the 16-bit types, scalar FMAs for float32.  The caller
+// wgmma kernel for the 16-bit types, the three-TF32 mma.sync kernel for
+// float32.  The caller
 // checks that every stride is a multiple of 16 bytes and every pointer
 // 16-byte aligned.
 int run_fwd(StridedParams& p, int BH, int D, int dtype, cudaStream_t s) {
   if (dtype == 1) return fwd_16<1>(p, BH, D, s);
   if (dtype == 2) return fwd_16<2>(p, BH, D, s);
-  if (D == 64) return launch_fwd_f32<64>(p, BH, s);
-  if (D == 128) return launch_fwd_f32<128>(p, BH, s);
-  if (D == 192) return launch_fwd_f32<192>(p, BH, s);
-  return launch_fwd_f32<256>(p, BH, s);
+  if (D == 64) return launch_fwd_tf32<64>(p, BH, s);
+  if (D == 128) return launch_fwd_tf32<128>(p, BH, s);
+  if (D == 192) return launch_fwd_tf32<192>(p, BH, s);
+  return launch_fwd_tf32<256>(p, BH, s);
 }
 
 // the 16-bit backward (DT 1 or 2) on the Hopper kernels of head dim D;
@@ -2037,13 +2470,15 @@ int run_bwd(BwdParams& p, int BH, int D, int dtype, void* delta,
             cudaStream_t s) {
   p.n_qtiles = (p.Tq + BQ - 1) / BQ;
   p.n_ktiles = (p.Tk + BK - 1) / BK;
-  p.delta = static_cast<const float*>(delta);
   if (dtype == 1) return bwd_16<1>(p, BH, D, delta, s);
   if (dtype == 2) return bwd_16<2>(p, BH, D, delta, s);
-  if (D == 64) return launch_bwd_f32<64>(p, BH, s);
-  if (D == 128) return launch_bwd_f32<128>(p, BH, s);
-  if (D == 192) return launch_bwd_f32<192>(p, BH, s);
-  return launch_bwd_f32<256>(p, BH, s);
+  const int pad = (p.Tq + 63) / 64 * 64;
+  float* dl = static_cast<float*>(delta);
+  float* lse2 = dl + (size_t)BH * pad;
+  if (D == 64) return launch_bwd_tf32<64>(p, dl, lse2, pad, BH, s);
+  if (D == 128) return launch_bwd_tf32<128>(p, dl, lse2, pad, BH, s);
+  if (D == 192) return launch_bwd_tf32<192>(p, dl, lse2, pad, BH, s);
+  return launch_bwd_tf32<256>(p, dl, lse2, pad, BH, s);
 }
 
 bool bad_args(int BH, int H, int Tq, int Tk, int D, int dtype) {
@@ -2112,8 +2547,8 @@ extern "C" int mx_flash_attention_fwd(const void* q, const void* k,
 // dq (BH x Tq x D), dk and dv (BH x Tk x D), of `dtype`, are written whole:
 // rows of dk and dv past a row's valid length are zeros.  lens, qseg, kseg,
 // H, scale and causal as for the forward.  The kernels run in turn on
-// `stream`: 16-bit, dq (with delta = rowsum(dout * o) and lse * log2(e)
-// into the scratch), then dk and dv; f32, delta, dq, then dk and dv.  Returns a
+// `stream`: dq (with delta = rowsum(dout * o) and lse * log2(e) into the
+// scratch), then dk and dv.  Returns a
 // cudaError_t as int (0 = ok).
 extern "C" int mx_flash_attention_bwd(const void* q, const void* k,
                                       const void* v, const void* o,
@@ -2219,10 +2654,29 @@ int bwd_occupancy_of_type(int D, int* out) {
   return bwd_occupancy<DT, 256>(out);
 }
 
+// the float32 kernels' resources, as bwd_occupancy
+template <int D>
+int bwd_occupancy_f32(int* out) {
+  using K = F32Kernels<D>;
+  out[1] = (int)K::q_smem;
+  out[3] = (int)K::kv_smem;
+  int rc = occupancy(K::q, 128, K::q_smem, &out[0]);
+  if (rc == 0) rc = occupancy(K::kv, 128, K::kv_smem, &out[2]);
+  return rc;
+}
+
+int bwd_occupancy_f32_of(int D, int* out) {
+  if (D == 64) return bwd_occupancy_f32<64>(out);
+  if (D == 128) return bwd_occupancy_f32<128>(out);
+  if (D == 192) return bwd_occupancy_f32<192>(out);
+  return bwd_occupancy_f32<256>(out);
+}
+
 extern "C" int mx_flash_attention_bwd_occupancy(int D, int dtype, int* out) {
-  if ((D != 64 && D != 128 && D != 192 && D != 256) ||
-      (dtype != 1 && dtype != 2))
+  if ((D != 64 && D != 128 && D != 192 && D != 256) || dtype < 0 ||
+      dtype > 2)
     return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return bwd_occupancy_f32_of(D, out);
   return dtype == 1 ? bwd_occupancy_of_type<1>(D, out)
                     : bwd_occupancy_of_type<2>(D, out);
 }
@@ -2246,10 +2700,25 @@ int fwd_occupancy_of_type(int D, int* out) {
   return fwd_occupancy<DT, 256>(out);
 }
 
+template <int D>
+int fwd_occupancy_f32(int* out) {
+  using K = F32Kernels<D>;
+  out[1] = (int)K::fwd_smem;
+  return occupancy(K::fwd, 128, K::fwd_smem, &out[0]);
+}
+
+int fwd_occupancy_f32_of(int D, int* out) {
+  if (D == 64) return fwd_occupancy_f32<64>(out);
+  if (D == 128) return fwd_occupancy_f32<128>(out);
+  if (D == 192) return fwd_occupancy_f32<192>(out);
+  return fwd_occupancy_f32<256>(out);
+}
+
 extern "C" int mx_flash_attention_fwd_occupancy(int D, int dtype, int* out) {
-  if ((D != 64 && D != 128 && D != 192 && D != 256) ||
-      (dtype != 1 && dtype != 2))
+  if ((D != 64 && D != 128 && D != 192 && D != 256) || dtype < 0 ||
+      dtype > 2)
     return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return fwd_occupancy_f32_of(D, out);
   return dtype == 1 ? fwd_occupancy_of_type<1>(D, out)
                     : fwd_occupancy_of_type<2>(D, out);
 }

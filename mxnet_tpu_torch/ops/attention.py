@@ -15,10 +15,17 @@ kernel of ``csrc/flash_attention.cu`` for CUDA tensors (float32, bfloat16
 or float16, D <= 256) or raises, and runs :func:`_flash_attention_plain`
 for CPU tensors; it returns ``o`` and the fp32 ``lse``.  One CUDA kernel
 covers both TPU forward kernels (the single-pass one and the streaming
-one): it streams 64-key tiles whatever Tk is.  bfloat16 and float16 run
-on Hopper's TMA and ``wgmma`` at every D, float32 on scalar fp32 FMAs (TF32
-off).  D is zero-padded to the next of 64, 128, 192 and 256, as the Pallas
-kernels pad it to a multiple of 64.
+one): it streams K tiles whatever Tk is.  bfloat16 and float16 run on
+Hopper's TMA and ``wgmma`` at every D.  float32 runs on the tensor cores
+too, through ``mma.sync``: fp32 FMAs peak at 67 TFLOP/s on the H100 and
+one TF32 product keeps too few bits for float32, so each operand is split
+into two TF32 parts (big and small) and each float32 product is formed
+from three TF32 products (small·big + big·small + big·big, summed in fp32),
+about 5e-7 relative a product, at up to 495/3 = 165 TFLOP/s of float32
+work; each tile's sums start from 0 on the tensor cores and are added in
+fp32, since the tensor cores' own accumulation truncates.  D is
+zero-padded to the next of 64, 128, 192 and 256, as the Pallas kernels
+pad it to a multiple of 64.
 
 :func:`flash_attention_bwd` is the backward from the forward's ``o`` and
 ``lse`` and the cotangent ``do``, in the arithmetic of the TPU backward
@@ -78,9 +85,11 @@ _NEG_INF = -1e30
 _SHORT_SEQ_MAX_TK = 1024
 _DENSE_MIN_SEQ = 128
 # the CUDA forward kernels' tiles (csrc/flash_attention.cu): 64 query rows
-# a block, 64 keys a K tile, for every D and dtype
+# a block, 64 keys a K tile; the float32 kernel takes 32 keys a K tile
+# above D 64 (its shared memory and registers)
 BLOCK_Q = 64
 BLOCK_K = 64
+BLOCK_K_F32_WIDE = 32
 _HEAD_DIMS = (64, 128, 192, 256)    # D is zero-padded up to one of these
 
 # kernel launches in this process, forward and backward, through the
@@ -131,12 +140,19 @@ def _kernel_fn(name="fwd"):
 
 def tune_attention_blocks(seq_q, seq_k, head_dim, dtype="bfloat16"):
     """(block_q, block_k) of the CUDA forward kernel for a shape: 64 x 64
-    for every D and dtype it takes, on the Hopper kernel (bfloat16 and
-    float16) and on the scalar one (float32) alike.  The TPU picked blocks
-    up to the whole K axis under a VMEM budget; on the card a block's
-    shared memory and a thread's registers make 64-key tiles the size (the
-    source's note).  (Above D 128 the float32 backward takes 32-row tiles,
-    for its shared memory.)"""
+    on the wgmma kernel (bfloat16 and float16, every D) and on the float32
+    kernel at D 64, 64 x 32 on the float32 kernel above D 64.  The TPU
+    picked blocks up to the whole K axis under a VMEM budget; on the card a
+    block's shared memory and a thread's registers set the tiles (the
+    source's note).  The float32 kernels run three TF32 products on the
+    tensor cores for each float32 product, so what bounds them is the
+    tensor cores' rate and the fragment loads that feed them, not fp32
+    FMAs; their K/V tiles stage by ``cp.async`` two deep with rows of D + 4
+    floats, every fragment load free of bank conflicts.  (The backward's
+    tiles are the source's ``F32Tiles``.)"""
+    if str(dtype).replace("torch.", "") == "float32" \
+            and head_dim > _HEAD_DIMS[0]:
+        return BLOCK_Q, BLOCK_K_F32_WIDE
     return BLOCK_Q, BLOCK_K
 
 

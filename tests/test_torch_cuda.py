@@ -1288,3 +1288,121 @@ def test_public_attention_backward_at_a_padded_head_dim_on_cuda():
         assert a.dtype == torch.bfloat16
         err = (a.float() - w).abs().max().item()
         assert err <= 1e-2 * w.abs().max().item()
+
+
+def _f32_attention_check(entry, q, k, v, do, kw, what, out=None):
+    """One float32 case through one entry on the card against the plain
+    versions: o within 2e-5 and lse within 1e-5 absolute; dq, dk and dv
+    within 1e-5 of the largest |plain value| (with one key a row, dq and
+    dk, 0 in exact arithmetic, within 1e-5 of the largest |dv|); the
+    backward twice to the same bits; exact zeros in dk and dv past each
+    row's valid length; one launch of the entry a call."""
+    if entry == "bhtd":
+        fwd, bwd = TA.flash_attention_fwd, TA.flash_attention_bwd
+        pf, pb = TA._flash_attention_plain, TA._flash_attention_bwd_plain
+        counts = lambda: (TA.LAUNCHES, TA.BWD_LAUNCHES)
+        key_axis = 2
+    else:
+        fwd, bwd = TA.flash_attention_bshd_fwd, TA.flash_attention_bshd_bwd
+        pf, pb = TA._flash_attention_bshd_plain, \
+            TA._flash_attention_bshd_bwd_plain
+        counts = lambda: (TA.BSHD_LAUNCHES, TA.BSHD_BWD_LAUNCHES)
+        key_axis = 1
+        if out is not None:
+            kw = dict(kw, out=out)
+    before = counts()
+    o, lse = fwd(q, k, v, **{a: b for a, b in kw.items() if a != "out"})
+    got = [t.clone() for t in bwd(q, k, v, o, lse, do, **kw)]
+    again = bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 2), what
+    plain_kw = {a: b for a, b in kw.items() if a != "out"}
+    want_o, want_lse = pf(q, k, v, **plain_kw)
+    assert o.dtype == torch.float32 and o.shape == want_o.shape, what
+    assert (o - want_o).abs().max().item() <= 2e-5, what
+    assert (lse - want_lse).abs().max().item() <= 1e-5, what
+    want = pb(q, k, v, o, lse, do, **plain_kw)
+    one_key = k.shape[key_axis] == 1
+    for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(a, b), (what, name)
+        ref = want[2] if one_key and name != "dv" else w
+        e = (a - w).abs().max().item()
+        assert e <= 1e-5 * ref.abs().max().item(), (what, name, e)
+    lens = kw.get("kv_lens")
+    for b, n in enumerate([] if lens is None else lens.tolist()):
+        for t in got[1:]:
+            rows = t[b, :, n:] if entry == "bhtd" else t[b, n:]
+            assert not rows.any(), (what, "keys past the valid length")
+
+
+@pytest.mark.cuda
+def test_float32_attention_on_bert_views_on_cuda(tf32_off):
+    """BERT-base's float32 layer on the three-TF32 kernels: q, k and v as
+    (B, T, H, D) views of one (24, 512, 3 x 768) projection output,
+    ``bench.py``'s valid lengths, the gradients written into views of one
+    such tensor; against the plain versions (``_f32_attention_check``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cs = _chip_smoke()
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(21)
+    _, lens, _ = cs.bert_inputs(0)
+    buf = torch.randn((24, 512, 3 * 768), device=dev, generator=g)
+    q, k, v = TA._qkv_heads(buf, 12)
+    do = torch.randn((24, 512, 12, 64), device=dev, generator=g)
+    grad = torch.empty_like(buf)
+    _f32_attention_check("bshd", q, k, v, do,
+                         {"kv_lens": torch.tensor(lens, device=dev)},
+                         "f32 BERT views", out=TA._qkv_heads(grad, 12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
+def test_float32_attention_head_dims_and_masks_on_cuda(tf32_off, D):
+    """The three-TF32 kernels at each head dim they are built for, with
+    causal and kv_lens masks over a ragged Tq != Tk, and with segment ids
+    and a row of valid length 0, through both entries (segments through
+    the (B, H, T, D) one), against the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(D)
+    for B, H, Tq, Tk, causal, lens, seg in (
+            (2, 2, 130, 129, True, (129, 60), False),
+            (2, 2, 100, 100, False, (0, 100), True)):
+        q, k, v, do = (torch.randn((B, H, T, D), device=dev, generator=g)
+                       for T in (Tq, Tk, Tk, Tq))
+        kw = {"causal": causal, "kv_lens": torch.tensor(lens, device=dev)}
+        if seg:
+            kw["q_segments"] = torch.randint(0, 3, (B, Tq), device=dev,
+                                             generator=g).sort(1).values
+            kw["kv_segments"] = torch.randint(0, 3, (B, Tk), device=dev,
+                                              generator=g).sort(1).values
+        what = (B, H, Tq, Tk, D, causal, lens, seg)
+        _f32_attention_check("bhtd", q, k, v, do, kw, what)
+        if not seg:
+            _f32_attention_check(
+                "bshd", *(t.transpose(1, 2).contiguous()
+                          for t in (q, k, v, do)), kw, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tk", [1, 63, 65, 129])
+def test_float32_attention_tile_edges_on_cuda(tf32_off, Tk):
+    """The three-TF32 kernels at the edges of their tiles: Tk of 1, 63, 65
+    and 129 keys (fewer keys than a tile, one past a tile, a ragged last
+    tile), a valid length on a tile edge or 0, at D 64 and 128, through
+    both entries, against the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(Tk)
+    lens = (Tk, Tk // 2 // 16 * 16 if Tk > 32 else 0)
+    for D in (64, 128):
+        q, k, v, do = (torch.randn((2, 3, T, D), device=dev, generator=g)
+                       for T in (100, Tk, Tk, 100))
+        kw = {"kv_lens": torch.tensor(lens, device=dev)}
+        what = (100, Tk, D, lens)
+        _f32_attention_check("bhtd", q, k, v, do, kw, what)
+        _f32_attention_check("bshd", *(t.transpose(1, 2).contiguous()
+                                       for t in (q, k, v, do)), kw, what)
