@@ -231,6 +231,31 @@ and PyTorch built for CUDA.  It:
    ``--profile`` adds the step's device busy and idle share and the RNN
    kernels that ran, which must be cuDNN's where ``backend`` says cuDNN
    and torch's native cells' where it says native;
+12b. layers phase (``nn_layers_phase``, run on the one-rank NCCL group of
+   phase 11 before it is left): every op that the layers slice added to
+   ``ops/nn.py`` and the pooling cases it opened (average, sum and lp
+   pooling, the ``full`` convention, pads above half the kernel, integer
+   max), at the zoo's feature-map shapes, on the card against the same
+   op on the port's CPU, forward and backward within ``NN_RTOL``
+   (``SoftmaxOutput``'s own backward at (128, 1000) with ``ignore_label``
+   under each normalization, ``Deconvolution`` through ``conv_transpose``
+   and, with ``adj`` at the stride, composed; ``SyncBatchNorm`` with its
+   statistics all-reduced on the NCCL group), each op's device ms beside
+   the plain torch call that computes the same thing; no hand-written
+   kernel launches on this path;
+12c. vision zoo phase (``vision_zoo_phase``, under the ``_PlainOnCard``
+   spy): one hybridized batch-2 eval forward of ResNet-50 v2, VGG-16 with
+   BatchNorm, AlexNet, SqueezeNet 1.1, DenseNet-121, Inception v3 (299 x
+   299), MobileNet 1.0 and MobileNet v2 1.0 at full width on the card
+   against the CPU (``ZOO_PARITY_RTOL``); the reference's published
+   inference configurations (Inception v3 at batch 128, VGG-16 at batch
+   32, ResNet-152 v1 at batch 128 with 50 epilogue launches a forward)
+   hybridized, eager against graphed, images/s, capture seconds and peak
+   memory; Inception v3 trained at batch 128 through ``DataParallelStep``
+   with ``train_imagenet.py``'s SGD for 13 steps graphed against eager,
+   the loss falling; one ResNet-50 v2 SGD step at batch 2 on the card
+   against the CPU.  ``--profile`` adds the top device operations of the
+   batch-128 forwards and of the Inception step;
 13. prints one JSON line describing each kernel, then as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -541,6 +566,9 @@ def kernel_phase(torch, fused_norm, card, flush):
                   for shape, n in shapes]
     bwd_cases += [("nchw", shape, 1, torch.float16, 0, "train_f16", n)
                   for shape, n in TRAIN_SHAPES]
+    # ResNet-152 v1's batch-128 forward (the vision zoo phase)
+    fwd_cases += [("nchw", shape, 1, torch.float32, 0, "infer152", n)
+                  for shape, n in INFER152_SHAPES]
     rows = {"fwd": [], "bwd": []}
     for direction, cases in (("fwd", fwd_cases + extras),
                              ("bwd", bwd_cases + extras)):
@@ -836,21 +864,22 @@ def _update_errors(w0, w1, w1_ref):
     return (err2 / ref2) ** 0.5, per_param
 
 
-def card_vs_cpu_step(torch, mx, net, w0, data, label):
+def card_vs_cpu_step(torch, mx, net, w0, data, label, make_net=None):
     """The same SGD step from the same weights on the card and on the CPU
     (the plain versions there), and, as the floor of what summation order
-    alone does, the CPU step again on one thread.  Returns the loss rel
-    error and the update errors of the card and of the floor."""
+    alone does, the CPU step again on one thread.  ``make_net()`` builds
+    the CPU's net (default ResNet-50 v1).  Returns the loss rel error and
+    the update errors of the card and of the floor."""
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
     from mxnet_tpu_torch.gluon.utils import load_jax_params
     b = PARITY_BATCH
     gpu_loss = _one_step(mx, net, mx.nd.array(data[:b], ctx=mx.gpu(0)),
                          mx.nd.array(label[:b], ctx=mx.gpu(0)), b)
     w1_gpu = _param_arrays(net)
-    cpu_net = resnet50_v1()
+    cpu_net = (make_net or resnet50_v1)()
     cpu_net.initialize(ctx=mx.cpu())
     with mx.autograd.predict_mode():
-        cpu_net(mx.nd.zeros((1, 3, IMAGE_SIZE, IMAGE_SIZE), ctx=mx.cpu()))
+        cpu_net(mx.nd.zeros((1,) + tuple(data.shape[1:]), ctx=mx.cpu()))
 
     def cpu_step():
         load_jax_params(cpu_net, w0)
@@ -3520,7 +3549,8 @@ PROFILE_KERNELS = {
                  "ln_bwd"),
     "bert_f32_forward": ("flash_fwd_tf32", "ln_fwd"),
     "resnet_step": ("epi_fwd_kernel", "epi_bwd_"),
-    "resnet_forward": ("epi_fwd_kernel",)}
+    "resnet_forward": ("epi_fwd_kernel",),
+    "zoo_step": ()}
 
 
 def _scheduled(mx, opt_cls, lr, **kw):
@@ -3542,10 +3572,13 @@ def _kernel_names_check(prof, what):
 
 def graphed_vs_eager(torch, mx, net, make_step, data, label, seed, what,
                      counts=None, per_step=None, profile_as=None,
-                     deterministic=False, after=None):
+                     deterministic=False, after=None, timed=GRAPH_TIMED,
+                     exact=True):
     """``make_step()`` (a fresh DataParallelStep) through its CUDA graph
     and through the same body eagerly, from the same weights and seed:
-    GRAPH_STEPS calls each held to the same bits, then GRAPH_TIMED calls
+    GRAPH_STEPS calls each held to the same bits (only reported where
+    ``exact`` is False: a dropout's masks come from another draw of the
+    generator in a replay than in the eager call), then ``timed`` calls
     each timed.  ``counts()`` reads the path's launch counters (reset to 0
     by ``counts(reset=True)``), ``per_step`` is what each step must add.
     ``deterministic`` runs both under ``cudnn.deterministic`` (cuDNN's
@@ -3575,12 +3608,12 @@ def graphed_vs_eager(torch, mx, net, make_step, data, label, seed, what,
         rates = [step._opt.learning_rate]
         weights = [p.data().astorch().detach().clone() for _, p in params]
         times, later = [], []
-        for _ in range(GRAPH_TIMED):
+        for _ in range(timed):
             t = time.perf_counter()
             later.append(call(data, label).astorch())
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
-        n = GRAPH_STEPS + GRAPH_TIMED
+        n = GRAPH_STEPS + timed
         r = {"losses": losses, "weights": weights,
              "losses_all": [float(v.float()) for v in losses + later],
              "step_ms": statistics.median(times) * 1e3,
@@ -3621,10 +3654,11 @@ def graphed_vs_eager(torch, mx, net, make_step, data, label, seed, what,
         and all(torch.equal(a, b) for a, b in zip(g["weights"], e["weights"]))
     worst = max(float((a.float() - b.float()).norm() / b.float().norm())
                 for a, b in zip(g["weights"], e["weights"]))
-    check(same, "%s: %d steps through the graph and through the same body "
-          "eagerly differ (worst weight rel L2 %.3g; losses %r vs %r)"
-          % (what, GRAPH_STEPS, worst, [float(v.float()) for v in g["losses"]],
-             [float(v.float()) for v in e["losses"]]))
+    check(same or not exact, "%s: %d steps through the graph and through "
+          "the same body eagerly differ (worst weight rel L2 %.3g; losses %r "
+          "vs %r)" % (what, GRAPH_STEPS, worst,
+                      [float(v.float()) for v in g["losses"]],
+                      [float(v.float()) for v in e["losses"]]))
     losses = [float(v.float()) for v in g["losses"]]
     check(all(onp_isfinite(v) for v in losses), "%s: non-finite loss %r"
           % (what, losses))
@@ -3634,7 +3668,8 @@ def graphed_vs_eager(torch, mx, net, make_step, data, label, seed, what,
            "graphed_peak_bytes": g["peak_bytes"],
            "eager_peak_bytes": e["peak_bytes"], "rate_last": g["rate_last"],
            "launches": g.get("launches"), "deterministic": deterministic,
-           "losses_all": g["losses_all"]}
+           "losses_all": g["losses_all"],
+           "eager_losses_all": e["losses_all"], "worst_rel_l2": worst}
     if "profile" in g:
         out["profile"] = g["profile"]
         out["profile_kernels"] = g["profile_kernels"]
@@ -3717,6 +3752,16 @@ def hybridized_calls(torch, mx, net, call, n, counts, what, profile=False):
     if prof is not None:
         out["profile"] = prof
     return out
+
+
+def _hand_kernel_launches(attention, layernorm, fused_norm):
+    """Every hand kernel's (forward, backward) launches since the counts
+    were last set to 0."""
+    return {"fused_norm": (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES),
+            "attention": (attention.LAUNCHES, attention.BWD_LAUNCHES),
+            "attention_bshd": (attention.BSHD_LAUNCHES,
+                               attention.BSHD_BWD_LAUNCHES),
+            "layernorm": (layernorm.LAUNCHES, layernorm.BWD_LAUNCHES)}
 
 
 def _epilogue_counts(fused_norm):
@@ -5431,6 +5476,524 @@ def print_f32_bert(r, card):
               % (a["attention_ms"], what, a["busy_ms"], a["share"], card))
 
 
+# ---------------------------------------------------------------------------
+# The layers, ops and blocks of ``ops/nn.py`` and ``gluon.nn`` on the card
+# (``nn_layers_phase``): each op on card tensors against the same op on the
+# port's CPU, forward and (where differentiable) backward of a seeded
+# cotangent, max |card - CPU| within NN_RTOL of the CPU's largest magnitude
+# (float32, TF32 off: cuDNN and the CPU sum windows, channels and rows in
+# other orders; exact for integer outputs); then the op's device ms beside
+# the plain torch call that computes the same thing, where there is one.
+# Shapes are the zoo's: Inception v3's 35 x 35 maps for pooling,
+# SqueezeNet's 111 x 111 for its ceil pooling, ResNet's first stage for the
+# norms, LRN and the transposed convolutions, a 1000-class batch of 128 for
+# the output ops.
+NN_RTOL = 1e-4
+NN_POOL = (32, 192, 35, 35)
+NN_MAP = (32, 64, 56, 56)
+NN_LOGITS = (128, 1000)
+NN_SEQ = (64, 32, 768)
+
+
+def nn_layer_cases(torch):
+    """(name, op, inputs, attrs, indices of the inputs to differentiate,
+    the plain torch call or None), inputs on the host from a seeded
+    generator."""
+    import torch.nn.functional as F
+    g = torch.Generator().manual_seed(4321)
+
+    def u(shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=g) * (hi - lo) + lo
+
+    def labels(n, k, ignore=None):
+        lab = torch.randint(0, k, (n,), generator=g).float()
+        if ignore is not None:
+            lab[::4] = ignore
+        return lab
+    x_pool, x_map, logits = u(NN_POOL), u(NN_MAP), u(NN_LOGITS, -3, 3)
+    gamma, beta = u((64,), 0.5, 1.5), u((64,), -0.2, 0.2)
+    lab, lab_ign = labels(128, 1000), labels(128, 1000, ignore=-1.0)
+    w_t = u((64, 32, 3, 3), -0.1, 0.1)
+    cases = [
+        ("Pooling", "avg 3x3 s1 p1", [x_pool],
+         dict(kernel=(3, 3), stride=(1, 1), pad=(1, 1), pool_type="avg",
+              count_include_pad=True), (0,),
+         lambda x: F.avg_pool2d(x, 3, 1, 1, count_include_pad=True)),
+        ("Pooling", "max 3x3 s2 full", [u((32, 64, 111, 111))],
+         dict(kernel=(3, 3), stride=(2, 2), pool_type="max",
+              pooling_convention="full"), (0,),
+         lambda x: F.max_pool2d(x, 3, 2, ceil_mode=True)),
+        ("Pooling", "avg 3x3 s2 p1 full, pad not counted", [x_pool],
+         dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="avg",
+              pooling_convention="full", count_include_pad=False), (0,),
+         None),
+        ("Pooling", "avg 3x3 s2 p2 full, pad above half", [x_pool],
+         dict(kernel=(3, 3), stride=(2, 2), pad=(2, 2), pool_type="avg",
+              pooling_convention="full"), (0,), None),
+        ("Pooling", "max 2x2 s2 p2, pad above half", [x_pool],
+         dict(kernel=(2, 2), stride=(2, 2), pad=(2, 2), pool_type="max"),
+         (0,), None),
+        ("Pooling", "sum 2x2 s2", [x_pool],
+         dict(kernel=(2, 2), stride=(2, 2), pool_type="sum"), (0,), None),
+        ("Pooling", "lp p=2 3x3 s2", [x_pool],
+         dict(kernel=(3, 3), stride=(2, 2), pool_type="lp", p_value=2),
+         (0,), lambda x: F.lp_pool2d(x, 2, 3, 2)),
+        ("Pooling", "max int32 3x3 s2 p1 full",
+         [torch.randint(-1000, 1000, NN_POOL, generator=g,
+                        dtype=torch.int32)],
+         dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="max",
+              pooling_convention="full"), (), None),
+        ("Pooling_v1", "global sum", [x_pool],
+         dict(global_pool=True, pool_type="sum"), (0,),
+         lambda x: x.mean((2, 3), keepdim=True)),
+        ("Deconvolution", "3x3 s2 p1 adj1 (conv_transpose)",
+         [x_map, w_t, u((32,))],
+         dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), adj=(1, 1),
+              num_filter=32, no_bias=False), (0, 1, 2),
+         lambda x, w, b: F.conv_transpose2d(x, w, b, 2, 1, 1)),
+        ("Deconvolution", "3x3 s2 p1 adj2 (adj >= stride, composed)",
+         [x_map, w_t],
+         dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), adj=(2, 2),
+              num_filter=32), (0, 1), None),
+        ("UpSampling", "nearest x2", [x_map],
+         dict(scale=2, sample_type="nearest"), (0,),
+         lambda x: F.interpolate(x, scale_factor=2, mode="nearest")),
+        ("UpSampling", "bilinear x2", [x_map],
+         dict(scale=2, sample_type="bilinear"), (0,),
+         lambda x: F.interpolate(x, scale_factor=2, mode="bilinear",
+                                 align_corners=False)),
+        ("GroupNorm", "8 groups", [x_map, gamma, beta],
+         dict(num_groups=8, eps=1e-5), (0, 1, 2),
+         lambda x, a, b: F.group_norm(x, 8, a, b, 1e-5)),
+        ("InstanceNorm", "", [x_map, gamma, beta], dict(eps=1e-3), (0, 1, 2),
+         lambda x, a, b: F.instance_norm(x, weight=a, bias=b, eps=1e-3)),
+        ("LRN", "nsize 5", [x_map],
+         dict(nsize=5, alpha=1e-4, beta=0.75, knorm=2.0), (0,),
+         lambda x: F.local_response_norm(x, 5, 1e-4, 0.75, 2.0)),
+        ("BatchNorm_v1", "training", [x_map, gamma, beta,
+                                      torch.zeros(64), torch.ones(64)],
+         dict(eps=1e-3, fix_gamma=False, training=True), (0, 1, 2),
+         lambda x, a, b, m, v: F.batch_norm(x, None, None, a, b, True, 0.1,
+                                            1e-3)),
+        # on the card inside cross_rank_batch_stats of the NCCL group
+        ("SyncBatchNorm", "one-rank NCCL group",
+         [x_map, gamma, beta, torch.zeros(64), torch.ones(64)],
+         dict(eps=1e-3, fix_gamma=False, training=True), (0, 1, 2),
+         lambda x, a, b, m, v: F.batch_norm(x, None, None, a, b, True, 0.1,
+                                            1e-3)),
+        ("Convolution_v1", "3x3 p1", [x_map, u((64, 64, 3, 3), -0.1, 0.1)],
+         dict(kernel=(3, 3), pad=(1, 1), num_filter=64, no_bias=True),
+         (0, 1), lambda x, w: F.conv2d(x, w, None, 1, 1)),
+        ("log_softmax", "", [logits], {}, (0,),
+         lambda x: F.log_softmax(x, -1)),
+        ("softmin", "", [logits], {}, (0,), lambda x: F.softmin(x, -1)),
+        ("SoftmaxActivation", "channel", [x_map], dict(mode="channel"),
+         (0,), lambda x: torch.softmax(x, 1)),
+        ("SoftmaxActivation", "instance", [logits], {}, (0,),
+         lambda x: torch.softmax(x, -1)),
+        ("SoftmaxOutput", "normalization null", [logits, lab], {}, (0,),
+         lambda x, y: torch.softmax(x, -1)),
+        ("SVMOutput", "L2", [logits, lab], dict(margin=1.0), (0,), None),
+        ("SVMOutput", "L1", [logits, lab], dict(use_linear=True), (0,),
+         None),
+        ("IdentityAttachKLSparseReg", "", [u(NN_LOGITS, 0.0, 1.0),
+                                           u((1000,), 0.1, 0.9)],
+         dict(sparseness_target=0.1, penalty=1e-3, momentum=0.9), (0,),
+         None),
+        ("softmax_cross_entropy", "", [logits, lab], {}, (0,),
+         lambda x, y: F.cross_entropy(x, y.long(), reduction="sum")),
+        ("LinearRegressionOutput", "", [logits, logits], {}, (0,), None),
+        ("MAERegressionOutput", "", [logits, logits], {}, (0,), None),
+        ("LogisticRegressionOutput", "", [logits, logits], {}, (0,),
+         lambda x, y: torch.sigmoid(x)),
+        ("SequenceMask", "axis 0", [u(NN_SEQ), torch.randint(
+            0, 65, (32,), generator=g).float()],
+         dict(use_sequence_length=True, value=-1.0), (0,), None),
+        ("SequenceReverse", "", [u(NN_SEQ), torch.randint(
+            0, 65, (32,), generator=g).float()],
+         dict(use_sequence_length=True), (0,), None),
+        ("SliceChannel", "3 parts", [x_pool], dict(num_outputs=3), (0,),
+         lambda x: torch.split(x, x.shape[1] // 3, 1)),
+    ]
+    # SoftmaxOutput's custom backward with ignore_label and each
+    # normalization
+    for norm in ("null", "batch", "valid"):
+        cases.append(("SoftmaxOutput", "ignore_label -1, %s" % norm,
+                      [logits, lab_ign],
+                      dict(use_ignore=True, ignore_label=-1.0,
+                           normalization=norm, grad_scale=2.0), (0,), None))
+    cases.append(("SoftmaxOutput", "smooth_alpha 0.1, valid",
+                  [logits, lab_ign],
+                  dict(use_ignore=True, normalization="valid",
+                       smooth_alpha=0.1), (0,), None))
+    return cases
+
+
+def _nn_rel_err(torch, got, want, what):
+    """max |got - want| over the largest |want| (exact for integers), NaN
+    where both are NaN."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          "%s: card %s %s, CPU %s %s" % (what, tuple(got.shape), got.dtype,
+                                         tuple(want.shape), want.dtype))
+    got = got.detach().cpu()
+    if not want.is_floating_point():
+        check(torch.equal(got, want), "%s: integer results differ" % what)
+        return 0.0
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan), "%s: NaN in other places"
+          % what)
+    g, w = got[~nan].double(), want[~nan].double()
+    finite = torch.isfinite(w)
+    check(torch.equal(g[~finite], w[~finite]), "%s: infinities differ"
+          % what)
+    err = float((g[finite] - w[finite]).abs().max()) if finite.any() else 0.0
+    rel = err / max(float(w[finite].abs().max()), 1e-30)
+    check(rel <= NN_RTOL, "%s: card vs CPU rel err %.3g > %g"
+          % (what, rel, NN_RTOL))
+    return rel
+
+
+def nn_layers_phase(torch, mx, seed, card, group):
+    """Every case of ``nn_layer_cases`` on the card against the port's CPU,
+    forward and backward, and the card's device ms beside the plain torch
+    call's; ``SyncBatchNorm`` on the card inside ``cross_rank_batch_stats``
+    of ``group`` (the one-rank NCCL group), its statistics all-reduced
+    there (the all-reduces counted), against the CPU's local BatchNorm."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch.ops.nn import cross_rank_batch_stats
+    from mxnet_tpu_torch.ops.registry import get_op
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    gen = torch.Generator().manual_seed(seed + 77)
+    reduces = [0]
+    all_reduce = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        reduces[0] += 1
+        return all_reduce(*args, **kwargs)
+    rows = []
+    for name, label, inputs, kw, diff, plain in nn_layer_cases(torch):
+        fn = get_op(name).fn
+        what = "%s %s %s" % (name, label, tuple(inputs[0].shape))
+        on_card = [t.cuda() for t in inputs]
+        leaves = {}
+        for side, ins in (("cpu", inputs), ("card", on_card)):
+            ins = [t.clone().requires_grad_(i in diff) for i, t in
+                   enumerate(ins)]
+            if side == "card" and name == "SyncBatchNorm":
+                dist.all_reduce = counted
+                try:
+                    with cross_rank_batch_stats(group, 1):
+                        out = fn(*ins, **kw)
+                finally:
+                    dist.all_reduce = all_reduce
+            else:
+                out = fn(*ins, **kw)
+            outs = list(out) if isinstance(out, (tuple, list)) else [out]
+            leaves[side] = (ins, outs)
+        (c_in, c_out), (g_in, g_out) = leaves["cpu"], leaves["card"]
+        fwd = max(_nn_rel_err(torch, a, b.detach(), what + " out %d" % i)
+                  for i, (a, b) in enumerate(zip(g_out, c_out)))
+        bwd = None
+        if diff:
+            keep = [i for i, o in enumerate(c_out) if o.requires_grad]
+            cts = [torch.randn(c_out[i].shape, generator=gen) for i in keep]
+            if name == "SyncBatchNorm":
+                dist.all_reduce = counted
+            try:
+                g_grads = torch.autograd.grad(
+                    [g_out[i] for i in keep], [g_in[i] for i in diff],
+                    [c.cuda() for c in cts])
+            finally:
+                dist.all_reduce = all_reduce
+            c_grads = torch.autograd.grad(
+                [c_out[i] for i in keep], [c_in[i] for i in diff], cts)
+            bwd = max(_nn_rel_err(torch, a, b, what + " grad %d" % i)
+                      for i, a, b in zip(diff, g_grads, c_grads))
+        ins = [t.detach() for t in g_in]
+        with torch.no_grad():
+            if name == "SyncBatchNorm":
+                with cross_rank_batch_stats(group, 1):
+                    ms = time_cuda(torch, lambda: fn(*ins, **kw), flush)
+            else:
+                ms = time_cuda(torch, lambda: fn(*ins, **kw), flush)
+            plain_ms = time_cuda(torch, lambda: plain(*ins), flush) \
+                if plain is not None else None
+        rows.append({"op": name, "case": label,
+                     "shape": list(inputs[0].shape), "fwd_rel_err": fwd,
+                     "bwd_rel_err": bwd, "ms": ms, "plain_ms": plain_ms})
+        print("nn %-26s %-40s %-20s fwd err %.3g  bwd err %s  card %.4f ms"
+              "  plain torch %s  (%s)"
+              % (name, label, tuple(inputs[0].shape), fwd,
+                 "-" if bwd is None else "%.3g" % bwd, ms,
+                 "-" if plain_ms is None else "%.4f ms" % plain_ms, card))
+        del leaves, c_in, c_out, g_in, g_out, on_card, ins
+    check(reduces[0] >= 2, "SyncBatchNorm: %d all-reduces on the NCCL group "
+          "(want the forward's and the backward's)" % reduces[0])
+    names = {r["op"] for r in rows}
+    del flush
+    torch.cuda.empty_cache()
+    return {"rows": rows, "ops": sorted(names), "sync_all_reduces":
+            reduces[0]}
+
+
+# ---------------------------------------------------------------------------
+# The vision model zoo on the card (``vision_zoo_phase``), float32 with TF32
+# off:
+# (a) every family at full width, one hybridized eval forward at batch 2
+#     on the card against the same net's forward on the CPU from the same
+#     weights (Xavier, random BatchNorm statistics and affine), the logits
+#     within ZOO_PARITY_RTOL of the CPU's largest;
+# (b) the reference's published single-card inference configurations
+#     (``BASELINE.md``, from MXNet's ``docs/faq/perf.md``): Inception v3 at
+#     batch 128 (299 x 299), VGG-16 at batch 32 and ResNet-152 v1 at batch
+#     128, each as ``bench.py:bench_inference`` builds a net (Xavier and
+#     deferred shapes on the host, ``reset_ctx`` onto the card,
+#     ``hybridize()``), ZOO_CALLS eager then graphed calls
+#     (``hybridized_calls``), ResNet-152 v1 with its 50 epilogue launches a
+#     forward;
+# (c) Inception v3 trained at batch 128 through ``DataParallelStep`` with
+#     ``train_imagenet.py``'s SGD (lr 0.1, momentum 0.9, wd 1e-4),
+#     ZOO_TRAIN_STEPS steps graphed against as many eager (its dropout draws
+#     other masks in a replay, so the two runs are not held to the same
+#     bits), the loss falling as the ResNet phase's must; and one SGD step
+#     of the dropout-free ResNet-50 v2 at batch 2 on the card against the
+#     CPU, held as the ResNet-50 v1 step is (``card_vs_cpu_step``).
+ZOO_PARITY = ("resnet50_v2", "vgg16_bn", "alexnet", "squeezenet1.1",
+              "densenet121", "inceptionv3", "mobilenet1.0",
+              "mobilenetv2_1.0")
+ZOO_PARITY_RTOL = PARITY_LOSS_RTOL
+ZOO_INFER = (("inceptionv3", 128, 299), ("vgg16", 32, 224),
+             ("resnet152_v1", 128, 224))
+ZOO_CALLS = 8
+ZOO_TRAIN = ("inceptionv3", 128, 299)
+ZOO_TRAIN_STEPS = 13
+ZOO_STEP_PARITY = "resnet50_v2"
+# ResNet-152 v1: one BN -> add -> ReLU epilogue a bottleneck, at batch 128
+RESNET152_UNITS = (3, 8, 36, 3)
+RESNET152_EPILOGUES = sum(RESNET152_UNITS)
+INFER152_SHAPES = [((128,) + chw, n) for (chw, _), n
+                   in zip(STAGES, RESNET152_UNITS)]
+
+
+def _image_size(name):
+    return 299 if name.startswith("inception") else 224
+
+
+def _host_net(mx, name, seed, size, **kwargs):
+    """``name`` from ``vision.get_model`` with Xavier weights from
+    ``seed`` and its deferred shapes settled on the host."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    mx.random.seed(seed)
+    net = vision.get_model(name, **kwargs)
+    with mx.cpu():
+        net.initialize(mx.init.Xavier())
+        with mx.autograd.predict_mode():
+            net(mx.nd.zeros((1, 3, size, size)))
+    return net
+
+
+def zoo_card_vs_cpu(torch, mx, fused_norm, seed):
+    """(a): each family's eval logits at batch 2, hybridized on the card
+    (the second call, a replay) against the CPU; no epilogue launch."""
+    import numpy as onp
+    out = {}
+    for i, name in enumerate(ZOO_PARITY):
+        size = _image_size(name)
+        net = _host_net(mx, name, seed + i, size)
+        rs = onp.random.RandomState(seed + i)
+        for k, p in net._collect_params_with_prefix().items():
+            if k.endswith(("running_mean", "beta")):
+                p.set_data(rs.uniform(-0.2, 0.2, p.shape).astype("float32"))
+            elif k.endswith(("running_var", "gamma")):
+                p.set_data(rs.uniform(0.5, 1.5, p.shape).astype("float32"))
+        x = rs.uniform(-1, 1, (PARITY_BATCH, 3, size, size)).astype("float32")
+        t0 = time.perf_counter()
+        with mx.cpu(), mx.autograd.predict_mode():
+            want = net(mx.nd.array(x)).asnumpy()
+        cpu_s = time.perf_counter() - t0
+        net.collect_params().reset_ctx(mx.gpu(0))
+        net.hybridize()
+        fused_norm.LAUNCHES = 0
+        xg = mx.nd.array(x, ctx=mx.gpu(0))
+        with mx.autograd.predict_mode():
+            net(xg)
+            got = net(xg).asnumpy()
+        graphed = [e[0].graphed for e, _ in net._cached_graph._cache.values()]
+        err = float(onp.abs(got - want).max() / onp.abs(want).max())
+        out[name] = {"rel_err": err, "graphed": graphed, "cpu_s": cpu_s,
+                     "launches": fused_norm.LAUNCHES}
+        print("zoo: %s at batch %d, %dx%d, card (hybridized, a replay) vs "
+              "CPU eval logits: max rel err %.3g (CPU forward %.2f s)"
+              % (name, PARITY_BATCH, size, size, err, cpu_s))
+        check(onp.isfinite(got).all() and err <= ZOO_PARITY_RTOL,
+              "zoo %s: card vs CPU logits rel err %.3g > %g"
+              % (name, err, ZOO_PARITY_RTOL))
+        check(graphed == [True], "zoo %s: not captured (%r)" % (name, graphed))
+        check(fused_norm.LAUNCHES == 0, "zoo %s: %d epilogue launches"
+              % (name, fused_norm.LAUNCHES))
+        del net
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_inference(torch, mx, fused_norm, seed, profile=False):
+    """(b): each of ZOO_INFER hybridized, eager and graphed, its images/s,
+    capture seconds and peak memory; ResNet-152 v1's epilogue launches
+    counted (50 a forward), the others' 0."""
+    import numpy as onp
+    out = {}
+    for name, batch, size in ZOO_INFER:
+        net = _host_net(mx, name, seed, size)
+        net.collect_params().reset_ctx(mx.gpu(0))
+        rs = onp.random.RandomState(seed)
+        x = mx.nd.array(rs.uniform(size=(batch, 3, size, size))
+                        .astype("float32"), ctx=mx.gpu(0))
+        what = "%s forward, batch %d, %dx%d" % (name, batch, size, size)
+        r = hybridized_calls(torch, mx, net, lambda: net(x).astorch(),
+                             ZOO_CALLS, _epilogue_counts(fused_norm), what,
+                             profile=profile)
+        logits = r.pop("last")
+        check(tuple(logits.shape) == (batch, 1000)
+              and bool(torch.isfinite(logits).all()),
+              "%s: logits %s, finite %s" % (what, tuple(logits.shape),
+                                           bool(torch.isfinite(logits).all())))
+        want = RESNET152_EPILOGUES * ZOO_CALLS if name == "resnet152_v1" \
+            else 0
+        r["launches"] = r["launches"][0]
+        check(r["launches"] == want, "%s: %d epilogue launches in %d graphed "
+              "calls (want %d)" % (what, r["launches"], ZOO_CALLS, want))
+        r.update(batch=batch, size=size,
+                 images_per_s=batch * 1e3 / r["graphed_ms"],
+                 eager_images_per_s=batch * 1e3 / r["eager_ms"])
+        out[name] = r
+        del net, x, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_training(torch, mx, fused_norm, seed, profile=False):
+    """(c): Inception v3's DataParallelStep at batch 128, graphed against
+    eager; then ResNet-50 v2's step at batch 2 on the card against the
+    CPU."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    name, batch, size = ZOO_TRAIN
+    net = _host_net(mx, name, seed, size)
+    net.collect_params().reset_ctx(mx.gpu(0))
+    rs = onp.random.RandomState(seed)
+    x = mx.nd.array(rs.uniform(-1, 1, (batch, 3, size, size))
+                    .astype("float32"), ctx=mx.gpu(0))
+    y = mx.nd.array(rs.randint(0, 1000, (batch,)).astype("float32"),
+                    ctx=mx.gpu(0))
+    sgd = {"momentum": 0.9, "wd": 1e-4}
+    step = graphed_vs_eager(
+        torch, mx, net, lambda: mx.parallel.DataParallelStep(
+            net, gluon.loss.SoftmaxCrossEntropyLoss(),
+            _scheduled(mx, mx.optimizer.SGD, 0.1, **sgd), mesh=None),
+        x, y, seed, "Inception v3 DataParallelStep, batch %d, SGD" % batch,
+        counts=_epilogue_counts(fused_norm), per_step=(0, 0),
+        profile_as="zoo_step" if profile else None,
+        timed=ZOO_TRAIN_STEPS - GRAPH_STEPS, exact=False)
+    losses = step["losses_all"]
+    check(len(losses) == ZOO_TRAIN_STEPS
+          and all(onp.isfinite(losses)), "Inception steps: %r" % losses)
+    check(min(losses[-LOSS_WINDOW:]) < LOSS_DROP * losses[0],
+          "Inception v3: the loss did not fall: %r" % losses)
+    step.update(batch=batch, steps=len(losses),
+                images_per_s=batch * 1e3 / step["graphed_ms"],
+                eager_images_per_s=batch * 1e3 / step["eager_ms"])
+    del net, x, y
+    torch.cuda.empty_cache()
+
+    # the dropout-free family's step, card against CPU
+    net = _host_net(mx, ZOO_STEP_PARITY, seed, IMAGE_SIZE)
+    net.collect_params().reset_ctx(mx.gpu(0))
+    w0 = _param_arrays(net)
+    data = rs.uniform(-1, 1, (PARITY_BATCH, 3, IMAGE_SIZE, IMAGE_SIZE)) \
+        .astype("float32")
+    label = rs.randint(0, 1000, PARITY_BATCH).astype("float32")
+    t0 = time.perf_counter()
+    loss_rel, (update_rel, per_param), (floor_rel, floor_param) = \
+        card_vs_cpu_step(torch, mx, net, w0, data, label,
+                         make_net=getattr(vision, ZOO_STEP_PARITY))
+    parity = {"loss_rel": loss_rel, "update_rel_l2": update_rel,
+              "worst": per_param[:4], "floor_rel_l2": floor_rel,
+              "floor_worst": floor_param[:4],
+              "s": time.perf_counter() - t0}
+    check(loss_rel <= PARITY_LOSS_RTOL, "%s card vs CPU loss rel err %.3g > "
+          "%g" % (ZOO_STEP_PARITY, loss_rel, PARITY_LOSS_RTOL))
+    check(update_rel <= PARITY_UPDATE_REL_L2, "%s card vs CPU update: rel L2 "
+          "err %.3g > %g" % (ZOO_STEP_PARITY, update_rel,
+                             PARITY_UPDATE_REL_L2))
+    check(per_param[0][0] <= PARITY_PARAM_REL_L2, "%s card vs CPU update of "
+          "%s: rel L2 err %.3g > %g" % (ZOO_STEP_PARITY, per_param[0][1],
+                                        per_param[0][0],
+                                        PARITY_PARAM_REL_L2))
+    del net
+    torch.cuda.empty_cache()
+    return step, parity
+
+
+def vision_zoo_phase(torch, mx, fused_norm, layernorm, seed, card,
+                     profile=False):
+    """(a), (b) and (c) under ``_PlainOnCard`` (no plain version may get a
+    CUDA operand; only float32 reaches the kernels' wrappers); prints
+    their lines and returns their numbers."""
+    with _PlainOnCard(fused_norm, layernorm) as spy:
+        parity = zoo_card_vs_cpu(torch, mx, fused_norm, seed)
+        infer = zoo_inference(torch, mx, fused_norm, seed, profile=profile)
+        train, step_parity = zoo_training(torch, mx, fused_norm, seed,
+                                          profile=profile)
+    check(spy.plain_on_card == 0, "%d calls of a plain version with a CUDA "
+          "operand on the vision zoo paths" % spy.plain_on_card)
+    check(spy.kernel_dtypes == {"float32"}, "the kernels' wrappers got %s "
+          "on the vision zoo paths, want float32 alone"
+          % sorted(spy.kernel_dtypes))
+    for name, r in infer.items():
+        print("zoo: %s eval forward at batch %d, %dx%d (hybridize, "
+              "_CachedGraph): %d calls, epilogue launches %d, the eager "
+              "forward's bits; %.3f ms a call graphed = %.1f images/s, %.3f "
+              "ms eager = %.1f images/s; capture %.3f s; peak device memory "
+              "%.2f GiB (%s)"
+              % (name, r["batch"], r["size"], r["size"], r["calls"],
+                 r["launches"], r["graphed_ms"], r["images_per_s"],
+                 r["eager_ms"], r["eager_images_per_s"], r["capture_s"],
+                 r["peak_bytes"] / 2 ** 30, card))
+        if "profile" in r:
+            print_profiles([r["profile"]], card)
+    print("zoo: %s: %d steps through the CUDA graph and %d through the same "
+          "body eagerly from the same weights and seed, rate x%g a step; "
+          "losses graphed %s, eager %s (same bits: %s); step %.3f ms graphed "
+          "= %.1f images/s, %.3f ms eager = %.1f images/s (median of %d "
+          "each); capture %.3f s; peak device memory %.2f GiB graphed, %.2f "
+          "GiB eager (%s)"
+          % (train["what"], train["steps"], train["steps"], GRAPH_LR_FACTOR,
+             [round(v, 4) for v in train["losses_all"]],
+             [round(v, 4) for v in train["eager_losses_all"]],
+             train["same_bits"], train["graphed_ms"], train["images_per_s"],
+             train["eager_ms"], train["eager_images_per_s"],
+             ZOO_TRAIN_STEPS - GRAPH_STEPS, train["capture_s"],
+             train["graphed_peak_bytes"] / 2 ** 30,
+             train["eager_peak_bytes"] / 2 ** 30, card))
+    if "profile" in train:
+        print_profiles([train["profile"]], card)
+    p = step_parity
+    print("zoo: %s card vs CPU, one SGD step at batch %d: loss rel err %.3g, "
+          "update rel L2 err %.3g over all parameters; worst parameters %s; "
+          "floor (CPU on 1 thread vs N) %.3g, worst %s (%.1f s)"
+          % (ZOO_STEP_PARITY, PARITY_BATCH, p["loss_rel"], p["update_rel_l2"],
+             ", ".join("%s %.3g" % (k, e) for e, k in p["worst"]),
+             p["floor_rel_l2"],
+             ", ".join("%s %.3g" % (k, e) for e, k in p["floor_worst"]),
+             p["s"]))
+    print("zoo: plain versions called with a CUDA operand: %d; dtypes at the "
+          "kernels' wrappers: %s" % (spy.plain_on_card,
+                                     sorted(spy.kernel_dtypes)))
+    return {"parity": parity, "infer": infer, "train": train,
+            "step_parity": step_parity}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5439,8 +6002,10 @@ def main(argv=None):
                          "the hybridized forward, ResNet training steps, "
                          "BERT forwards, BERT training steps, the AMP "
                          "steps (float16 and bfloat16), the "
-                         "data-parallel steps (graphed) and the LSTM LM "
-                         "steps with torch.profiler and print where the "
+                         "data-parallel steps (graphed), the LSTM LM "
+                         "steps, the vision zoo's batch-128 forwards and "
+                         "its Inception v3 step with torch.profiler and "
+                         "print where the "
                          "device time goes and which hand kernels ran "
                          "inside the replays")
     args = ap.parse_args(argv)
@@ -5655,20 +6220,29 @@ def main(argv=None):
     try:
         dpb, dpr = dp_phases(torch, mx, attention, layernorm, fused_norm,
                              args.seed, card, btrain, train, args.profile)
+        mark("data parallel")
+        # the ops of the layers slice (SyncBatchNorm on this group): counts
+        # from 0 just before, read just after; no TPU kernel lies on them
+        _reset_counts(attention, layernorm)
+        fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
+        nnl = nn_layers_phase(torch, mx, args.seed, card, dist.group.WORLD)
+        nn_launches = _hand_kernel_launches(attention, layernorm, fused_norm)
     finally:
         dist.destroy_process_group()
-    mark("data parallel")
+    print("nn: %d cases of %d ops on the card against the CPU, forward and "
+          "backward, within rel %g; SyncBatchNorm's all-reduces on the NCCL "
+          "group %d; hand-written kernel launches on the path (forward, "
+          "backward): %s" % (len(nnl["rows"]), len(nnl["ops"]), NN_RTOL,
+                             nnl["sync_all_reduces"], nn_launches))
+    check(all(v == (0, 0) for v in nn_launches.values()),
+          "the layers' ops launched a hand-written kernel")
+    mark("nn layers")
     # the LSTM LM path: counts from 0 just before, read just after; no TPU
     # kernel of the repo lies on it (its recurrence is cuDNN's)
     _reset_counts(attention, layernorm)
     fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
     lm = lstm_lm_phase(torch, mx, args.seed, card, profile=args.profile)
-    lm_launches = {
-        "fused_norm": (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES),
-        "attention": (attention.LAUNCHES, attention.BWD_LAUNCHES),
-        "attention_bshd": (attention.BSHD_LAUNCHES,
-                           attention.BSHD_BWD_LAUNCHES),
-        "layernorm": (layernorm.LAUNCHES, layernorm.BWD_LAUNCHES)}
+    lm_launches = _hand_kernel_launches(attention, layernorm, fused_norm)
     print_lstm_lm(lm, card)
     print("lstm lm: hand-written kernel launches on the path (forward, "
           "backward): %s" % lm_launches)
@@ -5676,6 +6250,19 @@ def main(argv=None):
           "is kept eager by a rule (cuDNN's LSTM, its weight compaction "
           "included, captures from the graph's pool)")
     mark("lstm lm")
+    # the vision zoo: each of its paths counts the epilogue's launches from
+    # 0 just before it and reads them just after (ResNet-152 v1: 50 a
+    # forward; the other families and the Inception step: none); the
+    # attention and LayerNorm kernels lie on none of them
+    _reset_counts(attention, layernorm)
+    zoo = vision_zoo_phase(torch, mx, fused_norm, layernorm, args.seed, card,
+                           profile=args.profile)
+    zoo_other = _hand_kernel_launches(attention, layernorm, fused_norm)
+    zoo_other.pop("fused_norm")
+    check(all(v == (0, 0) for v in zoo_other.values()),
+          "the vision zoo launched an attention or LayerNorm kernel: %s"
+          % zoo_other)
+    mark("vision zoo")
     print("phase seconds: %s" % ", ".join("%s %.1f" % c for c in clock))
 
 
@@ -5702,11 +6289,22 @@ def main(argv=None):
                           "dp_resnet": dpr["dp"]["fwd_launches"],
                           "dp_resnet_trainer_nccl":
                           dpr["trainer_nccl"]["fwd_launches"],
-                          "lstm_lm": lm_launches["fused_norm"][0]},
+                          "lstm_lm": lm_launches["fused_norm"][0],
+                          "nn_layers": nn_launches["fused_norm"][0],
+                          "resnet152_inference":
+                          zoo["infer"]["resnet152_v1"]["launches"],
+                          "vision_zoo": sum(r["launches"] for r in
+                                            zoo["infer"].values())
+                          + sum(r["launches"]
+                                for r in zoo["parity"].values())
+                          + zoo["train"]["launches"][0]},
         serving=numbers("fwd", "serve"),
+        resnet152_inference=numbers("fwd", "infer152"),
         per="ms/plain_ms/bound_ms: one batch-32 ResNet-50 training step (16 "
             "launches at the train shapes below); serving: one bucket-8 "
-            "forward; launches: the training path's %d steps; library: %s"
+            "forward; resnet152_inference: one batch-128 ResNet-152 v1 "
+            "forward (50 launches at the infer152 shapes); launches: the "
+            "training path's %d steps; library: %s"
             % (train["steps"], no_library),
         shapes=rows["fwd"], **numbers("fwd", "train"))
     bwd_entry = dict(
@@ -6022,6 +6620,8 @@ def main(argv=None):
         check(e["launches"] > 0, "%s: launched no time on its path"
               % e["name"])
         e["launches_by_path"]["array_surface"] = 0   # checked above
+        e["launches_by_path"].setdefault("nn_layers", 0)   # checked above
+        e["launches_by_path"].setdefault("vision_zoo", 0)   # checked above
     print("attention sublayer, the layer's choice: (B, T, H, D) %.4f ms "
           "against (B, H, T, D) with transposes %.4f ms forward and "
           "backward  (%s)" % (sublayer["bshd"], sublayer["bhtd"], card))

@@ -16,6 +16,8 @@ and dtypes)``.  Here ``_CachedGraph`` keeps one CUDA graph per such key
 parameters, so that a parameter whose tensor was replaced (``reset_ctx``,
 ``load_parameters`` onto a new context) is captured again instead of
 read at its old address; ``set_data`` writes in place and needs nothing.
+``summary`` prints each layer's output shape and parameter count;
+``export`` writes the parameters.
 The forward and its writes of auxiliary state (BatchNorm's running
 statistics) are captured whenever no gradient is recorded.  These calls
 run eagerly, as in the JAX package: a call with keyword arguments, a first
@@ -31,6 +33,7 @@ from __future__ import annotations
 import re
 import threading
 
+import numpy as onp
 import torch
 
 from .. import autograd, telemetry
@@ -245,6 +248,41 @@ class Block(torch.nn.Module):
     def forward(self, *args, **kwargs):
         raise NotImplementedError
 
+    def summary(self, *inputs):
+        """Run ``inputs`` through the block and print each layer's output
+        shape and parameter count, as the JAX package's ``summary``."""
+        summary = {}
+        handles = []
+
+        def _register(block, prefix):
+            def hook(blk, inp, out):
+                name = prefix or blk.__class__.__name__
+                out0 = out[0] if isinstance(out, (list, tuple)) else out
+                n_params = sum(int(onp.prod(p.shape))
+                               for p in blk._reg_params.values()
+                               if p._data is not None)
+                summary[name + " (" + blk.__class__.__name__ + ")"] = (
+                    tuple(out0.shape), n_params)
+            handles.append(block.register_forward_hook(hook))
+            for cname, child in block._children.items():
+                _register(child, (prefix + "." if prefix else "") + cname)
+
+        _register(self, "")
+        try:
+            self(*inputs)
+        finally:
+            for h in handles:
+                h.remove()
+        print("-" * 70)
+        print("%-40s %-20s %10s" % ("Layer (type)", "Output Shape", "Param #"))
+        print("=" * 70)
+        total = 0
+        for name, (shape, n) in summary.items():
+            print("%-40s %-20s %10d" % (name[:40], str(shape), n))
+            total += n
+        print("=" * 70)
+        print("Total params: %d" % total)
+
 
 def _indent(s, num_spaces):
     lines = s.split("\n")
@@ -406,3 +444,11 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+    def export(self, path, epoch=0):
+        """Write the parameters to ``<path>-<epoch:04d>.params`` (as the
+        JAX package's ``export`` does: parameters only, no graph) and
+        return the file name."""
+        fname = "%s-%04d.params" % (path, epoch)
+        self.save_parameters(fname)
+        return fname

@@ -1,7 +1,8 @@
-"""Gluon contrib (counterpart of ``mxnet_tpu/gluon/contrib``): the
-transformer blocks (``nn``), the variational-dropout and LSTMP cells
-(``rnn``) and the text datasets and interval sampler (``data``).  The
-contrib CNN and estimator modules and the convolutional cells wait."""
+"""Gluon contrib (counterpart of ``mxnet_tpu/gluon/contrib``): the contrib
+layers and transformer blocks (``nn``), the variational-dropout and LSTMP
+cells (``rnn``) and the text datasets and interval sampler (``data``).
+The contrib CNN and estimator modules and the convolutional cells
+wait."""
 from . import nn  # noqa: F401
 from . import rnn  # noqa: F401
 from . import data  # noqa: F401

@@ -1,18 +1,45 @@
 """Vision models (counterpart of ``mxnet_tpu/gluon/model_zoo/vision``):
-the ResNet v1 family and ``get_model`` by name; the other nets come
-later."""
+ResNet v1 and v2, VGG, AlexNet, DenseNet, SqueezeNet, Inception v3 and
+MobileNet v1 and v2, and ``get_model`` by name."""
+from .alexnet import *  # noqa: F401,F403
+from .densenet import *  # noqa: F401,F403
+from .inception import *  # noqa: F401,F403
+from .mobilenet import *  # noqa: F401,F403
 from .resnet import *  # noqa: F401,F403
-from .resnet import get_resnet, resnet_spec
+from .resnet import resnet_spec  # noqa: F401
+from .squeezenet import *  # noqa: F401,F403
+from .vgg import *  # noqa: F401,F403
 
 
 def get_model(name, **kwargs):
-    """A model by name, as the JAX package's ``get_model``:
-    ``resnet<depth>_v1`` (and ``_v2``, which raises until it is ported);
-    any other name raises ``ValueError``, as an unknown one does in the
-    JAX package."""
+    """A model by name (case-insensitive), as the JAX package's
+    ``get_model``; an unknown name raises ``ValueError`` listing the
+    names."""
+    models = {
+        "resnet18_v1": resnet18_v1, "resnet34_v1": resnet34_v1,
+        "resnet50_v1": resnet50_v1, "resnet101_v1": resnet101_v1,
+        "resnet152_v1": resnet152_v1,
+        "resnet18_v2": resnet18_v2, "resnet34_v2": resnet34_v2,
+        "resnet50_v2": resnet50_v2, "resnet101_v2": resnet101_v2,
+        "resnet152_v2": resnet152_v2,
+        "vgg11": vgg11, "vgg13": vgg13, "vgg16": vgg16, "vgg19": vgg19,
+        "vgg11_bn": vgg11_bn, "vgg13_bn": vgg13_bn, "vgg16_bn": vgg16_bn,
+        "vgg19_bn": vgg19_bn,
+        "alexnet": alexnet,
+        "densenet121": densenet121, "densenet161": densenet161,
+        "densenet169": densenet169, "densenet201": densenet201,
+        "squeezenet1.0": squeezenet1_0, "squeezenet1.1": squeezenet1_1,
+        "inceptionv3": inception_v3,
+        "mobilenet1.0": mobilenet1_0, "mobilenet0.75": mobilenet0_75,
+        "mobilenet0.5": mobilenet0_5, "mobilenet0.25": mobilenet0_25,
+        "mobilenetv2_1.0": mobilenet_v2_1_0,
+        "mobilenetv2_0.75": mobilenet_v2_0_75,
+        "mobilenetv2_0.5": mobilenet_v2_0_5,
+        "mobilenetv2_0.25": mobilenet_v2_0_25,
+    }
     name = name.lower()
-    for version in (1, 2):
-        for depth in resnet_spec:
-            if name == "resnet%d_v%d" % (depth, version):
-                return get_resnet(version, depth, **kwargs)
-    raise ValueError("Model %s is not supported by the port" % name)
+    if name not in models:
+        raise ValueError(
+            "Model %s is not supported. Available options are\n\t%s" % (
+                name, "\n\t".join(sorted(models.keys()))))
+    return models[name](**kwargs)

@@ -2,10 +2,10 @@
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential``,
 ``HybridSequential``, ``Dense``, ``Activation``, ``Dropout``,
-``BatchNorm``, ``BatchNormAddReLU``, ``LayerNorm``, ``Embedding`` and
-``Flatten``.  Each layer manages its parameters and deferred shapes and
-calls the registered ops (``ops/nn.py``) through ``F``.  The other norms
-and layers come with later slices.
+``BatchNorm``, ``BatchNormAddReLU``, ``InstanceNorm``, ``LayerNorm``,
+``GroupNorm``, ``Embedding``, ``Flatten``, ``Lambda`` and
+``HybridLambda``.  Each layer manages its parameters and deferred shapes
+and calls the registered ops (``ops/nn.py``) through ``F``.
 """
 from __future__ import annotations
 
@@ -18,9 +18,9 @@ from ... import autograd
 from ...base import torch_dtype
 from ..block import Block, HybridBlock
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "BatchNorm", "BatchNormAddReLU", "LayerNorm", "Embedding",
-           "Flatten", "Activation"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Embedding",
+           "BatchNorm", "BatchNormAddReLU", "InstanceNorm", "LayerNorm",
+           "GroupNorm", "Flatten", "Lambda", "HybridLambda", "Activation"]
 
 
 class _SequentialMixin:
@@ -240,12 +240,12 @@ class BatchNormAddReLU(BatchNorm):
         return out
 
 
-class LayerNorm(HybridBlock):
-    """Layer normalization over ``axis`` with a learned scale and shift."""
+class _AffineNorm(HybridBlock):
+    """A normalization with a learned per-channel ``gamma`` and ``beta``
+    (deferred to the size of ``x.shape[self._axis]``)."""
 
-    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
-                 beta_initializer="zeros", gamma_initializer="ones",
-                 in_channels=0, prefix=None, params=None):
+    def __init__(self, axis, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._axis = axis
         self._epsilon = epsilon
@@ -263,8 +263,53 @@ class LayerNorm(HybridBlock):
         self.gamma._finish_deferred_init((c,))
         self.beta._finish_deferred_init((c,))
 
+
+class InstanceNorm(_AffineNorm):
+    """Normalization over the spatial dims of each sample and channel
+    (``axis``, 1 by default, is the channel axis)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(axis, epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, **kwargs)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+        x = x.swapaxes(1, self._axis)
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon) \
+            .swapaxes(1, self._axis)
+
+
+class LayerNorm(_AffineNorm):
+    """Layer normalization over ``axis`` with a learned scale and shift."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(axis, epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix=prefix,
+                         params=params)
+
     def hybrid_forward(self, F, x, gamma, beta):
         return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._epsilon)
+
+
+class GroupNorm(_AffineNorm):
+    """Normalization over each of ``num_groups`` channel groups (axis 1)
+    and the spatial dims."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(1, epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, **kwargs)
+        self._num_groups = num_groups
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._epsilon)
 
 
 class Embedding(HybridBlock):
@@ -297,3 +342,53 @@ class Flatten(HybridBlock):
 
     def __repr__(self):
         return self.__class__.__name__
+
+
+class Lambda(Block):
+    """A function as a Block: ``function`` a callable or the name of an
+    ``mx.nd`` op."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd
+            if not hasattr(nd, function):
+                raise ValueError("Function name %s is not found in ndarray."
+                                 % function)
+            self._func_impl = getattr(nd, function)
+            self._func_name = function
+        elif callable(function):
+            self._func_impl = function
+            self._func_name = function.__name__
+        else:
+            raise ValueError("Unrecognized function in lambda: %s of type %s"
+                             % (function, type(function)))
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+    def __repr__(self):
+        return "Lambda(%s)" % self._func_name
+
+
+class HybridLambda(HybridBlock):
+    """A function as a HybridBlock: ``function(F, x, *args)``, or the name
+    of an op called as ``F.<name>(x, *args)``."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func = lambda F, *args: getattr(F, function)(*args)
+            self._func_name = function
+        elif callable(function):
+            self._func = function
+            self._func_name = function.__name__
+        else:
+            raise ValueError("Unrecognized function in lambda: %s of type %s"
+                             % (function, type(function)))
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+
+    def __repr__(self):
+        return "HybridLambda(%s)" % self._func_name

@@ -9,7 +9,10 @@ generator and then placed on the parameter's context.  A parameter whose
 buffer (``grad()``) that each ``backward`` writes (``'write'``) or adds to
 (``'add'``); ``set_data`` updates the value in place, so the variable
 stays one.  ``lr_mult`` and ``wd_mult`` scale the optimizer's rates;
-``cast`` changes the dtype and ``reset_ctx`` the device.
+``cast`` changes the dtype and ``reset_ctx`` the device.  ``Constant`` is a
+parameter without a gradient that holds a given value, and
+``ParameterDict.save``/``load`` write and read the JAX package's file
+format, keyed by the full (prefixed) names.
 """
 from __future__ import annotations
 
@@ -21,11 +24,12 @@ import torch
 
 from .. import autograd, initializer
 from ..base import MXNetError, torch_dtype
-from ..context import Context, current_context
-from ..ndarray import NDArray
+from ..context import Context, cpu, current_context
+from ..ndarray import NDArray, array
 from ..ndarray.ndarray import _wrap
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -167,6 +171,9 @@ class Parameter:
                 "initialize parameters with Block.initialize()." % self.name)
         return self._data
 
+    def list_data(self):
+        return [self.data()]
+
     def grad(self, ctx=None) -> NDArray:
         """The gradient buffer; raises when ``grad_req`` is ``'null'``."""
         if self._grad is None:
@@ -260,6 +267,23 @@ class Parameter:
                             ctx or current_context(), None)
 
 
+class Constant(Parameter):
+    """A parameter that holds ``value`` and takes no gradient."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, NDArray):
+            value = array(value, ctx=cpu())
+        self.value = value
+
+        class _Init(initializer.Initializer):
+            def _init_weight(self, _, arr):
+                self._fill(arr, value.astorch().detach().cpu())
+
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, init=_Init(),
+                         differentiable=False)
+
+
 class ParameterDict:
     """Ordered name -> Parameter mapping with a prefix and a shared
     fallback dict."""
@@ -340,6 +364,17 @@ class ParameterDict:
                     "with requested %s=%s." % (name, k, existing, k, v))
         return param
 
+    def get_constant(self, name, value=None):
+        """Get or create the constant ``prefix + name`` holding ``value``."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise KeyError("No constant named '%s'." % name)
+            param = Constant(name, value)
+            self._params[name] = param
+        return param
+
     def update(self, other):
         for k, v in other.items():
             if k in self._params:
@@ -369,3 +404,41 @@ class ParameterDict:
         every parameter."""
         for v in self.values():
             setattr(v, name, value)
+
+    def save(self, filename, strip_prefix=""):
+        """Save every parameter's value under its name less
+        ``strip_prefix``, in the JAX package's file format."""
+        from ..ndarray.utils import save as nd_save
+        arg_dict = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise ValueError(
+                    "Prefix '%s' is to be striped before saving, but "
+                    "Parameter's name '%s' does not start with it."
+                    % (strip_prefix, param.name))
+            arg_dict[param.name[len(strip_prefix):]] = param.data()
+        nd_save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Load a file of ``save`` (of either package), its names prefixed
+        with ``restore_prefix``; arrays are read on the host and placed on
+        each parameter's context (``ctx`` for those not yet allocated)."""
+        from ..ndarray.utils import load as nd_load
+        arg_dict = {restore_prefix + k: v
+                    for k, v in nd_load(filename, ctx=cpu()).items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise AssertionError(
+                        "Parameter '%s' is missing in file '%s'"
+                        % (name[len(restore_prefix):], filename))
+        for name, value in arg_dict.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise AssertionError(
+                        "Parameter '%s' loaded from file '%s' is not present "
+                        "in this ParameterDict"
+                        % (name[len(restore_prefix):], filename))
+                continue
+            self[name]._load_init(value, ctx)

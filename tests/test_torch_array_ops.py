@@ -491,13 +491,14 @@ def test_every_elemwise_and_matrix_op_is_ported_and_has_a_case():
 
 
 def test_registry_left_missing_only_later_modules():
-    """Of the JAX registry, the port lacks only the ops of ``ops/nn.py``,
-    contrib, vision, quantization, detection and ``Custom``."""
-    later = ("mxnet_tpu.ops.nn", "mxnet_tpu.ops.contrib_ops",
+    """Of the JAX registry, the port lacks only the ops of contrib,
+    vision, quantization, detection and ``Custom`` (``ops/nn.py`` is
+    whole)."""
+    later = ("mxnet_tpu.ops.contrib_ops",
              "mxnet_tpu.ops.vision", "mxnet_tpu.ops.quantization",
              "mxnet_tpu.ops.detection", "mxnet_tpu.operator")
     missing = [n for n in jreg.list_ops() if treg.get_op(n) is None]
-    assert len(missing) == 124
+    assert len(missing) == 92
     assert [n for n in missing
             if jreg.get_op(n).fn.__module__ not in later] == []
 

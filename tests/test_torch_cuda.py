@@ -1406,3 +1406,98 @@ def test_float32_attention_tile_edges_on_cuda(tf32_off, Tk):
         _f32_attention_check("bhtd", q, k, v, do, kw, what)
         _f32_attention_check("bshd", *(t.transpose(1, 2).contiguous()
                                        for t in (q, k, v, do)), kw, what)
+
+
+def _card_against_cpu(name, inputs, kw, diff, rtol=1e-4):
+    """The registered op ``name`` on card copies of ``inputs`` against the
+    same op on the CPU: every output and the gradients of the inputs at
+    ``diff`` (of a seeded cotangent) within ``rtol`` of the CPU's largest
+    magnitude."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    fn = get_op(name).fn
+    runs = []
+    for dev in ("cpu", "cuda"):
+        ins = [t.to(dev).requires_grad_(i in diff)
+               for i, t in enumerate(inputs)]
+        out = fn(*ins, **kw)
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        g = torch.Generator().manual_seed(5)
+        cts = [torch.randn(o.shape, generator=g).to(dev) for o in outs]
+        grads = torch.autograd.grad(outs, [ins[i] for i in diff], cts) \
+            if diff else []
+        runs.append([t.detach().cpu() for t in outs + list(grads)])
+    for got, want in zip(runs[1], runs[0]):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        if not want.is_floating_point():
+            assert torch.equal(got, want)
+            continue
+        # a window wholly in the padding pools to -inf on both
+        finite = torch.isfinite(want)
+        assert torch.equal(got[~finite], want[~finite]), (name, kw)
+        got, want = got[finite].double(), want[finite].double()
+        err = (got - want).abs().max().item()
+        assert err <= rtol * want.abs().max().item(), (name, kw, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(kernel=(3, 3), stride=(2, 2), pool_type="max",
+         pooling_convention="full"),
+    dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="avg",
+         pooling_convention="full", count_include_pad=False),
+    dict(kernel=(3, 3), stride=(1, 1), pad=(1, 1), pool_type="avg"),
+    dict(kernel=(2, 2), stride=(2, 2), pad=(2, 2), pool_type="max"),
+    dict(kernel=(2, 2), stride=(2, 2), pool_type="sum"),
+    dict(kernel=(3, 3), stride=(2, 2), pool_type="lp", p_value=2)],
+    ids=["max_full", "avg_full_exclude_pad", "avg_include_pad",
+         "max_pad_above_half", "sum", "lp"])
+def test_pooling_conventions_on_cuda_match_cpu(tf32_off, kw):
+    """The pooling conventions the JAX op takes (explicit padding, the
+    ceil windows of ``full``, pads above half the kernel), on the card
+    against the CPU, forward and backward; and integer max pooling."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.rand((4, 16, 17, 17), generator=torch.Generator()
+                   .manual_seed(1)) * 2 - 1
+    _card_against_cpu("Pooling", [x], kw, (0,))
+    xi = torch.randint(-100, 100, (2, 8, 9, 9), dtype=torch.int32,
+                       generator=torch.Generator().manual_seed(2))
+    if kw["pool_type"] == "max":
+        _card_against_cpu("Pooling", [xi], kw, ())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adj", [(1, 1), (2, 2), (3, 1)])
+def test_deconvolution_adj_on_cuda_matches_cpu(tf32_off, adj):
+    """``Deconvolution`` with ``adj`` below the stride (one
+    ``conv_transpose``) and at or above it (the composed dilation, pad
+    and flipped weight), grouped, on the card against the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 8, 9, 9), generator=g)
+    w = torch.randn((8, 3, 3, 3), generator=g) * 0.2
+    b = torch.randn((6,), generator=g)
+    _card_against_cpu("Deconvolution", [x, w, b],
+                      dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                           adj=adj, num_filter=6, num_group=2,
+                           no_bias=False), (0, 1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalization", ["null", "batch", "valid"])
+def test_softmax_output_backward_on_cuda_matches_cpu(normalization):
+    """``SoftmaxOutput``'s own backward, ``(p - target)`` scaled, with
+    ``ignore_label`` and label smoothing, on the card against the CPU,
+    the head gradient ignored."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((128, 1000), generator=g) * 3
+    lab = torch.randint(0, 1000, (128,), generator=g).float()
+    lab[::4] = -1.0
+    for smooth in (0.0, 0.1):
+        _card_against_cpu("SoftmaxOutput", [x, lab],
+                          dict(use_ignore=True, ignore_label=-1.0,
+                               normalization=normalization,
+                               smooth_alpha=smooth, grad_scale=2.0), (0,))

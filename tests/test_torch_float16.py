@@ -357,8 +357,8 @@ def test_running_statistics_after_a_training_forward_match_jax(sgd16):
 
 def test_get_model_builds_what_the_jax_package_builds():
     """``vision.get_model``, as bench.py builds its nets: the same
-    structural names and shapes for resnet50_v1; a name not ported yet
-    raises ValueError, as an unknown one does in the JAX package."""
+    structural names and shapes for resnet50_v1; an unknown name raises
+    ValueError, as in the JAX package."""
     from mxnet_tpu.gluon.model_zoo import vision as jvision
     from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
     jp = jvision.get_model("resnet50_v1", classes=1000) \
@@ -368,7 +368,7 @@ def test_get_model_builds_what_the_jax_package_builds():
     assert list(tp) == list(jp)
     assert all(tuple(tp[k].shape) == tuple(jp[k].shape) for k in jp)
     with pytest.raises(ValueError):
-        tvision.get_model("vgg16")
+        tvision.get_model("vgg17")
     with pytest.raises(ValueError):
         jvision.get_model("resnet7_v1")
     with pytest.raises(ValueError):

@@ -58,9 +58,14 @@ def test_pooling(kw):
 
 
 def test_pooling_full_convention_refused():
-    with pytest.raises(Exception, match="not ported"):
-        tops.pooling(torch.zeros(1, 1, 5, 5), kernel=(3, 3), stride=(2, 2),
-                     pooling_convention="full")
+    """The ``full`` (ceil) convention, once refused, now agrees with the
+    JAX op: (1, 1, 6, 6), kernel 3, stride 2 gives 3 x 3 windows."""
+    x = _rand((1, 1, 6, 6), 7)
+    (xj,), (xt,) = _both(x)
+    kw = dict(kernel=(3, 3), stride=(2, 2), pooling_convention="full")
+    got = tops.pooling(xt, **kw)
+    assert tuple(got.shape) == (1, 1, 3, 3)
+    _close(got, jops.pooling(xj, **kw))
 
 
 @pytest.mark.parametrize("shape,flatten", [((3, 2, 2, 5), True),

@@ -98,8 +98,12 @@ def test_resnet50_v1_structure_matches_jax():
 
 
 def test_pretrained_and_v2_raise(tmp_path, monkeypatch):
+    """No weights ship: ``pretrained=True`` raises for v1 and v2 alike
+    (v2 itself builds since it was ported); an unknown version raises."""
     monkeypatch.setenv("MXNET_HOME", str(tmp_path))
     with pytest.raises(FileNotFoundError):
         tresnet.resnet18_v1(pretrained=True)
-    with pytest.raises(mxt.MXNetError):
-        tresnet.get_resnet(2, 50)
+    with pytest.raises(FileNotFoundError):
+        tresnet.get_resnet(2, 18, pretrained=True, prefix="v2raise_")
+    with pytest.raises(ValueError):
+        tresnet.get_resnet(3, 50)
