@@ -256,6 +256,25 @@ and PyTorch built for CUDA.  It:
    the loss falling; one ResNet-50 v2 SGD step at batch 2 on the card
    against the CPU.  ``--profile`` adds the top device operations of the
    batch-128 forwards and of the Inception step;
+12d. rest-of-training phase (``training_rest_phase``, on the same NCCL
+   group, TF32 off): BERT-base as ``bench.py:_build_bert_step`` builds it
+   (bf16, 24 x 512, ``MXNET_FUSED_LAYERNORM=1``) through
+   ``DataParallelStep`` with ``AdamW(learning_rate=1e-4, wd=0.01)``: one
+   f32 2-layer step on the card against the CPU, 13 steps without a mesh
+   and 13 with ZeRO on the one-rank mesh (the same bits, the loss falling,
+   Adam's 12 + 12 attention and 26 + 26 LayerNorm launches a step), the
+   step graphed against eager (the same bits); ResNet-50 v1 (with a
+   softmax) through ``Estimator.fit`` with ``Trainer(..., "nadam")``, 2
+   epochs of 4 batches of 32 synthetic images from a ``DataLoader`` with 2
+   worker processes (``RandomFlipLeftRight``, ``ToTensor``,
+   ``Normalize``), Accuracy, TopKAccuracy(5), CrossEntropy,
+   ``CheckpointHandler`` and ``EarlyStoppingHandler``: the loss falling,
+   16 + 16 epilogue launches a step, the step's ms and the loop's wait on
+   the loader, the last checkpoint read back; each of the 13 new rules'
+   ``Trainer.step`` over ResNet-50 v1's parameters against the CPU (SGLD
+   by the moments of its noise); each new loss forward and backward at
+   (32, 1000) (CTC at T 100, N 32, C 28, L 20) and each new metric on the
+   card against the CPU;
 13. prints one JSON line describing each kernel, then as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2847,11 +2866,12 @@ def _nccl_device_ms(torch, fn, calls=3):
             sorted({a.key[:60] for a in nccl}))
 
 
-def dp_bert_card_vs_cpu(torch, mx, seed):
+def dp_bert_card_vs_cpu(torch, mx, seed, make_opt=None):
     """One f32 DataParallelStep (no mesh) of BERT at DP_PARITY_LAYERS
     layers, batch 2, S 128, from the same weights on the card and on the
     CPU, and the CPU again on one thread: the loss rel error and the update
-    errors of the card and of the floor."""
+    errors of the card and of the floor.  ``make_opt()`` builds the
+    optimizer (default Adam at ``BERT_LR``)."""
     import numpy as onp
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.gluon.model_zoo.bert import BERTModel
@@ -2878,8 +2898,9 @@ def dp_bert_card_vs_cpu(torch, mx, seed):
         return net
 
     def step(net, ctx):
-        dp = mx.parallel.DataParallelStep(
-            net, _mlm_loss(gluon), mx.optimizer.Adam(learning_rate=BERT_LR))
+        opt = make_opt() if make_opt is not None \
+            else mx.optimizer.Adam(learning_rate=BERT_LR)
+        dp = mx.parallel.DataParallelStep(net, _mlm_loss(gluon), opt)
         loss = dp((mx.nd.array(tokens, ctx=ctx), None, None,
                    mx.nd.array(lens, ctx=ctx, dtype="int32"),
                    mx.nd.array(pos, ctx=ctx, dtype="int32")),
@@ -2916,6 +2937,23 @@ def _bert_counts(attention, layernorm):
     return ((attention.BSHD_LAUNCHES, attention.BSHD_BWD_LAUNCHES,
              layernorm.LAUNCHES, layernorm.BWD_LAUNCHES),
             (attention.LAUNCHES, attention.BWD_LAUNCHES))
+
+
+def _bench_bert_bf16(mx, seed, tokens):
+    """BERT-base as bench.py's ``_build_bert_step`` builds it: Xavier
+    weights from ``seed`` and the deferred shapes settled on the host,
+    cast to bf16, then ``reset_ctx`` onto the card."""
+    mx.random.seed(seed)
+    net = _bert(mx, use_pooler=False)
+    with mx.cpu():
+        net.initialize(mx.init.Xavier())
+        with mx.autograd.predict_mode():   # deferred shapes, on the host
+            net(mx.nd.array(tokens[:1, :8]), None, None,
+                mx.nd.array([8], dtype="int32"),
+                mx.nd.array([[0, 1]], dtype="int32"))
+    net.cast("bfloat16")
+    net.collect_params().reset_ctx(mx.gpu(0))
+    return net
 
 
 def dp_bert_phase(torch, mx, attention, layernorm, seed, card, mesh,
@@ -2961,19 +2999,6 @@ def dp_bert_phase(torch, mx, attention, layernorm, seed, card, mesh,
     vl = mx.nd.array(lens, ctx=gpu, dtype="int32")
     mp = mx.nd.array(pos, ctx=gpu, dtype="int32")
     y = mx.nd.array(labels, ctx=gpu)
-
-    def build():
-        mx.random.seed(seed)
-        net = _bert(mx, use_pooler=False)
-        with mx.cpu():
-            net.initialize(mx.init.Xavier())
-            with mx.autograd.predict_mode():   # deferred shapes, on the host
-                net(mx.nd.array(tokens[:1, :8]), None, None,
-                    mx.nd.array([8], dtype="int32"),
-                    mx.nd.array([[0, 1]], dtype="int32"))
-        net.cast("bfloat16")
-        net.collect_params().reset_ctx(gpu)
-        return net
 
     def train(net, mesh, shard):
         step = mx.parallel.DataParallelStep(
@@ -3027,7 +3052,7 @@ def dp_bert_phase(torch, mx, attention, layernorm, seed, card, mesh,
             run["nccl_ms"], run["nccl_kernels"] = _nccl_device_ms(torch, one)
         return run
 
-    net = build()
+    net = _bench_bert_bf16(mx, seed, tokens)
     w0 = [p.data().astorch().clone()
           for _, p in sorted(net.collect_params().items())]
     plain = train(net, None, False)
@@ -5994,6 +6019,643 @@ def vision_zoo_phase(torch, mx, fused_norm, layernorm, seed, card,
             "step_parity": step_parity}
 
 
+# ---------------------------------------------------------------------------
+# the rest of training: AdamW in BERT-base's DataParallelStep,
+# ResNet-50 v1 through Estimator.fit fed by DataLoader workers, and every
+# new optimizer rule, loss and metric on the card against the CPU
+# ---------------------------------------------------------------------------
+
+ADAMW_PARAMS = {"learning_rate": BERT_LR, "wd": 0.01}
+EST_BATCH = TRAIN_BATCH
+EST_BATCHES = 4                     # an epoch
+EST_EPOCHS = 2
+EST_WORKERS = 2
+EST_MEAN, EST_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+EST_NADAM = {"learning_rate": 1e-3}
+# each new rule's options on the card; one Trainer.step over ResNet-50
+# v1's parameters from the same weights and gradients as on the CPU
+RULES = [("signum", {"learning_rate": 0.01, "momentum": 0.9, "wd_lh": 1e-4}),
+         ("ftml", {"learning_rate": 0.01, "wd": 1e-4}),
+         ("lbsgd", {"learning_rate": 0.1, "momentum": 0.9,
+                    "warmup_epochs": 1, "updates_per_epoch": 2,
+                    "batch_scale": 4}),
+         ("dcasgd", {"learning_rate": 0.1, "momentum": 0.9}),
+         ("sgld", {"learning_rate": 1e-4}),
+         ("adamw", {"learning_rate": 1e-3, "wd": 0.01}),
+         ("adagrad", {"learning_rate": 0.01, "wd": 1e-4}),
+         ("rmsprop", {"learning_rate": 1e-3, "centered": True,
+                      "clip_weights": 1.0}),
+         ("adadelta", {"wd": 1e-4}),
+         ("ftrl", {"learning_rate": 0.1}),
+         ("adamax", {"wd": 1e-4}),
+         ("nadam", {"learning_rate": 1e-3}),
+         ("test", {})]
+RULE_UPDATE_REL_L2 = 1e-5           # card vs CPU, over all parameters
+SGLD_SE = 5.0                       # the noise's mean within 5 s.e.
+SGLD_STD_RTOL = 1e-3
+LOSS_ROWS, LOSS_CLASSES = 32, 1000
+CTC_T, CTC_N, CTC_C, CTC_L = 100, 32, 28, 20
+LOSS_RTOL = 1e-5                    # card vs CPU, loss values
+LOSS_GRAD_REL_L2 = 1e-5             # card vs CPU, input gradients
+# CTC's gradient runs back through 100 log-sum-exp steps, each an exp and
+# a log that round otherwise on the card (1.02e-5 in a card run)
+CTC_GRAD_REL_L2 = 1e-4
+
+
+def adamw_bert_phase(torch, mx, attention, layernorm, seed, card, mesh):
+    """BERT-base pretraining through ``DataParallelStep`` with
+    ``AdamW(learning_rate=1e-4, wd=0.01)``, built as bench.py's
+    ``_build_bert_step`` (bf16, 24 x 512, ``MXNET_FUSED_LAYERNORM=1``):
+    one f32 step of a 2-layer BERT on the card against the CPU; 13 steps
+    without a mesh and 13 from the same weights on the one-rank NCCL mesh
+    with ``shard_optimizer=True`` (ZeRO), the same bits, the loss falling
+    and Adam's launches a step; then the step through its CUDA graph
+    against the same body eagerly, the same bits, under a schedule."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    os.environ["MXNET_FUSED_LAYERNORM"] = "1"
+    loss_rel, (update_rel, per_param), (floor_rel, _) = dp_bert_card_vs_cpu(
+        torch, mx, seed, make_opt=lambda: mx.optimizer.AdamW(**ADAMW_PARAMS))
+    print("adamw bert: card vs CPU, one f32 AdamW DataParallelStep of a "
+          "%d-layer BERT at batch 2, S %d: loss rel err %.3g, update rel L2 "
+          "err %.3g (floor, CPU on 1 thread: %.3g); worst parameters %s"
+          % (DP_PARITY_LAYERS, BERT_PARITY_SEQ, loss_rel, update_rel,
+             floor_rel, ", ".join("%s %.3g" % (k, e)
+                                  for e, k in per_param[:4])))
+    check(loss_rel <= BERT_TRAIN_PARITY_LOSS_RTOL,
+          "AdamW BERT card vs CPU loss rel err %.3g > %g"
+          % (loss_rel, BERT_TRAIN_PARITY_LOSS_RTOL))
+    check(update_rel <= BERT_TRAIN_PARITY_UPDATE_REL_L2,
+          "AdamW BERT card vs CPU update: rel L2 err %.3g > %g"
+          % (update_rel, BERT_TRAIN_PARITY_UPDATE_REL_L2))
+    check(per_param[0][0] <= BERT_TRAIN_PARITY_PARAM_REL_L2,
+          "AdamW BERT card vs CPU update of %s: rel L2 err %.3g > %g"
+          % (per_param[0][1], per_param[0][0],
+             BERT_TRAIN_PARITY_PARAM_REL_L2))
+    tokens, lens, pos = bert_inputs(seed)
+    labels = onp.random.RandomState(seed + 2).randint(
+        0, BERT_VOCAB, (BERT_BATCH, BERT_PRED)).astype("float32")
+    gpu = mx.gpu(0)
+    data = (mx.nd.array(tokens, ctx=gpu), None, None,
+            mx.nd.array(lens, ctx=gpu, dtype="int32"),
+            mx.nd.array(pos, ctx=gpu, dtype="int32"))
+    y = mx.nd.array(labels, ctx=gpu)
+    net = _bench_bert_bf16(mx, seed, tokens)
+    params = sorted(net.collect_params().items())
+    w0 = [p.data().astorch().clone() for _, p in params]
+    per_step = (BERT_ATTN_PER_STEP,) * 2 + (BERT_LN_PER_STEP,) * 2
+    runs = {}
+    for name, m, shard in (("plain", None, False), ("zero", mesh, True)):
+        for (_, p), w in zip(params, w0):
+            p.set_data(w)
+        step = mx.parallel.DataParallelStep(
+            net, _mlm_loss(gluon), mx.optimizer.AdamW(**ADAMW_PARAMS),
+            mesh=m, shard_optimizer=shard)
+        torch.cuda.synchronize()
+        # the main path: counts from 0 just before, read just after
+        _reset_counts(attention, layernorm)
+        losses, times = [], []
+        for _ in range(BERT_TRAIN_WARMUP + BERT_TRAIN_TIMED):
+            t = time.perf_counter()
+            losses.append(step(data, y).astorch())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        n = len(losses)
+        counts = _bert_counts(attention, layernorm)
+        check(counts[0] == tuple(c * n for c in per_step)
+              and counts[1] == (0, 0),
+              "AdamW DP BERT (%s): launches %r, (B, H, T, D) %r in %d steps,"
+              " want %r a step" % (name, counts[0], counts[1], n, per_step))
+        runs[name] = {
+            "losses": [float(v.float()) for v in losses],
+            "loss_bits": torch.stack(losses),
+            "weights": [p.data().astorch().clone() for _, p in params],
+            "step_ms": statistics.median(times[BERT_TRAIN_WARMUP:]) * 1e3,
+            "launches": counts[0], "steps": n,
+            "state_bytes": step.optimizer_state_bytes(per_chip=True)}
+        del step
+        torch.cuda.empty_cache()
+    plain, zero = runs["plain"], runs["zero"]
+    check(torch.equal(plain["loss_bits"], zero["loss_bits"])
+          and all(torch.equal(a, b) for a, b in zip(plain["weights"],
+                                                    zero["weights"])),
+          "AdamW: the one-rank NCCL ZeRO steps and the steps without a "
+          "mesh differ")
+    for run in (plain, zero):
+        losses = run["losses"]
+        check(all(onp.isfinite(losses)), "AdamW DP loss %r" % losses)
+        check(min(losses[-LOSS_WINDOW:]) < losses[0] - BERT_LOSS_FALL,
+              "AdamW DP loss did not fall by %g: %r"
+              % (BERT_LOSS_FALL, losses))
+        del run["weights"], run["loss_bits"]
+    for (_, p), w in zip(params, w0):
+        p.set_data(w)
+    del w0
+
+    def counts(reset=False):
+        if reset:
+            _reset_counts(attention, layernorm)
+        return _bert_counts(attention, layernorm)[0]
+    graph = graphed_vs_eager(
+        torch, mx, net, lambda: mx.parallel.DataParallelStep(
+            net, _mlm_loss(gluon), _scheduled(
+                mx, mx.optimizer.AdamW, BERT_LR, wd=ADAMW_PARAMS["wd"])),
+        data, y, seed, "BERT-base AdamW DataParallelStep, no mesh",
+        counts=counts, per_step=per_step)
+    del net
+    torch.cuda.empty_cache()
+    del os.environ["MXNET_FUSED_LAYERNORM"]
+    return {"plain": plain, "zero": zero, "graph": graph,
+            "parity_loss_rel": loss_rel, "parity_update_rel_l2": update_rel,
+            "parity_floor_rel_l2": floor_rel,
+            "launches": tuple(a + b for a, b in zip(plain["launches"],
+                                                    zero["launches"]))}
+
+
+def _synthetic_images(seed, n):
+    import numpy as onp
+    rs = onp.random.RandomState(seed + 16)
+    return (rs.randint(0, 256, (n, IMAGE_SIZE, IMAGE_SIZE, 3))
+            .astype("uint8"), rs.randint(0, 1000, n).astype("float32"))
+
+
+def estimator_phase(torch, mx, fused_norm, seed, card):
+    """ResNet-50 v1 (config 2's model, a softmax on its logits so that
+    the CrossEntropy metric reads probabilities, the loss their negative
+    log) trained by ``Estimator.fit`` for 2 epochs of 4 batches of 32 with
+    ``Trainer(..., "nadam")``, fed by a ``DataLoader`` with 2 worker
+    processes over an ``ArrayDataset`` of synthetic uint8 224 x 224
+    images whose first element goes through ``Compose([
+    RandomFlipLeftRight(), ToTensor(), Normalize(...)])``; Accuracy,
+    TopKAccuracy(5) and CrossEntropy, ``CheckpointHandler`` into a
+    temporary directory and ``EarlyStoppingHandler``.  Checks that the
+    loss falls, 16 + 16 epilogue launches a step, and that the last
+    checkpoint's parameters and states read back."""
+    import tempfile
+
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.contrib import estimator as est_mod
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+
+    class _ProbNLL(gluon.loss.Loss):
+        """``-log(p[label])`` of the softmax's probabilities, a value a
+        sample."""
+
+        def __init__(self):
+            super().__init__(weight=None, batch_axis=0)
+            self._ce = gluon.loss.SoftmaxCrossEntropyLoss(from_logits=True)
+
+        def hybrid_forward(self, F, p, label):
+            return self._ce(F.log(p + 1e-12), label)
+
+    class _Clock(est_mod.EpochBegin, est_mod.BatchBegin, est_mod.BatchEnd):
+        """The loop's wait for each batch (from the end of the previous
+        step, or of the epoch's start, to the batch's start) and each
+        step's time, the card synchronized at its end; each step's mean
+        loss."""
+        priority = 0
+
+        def __init__(self):
+            self.waits, self.steps, self.losses = [], [], []
+            self._mark = None
+
+        def epoch_begin(self, estimator, *args, **kwargs):
+            torch.cuda.synchronize()
+            self._mark = time.perf_counter()
+
+        def batch_begin(self, estimator, *args, **kwargs):
+            now = time.perf_counter()
+            self.waits.append(now - self._mark)
+            self._mark = now
+
+        def batch_end(self, estimator, *args, **kwargs):
+            self.losses.append(float(kwargs["loss"][0].mean().asscalar()))
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.steps.append(now - self._mark)
+            self._mark = now
+
+    n = EST_BATCH * EST_BATCHES
+    images, labels = _synthetic_images(seed, n)
+    mx.random.seed(seed)
+    net = gluon.nn.HybridSequential(prefix="est_")
+    with net.name_scope():
+        net.add(resnet50_v1(), gluon.nn.HybridLambda(
+            lambda F, x: F.softmax(x)))
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    with mx.autograd.predict_mode():
+        net(mx.nd.zeros((1, 3, IMAGE_SIZE, IMAGE_SIZE), ctx=mx.gpu(0)))
+    dataset = gluon.data.ArrayDataset(images, labels).transform_first(
+        T.Compose([T.RandomFlipLeftRight(), T.ToTensor(),
+                   T.Normalize(EST_MEAN, EST_STD)]))
+    loader = gluon.data.DataLoader(dataset, batch_size=EST_BATCH,
+                                   shuffle=True, num_workers=EST_WORKERS)
+    check(loader._pool is not None, "the DataLoader fell back to threads")
+    acc, top5 = mx.metric.Accuracy(), mx.metric.TopKAccuracy(5)
+    ce = mx.metric.CrossEntropy()
+    trainer = gluon.Trainer(net.collect_params(), "nadam", dict(EST_NADAM))
+    est = est_mod.Estimator(net, loss=_ProbNLL(), metrics=[acc, top5, ce],
+                            trainer=trainer, context=mx.gpu(0))
+    clock = _Clock()
+    tmp = tempfile.mkdtemp(prefix="est-ckpt-")
+    ckpt = est_mod.CheckpointHandler(tmp, model_prefix="resnet50",
+                                     max_checkpoints=2)
+    early = est_mod.EarlyStoppingHandler(monitor=ce, patience=EST_EPOCHS)
+    try:
+        # the main path: counts from 0 just before, read just after
+        fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        est.fit(loader, epochs=EST_EPOCHS,
+                event_handlers=[ckpt, early, clock])
+        fit_s = time.perf_counter() - t0
+        launches = (fused_norm.LAUNCHES, fused_norm.BWD_LAUNCHES)
+        loader.close()
+        steps = len(clock.steps)
+        check(steps == EST_EPOCHS * EST_BATCHES and not early.stop_training,
+              "Estimator.fit ran %d steps, early stop %s"
+              % (steps, early.stop_training))
+        check(launches == (16 * steps, 16 * steps),
+              "Estimator: epilogue launches %r in %d steps, want 16 and 16 "
+              "a step" % (launches, steps))
+        losses = clock.losses
+        first = sum(losses[:EST_BATCHES]) / EST_BATCHES
+        second = sum(losses[EST_BATCHES:]) / EST_BATCHES
+        check(all(onp.isfinite(losses)) and second < first,
+              "Estimator: the second epoch's mean loss %.4f is not below the "
+              "first's %.4f: %r" % (second, first, losses))
+        metrics = {m.get()[0]: m.get()[1] for m in (acc, top5, ce)}
+        check(all(onp.isfinite(v) for v in metrics.values()),
+              "Estimator metrics %r" % metrics)
+        # the last checkpoint reads back: parameters and trainer states
+        last = os.path.join(tmp, "resnet50-epoch%dbatch%d"
+                            % (EST_EPOCHS, steps))
+        files = sorted(os.listdir(tmp))
+        check(files == sorted(
+            os.path.basename(c)[:-len(".params")] + e
+            for c in ckpt.saved_checkpoints for e in (".params", ".states")),
+            "checkpoint files %r" % files)
+        back = gluon.nn.HybridSequential(prefix="est_")
+        with back.name_scope():
+            back.add(resnet50_v1(), gluon.nn.HybridLambda(
+                lambda F, x: F.softmax(x)))
+        back.load_parameters(last + ".params", ctx=mx.gpu(0))
+        want = sorted(net.collect_params().items())
+        got = sorted(back.collect_params().items())
+        check(len(got) == len(want) and all(
+            torch.equal(a.data().astorch(), b.data().astorch())
+            for (_, a), (_, b) in zip(got, want)),
+            "the checkpoint's parameters differ from the net's")
+        tr2 = gluon.Trainer(back.collect_params(), "nadam", dict(EST_NADAM))
+        tr2.load_states(last + ".states")
+        check(tr2.optimizer.num_update == trainer.optimizer.num_update
+              == steps and tr2.optimizer.m_schedule
+              == trainer.optimizer.m_schedule,
+              "the checkpoint's states: num_update %d m_schedule %r"
+              % (tr2.optimizer.num_update, tr2.optimizer.m_schedule))
+        ckpt_bytes = sum(os.path.getsize(os.path.join(tmp, f))
+                         for f in files)
+    finally:
+        loader.close()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    del net, back, est, trainer, tr2
+    torch.cuda.empty_cache()
+    return {"losses": losses, "steps": steps, "fit_s": fit_s,
+            "step_ms": statistics.median(clock.steps) * 1e3,
+            "step_ms_all": [t * 1e3 for t in clock.steps],
+            "wait_ms": [t * 1e3 for t in clock.waits],
+            "wait_first_ms": clock.waits[0] * 1e3,
+            "wait_later_ms": statistics.median(clock.waits[1:]) * 1e3,
+            "wait_total_s": sum(clock.waits),
+            "launches": launches, "metrics": metrics,
+            "checkpoint_files": files, "checkpoint_bytes": ckpt_bytes}
+
+
+def rules_card_vs_cpu(torch, mx, seed):
+    """Each new optimizer rule: one ``Trainer.step`` over ResNet-50 v1's
+    parameters on the card, against the same step on the CPU from the same
+    weights and gradients (the update's rel L2 error over all parameters);
+    SGLD by the mean and spread of its noise on the card."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.utils import load_jax_params
+    nets = {}
+    for side, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        mx.random.seed(seed)
+        with ctx:
+            net = resnet50_v1()
+            net.initialize(mx.init.Xavier(), ctx=ctx)
+            with mx.autograd.predict_mode():
+                net(mx.nd.zeros((1, 3, IMAGE_SIZE, IMAGE_SIZE), ctx=ctx))
+        nets[side] = net
+    w0 = _param_arrays(nets["card"])
+    rs = onp.random.RandomState(seed + 7)
+    trained = [k for k, p in nets["card"]._collect_params_with_prefix()
+               .items() if p.grad_req != "null"]
+    grads = {k: (rs.standard_normal(w0[k].shape) * 1e-2).astype("float32")
+             for k in trained}
+
+    def step(side, name, kw):
+        net = nets[side]
+        if side == "card":
+            for k, p in net._collect_params_with_prefix().items():
+                p.set_data(w0[k])
+        else:
+            load_jax_params(net, w0)
+        items = net._collect_params_with_prefix()
+        for k in trained:
+            p = items[k]
+            p.grad().astorch().copy_(torch.from_numpy(grads[k]))
+            p.data()._fresh_grad = True
+        trainer = gluon.Trainer(net.collect_params(), name, dict(kw))
+        trainer.step(TRAIN_BATCH)
+        if side == "card":
+            torch.cuda.synchronize()
+        return _param_arrays(net)
+
+    rows = []
+    for name, kw in RULES:
+        t = time.perf_counter()
+        w1_gpu = step("card", name, kw)
+        gpu_s = time.perf_counter() - t
+        if name == "sgld":
+            lr = kw["learning_rate"]
+            noise = onp.concatenate([
+                (w1_gpu[k] - (w0[k] - lr / 2 * grads[k] / TRAIN_BATCH))
+                .ravel().astype("float64") for k in trained])
+            mean_se = abs(noise.mean()) / (lr / noise.size) ** 0.5
+            std_rel = abs(noise.std() / lr ** 0.5 - 1)
+            rows.append({"rule": name, "noise_mean_se": mean_se,
+                         "noise_std_rel_err": std_rel, "draws": noise.size,
+                         "card_s": gpu_s})
+            check(mean_se <= SGLD_SE and std_rel <= SGLD_STD_RTOL,
+                  "SGLD noise on the card: mean %.3g s.e., std rel err %.3g"
+                  % (mean_se, std_rel))
+            continue
+        with mx.cpu():
+            w1_cpu = step("cpu", name, kw)
+        rel, per_param = _update_errors(w0, w1_gpu, w1_cpu)
+        rows.append({"rule": name, "update_rel_l2": rel,
+                     "worst": per_param[:2], "card_s": gpu_s})
+        check(rel <= RULE_UPDATE_REL_L2,
+              "%s: the card's update against the CPU's: rel L2 %.3g > %g "
+              "(worst %s)" % (name, rel, RULE_UPDATE_REL_L2, per_param[:2]))
+    del nets
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _loss_cases(gluon, rs):
+    """(name, loss, inputs as numpy, the positions to differentiate, the
+    other positional arguments) at (32, 1000), CTC at T 100, N 32, C 28, L
+    20 with labels of 10 to 20 (repeats among them) padded with 0."""
+    import numpy as onp
+    shape = (LOSS_ROWS, LOSS_CLASSES)
+
+    def f(a):
+        return onp.asarray(a, "float32")
+    logits = f(rs.standard_normal(shape) * 2)
+    binary = f(rs.randint(0, 2, shape))
+    signed = binary * 2 - 1
+    target = f(rs.dirichlet(onp.ones(LOSS_CLASSES), LOSS_ROWS))
+    sw = f(rs.uniform(0.5, 1.5, (LOSS_ROWS, 1)))
+    counts = f(rs.poisson(2.0, shape))
+    lab = onp.zeros((CTC_N, CTC_L), "float32")
+    for i, n in enumerate(rs.randint(10, CTC_L + 1, CTC_N)):
+        lab[i, :n] = rs.randint(1, CTC_C, n)
+    lab[0, :4] = 3                        # a run of one label
+    ctc_pred = f(rs.standard_normal((CTC_N, CTC_T, CTC_C)))
+    L = gluon.loss
+    return [
+        ("SigmoidBCELoss", L.SigmoidBCELoss(), [logits, binary], (0,),
+         (sw,)),
+        ("KLDivLoss", L.KLDivLoss(from_logits=False), [logits, target], (0,),
+         ()),
+        ("HuberLoss", L.HuberLoss(rho=1), [logits, f(logits[::-1])], (0,),
+         (sw,)),
+        ("HingeLoss", L.HingeLoss(), [logits, signed], (0,), ()),
+        ("SquaredHingeLoss", L.SquaredHingeLoss(), [logits, signed], (0,),
+         ()),
+        ("LogisticLoss", L.LogisticLoss(), [logits, signed], (0,), (sw,)),
+        ("TripletLoss", L.TripletLoss(margin=0.5),
+         [logits, f(logits[::-1]), f(rs.standard_normal(shape))], (0, 1, 2),
+         ()),
+        ("PoissonNLLLoss", L.PoissonNLLLoss(), [f(logits * 0.3), counts],
+         (0,), ()),
+        ("CosineEmbeddingLoss", L.CosineEmbeddingLoss(margin=0.2),
+         [logits, f(rs.standard_normal(shape)),
+          f(signed[:, 0])], (0, 1), ()),
+        ("CTCLoss", L.CTCLoss(), [ctc_pred, lab], (0,), ()),
+    ]
+
+
+def losses_card_vs_cpu(torch, mx, seed):
+    """Each new loss, forward and backward on the card against the CPU on
+    the same inputs: the values' largest error relative to their largest
+    magnitude, and each input gradient's rel L2 error; the card's ms for
+    a forward and backward."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    rows = []
+    for name, loss, inputs, diff, extra in _loss_cases(
+            gluon, onp.random.RandomState(seed + 9)):
+        out = {}
+        for side, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+            with ctx:
+                arrs = [mx.nd.array(a, ctx=ctx) for a in inputs]
+                more = [mx.nd.array(a, ctx=ctx) for a in extra]
+                for i in diff:
+                    arrs[i].attach_grad()
+
+                def fwd_bwd():
+                    with mx.autograd.record():
+                        value = loss(*arrs, *more)
+                    value.backward()
+                    return value
+                value = fwd_bwd()
+                out[side] = (value.asnumpy(),
+                             [arrs[i].grad.asnumpy() for i in diff])
+                if side == "card":
+                    fwd_bwd()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fwd_bwd()
+                    torch.cuda.synchronize()
+                    card_ms = (time.perf_counter() - t) * 1e3
+        (gv, gg), (cv, cg) = out["card"], out["cpu"]
+        val_err = float(onp.abs(gv - cv).max() / onp.abs(cv).max())
+        grad_err = max(float(onp.linalg.norm(a - b) / onp.linalg.norm(b))
+                       for a, b in zip(gg, cg))
+        rows.append({"loss": name, "value_rel_err": val_err,
+                     "grad_rel_l2": grad_err, "card_ms": card_ms,
+                     "shape": list(inputs[0].shape)})
+        grad_limit = CTC_GRAD_REL_L2 if name == "CTCLoss" \
+            else LOSS_GRAD_REL_L2
+        check(onp.isfinite(gv).all() and val_err <= LOSS_RTOL
+              and grad_err <= grad_limit,
+              "%s on the card against the CPU: value rel err %.3g (limit "
+              "%g), gradient rel L2 %.3g (limit %g)"
+              % (name, val_err, LOSS_RTOL, grad_err, grad_limit))
+    return rows
+
+
+def metrics_card_vs_cpu(mx, seed):
+    """Each new metric over arrays on the card against the same arrays on
+    the CPU: the same readings (the math is the host's on both)."""
+    import numpy as onp
+    rs = onp.random.RandomState(seed + 11)
+    probs = rs.dirichlet(onp.ones(LOSS_CLASSES), LOSS_ROWS).astype("float32")
+    classes = rs.randint(0, LOSS_CLASSES, LOSS_ROWS).astype("float32")
+    binp = rs.dirichlet(onp.ones(2), LOSS_ROWS).astype("float32")
+    binl = rs.randint(0, 2, LOSS_ROWS).astype("float32")
+    reg = rs.standard_normal((LOSS_ROWS, 8)).astype("float32")
+    reg2 = rs.standard_normal((LOSS_ROWS, 8)).astype("float32")
+    m = mx.metric
+    cases = [("mae", m.MAE, reg, reg2), ("mse", m.MSE, reg, reg2),
+             ("rmse", m.RMSE, reg, reg2), ("f1", m.F1, binl, binp),
+             ("f1_micro", lambda: m.F1(average="micro"), binl, binp),
+             ("mcc", m.MCC, binl, binp),
+             ("mcc_micro", lambda: m.MCC(average="micro"), binl, binp),
+             ("perplexity", lambda: m.Perplexity(ignore_label=None),
+              classes, probs),
+             ("pearsonr", m.PearsonCorrelation, reg, reg2),
+             ("nll_loss", m.NegativeLogLikelihood, classes, probs),
+             ("torch", m.Torch, classes, probs),
+             ("caffe", m.Caffe, classes, probs),
+             ("custom", lambda: m.CustomMetric(
+                 lambda l, p: float((p.argmax(1) == l).mean())), classes,
+              probs),
+             ("np", lambda: m.np(lambda l, p: float(onp.abs(l - p).mean())),
+              reg, reg2),
+             ("alias_pearsonr", lambda: m.create("pearsonr"), reg, reg2)]
+    rows = []
+    for name, make, label, pred in cases:
+        readings = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            metric = make()
+            for k in range(2):
+                metric.update([mx.nd.array(label, ctx=ctx)],
+                              [mx.nd.array(pred * (k + 1), ctx=ctx)])
+            readings.append((metric.get(), metric.get_global()))
+        rows.append({"metric": name, "value": readings[0][0][1]})
+        check(readings[0] == readings[1] and all(
+            onp.isfinite(r[1]) for r in readings[0]),
+            "metric %s on the card %r, on the CPU %r"
+            % (name, readings[0], readings[1]))
+    return rows
+
+
+def training_rest_phase(torch, mx, attention, layernorm, fused_norm, seed,
+                        card, mesh):
+    """The rest of training on the card: AdamW in BERT-base's
+    DataParallelStep (graphed, eager, ZeRO on the one-rank NCCL
+    ``mesh``), ResNet-50 v1 through ``Estimator.fit`` fed by DataLoader
+    workers, and every new rule, loss and metric against the CPU.  Each
+    path's hand-kernel counts from 0 just before it, read just after."""
+    out = {}
+    t = time.perf_counter()
+    out["adamw"] = adamw_bert_phase(torch, mx, attention, layernorm, seed,
+                                    card, mesh)
+    out["adamw_s"] = time.perf_counter() - t
+    _print_adamw(out["adamw"], card)
+    _reset_counts(attention, layernorm)
+    t = time.perf_counter()
+    out["estimator"] = estimator_phase(torch, mx, fused_norm, seed, card)
+    out["estimator_s"] = time.perf_counter() - t
+    _print_estimator(out["estimator"], card)
+    est_other = _hand_kernel_launches(attention, layernorm, fused_norm)
+    est_other.pop("fused_norm")
+    check(all(v == (0, 0) for v in est_other.values()),
+          "the Estimator's ResNet launched an attention or LayerNorm kernel:"
+          " %r" % est_other)
+    _reset_counts(attention, layernorm)
+    fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
+    t = time.perf_counter()
+    out["rules"] = rules_card_vs_cpu(torch, mx, seed)
+    out["losses"] = losses_card_vs_cpu(torch, mx, seed)
+    out["metrics"] = metrics_card_vs_cpu(mx, seed)
+    out["sweeps_s"] = time.perf_counter() - t
+    _print_sweeps(out, card)
+    out["sweep_launches"] = _hand_kernel_launches(attention, layernorm,
+                                                  fused_norm)
+    print("training rest: seconds adamw %.1f, estimator %.1f, sweeps %.1f; "
+          "sweep launches %s" % (out["adamw_s"], out["estimator_s"],
+                                 out["sweeps_s"], out["sweep_launches"]))
+    # one eval forward of the rules' ResNet-50 settles its shapes: 16
+    # epilogue launches; nothing else of the sweeps runs a hand kernel
+    want = {k: (0, 0) for k in out["sweep_launches"]}
+    want["fused_norm"] = (16, 0)
+    check(out["sweep_launches"] == want,
+          "the rule, loss and metric sweeps launched %r, want %r"
+          % (out["sweep_launches"], want))
+    return out
+
+
+def _print_adamw(a, card):
+    for name, what in (("plain", "no mesh"),
+                       ("zero", "one-rank NCCL mesh, shard_optimizer=True")):
+        run = a[name]
+        print("adamw bert: DataParallelStep, %s: BERT-base bf16 MLM at %d x "
+              "%d, AdamW lr %g wd %g, %d steps, losses %s; step %.3f ms "
+              "(median of %d), optimizer state %d bytes a rank, launches "
+              "(B, T, H, D) attention fwd %d bwd %d, LayerNorm fwd %d bwd %d"
+              " (%s)" % (what, BERT_BATCH, BERT_SEQ, ADAMW_PARAMS[
+                  "learning_rate"], ADAMW_PARAMS["wd"], run["steps"],
+                  [round(v, 4) for v in run["losses"]], run["step_ms"],
+                  BERT_TRAIN_TIMED, run["state_bytes"], *run["launches"],
+                  card))
+    print("adamw bert: launches a step (B, T, H, D) attention fwd %d bwd %d,"
+          " LayerNorm fwd %d bwd %d, as Adam's; the ZeRO steps gave the "
+          "bits of the steps without a mesh" % (
+              (BERT_ATTN_PER_STEP,) * 2 + (BERT_LN_PER_STEP,) * 2))
+    print_graphed(a["graph"], card)
+
+
+def _print_estimator(e, card):
+    print("estimator: ResNet-50 v1 + softmax through Estimator.fit, %d "
+          "epochs of %d batches of %d from DataLoader(num_workers=%d) over "
+          "RandomFlipLeftRight, ToTensor, Normalize; Trainer nadam lr %g; "
+          "losses %s; metrics %s; step %.3f ms (median of %d; %s); the loop "
+          "waited on the loader %.3f ms for the first batch (the workers' "
+          "start) and %.3f ms (median) for each later one, %.3f s in all; "
+          "fit %.2f s; epilogue launches fwd %d bwd %d; checkpoint %s read "
+          "back, %d bytes (%s)"
+          % (EST_EPOCHS, EST_BATCHES, EST_BATCH, EST_WORKERS,
+             EST_NADAM["learning_rate"], [round(v, 4) for v in e["losses"]],
+             {k: round(v, 4) for k, v in e["metrics"].items()}, e["step_ms"],
+             e["steps"], [round(v, 1) for v in e["step_ms_all"]],
+             e["wait_first_ms"], e["wait_later_ms"], e["wait_total_s"],
+             e["fit_s"], e["launches"][0], e["launches"][1],
+             e["checkpoint_files"], e["checkpoint_bytes"], card))
+
+
+def _print_sweeps(r, card):
+    for row in r["rules"]:
+        if row["rule"] == "sgld":
+            print("rules: sgld on the card: noise mean %.3g s.e., std rel "
+                  "err %.3g over %d draws (%s)"
+                  % (row["noise_mean_se"], row["noise_std_rel_err"],
+                     row["draws"], card))
+        else:
+            print("rules: %s: one Trainer.step over ResNet-50 v1's "
+                  "parameters, card vs CPU update rel L2 %.3g (limit %g), "
+                  "worst %s; card step %.3f s (%s)"
+                  % (row["rule"], row["update_rel_l2"], RULE_UPDATE_REL_L2,
+                     ", ".join("%s %.3g" % (k, v) for v, k in row["worst"]),
+                     row["card_s"], card))
+    for row in r["losses"]:
+        print("losses: %s at %s: card vs CPU value rel err %.3g, gradient "
+              "rel L2 %.3g; forward and backward %.3f ms on the card (%s)"
+              % (row["loss"], row["shape"], row["value_rel_err"],
+                 row["grad_rel_l2"], row["card_ms"], card))
+    print("metrics: %d metrics over card arrays gave the CPU's readings: %s"
+          % (len(r["metrics"]), ", ".join(
+              "%s %.4g" % (m["metric"], m["value"]) for m in r["metrics"])))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6227,6 +6889,13 @@ def main(argv=None):
         fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
         nnl = nn_layers_phase(torch, mx, args.seed, card, dist.group.WORLD)
         nn_launches = _hand_kernel_launches(attention, layernorm, fused_norm)
+        mark("nn layers")
+        # the rest of training: AdamW's BERT step (ZeRO on this group), the
+        # Estimator's ResNet-50 fed by DataLoader workers, the new rules,
+        # losses and metrics; each path's counts from 0 just before it
+        rest = training_rest_phase(torch, mx, attention, layernorm,
+                                   fused_norm, args.seed, card,
+                                   mx.parallel.device_mesh())
     finally:
         dist.destroy_process_group()
     print("nn: %d cases of %d ops on the card against the CPU, forward and "
@@ -6236,7 +6905,7 @@ def main(argv=None):
                              nnl["sync_all_reduces"], nn_launches))
     check(all(v == (0, 0) for v in nn_launches.values()),
           "the layers' ops launched a hand-written kernel")
-    mark("nn layers")
+    mark("training rest")
     # the LSTM LM path: counts from 0 just before, read just after; no TPU
     # kernel of the repo lies on it (its recurrence is cuDNN's)
     _reset_counts(attention, layernorm)
@@ -6297,7 +6966,11 @@ def main(argv=None):
                                             zoo["infer"].values())
                           + sum(r["launches"]
                                 for r in zoo["parity"].values())
-                          + zoo["train"]["launches"][0]},
+                          + zoo["train"]["launches"][0],
+                          "estimator_resnet50":
+                          rest["estimator"]["launches"][0],
+                          "training_rest_sweeps":
+                          rest["sweep_launches"]["fused_norm"][0]},
         serving=numbers("fwd", "serve"),
         resnet152_inference=numbers("fwd", "infer152"),
         per="ms/plain_ms/bound_ms: one batch-32 ResNet-50 training step (16 "
@@ -6321,7 +6994,9 @@ def main(argv=None):
                           "dp_resnet": dpr["dp"]["bwd_launches"],
                           "dp_resnet_trainer_nccl":
                           dpr["trainer_nccl"]["bwd_launches"],
-                          "lstm_lm": lm_launches["fused_norm"][1]},
+                          "lstm_lm": lm_launches["fused_norm"][1],
+                          "estimator_resnet50":
+                          rest["estimator"]["launches"][1]},
         per="ms/plain_ms/bound_ms: one batch-32 ResNet-50 training step (16 "
             "launches at the train shapes below); launches: the training "
             "path's %d steps; library: %s" % (train["steps"], no_library),
@@ -6354,6 +7029,12 @@ def main(argv=None):
                           "bert_amp_bf16": amp_bf16["layernorm_launches"],
                           "dp_bert": dpb["plain"]["launches"][2],
                           "dp_bert_zero_nccl": dpb["zero"]["launches"][2],
+                          "dp_bert_adamw":
+                          rest["adamw"]["plain"]["launches"][2],
+                          "dp_bert_adamw_zero_nccl":
+                          rest["adamw"]["zero"]["launches"][2],
+                          "dp_bert_adamw_graphed_vs_eager":
+                          rest["adamw"]["graph"]["launches"][2],
                           "lstm_lm": lm_launches["layernorm"][0]},
         max_abs_err=max(r["max_abs_err"] for r in ln_rows
                         if r["dtype"] != "float16"),
@@ -6376,6 +7057,12 @@ def main(argv=None):
                           amp_bf16["layernorm_bwd_launches"],
                           "dp_bert": dpb["plain"]["launches"][3],
                           "dp_bert_zero_nccl": dpb["zero"]["launches"][3],
+                          "dp_bert_adamw":
+                          rest["adamw"]["plain"]["launches"][3],
+                          "dp_bert_adamw_zero_nccl":
+                          rest["adamw"]["zero"]["launches"][3],
+                          "dp_bert_adamw_graphed_vs_eager":
+                          rest["adamw"]["graph"]["launches"][3],
                           "lstm_lm": lm_launches["layernorm"][1]},
         max_abs_err=max(r["max_abs_err"] for r in ln_bwd_rows
                         if r["dtype"] != "float16"),
@@ -6482,6 +7169,12 @@ def main(argv=None):
                                       amp_bf16["attention_bwd_launches"]),
                     "dp_bert": tuple(dpb["plain"]["launches"][:2]),
                     "dp_bert_zero_nccl": tuple(dpb["zero"]["launches"][:2]),
+                    "dp_bert_adamw":
+                    tuple(rest["adamw"]["plain"]["launches"][:2]),
+                    "dp_bert_adamw_zero_nccl":
+                    tuple(rest["adamw"]["zero"]["launches"][:2]),
+                    "dp_bert_adamw_graphed_vs_eager":
+                    tuple(rest["adamw"]["graph"]["launches"][:2]),
                     "lstm_lm": lm_launches["attention_bshd"]},
         per={"fwd": "ms/plain_ms/bound_ms/library_ms: 12 launches at the "
                     "case 'bert' (what a BERT-base bf16 forward at 24 x 512 "
@@ -6622,6 +7315,9 @@ def main(argv=None):
         e["launches_by_path"]["array_surface"] = 0   # checked above
         e["launches_by_path"].setdefault("nn_layers", 0)   # checked above
         e["launches_by_path"].setdefault("vision_zoo", 0)   # checked above
+        # the rule, loss and metric sweeps: checked in their phase
+        e["launches_by_path"].setdefault("training_rest_sweeps", 0)
+        e["launches_by_path"].setdefault("estimator_resnet50", 0)
     print("attention sublayer, the layer's choice: (B, T, H, D) %.4f ms "
           "against (B, H, T, D) with transposes %.4f ms forward and "
           "backward  (%s)" % (sublayer["bshd"], sublayer["bhtd"], card))

@@ -3,9 +3,9 @@
 The port of ``mxnet_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
 kept in the same module layout and public names: ``mx.nd``,
 ``mx.autograd``, ``mx.gluon``, ``mx.init``, ``mx.random``,
-``mx.optimizer``, ``mx.lr_scheduler``, ``mx.metric``, ``mx.io``,
-``mx.callback``, ``mx.kv``, ``mx.parallel``, ``mx.serve`` and
-``mx.contrib``.
+``mx.optimizer`` (``mx.opt``), ``mx.lr_scheduler``, ``mx.metric``,
+``mx.io``, ``mx.callback``, ``mx.kv``, ``mx.parallel``, ``mx.serve``,
+``mx.contrib``, ``mx.NDArray``, ``mx.num_gpus`` and ``mx.cpu_pinned``.
 Its default context is the card (``mx.gpu(0)``); the CPU runs only when
 the caller asks for ``mx.cpu()``.  When ``MXNET_TPU_COORDINATOR_ADDRESS``
 is set, importing the package joins the process group
@@ -17,7 +17,8 @@ import os as _os
 
 from . import base  # noqa: F401
 from .base import MXNetError  # noqa: F401
-from .context import Context, cpu, current_context, gpu  # noqa: F401
+from .context import (Context, cpu, cpu_pinned, current_context,  # noqa: F401
+                      gpu, num_gpus)
 from . import autograd  # noqa: F401
 from . import random  # noqa: F401
 from . import ops  # noqa: F401
@@ -28,6 +29,7 @@ from . import initializer as init  # noqa: F401
 from . import telemetry  # noqa: F401
 from . import lr_scheduler  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import optimizer as opt  # noqa: F401
 from . import metric  # noqa: F401
 from . import io  # noqa: F401
 from . import callback  # noqa: F401
@@ -38,6 +40,7 @@ from . import parallel  # noqa: F401
 from . import serve  # noqa: F401
 from . import contrib  # noqa: F401
 from .base import __version__  # noqa: F401
+from .ndarray import NDArray  # noqa: F401
 
 if _os.environ.get("MXNET_TPU_COORDINATOR_ADDRESS"):
     # launched as one rank of several: join before anything runs, and let a

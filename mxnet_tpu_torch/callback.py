@@ -1,18 +1,24 @@
-"""Training callbacks: ``Speedometer``.
+"""Training callbacks: ``Speedometer``, ``ProgressBar``,
+``log_train_metric`` and ``LogValidationMetricsCallback``.
 
-Counterpart of ``Speedometer`` in ``mxnet_tpu/callback.py``: called at the
-end of every batch with a ``BatchEndParam``, it logs the samples per
-second of the last ``frequent`` batches (and the metric, when one is
-given).  The telemetry suffix of the JAX package's line and the other
-callbacks come with later slices.
+Counterpart of the same callbacks in ``mxnet_tpu/callback.py``: each is
+called at the end of a batch (or an epoch) with a ``BatchEndParam`` and
+logs through ``logging``.  ``Speedometer`` logs the samples per second of
+the last ``frequent`` batches (and the metric, when one is given).  The
+telemetry suffix of the JAX package's line and its ``attach`` wait with
+the rest of ``telemetry.py``; ``do_checkpoint`` and ``module_checkpoint``
+wait with ``Module`` and ``model.save_checkpoint`` (ROADMAP.md, queue 1,
+item 5).
 """
 from __future__ import annotations
 
 import logging
+import math
 import time
 from collections import namedtuple
 
-__all__ = ["BatchEndParam", "Speedometer"]
+__all__ = ["BatchEndParam", "Speedometer", "ProgressBar",
+           "log_train_metric", "LogValidationMetricsCallback"]
 
 BatchEndParam = namedtuple("BatchEndParam",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -55,3 +61,44 @@ class Speedometer:
             args += sum(name_value, ())
         logging.info(msg, *args)
         self.tic = time.time()
+
+
+class ProgressBar:
+    """Logs an ASCII bar of ``nbatch`` out of ``total`` batches."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param):
+        count = param.nbatch
+        filled_len = int(round(self.bar_len * count / float(self.total)))
+        percents = math.ceil(100.0 * count / float(self.total))
+        prog_bar = "=" * filled_len + "-" * (self.bar_len - filled_len)
+        logging.info("[%s] %s%s\r", prog_bar, percents, "%")
+
+
+def log_train_metric(period, auto_reset=False):
+    """A batch-end callback logging the metric every ``period`` batches
+    (``auto_reset``: then clearing its window)."""
+
+    def _callback(param):
+        if param.nbatch % period == 0 and param.eval_metric is not None:
+            name_value = param.eval_metric.get_name_value()
+            for name, value in name_value:
+                logging.info("Iter[%d] Batch[%d] Train-%s=%f",
+                             param.epoch, param.nbatch, name, value)
+            if auto_reset:
+                param.eval_metric.reset_local()
+    return _callback
+
+
+class LogValidationMetricsCallback:
+    """An epoch-end callback logging each validation metric."""
+
+    def __call__(self, param):
+        if param.eval_metric is None:
+            return
+        for name, value in param.eval_metric.get_name_value():
+            logging.info("Epoch[%d] Validation-%s=%f", param.epoch, name,
+                         value)

@@ -1,8 +1,9 @@
 """Datasets: ``Dataset``, ``SimpleDataset`` and ``ArrayDataset``.
 
 Counterpart of the same classes in ``mxnet_tpu/gluon/data/dataset.py``,
-with ``transform``/``transform_first``, ``take`` and ``shard``.  The
-RecordIO dataset comes with a later slice.
+with ``transform``/``transform_first``, ``filter``, ``take`` and
+``shard``.  ``RecordFileDataset`` waits with ``recordio`` (ROADMAP.md,
+queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -19,6 +20,12 @@ class Dataset:
 
     def __len__(self):
         raise NotImplementedError
+
+    def filter(self, fn):
+        """The samples for which ``fn(sample)`` is true, as a
+        SimpleDataset."""
+        return SimpleDataset([self[i] for i in range(len(self))
+                              if fn(self[i])])
 
     def shard(self, num_shards, index):
         """The ``index``-th of ``num_shards`` contiguous parts (the first

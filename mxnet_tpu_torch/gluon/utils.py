@@ -1,8 +1,10 @@
-"""Gluon utilities: batch splitting, global-norm clipping, and carrying
-weights over from the JAX package.
+"""Gluon utilities: batch splitting, global-norm clipping, file and shape
+checks, and carrying weights over from the JAX package.
 
-``split_data``, ``split_and_load`` and ``clip_global_norm`` are the
-counterparts of those in ``mxnet_tpu/gluon/utils.py``.
+``split_data``, ``split_and_load``, ``clip_global_norm``, ``check_sha1``
+and ``shape_is_known`` are the counterparts of those in
+``mxnet_tpu/gluon/utils.py``; ``download`` is not ported (nothing is
+fetched).
 ``load_jax_params(net, arrays)`` copies arrays keyed by the structural
 names of the JAX package's ``_collect_params_with_prefix()`` into the port
 net's parameters of the same structural names.  Both packages keep conv
@@ -13,6 +15,7 @@ prefixes (``resnetv10_`` vs ``resnetv11_``).
 """
 from __future__ import annotations
 
+import hashlib
 import warnings
 from typing import Mapping
 
@@ -23,7 +26,7 @@ from ..base import MXNetError
 from ..ndarray import NDArray, array
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm",
-           "load_jax_params"]
+           "check_sha1", "shape_is_known", "load_jax_params"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -74,6 +77,26 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True):
         for a in arrays:
             a._data = a._data * scale.to(a._data.dtype)
     return float(total_norm) if check_isfinite else total_norm
+
+
+def check_sha1(filename, sha1_hash):
+    """Whether the file's SHA-1 hex digest is ``sha1_hash``."""
+    sha1 = hashlib.sha1()
+    with open(filename, "rb") as f:
+        while True:
+            data = f.read(1048576)
+            if not data:
+                break
+            sha1.update(data)
+    return sha1.hexdigest() == sha1_hash
+
+
+def shape_is_known(shape):
+    """Whether ``shape`` is given and has no unknown (0 or negative)
+    dimension."""
+    if shape is None:
+        return False
+    return all(s > 0 for s in shape)
 
 
 def load_jax_params(net, arrays: Mapping[str, onp.ndarray]) -> None:

@@ -1,8 +1,11 @@
 """Optimizers and the updater that owns their states.
 
-Counterpart of ``mxnet_tpu/optimizer/optimizer.py`` for ``SGD`` (with
-momentum), ``NAG`` and ``Adam``: the ``Optimizer`` base with its name
-registry, learning-rate and weight-decay multipliers, update counting,
+Counterpart of ``mxnet_tpu/optimizer/optimizer.py``, with all of its
+sixteen rules (``SGD``, ``Signum``, ``FTML``, ``LBSGD``, ``DCASGD``,
+``NAG``, ``SGLD``, ``Adam``, ``AdamW``, ``AdaGrad``, ``RMSProp``,
+``AdaDelta``, ``Ftrl``, ``Adamax``, ``Nadam`` and ``Test``): the
+``Optimizer`` base with its name registry, learning-rate and
+weight-decay multipliers, update counting,
 gradient preprocessing (rescale, then clip, then weight decay) and fp32
 master weights for half-width weights (``multi_precision``), plus
 ``Updater``/``get_updater`` with state (de)serialization.
@@ -52,7 +55,9 @@ from ..ndarray import NDArray
 from ..ndarray.ndarray import _wrap
 
 __all__ = ["Optimizer", "Updater", "get_updater", "create", "register",
-           "SGD", "NAG", "Adam", "pin_update_dtypes", "DeviceScales"]
+           "SGD", "Signum", "FTML", "LBSGD", "DCASGD", "NAG", "SGLD", "Adam",
+           "AdamW", "AdaGrad", "RMSProp", "AdaDelta", "Ftrl", "Adamax",
+           "Nadam", "Test", "pin_update_dtypes", "DeviceScales"]
 
 
 def pin_update_dtypes(res, weight, state_leaves):
@@ -223,6 +228,9 @@ class Optimizer:
         return step
 
     _has_step = False
+    # the rule reads host state that each weight's update advances (Nadam's
+    # momentum schedule, LBSGD's clock): weights update one at a time
+    _in_order = False
 
     # -- updates --------------------------------------------------------
     def update(self, index, weight, grad, state):
@@ -231,6 +239,10 @@ class Optimizer:
         another."""
         indices, weights, grads, states = _as_lists(index, weight, grad,
                                                     state)
+        if self._in_order and len(indices) > 1:
+            for one in zip(indices, weights, grads, states):
+                self.update(*one)
+            return
         self._update_count(indices)
         self._run(indices, [w._data for w in weights],
                   [g._data for g in grads], states, False)
@@ -244,9 +256,18 @@ class Optimizer:
     def _update_multi_precision(self, index, weight, grad, state, fused):
         """:meth:`update_multi_precision`; ``fused``: as the JAX package's
         ``Trainer.step`` updates, through the optimizer's jitted step (see
-        :meth:`_step`)."""
+        :meth:`_step`).  A rule without one (``_has_step`` false) updates
+        eagerly there too, as the JAX package's Trainer falls back to its
+        ``Updater``; a rule whose host state advances weight by weight
+        (``_in_order``) updates one weight after another, in index
+        order."""
         indices, weights, grads, states = _as_lists(index, weight, grad,
                                                     state)
+        if self._in_order and len(indices) > 1:
+            for one in zip(indices, weights, grads, states):
+                self._update_multi_precision(*one, fused)
+            return
+        fused = fused and self._has_step
         self._update_count(indices)
         half = [self.multi_precision and self._is_half(w._data.dtype)
                 for w in weights]
@@ -717,6 +738,535 @@ class Adam(Optimizer):
         new = [w.float() for w in ws]
         torch._foreach_sub_(new, step)
         torch._foreach_copy_(ws, new)
+
+
+# ---------------------------------------------------------------------------
+# The other rules.  Each is written as the JAX package's eager ``update``
+# computes it, one operation after another in the weight's dtype, every
+# Python number rounded to that dtype first (``_smul``/``_sadd``); AdamW
+# alone has a jitted step, the others update eagerly in ``Trainer.step``
+# too and raise in ``make_step``.
+# ---------------------------------------------------------------------------
+
+def _per(values, n):
+    return values if isinstance(values, list) else [values] * n
+
+
+def _smul(tensors, values):
+    """Each tensor times its value (one float, or one a tensor), rounded
+    to the tensor's dtype first."""
+    return torch._foreach_mul(tensors, _rounded(_per(values, len(tensors)),
+                                                tensors))
+
+
+def _sadd(tensors, values):
+    """Each tensor plus its value, rounded to the tensor's dtype first."""
+    return torch._foreach_add(tensors, _rounded(_per(values, len(tensors)),
+                                                tensors))
+
+
+def _sdiv(tensors, values):
+    """Each tensor divided by its value, rounded to the tensor's dtype
+    first."""
+    return torch._foreach_div(tensors, _rounded(_per(values, len(tensors)),
+                                                tensors))
+
+
+def _moment(state, decay, g, square=False):
+    """``decay * s + (1 - decay) * g`` (``* g`` again with ``square``),
+    each product rounded."""
+    new = _smul(g, 1 - decay)
+    if square:
+        torch._foreach_mul_(new, g)
+    return torch._foreach_add(_smul(state, decay), new)
+
+
+def _clip_(tensors, bound):
+    torch._foreach_clamp_min_(tensors, _scalars(-bound, tensors))
+    torch._foreach_clamp_max_(tensors, _scalars(bound, tensors))
+
+
+@register
+class Signum(Optimizer):
+    """signSGD (no momentum: ``w = w - lr * sign(g)``) and Signum:
+    ``m = momentum * m - (1 - momentum) * g``,
+    ``w = (1 - lr * wd_lh) * w + lr * sign(m)``."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return _zeros_like(weight)
+
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
+        g = self._preprocess(gs, ws, wds)
+        if not slots:
+            torch._foreach_sub_(ws, _smul(torch._foreach_sign(g), lrs))
+            return
+        (moms,) = slots
+        mom = self.momentum
+        torch._foreach_copy_(moms, torch._foreach_sub(_smul(moms, mom),
+                                                      _smul(g, 1 - mom)))
+        torch._foreach_copy_(ws, torch._foreach_add(
+            _smul(ws, [1 - lr * self.wd_lh for lr in lrs]),
+            _smul(torch._foreach_sign(moms), lrs)))
+
+
+@register
+class FTML(Optimizer):
+    """Follow the Moving Leader; the state is ``(d, v, z)``."""
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight),
+                _zeros_like(weight))
+
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
+        b1, b2 = self.beta1, self.beta2
+        g = self._preprocess(gs, ws, wds)
+        d, v, z = slots
+        torch._foreach_copy_(v, _moment(v, b2, g, square=True))
+        root = torch._foreach_sqrt(_sdiv(v, [1 - b2 ** t for t in counts]))
+        d_new = _smul(_sadd(root, self.epsilon),
+                      [(1 - b1 ** t) / lr for lr, t in zip(lrs, counts)])
+        sigma = torch._foreach_sub(d_new, _smul(d, b1))
+        z_new = torch._foreach_add(_smul(z, b1), _smul(g, 1 - b1))
+        torch._foreach_sub_(z_new, torch._foreach_mul(sigma, ws))
+        torch._foreach_copy_(d, d_new)
+        torch._foreach_copy_(z, z_new)
+        torch._foreach_copy_(ws, torch._foreach_div(torch._foreach_neg(z), d))
+
+
+@register
+class LBSGD(Optimizer):
+    """Large-batch SGD: SGD (with momentum) at ``lr`` times a multiplier
+    that warms up from 1 to ``batch_scale`` over ``warmup_epochs``
+    (``linear``, ``power2`` or ``sqrt``), or LARS's trust ratio
+    ``||w|| / sqrt(||g||^2 + wd ||w||^2)`` clipped to [0.01, 100]
+    (``warmup_strategy='lars'``)."""
+
+    _in_order = True
+
+    def __init__(self, momentum=0.0, multi_precision=False,
+                 warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 **kwargs):
+        super().__init__(multi_precision=multi_precision, **kwargs)
+        self.momentum, self.lbmult = momentum, 1.0
+        self.warmup_strategy, self.warmup_epochs = (warmup_strategy,
+                                                    warmup_epochs)
+        self.batch_scale, self.num_epochs = batch_scale, num_epochs
+        self.updates_per_epoch = updates_per_epoch
+        self.init_updates = begin_epoch * updates_per_epoch
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return _zeros_like(weight)
+
+    _WARMUP_RAMPS = {
+        "linear": lambda f: f,
+        "power2": lambda f: f * f,
+        "sqrt": math.sqrt,
+    }
+
+    def _get_lbmult(self, nup):
+        nwup = self.warmup_epochs * self.updates_per_epoch
+        maxmult = float(self.batch_scale)
+        if nwup <= 1:
+            return 1.0 if nup < nwup else maxmult
+        if nup >= nwup:
+            return maxmult
+        ramp = self._WARMUP_RAMPS.get(self.warmup_strategy)
+        if ramp is None:
+            return 1.0
+        return 1.0 + (maxmult - 1) * ramp(float(nup) / nwup)
+
+    @staticmethod
+    def _get_lars(weight, g, wd):
+        w2 = float((weight * weight).sum())
+        g2 = float((g * g).sum())
+        lars = math.sqrt(w2 / (g2 + wd * w2 + 1e-18)) \
+            if (g2 + wd * w2) > 0 else 1.0
+        return min(max(lars, 0.01), 100)
+
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
+        if self.warmup_strategy == "lars":
+            mults = [self._get_lars(w, g, wd)
+                     for w, g, wd in zip(ws, gs, wds)]
+        else:
+            mults = [self._get_lbmult(self.num_update)] * len(ws)
+        lrs = [lr * m for lr, m in zip(lrs, mults)]
+        g = self._preprocess(gs, ws, wds)
+        if not slots:
+            _sgd_step(ws, g, lrs)
+            return
+        (moms,) = slots
+        torch._foreach_mul_(moms, _scalars(self.momentum, ws))
+        torch._foreach_sub_(moms, _smul(g, lrs))
+        torch._foreach_add_(ws, moms)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated SGD: the gradient plus
+    ``lamda * g * g * (w - w_prev)``, then SGD (with momentum); the state
+    is ``(momentum or None, w_prev)``."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return (None, weight.copy())
+        return (_zeros_like(weight), weight.copy())
+
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
+        g = self._preprocess(gs, ws, wds)
+        prev = slots[-1]
+        comp = torch._foreach_mul(_smul(g, self.lamda), g)
+        torch._foreach_mul_(comp, torch._foreach_sub(ws, prev))
+        step = _smul(torch._foreach_add(g, comp), lrs)
+        torch._foreach_copy_(prev, ws)
+        if len(slots) == 1:
+            torch._foreach_sub_(ws, step)
+            return
+        moms = slots[0]
+        torch._foreach_copy_(moms, torch._foreach_sub(
+            _smul(moms, self.momentum), step))
+        torch._foreach_add_(ws, moms)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics:
+    ``w = w - lr / 2 * g + sqrt(lr) * N(0, 1)``, the noise drawn in the
+    weight's dtype from the port's generator of its device."""
+
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
+        from .. import random as _random
+        g = self._preprocess(gs, ws, wds)
+        noise = _smul([torch.randn(w.shape, dtype=w.dtype, device=w.device,
+                                   generator=_random.generator(w.device))
+                       for w in ws], [math.sqrt(lr) for lr in lrs])
+        new = torch._foreach_sub(ws, _smul(g, [lr / 2 for lr in lrs]))
+        torch._foreach_copy_(ws, torch._foreach_add(new, noise))
+
+
+def _adamw_jitted(ws, gs, means, variances, scales, wds, rule):
+    """AdamW's update of one width class in the arithmetic of the JAX
+    package's jitted step (``scales``: each weight's ``lr`` in its
+    dtype).  fp32: XLA folds ``rescale_grad`` into the moments' constants
+    (``g * (rescale * (1 - beta1))``) where nothing is clipped between,
+    each moment is one fused multiply-add, and so are ``+ wd * w`` and
+    ``w - eta * (...)``.  Half width: every operation rounds in the
+    weight's dtype, one after another."""
+    b1, b2, eps, eta = rule.beta1, rule.beta2, rule.epsilon, rule.eta
+    full = ws[0].dtype == torch.float32
+    gs = [g.to(w.dtype) if g.dtype != w.dtype else g for g, w in zip(gs, ws)]
+    dtype = ws[0].dtype
+    rescale = _in_dtype(rule.rescale_grad, dtype)
+    gg = torch._foreach_mul(gs, rescale)
+    if rule.clip_gradient is None and full:
+        gm = torch._foreach_mul(gs, _f32(rescale * _f32(1 - b1)))
+        gv = torch._foreach_mul(gs, _f32(rescale * _f32(1 - b2)))
+    else:
+        if rule.clip_gradient is not None:
+            _clip_(gg, rule.clip_gradient)
+        gm = _smul(gg, 1 - b1)
+        gv = _smul(gg, 1 - b2)
+    torch._foreach_mul_(gv, gg)
+    if full:
+        new_m = _muladd_all(means, b1, gm)
+        new_v = _muladd_all(variances, b2, gv)
+    else:
+        new_m = torch._foreach_add(_smul(means, b1), gm)
+        new_v = torch._foreach_add(_smul(variances, b2), gv)
+    torch._foreach_copy_(means, new_m)
+    torch._foreach_copy_(variances, new_v)
+    step = torch._foreach_div(_scaled(means, scales),
+                              _sadd(torch._foreach_sqrt(variances), eps))
+    if full:
+        step = [torch.add(s, w, alpha=_f32(wd))
+                for s, w, wd in zip(step, ws, wds)]
+        for w, s in zip(ws, step):
+            w.add_(s, alpha=-_f32(eta))
+        return
+    torch._foreach_add_(step, _smul(ws, wds))
+    torch._foreach_sub_(ws, _smul(step, eta))
+
+
+@register
+class AdamW(Optimizer):
+    """Adam with decoupled weight decay and no bias correction:
+    ``m = beta1 * m + (1 - beta1) * g``,
+    ``v = beta2 * v + (1 - beta2) * g^2``,
+    ``w = w - eta * (lr * m / (sqrt(v) + epsilon) + wd * w)``; the state is
+    (m, v).  The gradient is rescaled and clipped, never decayed.  Its
+    ``make_step`` takes the learning rate (in the weight's dtype) as the
+    one value that changes from step to step."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, eta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.eta = eta
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    _has_step = True
+
+    def _fused_scale(self, lr, t, dtype):
+        return _in_dtype(lr, dtype)
+
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
+        means, variances = slots
+        if fused:
+            if scales is None:
+                scales = self._fused_scales(lrs, counts, ws)
+            for k in _width_groups(ws):
+                _adamw_jitted(_pick(ws, k), _pick(gs, k), _pick(means, k),
+                              _pick(variances, k), _pick(scales, k),
+                              _pick(wds, k), self)
+            return
+        g = self._preprocess(gs, ws, [0.0] * len(ws))
+        torch._foreach_copy_(means, _moment(means, self.beta1, g))
+        torch._foreach_copy_(variances, _moment(variances, self.beta2, g,
+                                                square=True))
+        step = torch._foreach_div(
+            _smul(means, lrs),
+            _sadd(torch._foreach_sqrt(variances), self.epsilon))
+        torch._foreach_add_(step, _smul(ws, wds))
+        torch._foreach_sub_(ws, _smul(step, self.eta))
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad: ``h = h + g^2``, ``w = w - lr * g / (sqrt(h) + eps)``."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
+        g = self._preprocess(gs, ws, wds)
+        (hist,) = slots
+        torch._foreach_add_(hist, torch._foreach_mul(g, g))
+        den = _sadd(torch._foreach_sqrt(hist), self.float_stable_eps)
+        torch._foreach_sub_(ws, torch._foreach_div(_smul(g, lrs), den))
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp: ``n = (1 - gamma1) * g^2 + gamma1 * n``,
+    ``w = w - lr * g / sqrt(n + epsilon)``; centred (Graves):
+    ``gbar = (1 - gamma1) * g + gamma1 * gbar``,
+    ``delta = gamma2 * delta - lr * g / sqrt(n - gbar^2 + epsilon)``,
+    ``w = w + delta``.  ``clip_weights`` clips the new weight."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2 = gamma1, gamma2
+        self.centered, self.epsilon = centered, epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return (_zeros_like(weight), _zeros_like(weight),
+                    _zeros_like(weight))
+        return (_zeros_like(weight),)
+
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
+        g1, eps = self.gamma1, self.epsilon
+        g = self._preprocess(gs, ws, wds)
+        n = slots[0]
+        sq = torch._foreach_mul(_smul(g, 1 - g1), g)
+        torch._foreach_copy_(n, torch._foreach_add(sq, _smul(n, g1)))
+        step = _smul(g, lrs)
+        if not self.centered:
+            torch._foreach_sub_(ws, torch._foreach_div(
+                step, torch._foreach_sqrt(_sadd(n, eps))))
+        else:
+            gbar, delta = slots[1], slots[2]
+            torch._foreach_copy_(gbar, torch._foreach_add(
+                _smul(g, 1 - g1), _smul(gbar, g1)))
+            var = _sadd(torch._foreach_sub(n, torch._foreach_mul(gbar, gbar)),
+                        eps)
+            torch._foreach_copy_(delta, torch._foreach_sub(
+                _smul(delta, self.gamma2),
+                torch._foreach_div(step, torch._foreach_sqrt(var))))
+            torch._foreach_add_(ws, delta)
+        if self.clip_weights:
+            _clip_(ws, self.clip_weights)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (no learning rate):
+    ``acc_g = rho * acc_g + (1 - rho) * g^2``,
+    ``delta = sqrt(acc_d + eps) / sqrt(acc_g + eps) * g``,
+    ``acc_d = rho * acc_d + (1 - rho) * delta^2``, ``w = w - delta``."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
+        rho, eps = self.rho, self.epsilon
+        g = self._preprocess(gs, ws, wds)
+        acc_g, acc_d = slots
+        torch._foreach_copy_(acc_g, _moment(acc_g, rho, g, square=True))
+        delta = torch._foreach_div(torch._foreach_sqrt(_sadd(acc_d, eps)),
+                                   torch._foreach_sqrt(_sadd(acc_g, eps)))
+        torch._foreach_mul_(delta, g)
+        torch._foreach_copy_(acc_d, _moment(acc_d, rho, delta, square=True))
+        torch._foreach_sub_(ws, delta)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal: ``n = n + g^2``, ``z = z + g - (sqrt(n') - sqrt(n))
+    / lr * w``, ``w = -(z - sign(z) * lamda1) / ((beta + sqrt(n)) / lr +
+    wd)`` where ``|z| > lamda1``, else 0; the gradient is not decayed."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
+        l1 = self.lamda1
+        g = self._preprocess(gs, ws, [0.0] * len(ws))
+        z, n = slots
+        n_new = torch._foreach_add(n, torch._foreach_mul(g, g))
+        sigma = _sdiv(torch._foreach_sub(torch._foreach_sqrt(n_new),
+                                         torch._foreach_sqrt(n)), lrs)
+        z_new = torch._foreach_add(z, g)
+        torch._foreach_sub_(z_new, torch._foreach_mul(sigma, ws))
+        den = _sadd(_sdiv(_sadd(torch._foreach_sqrt(n_new), self.beta), lrs),
+                    wds)
+        num = torch._foreach_neg(torch._foreach_sub(
+            z_new, _smul(torch._foreach_sign(z_new), l1)))
+        new_w = torch._foreach_div(num, den)
+        for w, zz, nw in zip(ws, z_new, new_w):
+            w.copy_(torch.where(zz.abs() > _in_dtype(l1, zz.dtype), nw,
+                                torch.zeros_like(nw)))
+        torch._foreach_copy_(z, z_new)
+        torch._foreach_copy_(n, n_new)
+
+
+@register
+class Adamax(Optimizer):
+    """AdaMax, Adam under the infinity norm: ``u = max(beta2 * u, |g|)``,
+    ``w = w - lr / (1 - beta1^t) * m / (u + 1e-8)``."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
+        b1 = self.beta1
+        g = self._preprocess(gs, ws, wds)
+        means, u = slots
+        torch._foreach_copy_(means, _moment(means, b1, g))
+        torch._foreach_copy_(u, torch._foreach_maximum(
+            _smul(u, self.beta2), torch._foreach_abs(g)))
+        lr_ts = [lr / (1.0 - b1 ** t) for lr, t in zip(lrs, counts)]
+        torch._foreach_sub_(ws, torch._foreach_div(_smul(means, lr_ts),
+                                                   _sadd(u, 1e-8)))
+
+
+@register
+class Nadam(Optimizer):
+    """Nesterov Adam with the momentum schedule
+    ``mu_t = beta1 * (1 - 0.5 * 0.96^(t * schedule_decay))``, whose
+    running product ``m_schedule`` advances at every weight's update (a
+    state of the optimizer object)."""
+
+    _in_order = True
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def _step(self, ws, gs, slots, lrs, wds, counts, fused, scales=None):
+        b1, b2 = self.beta1, self.beta2
+        mu, mu_next, sched, sched_next = [], [], [], []
+        for t in counts:
+            mu.append(b1 * (1.0 - 0.5 * 0.96 ** (t * self.schedule_decay)))
+            mu_next.append(b1 * (1.0 - 0.5 * 0.96 ** (
+                (t + 1) * self.schedule_decay)))
+            self.m_schedule = self.m_schedule * mu[-1]
+            sched.append(1.0 - self.m_schedule)
+            sched_next.append(1.0 - self.m_schedule * mu_next[-1])
+        g = self._preprocess(gs, ws, wds)
+        means, variances = slots
+        g_prime = _sdiv(g, sched)
+        torch._foreach_copy_(means, _moment(means, b1, g))
+        m_prime = _sdiv(means, sched_next)
+        torch._foreach_copy_(variances, _moment(variances, b2, g, square=True))
+        v_prime = _sdiv(variances, [1.0 - b2 ** t for t in counts])
+        m_bar = torch._foreach_add(_smul(g_prime, [1.0 - m for m in mu]),
+                                   _smul(m_prime, mu_next))
+        torch._foreach_sub_(ws, torch._foreach_div(
+            _smul(m_bar, lrs),
+            _sadd(torch._foreach_sqrt(v_prime), self.epsilon)))
+
+
+@register
+class Test(Optimizer):
+    """The reference's test rule: ``w = w + g * rescale_grad``, with a
+    state that never changes and no update count."""
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    def _update_count(self, indices):
+        pass
+
+    def _run(self, indices, ws, gs, states, fused):
+        with torch.no_grad():
+            torch._foreach_add_(ws, _smul(gs, self.rescale_grad))
 
 
 # ---------------------------------------------------------------------------

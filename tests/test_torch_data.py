@@ -89,8 +89,10 @@ def test_dataloader_shuffle_and_refusals():
                                   mxt.gluon.data.DataLoader(
                                       ds, batch_size=3, shuffle=True)])
         assert sorted(labels.tolist()) == Y.tolist()
-        with pytest.raises(mxt.MXNetError, match="num_workers"):
-            mxt.gluon.data.DataLoader(ds, batch_size=3, num_workers=2)
+        with pytest.raises(ValueError, match="shuffle must not"):
+            mxt.gluon.data.DataLoader(
+                ds, batch_size=3, shuffle=True,
+                sampler=mxt.gluon.data.SequentialSampler(len(ds)))
         first = ds.transform_first(lambda d: d * 2)[1]
         onp.testing.assert_array_equal(first[0], X[1] * 2)
         assert len(ds.shard(3, 0)) == 4 and len(ds.take(2)) == 2

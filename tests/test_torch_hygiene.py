@@ -113,6 +113,33 @@ def test_every_module_of_the_array_surface_slice_is_checked():
         assert name in rel, name
 
 
+def test_every_module_of_the_rest_of_training_slice_is_checked():
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("optimizer/optimizer.py", "gluon/loss.py", "metric.py",
+                 "callback.py", "io/io.py", "gluon/data/dataloader.py",
+                 "gluon/data/dataset.py", "gluon/data/vision/__init__.py",
+                 "gluon/data/vision/datasets.py",
+                 "gluon/data/vision/transforms.py",
+                 "gluon/contrib/estimator/__init__.py",
+                 "gluon/contrib/estimator/estimator.py",
+                 "gluon/contrib/estimator/event_handler.py",
+                 "gluon/utils.py", "ndarray/contrib.py", "__init__.py"):
+        assert name in rel, name
+
+
+def test_optimizer_noise_draws_from_an_explicit_generator():
+    """SGLD's noise is drawn with the port's generator of the weight's
+    device, never torch's global one."""
+    path = os.path.join(PKG, "optimizer", "optimizer.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Attribute)
+             and n.func.attr in ("randn", "rand", "normal", "normal_")]
+    assert len(calls) == 1
+    assert any(k.arg == "generator" for k in calls[0].keywords)
+
+
 def test_samplers_draw_only_from_an_explicit_generator():
     """Every torch sampler call in the sampling ops passes the generator
     the dispatch hands them, and nothing there uses torch.distributions
