@@ -9,6 +9,7 @@
     python3 chip_diag.py bert32 [--other FILE ...]
     python3 chip_diag.py ln [--other FILE ...] [--pairs 2]
     python3 chip_diag.py f16 [--seeds 0 1 2]
+    python3 chip_diag.py symgrad [--other FILE ...] [--seeds 0 1 2]
 
 ``parity``: the gradients of one batch-2 ResNet-50 v1 training step from
 the same Xavier weights (those of ``chip_smoke.py``'s training phase),
@@ -84,7 +85,15 @@ logits, losses and update errors (``f16_resnet_card_vs_cpu``,
 ``f16_bert_card_vs_cpu``), the CPU's float16 step against its float32
 step beside the ResNet's.  It prints them and holds nothing.
 
-All seven need a CUDA card and exit non-zero without one.
+``symgrad``: the readings behind ``chip_smoke.py``'s symbolic BERT
+card-against-CPU limits (``sym_bert_card_vs_cpu``: the 2-layer encoder's
+probabilities and gradients), for each seed, with this checkout's
+``csrc/flash_attention.cu`` and with each ``--other`` version (e.g. a
+copy whose float32 kernels take one TF32 product in place of three),
+then with this checkout's kernels and cuBLAS's and cuDNN's products in
+TF32.  It prints them and holds nothing.
+
+All eight need a CUDA card and exit non-zero without one.
 """
 from __future__ import annotations
 
@@ -853,6 +862,37 @@ def f16(seeds):
     return 0
 
 
+def symgrad(others, seeds):
+    import torch
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import kernels
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["MXNET_FUSED_LAYERNORM"] = "1"
+    kernels.build(kernels.SOURCES)
+    card = cs.card_line()
+    # readings only: no limit holds them
+    cs.BERT_PARITY_REL_L2 = cs.SYM_PARITY_GRAD_REL_L2 = float("inf")
+    libs = _builds(others, "symgrad")
+
+    def reading(what, seed):
+        print("symgrad %s, seed %d (%s): %s" % (what, seed, card, json.dumps(
+            cs.sym_bert_card_vs_cpu(torch, mx, seed))), flush=True)
+        torch.cuda.empty_cache()
+    for name, path in libs.items():
+        _use_library(path)
+        for seed in seeds:
+            reading("%s's flash_attention.cu" % name, seed)
+    _use_library(libs["this"])
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    reading("this flash_attention.cu, cuBLAS and cuDNN in TF32", seeds[0])
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -873,6 +913,9 @@ def main(argv=None):
     n.add_argument("--pairs", type=int, default=2)
     h = sub.add_parser("f16")
     h.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    g = sub.add_parser("symgrad")
+    g.add_argument("--other", action="append", default=[])
+    g.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -883,6 +926,8 @@ def main(argv=None):
     if args.cmd == "f16":
         return f16(args.seeds)
     others = [os.path.abspath(o) for o in getattr(args, "other", [])]
+    if args.cmd == "symgrad":
+        return symgrad(others, args.seeds)
     if args.cmd in ("fwd", "bwd"):
         return (fwd if args.cmd == "fwd" else bwd)(others, args.pairs,
                                                    args.skip_bf16)

@@ -275,6 +275,28 @@ and PyTorch built for CUDA.  It:
    by the moments of its noise); each new loss forward and backward at
    (32, 1000) (CTC at T 100, N 32, C 28, L 20) and each new metric on the
    card against the CPU;
+12e. symbolic phase (``symbolic_phase``, TF32 off): ``train_imagenet.py
+   --network resnet50 --benchmark 1`` through ``Module.fit`` (the graph of
+   ``example/image_classification/symbols.py`` written against the port's
+   ``mx.sym`` as ``resnet_symbol``; batch 64 of synthetic 224 x 224 images
+   from ``--seed``, 1000 classes, SGD lr 0.1, momentum 0.9, wd 1e-4,
+   ``Speedometer`` and ``do_checkpoint`` into a temporary directory, one
+   epoch of 6 batches): the median step after 2 and images/s, the
+   checkpoint read back by ``load_checkpoint`` to the module's bits and
+   resumed by ``Module.load`` for 2 batches, one batch-4 step on the card
+   against the CPU; BERT-base as one Symbol graph (``bert_symbol``: the
+   q/k/v projection split into (B, T, H, D) views for
+   ``flash_attention_bshd``, ``MXNET_FUSED_LAYERNORM=1``) trained through
+   ``Module`` with Adam at 24 x 512 for 4 steps in float32 and after
+   ``amp.convert_model(..., "bfloat16")`` from the same weights: 12 + 12
+   attention (float32, then bfloat16) and 26 + 26 float32 LayerNorm
+   launches a step, falling losses, ``SymbolBlock.imports`` of the float32
+   checkpoint giving the Module's forward bits, and a 2-layer version on
+   the card against the CPU; ``example/rnn/bucketing_lm``'s graph at the
+   LSTM LM's width through ``BucketingModule`` over the buckets 8, 12, 16
+   and 24 (2 batches each, the parameters shared, the perplexity);
+   BERT-base's float32-weight ``DataParallelStep`` under
+   ``amp.init("bfloat16")``, graphed against eager to the same bits;
 13. prints one JSON line describing each kernel, then as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -3789,6 +3811,16 @@ def _hand_kernel_launches(attention, layernorm, fused_norm):
             "layernorm": (layernorm.LAUNCHES, layernorm.BWD_LAUNCHES)}
 
 
+def _counter_of(name):
+    """The ``_hand_kernel_launches`` key and the (forward, backward) index
+    that count the kernel of the kernels line's entry ``name``."""
+    kernel = ("fused_norm" if name.startswith("fused_bn")
+              else "layernorm" if name.startswith("layer_norm")
+              else "attention_bshd" if name.startswith("flash_attention_bshd")
+              else "attention")
+    return kernel, int("_bwd" in name)
+
+
 def _epilogue_counts(fused_norm):
     def counts(reset=False):
         if reset:
@@ -6656,6 +6688,769 @@ def _print_sweeps(r, card):
               "%s %.4g" % (m["metric"], m["value"]) for m in r["metrics"])))
 
 
+# ---------------------------------------------------------------------------
+# the Symbolic API and Module: the graphs, written against either
+# package's ``mx.sym`` (the tests build them in both and compare the JSON)
+# ---------------------------------------------------------------------------
+
+def _conv_bn_relu(sym, data, num_filter, kernel, stride, pad, name,
+                  relu=True):
+    net = sym.Convolution(data, kernel=kernel, num_filter=num_filter,
+                          stride=stride, pad=pad, no_bias=True,
+                          name=name + "_conv")
+    net = sym.BatchNorm(net, fix_gamma=False, eps=2e-5, momentum=0.9,
+                        name=name + "_bn")
+    if relu:
+        net = sym.Activation(net, act_type="relu", name=name + "_relu")
+    return net
+
+
+def resnet_symbol(sym, depth=50, num_classes=1000):
+    """``example/image_classification/symbols.py:get_resnet(depth,
+    num_classes)`` for 224 x 224 images, the graph behind
+    ``train_imagenet.py``: ResNet v1 with bottlenecks from depth 50,
+    BatchNorm and Activation (no fused op)."""
+    cfg = {18: (False, [2, 2, 2, 2], [64, 64, 128, 256, 512]),
+           50: (True, [3, 4, 6, 3], [64, 256, 512, 1024, 2048])}
+    bottle_neck, units, filters = cfg[depth]
+    body = _conv_bn_relu(sym, sym.var("data"), filters[0], (7, 7), (2, 2),
+                         (3, 3), "stem")
+    body = sym.Pooling(body, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                       pool_type="max", name="stem_pool")
+    for stage, n_units in enumerate(units):
+        for unit in range(n_units):
+            stride = (1, 1) if stage == 0 or unit > 0 else (2, 2)
+            dim_match = unit > 0 or (stage == 0 and filters[0] == filters[1])
+            name = "stage%d_unit%d" % (stage + 1, unit + 1)
+            nf = filters[stage + 1]
+            if bottle_neck:
+                b = _conv_bn_relu(sym, body, nf // 4, (1, 1), (1, 1),
+                                  (0, 0), name + "_c1")
+                b = _conv_bn_relu(sym, b, nf // 4, (3, 3), stride, (1, 1),
+                                  name + "_c2")
+                b = _conv_bn_relu(sym, b, nf, (1, 1), (1, 1), (0, 0),
+                                  name + "_c3", relu=False)
+            else:
+                b = _conv_bn_relu(sym, body, nf, (3, 3), stride, (1, 1),
+                                  name + "_c1")
+                b = _conv_bn_relu(sym, b, nf, (3, 3), (1, 1), (1, 1),
+                                  name + "_c2", relu=False)
+            short = body if dim_match else _conv_bn_relu(
+                sym, body, nf, (1, 1), stride, (0, 0), name + "_sc",
+                relu=False)
+            body = sym.Activation(b + short, act_type="relu",
+                                  name=name + "_out")
+    body = sym.Pooling(body, global_pool=True, pool_type="avg",
+                       kernel=(7, 7), name="global_pool")
+    body = sym.Flatten(body)
+    body = sym.FullyConnected(body, num_hidden=num_classes, name="fc1")
+    return sym.SoftmaxOutput(body, name="softmax")
+
+
+# the symbolic BERT encoder's inputs, in Module's data_names order
+SYM_BERT_DATA = ("data", "position_ids", "masked_positions")
+
+
+def bert_symbol(sym, layers, units, heads, hidden, vocab, max_len=512,
+                eps=1e-12):
+    """A BERT encoder with the masked-LM head as one Symbol graph: word
+    and position embeddings, LayerNorm; each layer one ``FullyConnected``
+    q/k/v projection (``flatten=False``) split into three (B, T, H, D)
+    views, ``flash_attention_bshd``, the output projection, the residual
+    add and LayerNorm, then the GELU feed-forward, add and LayerNorm; the
+    head picks the masked rows (``take`` of the flattened (B T, units)
+    output at ``masked_positions``), then dense, GELU, LayerNorm, the
+    vocabulary logits and ``SoftmaxOutput``.  2 + 2 layers LayerNorms and
+    ``layers`` attentions a forward."""
+    d = units // heads
+    x = sym.Embedding(sym.var("data"), input_dim=vocab, output_dim=units,
+                      name="word_embed") \
+        + sym.Embedding(sym.var("position_ids"), input_dim=max_len,
+                        output_dim=units, name="pos_embed")
+    x = sym.LayerNorm(x, eps=eps, name="embed_ln")
+    for i in range(layers):
+        p = "layer%d_" % i
+        qkv = sym.FullyConnected(x, num_hidden=3 * units, flatten=False,
+                                 name=p + "qkv")
+        qkv = sym.SliceChannel(qkv, num_outputs=3, axis=-1, name=p + "split")
+        q, k, v = (sym.Reshape(qkv[j], shape=(0, 0, heads, d),
+                               name=p + "heads%d" % j) for j in range(3))
+        a = sym.contrib.flash_attention_bshd(q, k, v, name=p + "attention")
+        a = sym.FullyConnected(sym.Reshape(a, shape=(0, 0, units),
+                                           name=p + "merge"),
+                               num_hidden=units, flatten=False,
+                               name=p + "proj")
+        x = sym.LayerNorm(x + a, eps=eps, name=p + "ln1")
+        h = sym.FullyConnected(x, num_hidden=hidden, flatten=False,
+                               name=p + "ffn1")
+        h = sym.Activation(h, act_type="gelu", name=p + "gelu")
+        h = sym.FullyConnected(h, num_hidden=units, flatten=False,
+                               name=p + "ffn2")
+        x = sym.LayerNorm(x + h, eps=eps, name=p + "ln2")
+    x = sym.take(sym.Reshape(x, shape=(-1, units), name="rows"),
+                 sym.var("masked_positions"), name="masked_rows")
+    x = sym.Activation(sym.FullyConnected(x, num_hidden=units,
+                                          name="mlm_dense"),
+                       act_type="gelu", name="mlm_gelu")
+    x = sym.LayerNorm(x, eps=eps, name="mlm_ln")
+    x = sym.FullyConnected(x, num_hidden=vocab, name="mlm_decoder")
+    return sym.SoftmaxOutput(x, name="softmax")
+
+
+def bucketing_lm_sym_gen(mx, vocab, embed, hidden, batch_size):
+    """``example/rnn/bucketing_lm/train.py:sym_gen_factory`` against the
+    package ``mx``: one bucket's graph a sequence length, the embedding, a
+    fused 1-layer LSTM over one flat parameter vector, the vocabulary
+    logits and ``SoftmaxOutput``."""
+    n_par = 4 * hidden * (embed + hidden) + 8 * hidden
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        emb = mx.sym.Embedding(data, input_dim=vocab, output_dim=embed,
+                               name="embed")
+        par = mx.sym.Variable("lstm_parameters", shape=(n_par,),
+                              init=mx.init.Uniform(0.1))
+        h0 = mx.sym.Variable("lstm_init_h", shape=(1, batch_size, hidden),
+                             lr_mult=0.0, init=mx.init.Zero())
+        c0 = mx.sym.Variable("lstm_init_c", shape=(1, batch_size, hidden),
+                             lr_mult=0.0, init=mx.init.Zero())
+        tnc = mx.sym.SwapAxis(emb, dim1=0, dim2=1)
+        rnn = mx.sym.RNN(tnc, par, h0, state_cell=c0, state_size=hidden,
+                         num_layers=1, mode="lstm", name="lstm")
+        ntc = mx.sym.SwapAxis(rnn, dim1=0, dim2=1)
+        pred = mx.sym.Reshape(ntc, shape=(-1, hidden))
+        fc = mx.sym.FullyConnected(pred, num_hidden=vocab, name="fc")
+        sm = mx.sym.SoftmaxOutput(fc, mx.sym.Reshape(label, shape=(-1,)),
+                                  name="softmax")
+        return sm, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+# train_imagenet.py --benchmark 1: batch 64 of 3 x 224 x 224 synthetic
+# images, 1000 classes, one epoch of 6 batches, SGD with the script's
+# optimizer_params; the median step is taken after the first 2
+SYM_RN_BATCH = 64
+SYM_RN_BATCHES = 6
+SYM_RN_SKIP = 2
+SYM_RN_RESUME_BATCHES = 2
+SYM_RN_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+              "rescale_grad": 1.0 / SYM_RN_BATCH}
+# one step at batch 4 on the card against the same step on the CPU, held as
+# the Gluon training phase holds its batch-2 step (PARITY_*: the step's
+# gradients are ill-conditioned sums at so small a batch)
+SYM_RN_PARITY_BATCH = 4
+# the symbolic BERT-base: 4 Adam steps on one batch (the loss must fall),
+# the step ms the median of the last 3; the head's rows averaged
+# (rescale_grad = 1 / rows, as bench.py's MLM loss takes their mean)
+SYM_BERT_STEPS = 4
+SYM_BERT_ADAM = {"learning_rate": BERT_LR,
+                 "rescale_grad": 1.0 / (BERT_BATCH * BERT_PRED)}
+# a 2-layer BERT-base-wide encoder at batch 2 x 128 (19 masked rows a
+# row) on the card against the CPU: the logits' probabilities within
+# BERT_PARITY_REL_L2 (as the Gluon forward's check), the gradients within a
+# relative L2 error of 1e-5 over all parameters.  On an H100 at 700 W
+# (``chip_diag.py symgrad``, seeds 0-2) the sound kernels read 8.28e-7 to
+# 8.43e-7; the float32 attention kernels with one TF32 product in place
+# of three read 4.59e-5 to 4.62e-5 (their probabilities 8.5e-6, inside
+# BERT_PARITY_REL_L2), and cuBLAS's products in TF32 5.22e-4.
+SYM_PARITY_LAYERS, SYM_PARITY_BATCH = 2, 2
+SYM_PARITY_GRAD_REL_L2 = 1e-5
+# bucketing_lm's graph at the LSTM LM phase's width (config 4: 10000
+# words, 650 units, batch 32), one LSTM layer as the example has it
+SYM_LM_BUCKETS = (8, 12, 16, 24)
+SYM_LM_BATCHES = 2
+
+
+def _sym_synthetic_iter(mx, shape, classes, batches, seed, ctx):
+    """``train_imagenet.py``'s ``SyntheticDataIter``: one random batch
+    made from ``seed`` on ``ctx``, served ``batches`` times an epoch."""
+    import numpy as onp
+
+    class SyntheticDataIter(mx.io.DataIter):
+        def __init__(self):
+            super().__init__(batch_size=shape[0])
+            rs = onp.random.RandomState(seed)
+            self.data = mx.nd.array(rs.uniform(-1, 1, shape)
+                                    .astype("float32"), ctx=ctx)
+            self.label = mx.nd.array(rs.randint(0, classes, (shape[0],))
+                                     .astype("float32"), ctx=ctx)
+            self.cur_iter = 0
+            self.provide_data = [mx.io.DataDesc("data", shape)]
+            self.provide_label = [mx.io.DataDesc("softmax_label",
+                                                 (shape[0],))]
+
+        def next(self):
+            self.cur_iter += 1
+            if self.cur_iter > batches:
+                raise StopIteration
+            return mx.io.DataBatch(data=[self.data], label=[self.label],
+                                   pad=0, provide_data=self.provide_data,
+                                   provide_label=self.provide_label)
+
+        def reset(self):
+            self.cur_iter = 0
+    return SyntheticDataIter()
+
+
+def _softmax_ce(torch, probs, label):
+    """The mean cross entropy of ``SoftmaxOutput``'s probabilities at the
+    labels."""
+    p = probs.float().gather(1, label.long().view(-1, 1))
+    return float(-torch.log(p.clamp_min(1e-30)).mean())
+
+
+def _host_params(mod):
+    arg, aux = mod.get_params()
+    return ({k: v.astorch().detach().cpu().clone() for k, v in arg.items()},
+            {k: v.astorch().detach().cpu().clone() for k, v in aux.items()})
+
+
+def _as_nd(mx, tensors, ctx):
+    return {k: mx.nd.array(v.numpy(), ctx=ctx) for k, v in tensors.items()}
+
+
+def _module_step(torch, mx, sym, args, aux, batch, ctx, data_names,
+                 optimizer, params):
+    """One ``forward_backward`` and ``update`` of a Module over ``sym`` on
+    ``ctx`` from host weights: (probabilities, updated weights and
+    auxiliary states on the host, gradients on the host)."""
+    mod = mx.mod.Module(sym, data_names=data_names,
+                        label_names=("softmax_label",), context=ctx)
+    data, label = batch
+    mod.bind(data_shapes=[(n, tuple(a.shape)) for n, a in zip(data_names,
+                                                               data)],
+             label_shapes=[("softmax_label", tuple(label.shape))])
+    mod.init_params(arg_params=_as_nd(mx, args, ctx),
+                    aux_params=_as_nd(mx, aux, ctx))
+    mod.init_optimizer(optimizer=optimizer, optimizer_params=params)
+    b = mx.io.DataBatch([mx.nd.array(d.numpy(), ctx=ctx) for d in data],
+                        [mx.nd.array(label.numpy(), ctx=ctx)])
+    mod.forward_backward(b)
+    probs = mod.get_outputs()[0].astorch().detach().cpu().clone()
+    grads = {n: g.astorch().detach().cpu().clone()
+             for n, g in mod._exec.grad_dict.items() if g is not None}
+    mod.update()
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+    arg, aux2 = _host_params(mod)
+    return probs, dict(arg, **aux2), grads
+
+
+def sym_resnet_phase(torch, mx, attention, layernorm, fused_norm, seed, card,
+                     profile=False):
+    """``train_imagenet.py --network resnet50 --benchmark 1`` through the
+    port's ``Module.fit``: the graph of ``resnet_symbol`` (BatchNorm and
+    Activation, as the example has it: no hand kernel), Xavier weights
+    from ``seed``, batch 64 of synthetic images on the card, SGD, a
+    ``Speedometer`` and ``do_checkpoint`` into a temporary directory, one
+    epoch of 6 batches; the checkpoint read back with ``load_checkpoint``
+    (the module's bits) and resumed with ``Module.load`` for 2 batches;
+    one step at batch 4 on the card against the CPU.  Every hand kernel's
+    counts are set to 0 before the fit and read after it (all 0)."""
+    import tempfile
+    import numpy as onp
+    gpu = mx.gpu(0)
+    net = resnet_symbol(mx.sym, 50, 1000)
+    shape = (SYM_RN_BATCH, 3, 224, 224)
+    it = _sym_synthetic_iter(mx, shape, 1000, SYM_RN_BATCHES, seed, gpu)
+    mx.random.seed(seed)
+    mod = mx.mod.Module(net, context=gpu)
+    speedo = mx.callback.Speedometer(SYM_RN_BATCH, 2)
+    stamps, outputs = [], []
+
+    def timer(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        outputs.append(mod.get_outputs()[0].astorch())
+    _reset_counts(attention, layernorm)
+    fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
+    tmp = tempfile.TemporaryDirectory()
+    prefix = os.path.join(tmp.name, "resnet50")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=SYM_RN_SGD,
+            initializer=mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                       magnitude=2),
+            batch_end_callback=[speedo, timer],
+            epoch_end_callback=mx.callback.do_checkpoint(prefix),
+            eval_metric=["acc"])
+    fit_s = time.perf_counter() - t0
+    losses = [_softmax_ce(torch, o, it.label.astorch()) for o in outputs]
+    del outputs
+    steps = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    step_ms = statistics.median(steps[SYM_RN_SKIP:]) * 1e3
+    launches = _hand_kernel_launches(attention, layernorm, fused_norm)
+    check(all(v == (0, 0) for v in launches.values()),
+          "symbolic ResNet-50 launched a hand-written kernel: %r (its graph "
+          "has none)" % launches)
+    check(len(losses) == SYM_RN_BATCHES
+          and all(onp_isfinite(v) for v in losses),
+          "symbolic ResNet-50 losses %r" % losses)
+    # the checkpoint reads back to the module's bits and resumes
+    files = sorted(os.listdir(tmp.name))
+    check(files == ["resnet50-0001.params", "resnet50-symbol.json"],
+          "do_checkpoint wrote %r" % files)
+    sym2, arg2, aux2 = mx.model.load_checkpoint(prefix, 1)
+    arg, aux = mod.get_params()
+    same = sym2.tojson() == net.tojson() and all(
+        torch.equal(arg2[k].astorch().to(v.astorch().device), v.astorch())
+        for k, v in arg.items()) and all(
+        torch.equal(aux2[k].astorch().to(v.astorch().device), v.astorch())
+        for k, v in aux.items())
+    check(same, "load_checkpoint did not give the module's graph and bits")
+    batch = next(iter(it))
+    mod.forward(batch, is_train=False)
+    want = mod.get_outputs()[0].astorch().clone()
+    resumed = mx.mod.Module.load(prefix, 1, context=gpu)
+    resumed.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    resumed.init_params()
+    resumed.forward(batch, is_train=False)
+    check(torch.equal(resumed.get_outputs()[0].astorch(), want),
+          "Module.load's forward differs from the saving module's")
+    it2 = _sym_synthetic_iter(mx, shape, 1000, SYM_RN_RESUME_BATCHES, seed,
+                              gpu)
+    resumed.fit(it2, begin_epoch=1, num_epoch=2, optimizer="sgd",
+                optimizer_params=SYM_RN_SGD, eval_metric="acc")
+    resumed.forward(batch, is_train=False)
+    resume_loss = _softmax_ce(torch, resumed.get_outputs()[0].astorch(),
+                              it.label.astorch())
+    check(onp_isfinite(resume_loss), "resumed loss %r" % resume_loss)
+    host_args, host_aux = _host_params(mod)
+    tmp.cleanup()
+    prof = None
+    if profile:
+        def one():
+            mod.forward_backward(batch)
+            mod.update()
+            torch.cuda.synchronize()
+        prof = profile_calls(torch, one, "symbolic ResNet-50 Module step, "
+                             "batch %d, eager" % SYM_RN_BATCH, calls=3)
+    peak = torch.cuda.max_memory_allocated()
+    del mod, resumed, it, it2, batch, want
+    torch.cuda.empty_cache()
+    # one step at batch 4, card against CPU, from the trained weights
+    rs = onp.random.RandomState(seed + 7)
+    x = torch.from_numpy(rs.uniform(-1, 1, (SYM_RN_PARITY_BATCH, 3, 224, 224))
+                         .astype("float32"))
+    y = torch.from_numpy(rs.randint(0, 1000, (SYM_RN_PARITY_BATCH,))
+                         .astype("float32"))
+    t0 = time.perf_counter()
+    before = dict(host_args, **host_aux)
+    sgd = dict(SYM_RN_SGD, rescale_grad=1.0 / SYM_RN_PARITY_BATCH)
+    p_gpu, w_gpu, _ = _module_step(torch, mx, net, host_args, host_aux,
+                                   ([x], y), gpu, ("data",), "sgd", sgd)
+    with mx.cpu():
+        p_cpu, w_cpu, _ = _module_step(torch, mx, net, host_args, host_aux,
+                                       ([x], y), mx.cpu(), ("data",), "sgd",
+                                       sgd)
+    loss_gpu, loss_cpu = _softmax_ce(torch, p_gpu, y), _softmax_ce(torch,
+                                                                  p_cpu, y)
+    upd, per_param = _update_errors(*({k: v.numpy() for k, v in w.items()}
+                                      for w in (before, w_gpu, w_cpu)))
+    worst = per_param[0]
+    check(abs(loss_gpu - loss_cpu) <= PARITY_LOSS_RTOL * abs(loss_cpu)
+          and upd <= PARITY_UPDATE_REL_L2 and worst[0] <= PARITY_PARAM_REL_L2,
+          "symbolic ResNet-50 step at batch %d, card vs CPU: loss %.7g vs "
+          "%.7g, updates rel L2 %.3g (limit %g), worst %s %.3g (limit %g)"
+          % (SYM_RN_PARITY_BATCH, loss_gpu, loss_cpu, upd,
+             PARITY_UPDATE_REL_L2, worst[1], worst[0], PARITY_PARAM_REL_L2))
+    return {"step_ms": step_ms, "images_per_s": SYM_RN_BATCH * 1e3 / step_ms,
+            "step_ms_all": [v * 1e3 for v in steps], "losses": losses,
+            "speedometer": speedo.speed, "fit_s": fit_s,
+            "peak_bytes": peak, "resume_loss": resume_loss,
+            "launches": launches,
+            "parity": {"loss": (loss_gpu, loss_cpu), "update_rel_l2": upd,
+                       "worst": worst, "s": time.perf_counter() - t0},
+            "profile": prof}
+
+
+def _sym_bert_batch(torch, seed, batch, seq, n_pred):
+    """bench.py's config-5 token ids at ``batch`` x ``seq`` with
+    ``n_pred`` sorted masked positions a row, as the symbolic graph takes
+    them: ``(data, position_ids, masked_positions)`` (the last as rows of
+    the flattened (batch seq, units) output) and the labels."""
+    import numpy as onp
+    rs = onp.random.RandomState(seed)
+    tokens = rs.randint(0, BERT_VOCAB, (batch, seq)).astype("float32")
+    pos = onp.sort(onp.stack([rs.choice(seq, n_pred, replace=False)
+                              for _ in range(batch)]), 1)
+    rows = (pos + seq * onp.arange(batch)[:, None]).reshape(-1)
+    labels = rs.randint(0, BERT_VOCAB, (batch * n_pred,)).astype("float32")
+    host = [torch.from_numpy(tokens),
+            torch.from_numpy(onp.tile(onp.arange(seq, dtype="float32"),
+                                      (batch, 1))),
+            torch.from_numpy(rows.astype("float32"))]
+    return host, torch.from_numpy(labels)
+
+
+def _sym_bert_module(mx, sym, data, label, ctx):
+    mod = mx.mod.Module(sym, data_names=SYM_BERT_DATA,
+                        label_names=("softmax_label",), context=ctx)
+    mod.bind(data_shapes=[(n, tuple(d.shape)) for n, d in zip(SYM_BERT_DATA,
+                                                               data)],
+             label_shapes=[("softmax_label", tuple(label.shape))])
+    return mod
+
+
+def sym_bert_train(torch, mx, attention, layernorm, sym, args, data, label,
+                   what, want_attn_dtype, profile=False):
+    """``SYM_BERT_STEPS`` Adam steps of the symbolic BERT ``sym`` through
+    ``Module`` on the card from the host weights ``args``: the step ms,
+    the launches a step of the attention and LayerNorm kernels (12 + 12
+    and 26 + 26 required) and the losses (falling); a spy checks the
+    dtypes the kernels' wrappers get (attention ``want_attn_dtype``,
+    LayerNorm float32)."""
+    gpu = mx.gpu(0)
+    mod = _sym_bert_module(mx, sym, data, label, gpu)
+    mod.init_params(arg_params=_as_nd(mx, args, gpu))
+    mod.init_optimizer(optimizer="adam", optimizer_params=SYM_BERT_ADAM)
+    batch = mx.io.DataBatch([mx.nd.array(d.numpy(), ctx=gpu) for d in data],
+                            [mx.nd.array(label.numpy(), ctx=gpu)])
+    seen_attn, seen_ln = set(), set()
+    orig_a = _dtype_spy(attention, "flash_attention_bshd_fwd", seen_attn)
+    orig_l = _dtype_spy(layernorm, "layer_norm_fwd", seen_ln)
+    try:
+        _reset_counts(attention, layernorm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for _ in range(SYM_BERT_STEPS):
+            t = time.perf_counter()
+            mod.forward_backward(batch)
+            mod.update()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(_softmax_ce(torch, mod.get_outputs()[0].astorch(),
+                                      batch.label[0].astorch()))
+        counts = _bert_counts(attention, layernorm)
+    finally:
+        attention.flash_attention_bshd_fwd = orig_a
+        layernorm.layer_norm_fwd = orig_l
+    n = SYM_BERT_STEPS
+    want = (BERT_ATTN_PER_STEP * n,) * 2 + (BERT_LN_PER_STEP * n,) * 2
+    check(counts == (want, (0, 0)),
+          "%s: launches %r in %d steps, want %r and no (B, H, T, D) ones"
+          % (what, counts, n, want))
+    check(seen_attn == {want_attn_dtype} and seen_ln == {"float32"},
+          "%s: attention got %s, LayerNorm %s" % (what, seen_attn, seen_ln))
+    check(all(onp_isfinite(v) for v in losses) and losses[-1] < losses[0],
+          "%s: losses %r do not fall" % (what, losses))
+    prof = None
+    if profile:
+        def one():
+            mod.forward_backward(batch)
+            mod.update()
+            torch.cuda.synchronize()
+        prof = profile_calls(torch, one, what + ", eager", calls=2)
+    return mod, batch, {
+        "step_ms": statistics.median(times[1:]) * 1e3,
+        "step_ms_all": [v * 1e3 for v in times], "losses": losses,
+        "launches_per_step": tuple(c // n for c in counts[0]),
+        "launches": counts[0], "peak_bytes": torch.cuda.max_memory_allocated(),
+        "profile": prof}
+
+
+def sym_bert_card_vs_cpu(torch, mx, seed):
+    """A 2-layer encoder of the symbolic BERT graph at BERT-base's widths,
+    batch 2 x 128, one forward and backward on the card against the CPU
+    from the same Xavier weights: the probabilities within
+    BERT_PARITY_REL_L2, the gradients within SYM_PARITY_GRAD_REL_L2."""
+    sym = bert_symbol(mx.sym, SYM_PARITY_LAYERS, BERT_UNITS, BERT_HEADS,
+                      4 * BERT_UNITS, BERT_VOCAB)
+    data, label = _sym_bert_batch(torch, seed + 3, SYM_PARITY_BATCH,
+                                  BERT_PARITY_SEQ, BERT_PARITY_PRED)
+    with mx.cpu():
+        mod = _sym_bert_module(mx, sym, data, label, mx.cpu())
+        mx.random.seed(seed)
+        mod.init_params(mx.init.Xavier())
+        args = _host_params(mod)[0]
+        del mod
+        p_cpu, _, g_cpu = _module_step(torch, mx, sym, args, {},
+                                       (data, label), mx.cpu(), SYM_BERT_DATA,
+                                       "adam", SYM_BERT_ADAM)
+    p_gpu, _, g_gpu = _module_step(torch, mx, sym, args, {}, (data, label),
+                                   mx.gpu(0), SYM_BERT_DATA, "adam",
+                                   SYM_BERT_ADAM)
+    out = _rel_l2(p_gpu.numpy(), p_cpu.numpy())
+    grads = _grad_errors(*({k: g[k].numpy() for k in args}
+                           for g in (g_gpu, g_cpu)))[0]
+    check(out <= BERT_PARITY_REL_L2 and grads <= SYM_PARITY_GRAD_REL_L2,
+          "symbolic 2-layer BERT card vs CPU: probabilities rel L2 %.3g "
+          "(limit %g), gradients %.3g (limit %g)"
+          % (out, BERT_PARITY_REL_L2, grads, SYM_PARITY_GRAD_REL_L2))
+    return {"probs_rel_l2": out, "grads_rel_l2": grads}
+
+
+def sym_bert_phase(torch, mx, attention, layernorm, seed, card,
+                   profile=False):
+    """BERT-base as one Symbol graph (``bert_symbol``: 12 layers, 768
+    units, 12 heads, 3072 hidden, 30522 words, 24 x 512, 76 masked rows a
+    row; ``MXNET_FUSED_LAYERNORM=1``) trained through ``Module`` with Adam:
+    in float32 (the float32 attention and LayerNorm kernels), then after
+    ``amp.convert_model(..., target_dtype="bfloat16")`` from the same
+    weights (attention in bfloat16, LayerNorm in float32).  The float32
+    module's checkpoint through ``SymbolBlock.imports`` gives its forward
+    output with the same bits; a 2-layer version is held against the
+    CPU."""
+    from mxnet_tpu_torch.contrib import amp
+    import tempfile
+    os.environ["MXNET_FUSED_LAYERNORM"] = "1"
+    gpu = mx.gpu(0)
+    parity = sym_bert_card_vs_cpu(torch, mx, seed)
+    sym = bert_symbol(mx.sym, BERT_LAYERS, BERT_UNITS, BERT_HEADS,
+                      4 * BERT_UNITS, BERT_VOCAB)
+    data, label = _sym_bert_batch(torch, seed, BERT_BATCH, BERT_SEQ,
+                                  BERT_PRED)
+    init = _sym_bert_module(mx, sym, data, label, gpu)
+    mx.random.seed(seed)
+    init.init_params(mx.init.Xavier())
+    args = _host_params(init)[0]
+    del init
+    torch.cuda.empty_cache()
+    mod, batch, f32 = sym_bert_train(
+        torch, mx, attention, layernorm, sym, args, data, label,
+        "symbolic BERT-base float32 Module step", "float32", profile)
+    # the checkpoint through SymbolBlock.imports: the module's bits
+    tmp = tempfile.TemporaryDirectory()
+    prefix = os.path.join(tmp.name, "bert")
+    mod.save_checkpoint(prefix, 1)
+    mod.forward(batch, is_train=False)
+    want = mod.get_outputs()[0].astorch().clone()
+    del mod
+    torch.cuda.empty_cache()
+    block = mx.gluon.SymbolBlock.imports(
+        prefix + "-symbol.json", list(SYM_BERT_DATA) + ["softmax_label"],
+        prefix + "-0001.params", ctx=gpu)
+    with torch.no_grad():
+        got = block(*(batch.data + batch.label)).astorch()
+    check(torch.equal(got, want), "SymbolBlock.imports' forward differs "
+          "from the Module's (max |diff| %.3g)"
+          % float((got - want).abs().max()))
+    tmp.cleanup()
+    del block, got, want
+    torch.cuda.empty_cache()
+    conv, cargs, _ = amp.convert_model(sym, _as_nd(mx, args, mx.cpu()), {},
+                                       target_dtype="bfloat16")
+    mod, _, bf16 = sym_bert_train(
+        torch, mx, attention, layernorm, conv,
+        {k: v.astorch() for k, v in cargs.items()}, data, label,
+        "symbolic BERT-base after amp.convert_model(bfloat16) Module step",
+        "bfloat16", profile)
+    del mod
+    del os.environ["MXNET_FUSED_LAYERNORM"]
+    torch.cuda.empty_cache()
+    return {"f32": f32, "bf16": bf16, "parity": parity,
+            "symbol_block_same_bits": True}
+
+
+def sym_bucketing_phase(torch, mx, attention, layernorm, fused_norm, seed,
+                        card, profile=False):
+    """``example/rnn/bucketing_lm``'s graph (``bucketing_lm_sym_gen``) at
+    the LSTM LM phase's width through ``BucketingModule`` on the card: the
+    buckets 8, 12, 16 and 24 (the default), 2 batches each of the
+    example's order-2 sentences, SGD as the example's; the perplexity, the
+    step ms a bucket, every bucket's Executor holding the default bucket's
+    parameter NDArrays (one tensor each), no hand-written kernel on the
+    path (cuDNN's LSTM)."""
+    import numpy as onp
+    gpu = mx.gpu(0)
+    vocab, hidden, batch = LM_VOCAB, LM_HIDDEN, LM_BATCH
+    gen = bucketing_lm_sym_gen(mx, vocab, hidden, hidden, batch)
+    default = max(SYM_LM_BUCKETS)
+    mx.random.seed(seed)
+    bm = mx.mod.BucketingModule(gen, default_bucket_key=default, context=gpu)
+    bm.bind(data_shapes=[("data", (batch, default))],
+            label_shapes=[("softmax_label", (batch, default))])
+    bm.init_params(mx.init.Xavier())
+    bm.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.5, "momentum": 0.9,
+        "rescale_grad": 1.0 / (batch * 4)})
+    metric = mx.metric.Perplexity(ignore_label=0)
+    rs = onp.random.RandomState(seed)
+    _reset_counts(attention, layernorm)
+    fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
+    step_ms = {}
+    for b in SYM_LM_BUCKETS:
+        times = []
+        for _ in range(SYM_LM_BATCHES):
+            rows = onp.zeros((batch, b), "float32")
+            rows[:, :2] = rs.randint(1, vocab, (batch, 2))
+            for j in range(2, b):
+                rows[:, j] = (rows[:, j - 1] + rows[:, j - 2]) \
+                    % (vocab - 1) + 1
+            lab = onp.concatenate([rows[:, 1:], onp.zeros((batch, 1),
+                                                          "float32")], 1)
+            db = mx.io.DataBatch(
+                [mx.nd.array(rows, ctx=gpu)], [mx.nd.array(lab, ctx=gpu)],
+                bucket_key=b,
+                provide_data=[mx.io.DataDesc("data", (batch, b))],
+                provide_label=[mx.io.DataDesc("softmax_label", (batch, b))])
+            t = time.perf_counter()
+            bm.forward(db, is_train=True)
+            bm.backward()
+            bm.update()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            bm.update_metric(metric, db.label)
+        step_ms[b] = times[-1] * 1e3
+    launches = _hand_kernel_launches(attention, layernorm, fused_norm)
+    check(all(v == (0, 0) for v in launches.values()),
+          "bucketing LM launched a hand-written kernel: %r" % launches)
+    mods = bm._buckets
+    base = mods[default]._exec.arg_dict
+    names = mods[default]._param_names
+    shared = sorted(mods) == sorted(SYM_LM_BUCKETS) and all(
+        mods[b]._exec.arg_dict[n] is base[n]
+        and mods[b]._exec.arg_dict[n].astorch().data_ptr()
+        == base[n].astorch().data_ptr() for b in mods for n in names)
+    check(shared, "BucketingModule's buckets do not share the default "
+          "bucket's parameter tensors")
+    ppl = metric.get()[1]
+    check(onp_isfinite(ppl), "bucketing LM perplexity %r" % ppl)
+    prof = None
+    if profile:
+        def one():
+            bm.forward(db, is_train=True)
+            bm.backward()
+            bm.update()
+            torch.cuda.synchronize()
+        prof = profile_calls(torch, one, "bucketing LM step, bucket %d, eager"
+                             % SYM_LM_BUCKETS[-1], calls=3)
+    del bm
+    torch.cuda.empty_cache()
+    return {"perplexity": ppl, "step_ms": step_ms, "shared": shared,
+            "params": len(names), "launches": launches, "profile": prof}
+
+
+def amp_dp_bert_phase(torch, mx, attention, layernorm, seed, card):
+    """BERT-base's float32-weight ``DataParallelStep`` (Adam, lr 1e-4)
+    under ``amp.init("bfloat16")`` at 24 x 512, graphed against eager from
+    the same weights (``graphed_vs_eager``: the same bits), 12 + 12
+    bfloat16 attention and 26 + 26 float32 LayerNorm launches a step."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.contrib import amp
+    os.environ["MXNET_FUSED_LAYERNORM"] = "1"
+    net, (x, vl, mp), y = _bench_bert(mx, seed, "float32")
+    seen_attn, seen_ln = set(), set()
+    orig_a = _dtype_spy(attention, "flash_attention_bshd_fwd", seen_attn)
+    orig_l = _dtype_spy(layernorm, "layer_norm_fwd", seen_ln)
+
+    def counts(reset=False):
+        if reset:
+            _reset_counts(attention, layernorm)
+        return _bert_counts(attention, layernorm)[0]
+    amp.init("bfloat16")
+    try:
+        r = graphed_vs_eager(
+            torch, mx, net, lambda: mx.parallel.DataParallelStep(
+                net, _mlm_loss(gluon),
+                mx.optimizer.Adam(learning_rate=BERT_LR), mesh=None),
+            (x, None, None, vl, mp), y, seed,
+            "BERT-base float32 weights under amp.init(bfloat16), "
+            "DataParallelStep, Adam", counts=counts,
+            per_step=(BERT_ATTN_PER_STEP,) * 2 + (BERT_LN_PER_STEP,) * 2)
+    finally:
+        amp.disable()
+        attention.flash_attention_bshd_fwd = orig_a
+        layernorm.layer_norm_fwd = orig_l
+    check(seen_attn == {"bfloat16"} and seen_ln == {"float32"},
+          "AMP DataParallelStep: attention got %s, LayerNorm %s"
+          % (seen_attn, seen_ln))
+    check(all(p.data().astorch().dtype == torch.float32
+              for p in net.collect_params().values()),
+          "AMP DataParallelStep left a weight in another dtype")
+    del net
+    del os.environ["MXNET_FUSED_LAYERNORM"]
+    torch.cuda.empty_cache()
+    return r
+
+
+def symbolic_phase(torch, mx, attention, layernorm, fused_norm, seed, card,
+                   profile=False):
+    """The Symbolic API and Module on the card: the four paths
+    above, each with the hand kernels' counters from 0 just before it and
+    read just after; returns their numbers and the seconds of each."""
+    t = time.perf_counter()
+    clock = {}
+    rn = sym_resnet_phase(torch, mx, attention, layernorm, fused_norm, seed,
+                          card, profile)
+    clock["resnet50_fit"] = time.perf_counter() - t
+    t = time.perf_counter()
+    bert = sym_bert_phase(torch, mx, attention, layernorm, seed, card,
+                          profile)
+    clock["bert"] = time.perf_counter() - t
+    t = time.perf_counter()
+    lm = sym_bucketing_phase(torch, mx, attention, layernorm, fused_norm,
+                             seed, card, profile)
+    clock["bucketing"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ampdp = amp_dp_bert_phase(torch, mx, attention, layernorm, seed, card)
+    clock["amp_dp"] = time.perf_counter() - t
+    return {"resnet": rn, "bert": bert, "lm": lm, "amp_dp": ampdp,
+            "seconds": clock}
+
+
+def print_symbolic(r, card):
+    rn, b, lm = r["resnet"], r["bert"], r["lm"]
+    print("symbolic: train_imagenet.py ResNet-50 through Module.fit, batch "
+          "%d, %d batches: step %.3f ms (median after %d) = %.1f images/s; "
+          "Speedometer %.1f samples/s; losses %s; fit %.1f s; peak device "
+          "memory %.2f GiB (%s)"
+          % (SYM_RN_BATCH, SYM_RN_BATCHES, rn["step_ms"], SYM_RN_SKIP,
+             rn["images_per_s"], rn["speedometer"] or 0.0,
+             [round(v, 4) for v in rn["losses"]], rn["fit_s"],
+             rn["peak_bytes"] / 2 ** 30, card))
+    print("symbolic: ResNet-50 step ms %s; checkpoint read back with the "
+          "module's bits, Module.load resumed 2 batches (loss %.4f); batch-%d "
+          "step card vs CPU: loss %.7g vs %.7g, updates rel L2 %.3g (limit "
+          "%g), worst %s %.3g (limit %g)"
+          % ([round(v, 3) for v in rn["step_ms_all"]], rn["resume_loss"],
+             SYM_RN_PARITY_BATCH, rn["parity"]["loss"][0],
+             rn["parity"]["loss"][1], rn["parity"]["update_rel_l2"],
+             PARITY_UPDATE_REL_L2, rn["parity"]["worst"][1],
+             rn["parity"]["worst"][0], PARITY_PARAM_REL_L2))
+    for key, label in (("f32", "float32"),
+                       ("bf16", "after amp.convert_model(bfloat16)")):
+        s = b[key]
+        print("symbolic: BERT-base Module %s, %d x %d, Adam: step %.3f ms "
+              "(median of the last %d) = %.0f tokens/s; launches a step "
+              "(B, T, H, D) attention fwd %d bwd %d, LayerNorm fwd %d bwd "
+              "%d; losses %s; peak device memory %.2f GiB (%s)"
+              % (label, BERT_BATCH, BERT_SEQ, s["step_ms"],
+                 SYM_BERT_STEPS - 1, BERT_BATCH * BERT_SEQ * 1e3
+                 / s["step_ms"], *s["launches_per_step"],
+                 [round(v, 4) for v in s["losses"]],
+                 s["peak_bytes"] / 2 ** 30, card))
+    print("symbolic: SymbolBlock.imports of the float32 checkpoint gives the "
+          "Module's forward output with the same bits; 2-layer encoder at 2 x "
+          "%d card vs CPU: probabilities rel L2 %.3g (limit %g), gradients "
+          "%.3g (limit %g)" % (BERT_PARITY_SEQ, b["parity"]["probs_rel_l2"],
+                               BERT_PARITY_REL_L2,
+                               b["parity"]["grads_rel_l2"],
+                               SYM_PARITY_GRAD_REL_L2))
+    print("symbolic: bucketing LM (%d words, %d units, batch %d) through "
+          "BucketingModule, buckets %s, %d batches each: perplexity %.2f; "
+          "last step ms by bucket %s; %d parameters shared by every bucket: "
+          "%s; hand kernel launches %s (%s)"
+          % (LM_VOCAB, LM_HIDDEN, LM_BATCH, list(SYM_LM_BUCKETS),
+             SYM_LM_BATCHES, lm["perplexity"],
+             {k: round(v, 3) for k, v in lm["step_ms"].items()}, lm["params"],
+             lm["shared"], lm["launches"], card))
+    print_graphed(r["amp_dp"], card)
+    for p in (rn["profile"], b["f32"]["profile"], b["bf16"]["profile"],
+              lm["profile"]):
+        if p is not None:
+            print_profiles([p], card)
+            print("symbolic: %s: device idle share %.3f (wall %.3f ms, "
+                  "device busy %.3f ms) (%s)"
+                  % (p["label"], p["device_idle_share"], p["wall_ms"],
+                     p["device_busy_ms"], card))
+    print("symbolic: phase seconds %s" % ", ".join(
+        "%s %.1f" % kv for kv in r["seconds"].items()))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6932,7 +7727,16 @@ def main(argv=None):
           "the vision zoo launched an attention or LayerNorm kernel: %s"
           % zoo_other)
     mark("vision zoo")
+    # the Symbolic API and Module: each path's counts from 0 just before
+    # it, read just after
+    symb = symbolic_phase(torch, mx, attention, layernorm, fused_norm,
+                          args.seed, card, profile=args.profile)
+    print_symbolic(symb, card)
+    mark("symbolic")
     print("phase seconds: %s" % ", ".join("%s %.1f" % c for c in clock))
+    sym_f32 = symb["bert"]["f32"]["launches"]
+    sym_bf16 = symb["bert"]["bf16"]["launches"]
+    amp_dp = symb["amp_dp"]["launches"]
 
 
     def per_pass(direction, path, key):
@@ -7035,7 +7839,10 @@ def main(argv=None):
                           rest["adamw"]["zero"]["launches"][2],
                           "dp_bert_adamw_graphed_vs_eager":
                           rest["adamw"]["graph"]["launches"][2],
-                          "lstm_lm": lm_launches["layernorm"][0]},
+                          "lstm_lm": lm_launches["layernorm"][0],
+                          "sym_bert_f32": sym_f32[2],
+                          "sym_bert_bf16": sym_bf16[2],
+                          "dp_bert_amp_bf16": amp_dp[2]},
         max_abs_err=max(r["max_abs_err"] for r in ln_rows
                         if r["dtype"] != "float16"),
         bound_by="bytes",
@@ -7063,7 +7870,10 @@ def main(argv=None):
                           rest["adamw"]["zero"]["launches"][3],
                           "dp_bert_adamw_graphed_vs_eager":
                           rest["adamw"]["graph"]["launches"][3],
-                          "lstm_lm": lm_launches["layernorm"][1]},
+                          "lstm_lm": lm_launches["layernorm"][1],
+                          "sym_bert_f32": sym_f32[3],
+                          "sym_bert_bf16": sym_bf16[3],
+                          "dp_bert_amp_bf16": amp_dp[3]},
         max_abs_err=max(r["max_abs_err"] for r in ln_bwd_rows
                         if r["dtype"] != "float16"),
         sums_max_rel_err=max(r["sums_max_rel_err"] for r in ln_bwd_rows
@@ -7175,7 +7985,9 @@ def main(argv=None):
                     tuple(rest["adamw"]["zero"]["launches"][:2]),
                     "dp_bert_adamw_graphed_vs_eager":
                     tuple(rest["adamw"]["graph"]["launches"][:2]),
-                    "lstm_lm": lm_launches["attention_bshd"]},
+                    "lstm_lm": lm_launches["attention_bshd"],
+                    "sym_bert_bf16": tuple(sym_bf16[:2]),
+                    "dp_bert_amp_bf16": tuple(amp_dp[:2])},
         per={"fwd": "ms/plain_ms/bound_ms/library_ms: 12 launches at the "
                     "case 'bert' (what a BERT-base bf16 forward at 24 x 512 "
                     "would take through this entry; the BERT path runs the "
@@ -7217,7 +8029,8 @@ def main(argv=None):
               "f16_bert_step": tuple(f16bert["step"]["launches"][:2])}),
             ("f32", "f32_bert", "the float32 BERT-base forward's and step's",
              {"f32_bert_forward": (f32bert["forward"]["launches"][0], None),
-              "f32_bert_step": tuple(f32bert["step"]["launches"][:2])}),
+              "f32_bert_step": tuple(f32bert["step"]["launches"][:2]),
+              "sym_bert_f32": tuple(sym_f32[:2])}),
             ("d192", "d192_bert", "the D 192 encoder's forward and step",
              {"wide_encoder_d192": (wide[192]["forward_launches"][0]
                                     + wide[192]["step_launches"][0],
@@ -7318,6 +8131,14 @@ def main(argv=None):
         # the rule, loss and metric sweeps: checked in their phase
         e["launches_by_path"].setdefault("training_rest_sweeps", 0)
         e["launches_by_path"].setdefault("estimator_resnet50", 0)
+        # the symbolic ResNet-50 and the bucketing LM: this kernel's count
+        # from each path's run (each checked 0 there for every kernel, so
+        # the counters that the dtypes share give each variant's)
+        kernel, way = _counter_of(e["name"])
+        for path, key in (("sym_resnet50", "resnet"),
+                          ("sym_bucketing_lm", "lm")):
+            e["launches_by_path"][path] = \
+                symb[key]["launches"][kernel][way]
     print("attention sublayer, the layer's choice: (B, T, H, D) %.4f ms "
           "against (B, H, T, D) with transposes %.4f ms forward and "
           "backward  (%s)" % (sublayer["bshd"], sublayer["bhtd"], card))

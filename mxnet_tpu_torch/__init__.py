@@ -5,7 +5,10 @@ kept in the same module layout and public names: ``mx.nd``,
 ``mx.autograd``, ``mx.gluon``, ``mx.init``, ``mx.random``,
 ``mx.optimizer`` (``mx.opt``), ``mx.lr_scheduler``, ``mx.metric``,
 ``mx.io``, ``mx.callback``, ``mx.kv``, ``mx.parallel``, ``mx.serve``,
-``mx.contrib``, ``mx.NDArray``, ``mx.num_gpus`` and ``mx.cpu_pinned``.
+``mx.contrib``, the Symbol API and ``Module`` (``mx.sym``,
+``mx.executor``, ``mx.mod``, ``mx.model``, ``mx.subgraph``,
+``mx.AttrScope``, ``mx.name``), ``mx.NDArray``, ``mx.num_gpus`` and
+``mx.cpu_pinned``.
 Its default context is the card (``mx.gpu(0)``); the CPU runs only when
 the caller asks for ``mx.cpu()``.  When ``MXNET_TPU_COORDINATOR_ADDRESS``
 is set, importing the package joins the process group
@@ -39,6 +42,16 @@ from . import kvstore as kv  # noqa: F401
 from . import parallel  # noqa: F401
 from . import serve  # noqa: F401
 from . import contrib  # noqa: F401
+from . import attribute  # noqa: F401
+from . import name  # noqa: F401
+from .attribute import AttrScope  # noqa: F401
+from . import symbol  # noqa: F401
+from . import symbol as sym  # noqa: F401
+from . import executor  # noqa: F401
+from . import subgraph  # noqa: F401
+from . import model  # noqa: F401
+from . import module  # noqa: F401
+from . import module as mod  # noqa: F401
 from .base import __version__  # noqa: F401
 from .ndarray import NDArray  # noqa: F401
 

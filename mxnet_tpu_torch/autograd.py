@@ -31,7 +31,8 @@ import torch
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "op_scope",
-           "call_op", "mark_variables", "backward", "grad", "Function"]
+           "call_op", "mark_variables", "backward", "grad", "Function",
+           "get_symbol"]
 
 
 class _State(threading.local):
@@ -278,3 +279,11 @@ class Function:
             outs = _Bridge.apply(*[x._data for x in inputs])
         wrapped = [_wrap(o) for o in outs]
         return wrapped[0] if len(wrapped) == 1 else wrapped
+
+
+def get_symbol(x):
+    """Raises, as the JAX package's does: build a graph with ``sym.var``
+    and a block called on it instead."""
+    raise NotImplementedError(
+        "get_symbol: use mxnet_tpu_torch.symbol tracing (sym.var + "
+        "block(sym)) instead")

@@ -1,14 +1,15 @@
 """Training callbacks: ``Speedometer``, ``ProgressBar``,
-``log_train_metric`` and ``LogValidationMetricsCallback``.
+``do_checkpoint``, ``module_checkpoint``, ``log_train_metric`` and
+``LogValidationMetricsCallback``.
 
 Counterpart of the same callbacks in ``mxnet_tpu/callback.py``: each is
 called at the end of a batch (or an epoch) with a ``BatchEndParam`` and
 logs through ``logging``.  ``Speedometer`` logs the samples per second of
-the last ``frequent`` batches (and the metric, when one is given).  The
+the last ``frequent`` batches (and the metric, when one is given).
+``do_checkpoint`` and ``module_checkpoint`` are epoch-end callbacks
+writing ``model.save_checkpoint``'s files every ``period`` epochs.  The
 telemetry suffix of the JAX package's line and its ``attach`` wait with
-the rest of ``telemetry.py``; ``do_checkpoint`` and ``module_checkpoint``
-wait with ``Module`` and ``model.save_checkpoint`` (ROADMAP.md, queue 1,
-item 5).
+the rest of ``telemetry.py`` (ROADMAP.md, queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -17,8 +18,11 @@ import math
 import time
 from collections import namedtuple
 
-__all__ = ["BatchEndParam", "Speedometer", "ProgressBar",
-           "log_train_metric", "LogValidationMetricsCallback"]
+from . import telemetry
+
+__all__ = ["BatchEndParam", "Speedometer", "ProgressBar", "do_checkpoint",
+           "module_checkpoint", "log_train_metric",
+           "LogValidationMetricsCallback"]
 
 BatchEndParam = namedtuple("BatchEndParam",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -76,6 +80,32 @@ class ProgressBar:
         percents = math.ceil(100.0 * count / float(self.total))
         prog_bar = "=" * filled_len + "-" * (self.bar_len - filled_len)
         logging.info("[%s] %s%s\r", prog_bar, percents, "%")
+
+
+def do_checkpoint(prefix, period=1):
+    """An epoch-end callback ``(epoch, sym, arg, aux)`` saving
+    ``prefix-symbol.json`` and ``prefix-%04d.params`` (epoch + 1) every
+    ``period`` epochs."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            from .model import save_checkpoint
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+            telemetry.event("checkpoint", prefix, epoch=iter_no + 1)
+    return _callback
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """An epoch-end callback checkpointing the Module ``mod`` every
+    ``period`` epochs."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+            telemetry.event("checkpoint", prefix, epoch=iter_no + 1)
+    return _callback
 
 
 def log_train_metric(period, auto_reset=False):

@@ -16,8 +16,11 @@ takes the float16 q, k and v of its float16 projection.
 float16 the dynamic one, whose overflow check gates the whole step; for
 bfloat16 an inert one.  ``scale_loss`` scales the loss and sets the
 trainer's ``_scale`` so that its step divides the gradients by the same
-factor.  ``convert_model`` and ``convert_symbol`` need the Symbol API,
-which is not ported yet.
+factor.  ``convert_symbol`` and ``convert_model`` rewrite a Symbol graph
+with ``amp_cast`` nodes, as the JAX package's do.  The cast policy reaches
+the ``mx.nd`` dispatch only: an ``Executor`` (and so ``Module``) runs its
+ops in the dtypes it is given, also after ``init``, as the JAX package's
+Executor does.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import warnings
 
 import torch
 
-from ...base import MXNetError, torch_dtype
+from ...base import torch_dtype
 from . import lists
 from .loss_scaler import LossScaler
 
@@ -187,25 +190,60 @@ def unscale(trainer):
     trainer._scale = trainer._amp_original_scale
 
 
-def _needs_symbol(name):
-    raise MXNetError("amp.%s needs the Symbol API, which is not ported yet "
-                     "(ROADMAP.md, queue 1, item 5)" % name)
-
-
 def convert_symbol(sym, target_dtype="bfloat16", target_dtype_ops=None,
                    fp32_ops=None, conditional_fp32_ops=None,
                    excluded_sym_names=None, data_names=None,
                    cast_optional_params=False):
-    """Raises: the Symbol API is not ported."""
-    _needs_symbol("convert_symbol")
+    """A copy of the graph ``sym`` with an ``amp_cast`` node on every input
+    of each op of ``target_dtype_ops`` (to ``target_dtype``) and of
+    ``fp32_ops`` (to float32), the nodes named in ``excluded_sym_names``
+    left alone: the JAX package's graph, node for node and name for
+    name."""
+    from ...symbol.symbol import Symbol, _SymNode
+    target_dtype = _dtype_name(target_dtype)
+    target_ops = set(target_dtype_ops if target_dtype_ops is not None
+                     else lists.TARGET_DTYPE_OPS)
+    f32_ops = set(fp32_ops if fp32_ops is not None else lists.FP32_OPS)
+    excluded = set(excluded_sym_names or [])
+    mapping = {}
+
+    def cast_entry(entry, dtype, hint, slot):
+        node = _SymNode("amp_cast",
+                        "%s_%s_amp_cast_%s" % (hint, slot, dtype),
+                        {"dtype": dtype}, [entry], in_names=["data"])
+        return (node, 0)
+
+    for node in Symbol(sym._entries)._topo():
+        if node.op is None:
+            mapping[id(node)] = node
+            continue
+        inputs = [(mapping[id(c)], i) for c, i in node.inputs]
+        if node.name not in excluded:
+            slots = node.in_names or [str(i) for i in range(len(inputs))]
+            if node.op in target_ops:
+                inputs = [cast_entry(e, target_dtype, node.name, s)
+                          for e, s in zip(inputs, slots)]
+            elif node.op in f32_ops:
+                inputs = [cast_entry(e, "float32", node.name, s)
+                          for e, s in zip(inputs, slots)]
+        mapping[id(node)] = _SymNode(node.op, node.name, dict(node.attrs),
+                                     inputs, in_names=node.in_names)
+    return Symbol([(mapping[id(n)], i) for n, i in sym._entries])
 
 
 def convert_model(sym, arg_params, aux_params, target_dtype="bfloat16",
                   target_dtype_ops=None, fp32_ops=None,
                   conditional_fp32_ops=None, excluded_sym_names=None,
                   cast_optional_params=False):
-    """Raises: the Symbol API is not ported."""
-    _needs_symbol("convert_model")
+    """``(convert_symbol(sym, ...), arg_params, aux_params)``: the
+    parameters stay in their dtypes unless ``cast_optional_params``."""
+    new_sym = convert_symbol(sym, target_dtype, target_dtype_ops, fp32_ops,
+                             conditional_fp32_ops, excluded_sym_names,
+                             cast_optional_params=cast_optional_params)
+    if cast_optional_params:
+        arg_params = {k: v.astype(_dtype_name(target_dtype))
+                      for k, v in arg_params.items()}
+    return new_sym, dict(arg_params), dict(aux_params)
 
 
 def convert_hybrid_block(block, target_dtype="bfloat16",

@@ -25,8 +25,11 @@ call that completes deferred shapes, and a child called inside its
 parent's graph (or any captured body), which runs through.  Under
 ``autograd.record()`` a hybridized block runs eagerly too (a forward and
 backward pair of graphs waits: ``ROADMAP.md``, queue 1).
-``hybridize(False)`` and ``cast`` drop the graphs.  ``SymbolBlock`` is not
-ported.
+``hybridize(False)`` and ``cast`` drop the graphs.  Called on a Symbol, a
+``HybridBlock`` builds a graph: ``hybrid_forward(mx.sym, x, ...)`` with
+each parameter as ``Parameter.var()``.  ``SymbolBlock`` runs a Symbol
+graph as a block (``SymbolBlock.imports`` reads ``model.save_checkpoint``'s
+files); its parameters are named as the graph's arguments, as MXNet's.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ from ..cuda_graph import Captured, capturing, new_pool, storage_key
 from ..ndarray.ndarray import NDArray, _wrap
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 
 class _NameCounter(threading.local):
@@ -431,8 +434,14 @@ class HybridBlock(Block):
 
     def forward(self, x, *args):
         """Fetch this block's parameters (finishing deferred ones from
-        ``x``) and call ``hybrid_forward`` with ``F = mx.nd``."""
+        ``x``) and call ``hybrid_forward`` with ``F = mx.nd``; on a Symbol
+        ``x``, call it with ``F = mx.sym`` and each parameter's
+        ``var()``."""
         from .. import ndarray as nd
+        from .. import symbol as sym_mod
+        if isinstance(x, sym_mod.Symbol):
+            params = {name: p.var() for name, p in self._reg_params.items()}
+            return self.hybrid_forward(sym_mod, x, *args, **params)
         params = {}
         for name, p in self._reg_params.items():
             try:
@@ -452,3 +461,75 @@ class HybridBlock(Block):
         fname = "%s-%04d.params" % (path, epoch)
         self.save_parameters(fname)
         return fname
+
+
+class SymbolBlock(HybridBlock):
+    """A block that runs the Symbol graph ``outputs`` on the arrays of
+    ``inputs`` (variables of the graph); every other argument and
+    auxiliary state of the graph is a parameter of the block, named as in
+    the graph (the block's prefix is empty), with its shape deferred to
+    the first call."""
+
+    def __init__(self, outputs, inputs, params=None):
+        from ..symbol import Group, Symbol
+        super().__init__(prefix="", params=params)
+        if isinstance(outputs, (list, tuple)):
+            outputs = outputs[0] if len(outputs) == 1 else Group(outputs)
+        if isinstance(inputs, Symbol):
+            inputs = [inputs]
+        self._sym_outputs = outputs
+        self._sym_inputs = list(inputs)
+        input_names = {i.name for i in self._sym_inputs}
+        for name in outputs.list_arguments():
+            if name not in input_names:
+                self._reg_params[name] = self.params.get(
+                    name, allow_deferred_init=True)
+        for name in outputs.list_auxiliary_states():
+            self._reg_params[name] = self.params.get(
+                name, allow_deferred_init=True, grad_req="null")
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock of the graph in ``symbol_file`` whose inputs are
+        ``input_names``, its parameters read from ``param_file`` (the
+        ``arg:``/``aux:`` names of ``model.save_checkpoint``, or plain
+        names) onto ``ctx`` (default: the current context)."""
+        from .. import symbol as sym_mod
+        from ..ndarray.utils import load as nd_load
+        sym = sym_mod.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(sym, [sym_mod.var(n) for n in input_names])
+        if param_file is not None:
+            loaded = {k.split(":", 1)[1] if k.startswith(("arg:", "aux:"))
+                      else k: v
+                      for k, v in nd_load(param_file, ctx=cpu()).items()}
+            params = ret.collect_params()
+            missing = sorted(set(params.keys()) - set(loaded))
+            extra = sorted(set(loaded) - set(params.keys()))
+            if missing or extra:
+                raise AssertionError(
+                    "SymbolBlock.imports: %s misses parameters %s and has "
+                    "parameters %s the graph does not take"
+                    % (param_file, missing, extra))
+            for name, value in loaded.items():
+                params[name]._load_init(value, ctx)
+        return ret
+
+    def infer_shape(self, *args):
+        arg_shapes, _, aux_shapes = self._sym_outputs.infer_shape(
+            **{i.name: a.shape for i, a in zip(self._sym_inputs, args)})
+        shapes = dict(zip(self._sym_outputs.list_arguments(), arg_shapes))
+        shapes.update(zip(self._sym_outputs.list_auxiliary_states(),
+                          aux_shapes))
+        for name, p in self._reg_params.items():
+            if p._data is None:
+                p._finish_deferred_init(shapes[name])
+
+    def forward(self, *args):
+        if any(p._data is None for p in self._reg_params.values()):
+            self.infer_shape(*args)
+        arg_dict = {i.name: a for i, a in zip(self._sym_inputs, args)}
+        for name, p in self._reg_params.items():
+            arg_dict[name] = p.data()
+        return self._sym_outputs.eval_imperative(arg_dict)

@@ -250,6 +250,13 @@ class Parameter:
         if self._grad_req != "null":
             self._init_grad()
 
+    def var(self):
+        """This parameter as a Symbol variable (name, shape, dtype and
+        initializer), for ``HybridBlock`` called on a Symbol."""
+        from .. import symbol
+        return symbol.var(self.name, shape=self.shape, dtype=self.dtype,
+                          init=self.init)
+
     def _load_init(self, data, ctx=None):
         """Initialize from a loaded array (a checkpoint entry)."""
         if self._shape is not None and len(self._shape) == len(data.shape):

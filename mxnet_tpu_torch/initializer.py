@@ -68,8 +68,18 @@ class Initializer:
         return json.dumps([self.__class__.__name__.lower(), self._kwargs])
 
     def __call__(self, desc, arr):
+        """Fill ``arr`` by the pattern of its name; an ``InitDesc`` whose
+        attributes carry ``__init__`` (a variable made with ``init=``)
+        takes that initializer instead."""
         if not isinstance(desc, str):
             raise TypeError("desc must be a string or InitDesc")
+        if isinstance(desc, InitDesc) and desc.global_init is None:
+            desc.global_init = self
+        init = desc.attrs.get("__init__", "") \
+            if isinstance(desc, InitDesc) else ""
+        if init:
+            create(init)._init_weight(desc, arr)
+            return
         name = desc.lower()
         if name.endswith("weight"):
             self._init_weight(desc, arr)
@@ -83,6 +93,9 @@ class Initializer:
             self._init_zero(desc, arr)
         elif name.endswith("running_var") or name.endswith("moving_var"):
             self._init_one(desc, arr)
+        elif name.endswith("moving_inv_var") or name.endswith("moving_avg") \
+                or name.endswith("min") or name.endswith("max"):
+            self._init_zero(desc, arr)
         else:
             self._init_default(desc, arr)
 

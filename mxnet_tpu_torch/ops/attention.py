@@ -343,6 +343,14 @@ def _kernel_operands(what, tensors, contiguous=True):
     return device, code
 
 
+def _on_meta(tensors):
+    """Whether every operand lies on the ``meta`` device: a forward entry
+    then returns outputs of the right shapes and dtypes without data (the
+    shape rule ``Symbol.infer_shape`` runs the ops under); a CUDA or CPU
+    tensor never takes that rule."""
+    return all(t.device.type == "meta" for t in tensors)
+
+
 def _padded_head_dim(what, D):
     Dp = next((d for d in _HEAD_DIMS if D <= d), None)
     if Dp is None:
@@ -366,6 +374,10 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, kv_lens=None,
                          "(B, H, Tk, D), got %s, %s, %s"
                          % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
     _check_segments(q, k, q_segments, kv_segments)
+    if _on_meta((q, k, v)):
+        return torch.empty_like(q), torch.empty(q.shape[:3],
+                                                dtype=torch.float32,
+                                                device=q.device)
     device, code = _kernel_operands("flash_attention_fwd", (q, k, v))
     if code is None:
         return _flash_attention_plain(q, k, v, causal, scale, kv_lens,
@@ -654,6 +666,11 @@ def flash_attention_bshd_fwd(q, k, v, causal=False, scale=None,
     strided views with D contiguous and 16-byte aligned strides and base,
     read in place; it raises on anything else."""
     _check_bshd("flash_attention_bshd_fwd", q, k, v)
+    if _on_meta((q, k, v)):
+        B, Tq, H, _ = q.shape
+        return torch.empty_like(q), torch.empty((B, H, Tq),
+                                                dtype=torch.float32,
+                                                device=q.device)
     device, code = _kernel_operands("flash_attention_bshd_fwd", (q, k, v),
                                     contiguous=False)
     if code is None:

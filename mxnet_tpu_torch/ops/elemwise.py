@@ -14,11 +14,18 @@ scalar takes the array's dtype unless it is a float beside an integer
 array (torch's rule for a 0-d operand is ``jnp``'s for a weak type).
 ``mod`` follows ``jnp.mod`` (the sign of the divisor, ``torch.remainder``)
 and ``rint`` rounds half to even.
+
+The ops bound to torch builtins are plain functions with the parameters
+of the JAX package's op (``jnp.add`` is a ufunc called as ``(*args,
+out=None, where=None)``, ``jnp.divide`` takes ``(x1, x2, /)``,
+``jnp.abs`` ``(x, /)``), because the symbol layer reads an op's input
+slots and attributes from its signature.
 """
 from __future__ import annotations
 
 import torch
 
+from ..base import MXNetError
 from .registry import alias, register
 
 __all__ = ["hard_sigmoid", "clip", "block_grad", "make_loss", "where",
@@ -45,6 +52,30 @@ def _cbrt(x):
     return torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
 
 
+def _ufunc(fn):
+    """``fn`` called as a numpy ufunc, ``(*args, out=None, where=None)``:
+    the signature of the JAX package's ``jnp.add``, ``jnp.maximum``..."""
+    def k(*args, out=None, where=None):
+        if out is not None or where is not None:
+            raise MXNetError("out= and where= of a ufunc are not supported")
+        return fn(*args)
+    return k
+
+
+def _x1_x2(fn):
+    """``fn`` with the JAX package's ``(x1, x2, /)`` signature."""
+    def k(x1, x2, /):
+        return fn(x1, x2)
+    return k
+
+
+def _x(fn):
+    """``fn`` with the JAX package's ``(x, /)`` signature."""
+    def k(x, /):
+        return fn(x)
+    return k
+
+
 def _identity(x):
     # a copy: a variable of the port is updated in place, and the JAX
     # package's identity is an array of its own
@@ -53,14 +84,14 @@ def _identity(x):
 
 # --- unary table -----------------------------------------------------------
 _UNARY = {
-    "abs": torch.abs,
-    "sign": torch.sign,
+    "abs": _x(torch.abs),
+    "sign": _x(torch.sign),
     "rint": _floats(torch.round),
     "ceil": _rounding(torch.ceil),
     "floor": _rounding(torch.floor),
     "trunc": _rounding(torch.trunc),
     "fix": _rounding(torch.trunc),
-    "square": torch.square,
+    "square": _x(torch.square),
     "sqrt": _floats(torch.sqrt),
     "rsqrt": _floats(torch.rsqrt),
     "cbrt": _cbrt,
@@ -86,7 +117,7 @@ _UNARY = {
     "degrees": _floats(torch.rad2deg),
     "radians": _floats(torch.deg2rad),
     "reciprocal": _floats(torch.reciprocal),
-    "negative": torch.neg,
+    "negative": _ufunc(torch.neg),
     "logical_not": lambda x: (x == 0).to(x.dtype),
     "erf": _floats(torch.erf),
     "erfinv": _floats(torch.erfinv),
@@ -94,7 +125,7 @@ _UNARY = {
     "gamma": lambda x: torch.exp(torch.lgamma(_inexact(x))),
     "gammaln": _floats(torch.lgamma),
     "sigmoid": _floats(torch.sigmoid),
-    "relu": torch.relu,
+    "relu": _x(torch.relu),
     "softsign": lambda x: _inexact(x) / (1 + torch.abs(_inexact(x))),
     "identity": _identity,
 }
@@ -155,8 +186,8 @@ def _promoted(fn):
 def _promoted_floats(fn):
     """``fn`` of two operands in their common dtype, float32 for two
     integers (``hypot`` and ``arctan2`` take floats only)."""
-    def k(a, b):
-        a, b = _tensors(a, b)
+    def k(x1, x2, /):
+        a, b = _tensors(x1, x2)
         return fn(_inexact(a), _inexact(b))
     return k
 
@@ -166,27 +197,27 @@ _arctan2 = _promoted_floats(torch.atan2)
 
 
 _BINARY = {
-    "elemwise_add": torch.add,
-    "elemwise_sub": torch.sub,
-    "elemwise_mul": torch.mul,
-    "elemwise_div": torch.div,
-    "broadcast_add": torch.add,
-    "broadcast_sub": torch.sub,
-    "broadcast_mul": torch.mul,
-    "broadcast_div": torch.div,
-    "broadcast_mod": torch.remainder,
-    "broadcast_power": torch.pow,
-    "broadcast_maximum": _promoted(torch.maximum),
-    "broadcast_minimum": _promoted(torch.minimum),
+    "elemwise_add": _ufunc(torch.add),
+    "elemwise_sub": _ufunc(torch.sub),
+    "elemwise_mul": _ufunc(torch.mul),
+    "elemwise_div": _x1_x2(torch.div),
+    "broadcast_add": _ufunc(torch.add),
+    "broadcast_sub": _ufunc(torch.sub),
+    "broadcast_mul": _ufunc(torch.mul),
+    "broadcast_div": _x1_x2(torch.div),
+    "broadcast_mod": _x1_x2(torch.remainder),
+    "broadcast_power": _x1_x2(torch.pow),
+    "broadcast_maximum": _ufunc(_promoted(torch.maximum)),
+    "broadcast_minimum": _ufunc(_promoted(torch.minimum)),
     "broadcast_hypot": _hypot,
-    "maximum": _promoted(torch.maximum),
-    "minimum": _promoted(torch.minimum),
+    "maximum": _ufunc(_promoted(torch.maximum)),
+    "minimum": _ufunc(_promoted(torch.minimum)),
     "hypot": _hypot,
     "arctan2": _arctan2,
     # MXNet's ldexp takes a float exponent: lhs * 2 ** rhs
     "ldexp": lambda a, b: a * torch.pow(2.0, b),
-    "power": torch.pow,
-    "mod": torch.remainder,
+    "power": _x1_x2(torch.pow),
+    "mod": _x1_x2(torch.remainder),
 }
 
 for _name, _fn in _BINARY.items():

@@ -92,15 +92,16 @@ def _channel_layout(data, scale, axis, *same_shape):
     return axis, C, trail
 
 
-def _device_of(name, tensors):
+def _device_of(name, tensors, meta=False):
     """The one device of ``tensors``: raises when they are on several, or
-    on a device that is neither the CPU nor CUDA."""
+    on a device that is neither the CPU nor CUDA (nor, where ``meta``,
+    the ``meta`` device of shape inference)."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise MXNetError("%s: operands on several devices %s"
                          % (name, sorted(map(str, devices))))
     device = devices.pop()
-    if device.type not in ("cpu", "cuda"):
+    if device.type not in ("cpu", "cuda") + (("meta",) if meta else ()):
         raise MXNetError("%s: no kernel for device %s" % (name, device))
     return device
 
@@ -214,6 +215,10 @@ def _epilogue_fwd(data, scale, shift, residual, axis, C, trail):
     if data.device.type == "cpu":
         return fused_bn_add_relu_epilogue_plain(data, scale, shift, residual,
                                                 axis)
+    if data.device.type == "meta":
+        # the shape rule of shape inference (Symbol.infer_shape): y has
+        # data's shape and dtype, without data; a CUDA tensor never takes it
+        return torch.empty_like(data)
     return _fwd_kernel(data, scale, shift, residual, C, trail)
 
 
@@ -250,7 +255,7 @@ def fused_bn_add_relu_epilogue(data, scale, shift, residual, axis):
         raise ValueError("per-channel vectors need %d entries, got %d"
                          % (C, shift.numel()))
     operands = (data, scale, shift, residual)
-    _device_of("fused_bn_add_relu_epilogue", operands)
+    _device_of("fused_bn_add_relu_epilogue", operands, meta=True)
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         return _Epilogue.apply(data, scale, shift, residual, axis, C, trail)
     # no graph to record (serving, inference mode): the Function's

@@ -135,6 +135,14 @@ def layer_norm_fwd(x2d, gamma, beta, eps):
     device = devices.pop()
     if device.type == "cpu":
         return _layer_norm_fwd_plain(x2d, gamma, beta, eps)
+    if device.type == "meta":
+        # the shape rule of shape inference (Symbol.infer_shape): outputs
+        # without data; a CUDA tensor never takes it
+        N, C = x2d.shape
+        return (torch.empty((N, C), dtype=_out_dtype(x2d, gamma, beta),
+                            device=device),
+                torch.empty((N, 1), dtype=torch.float32, device=device),
+                torch.empty((N, 1), dtype=torch.float32, device=device))
     if device.type != "cuda":
         raise MXNetError("layer_norm_fwd: no kernel for device %s" % device)
     x_code = _DTYPE_CODE.get(x2d.dtype)

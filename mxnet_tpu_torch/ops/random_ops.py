@@ -8,7 +8,10 @@ of the output's device (``random.generator``), so ``mx.random.seed``,
 draw, and the samples land on the generator's device.  Only torch's
 samplers that take an explicit generator are used (``torch.distributions``
 would draw from the global one).  The two packages draw different numbers
-from the same seed; they agree in distribution, shape and dtype.
+from the same seed; they agree in distribution, shape and dtype.  The
+samplers without an array input take ``ctx=`` as the JAX package's do;
+the dispatch places the draw (``ctx`` picks the generator), so the
+argument itself goes unused here.
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ def _poisson(gen, rate):
 @register("_random_uniform", needs_rng=True, differentiable=False,
           aliases=("random_uniform", "uniform"))
 def random_uniform(gen, low: float = 0.0, high: float = 1.0, shape=None,
-                   dtype="float32"):
+                   dtype="float32", ctx=None):
     u = torch.rand(_shape(shape), generator=gen, device=gen.device,
                    dtype=torch_dtype(dtype))
     return low + u * (high - low)
@@ -56,7 +59,7 @@ def random_uniform(gen, low: float = 0.0, high: float = 1.0, shape=None,
 @register("_random_normal", needs_rng=True, differentiable=False,
           aliases=("random_normal", "normal"))
 def random_normal(gen, loc: float = 0.0, scale: float = 1.0, shape=None,
-                  dtype="float32"):
+                  dtype="float32", ctx=None):
     z = torch.randn(_shape(shape), generator=gen, device=gen.device,
                     dtype=torch_dtype(dtype))
     return loc + scale * z
@@ -65,14 +68,15 @@ def random_normal(gen, loc: float = 0.0, scale: float = 1.0, shape=None,
 @register("_random_gamma", needs_rng=True, differentiable=False,
           aliases=("random_gamma",))
 def random_gamma(gen, alpha: float = 1.0, beta: float = 1.0, shape=None,
-                 dtype="float32"):
+                 dtype="float32", ctx=None):
     g = _gamma(gen, alpha, _shape(shape), gen.device) * beta
     return g.to(torch_dtype(dtype))
 
 
 @register("_random_exponential", needs_rng=True, differentiable=False,
           aliases=("random_exponential",))
-def random_exponential(gen, lam: float = 1.0, shape=None, dtype="float32"):
+def random_exponential(gen, lam: float = 1.0, shape=None, dtype="float32",
+                       ctx=None):
     e = torch.empty(_shape(shape), device=gen.device,
                     dtype=torch_dtype(dtype)).exponential_(1.0, generator=gen)
     return e / lam
@@ -80,7 +84,8 @@ def random_exponential(gen, lam: float = 1.0, shape=None, dtype="float32"):
 
 @register("_random_poisson", needs_rng=True, differentiable=False,
           aliases=("random_poisson",))
-def random_poisson(gen, lam: float = 1.0, shape=None, dtype="float32"):
+def random_poisson(gen, lam: float = 1.0, shape=None, dtype="float32",
+                   ctx=None):
     rate = torch.full(_shape(shape), float(lam), device=gen.device)
     return _poisson(gen, rate).to(torch_dtype(dtype))
 
@@ -88,7 +93,7 @@ def random_poisson(gen, lam: float = 1.0, shape=None, dtype="float32"):
 @register("_random_negative_binomial", needs_rng=True, differentiable=False,
           aliases=("random_negative_binomial",))
 def random_negative_binomial(gen, k: int = 1, p: float = 1.0, shape=None,
-                             dtype="float32"):
+                             dtype="float32", ctx=None):
     """NB(k, p) as Poisson(Gamma(k, (1 - p) / p)): failures before the
     k-th success at success rate p."""
     g = _gamma(gen, k, _shape(shape), gen.device) * ((1 - p) / p)
@@ -99,7 +104,7 @@ def random_negative_binomial(gen, k: int = 1, p: float = 1.0, shape=None,
           differentiable=False,
           aliases=("random_generalized_negative_binomial",))
 def random_gen_neg_binomial(gen, mu: float = 1.0, alpha: float = 1.0,
-                            shape=None, dtype="float32"):
+                            shape=None, dtype="float32", ctx=None):
     """Poisson(Gamma(1 / alpha, mu alpha)): mean ``mu``, variance ``mu +
     alpha mu²``."""
     r = 1.0 / alpha
@@ -111,7 +116,7 @@ def random_gen_neg_binomial(gen, mu: float = 1.0, alpha: float = 1.0,
 @register("_random_randint", needs_rng=True, differentiable=False,
           aliases=("random_randint", "randint"))
 def random_randint(gen, low: int = 0, high: int = 1, shape=None,
-                   dtype="int32"):
+                   dtype="int32", ctx=None):
     return torch.randint(int(low), int(high), _shape(shape), generator=gen,
                          device=gen.device, dtype=torch_dtype(dtype))
 

@@ -365,10 +365,15 @@ def test_unscale_divides_the_gradients_once():
 
 
 def test_convert_symbol_and_model_name_the_symbol_wait():
-    for fn in (lambda: tamp.convert_symbol(None),
-               lambda: tamp.convert_model(None, {}, {})):
-        with pytest.raises(mxt.MXNetError, match="queue 1, item 5"):
-            fn()
+    """The Symbol API's wait is over: both convert a graph, as the JAX
+    package's do (tests/test_torch_module.py holds them to its graphs)."""
+    with mxt.name.NameManager():
+        s = mxt.sym.FullyConnected(mxt.sym.var("data"), num_hidden=2,
+                                   name="fc")
+    conv = tamp.convert_symbol(s)
+    assert "fc_data_amp_cast_bfloat16" in conv.tojson()
+    sym, args, aux = tamp.convert_model(s, {}, {})
+    assert sym.tojson() == conv.tojson() and args == aux == {}
 
 
 def test_public_names_match_jax():

@@ -127,6 +127,44 @@ def test_every_module_of_the_rest_of_training_slice_is_checked():
         assert name in rel, name
 
 
+def test_every_module_of_the_symbol_slice_is_checked():
+    rel = {os.path.relpath(p, PKG) for p in _port_files()}
+    for name in ("name.py", "attribute.py", "symbol/__init__.py",
+                 "symbol/symbol.py", "symbol/_eval.py", "symbol/_infer.py",
+                 "symbol/contrib.py", "symbol/linalg.py", "symbol/random.py",
+                 "executor.py", "subgraph.py", "model.py",
+                 "module/__init__.py", "module/base_module.py",
+                 "module/module.py", "module/bucketing_module.py",
+                 "module/sequential_module.py", "gluon/block.py",
+                 "gluon/parameter.py", "contrib/amp/amp.py", "callback.py",
+                 "autograd.py", "initializer.py", "ops/elemwise.py",
+                 "ops/random_ops.py", "ops/fused_norm.py", "ops/layernorm.py",
+                 "ops/attention.py", "__init__.py"):
+        assert name in rel, name
+
+
+def test_symbol_slice_entry_points_raise_without_cuda():
+    """A Module and a bound Executor default to the card: without one
+    they raise, and never carry on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    s = mxt.sym.FullyConnected(mxt.sym.var("data"), num_hidden=2, name="fc")
+    mod = mxt.mod.Module(s, label_names=None)
+    with pytest.raises(mxt.MXNetError, match="CUDA"):
+        mod.bind(data_shapes=[("data", (1, 3))])
+    with pytest.raises(mxt.MXNetError, match="CUDA"):
+        s.simple_bind(data=(1, 3))
+
+
+def test_meta_shape_rules_are_reached_by_meta_tensors_only():
+    """Each kernel wrapper tests for the meta device itself before its
+    shape rule: a CUDA tensor cannot take it."""
+    for rel in ("ops/fused_norm.py", "ops/layernorm.py", "ops/attention.py"):
+        with open(os.path.join(PKG, rel)) as f:
+            src = f.read()
+        assert 'type == "meta"' in src, rel
+
+
 def test_optimizer_noise_draws_from_an_explicit_generator():
     """SGLD's noise is drawn with the port's generator of the weight's
     device, never torch's global one."""
