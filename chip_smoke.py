@@ -297,6 +297,31 @@ and PyTorch built for CUDA.  It:
    and 24 (2 batches each, the parameters shared, the perplexity);
    BERT-base's float32-weight ``DataParallelStep`` under
    ``amp.init("bfloat16")``, graphed against eager to the same bits;
+12f. compiled training phase (``compiled_training_phase``, TF32 off): each
+   path 5 steps through CUDA graphs and 5 eagerly from the same weights
+   (``hybridize(False)`` inside ``cuda_graph.disabled()``), the same bits
+   for every loss and every weight and state after them, the launches a
+   step after the first (twice that in the first: its warm-up), and no
+   graph built after the first step: BERT-base bf16 as
+   ``bench.py:_build_bert_step`` builds it (24 x 512, Adam lr 1e-4)
+   hybridized through ``record()``, ``backward()`` and ``Trainer.step``
+   (the block's forward/backward pair and the update's graph; 12 + 12
+   (B, T, H, D) attention and 26 + 26 LayerNorm launches a step), with
+   the 'write' hooks' copies into the stable gradient buffers timed, and
+   one hybridized f32 step at batch 2 against the CPU; ResNet-50 v1 at
+   batch 32 (SGD lr 0.1, momentum 0.9, wd 1e-4, ``cudnn.deterministic``)
+   in the same loop (16 + 16 epilogue launches a step, the running
+   statistics the eager run's bits), one hybridized step at batch 2
+   against the CPU; first, on an MLP, the recorded-call cases graphed
+   against eager to the bits (``ct_recorded_cases``: two calls of one key
+   with a backward each, in either order; ``create_graph``; dropout
+   replays, each gradient its own mask); the symbolic BERT-base after
+   ``amp.convert_model(..., "bfloat16")`` and ``train_imagenet.py``'s
+   ResNet-50 (batch 32) through ``Module.fit`` on the captured Executor,
+   the 2-layer symbolic BERT's graphed step against the CPU.  Prints
+   step ms graphed and eager, the warm-up and capture seconds, peak
+   memory, the launches a step, the graphs built, and under
+   ``--profile`` each way's device busy ms and idle share;
 13. prints one JSON line describing each kernel, then as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -905,12 +930,14 @@ def _update_errors(w0, w1, w1_ref):
     return (err2 / ref2) ** 0.5, per_param
 
 
-def card_vs_cpu_step(torch, mx, net, w0, data, label, make_net=None):
+def card_vs_cpu_step(torch, mx, net, w0, data, label, make_net=None,
+                     floor=True):
     """The same SGD step from the same weights on the card and on the CPU
     (the plain versions there), and, as the floor of what summation order
-    alone does, the CPU step again on one thread.  ``make_net()`` builds
-    the CPU's net (default ResNet-50 v1).  Returns the loss rel error and
-    the update errors of the card and of the floor."""
+    alone does, the CPU step again on one thread (unless not ``floor``:
+    None then).  ``make_net()`` builds the CPU's net (default ResNet-50
+    v1).  Returns the loss rel error and the update errors of the card and
+    of the floor."""
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
     from mxnet_tpu_torch.gluon.utils import load_jax_params
     b = PARITY_BATCH
@@ -928,15 +955,17 @@ def card_vs_cpu_step(torch, mx, net, w0, data, label, make_net=None):
                          mx.nd.array(label[:b], ctx=mx.cpu()), b)
         return loss, _param_arrays(cpu_net)
     cpu_loss, w1_cpu = cpu_step()
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    _, w1_cpu1 = cpu_step()
-    torch.set_num_threads(threads)
+    floor_errors = None
+    if floor:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        _, w1_cpu1 = cpu_step()
+        torch.set_num_threads(threads)
+        floor_errors = _update_errors(w0, w1_cpu1, w1_cpu)
     import numpy as onp
     loss_rel = float(onp.abs(gpu_loss - cpu_loss).max()
                      / onp.abs(cpu_loss).max())
-    return (loss_rel, _update_errors(w0, w1_gpu, w1_cpu),
-            _update_errors(w0, w1_cpu1, w1_cpu))
+    return (loss_rel, _update_errors(w0, w1_gpu, w1_cpu), floor_errors)
 
 
 def training_phase(torch, mx, fused_norm, seed, card, profile=False):
@@ -2217,12 +2246,13 @@ def _adam(mx, net):
                          {"learning_rate": BERT_LR})
 
 
-def bert_train_card_vs_cpu(torch, mx, seed):
+def bert_train_card_vs_cpu(torch, mx, seed, hybridize=False, floor=True):
     """One f32 training step of BERT-base at batch 2, S 128 from the same
-    weights on the card (the kernels) and on the CPU (the plain versions),
-    and, as the floor of what summation order alone does, the CPU step
-    again on one thread.  Returns the loss rel error and the update errors
-    of the card and of the floor."""
+    weights on the card (the kernels; the net hybridized, its step
+    graphed, with ``hybridize``) and on the CPU (the plain versions), and,
+    as the floor of what summation order alone does, the CPU step again
+    on one thread (unless not ``floor``: None then).  Returns the loss rel
+    error and the update errors of the card and of the floor."""
     import numpy as onp
     from mxnet_tpu_torch import gluon
     from mxnet_tpu_torch.gluon.utils import load_jax_params
@@ -2250,6 +2280,7 @@ def bert_train_card_vs_cpu(torch, mx, seed):
     with mx.autograd.predict_mode():
         gnet(mx.nd.array(tokens, ctx=mx.gpu(0)))
     w0 = _param_arrays(gnet)
+    gnet.hybridize(hybridize)
     gpu_loss, w1_gpu = step(gnet, mx.gpu(0))
     del gnet
     cnet = _bert(mx, use_pooler=False)
@@ -2258,15 +2289,17 @@ def bert_train_card_vs_cpu(torch, mx, seed):
     def cpu_step():
         load_jax_params(cnet, w0)
         return step(cnet, mx.cpu())
+    floor_errors = None
     with mx.cpu():
         cpu_loss, w1_cpu = cpu_step()
-        threads = torch.get_num_threads()
-        torch.set_num_threads(1)
-        _, w1_cpu1 = cpu_step()
-        torch.set_num_threads(threads)
+        if floor:
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            _, w1_cpu1 = cpu_step()
+            torch.set_num_threads(threads)
+            floor_errors = _update_errors(w0, w1_cpu1, w1_cpu)
     loss_rel = float(abs(gpu_loss - cpu_loss) / abs(cpu_loss))
-    return (loss_rel, _update_errors(w0, w1_gpu, w1_cpu),
-            _update_errors(w0, w1_cpu1, w1_cpu))
+    return (loss_rel, _update_errors(w0, w1_gpu, w1_cpu), floor_errors)
 
 
 def bert_training_phase(torch, mx, attention, layernorm, seed, card,
@@ -7099,9 +7132,10 @@ def sym_bert_train(torch, mx, attention, layernorm, sym, args, data, label,
     """``SYM_BERT_STEPS`` Adam steps of the symbolic BERT ``sym`` through
     ``Module`` on the card from the host weights ``args``: the step ms,
     the launches a step of the attention and LayerNorm kernels (12 + 12
-    and 26 + 26 required) and the losses (falling); a spy checks the
-    dtypes the kernels' wrappers get (attention ``want_attn_dtype``,
-    LayerNorm float32)."""
+    and 26 + 26 required in each step after the first, which captures the
+    Executor's pair: twice that there, the warm-up and the replay) and the
+    losses (falling); a spy checks the dtypes the kernels' wrappers get
+    (attention ``want_attn_dtype``, LayerNorm float32)."""
     gpu = mx.gpu(0)
     mod = _sym_bert_module(mx, sym, data, label, gpu)
     mod.init_params(arg_params=_as_nd(mx, args, gpu))
@@ -7116,7 +7150,10 @@ def sym_bert_train(torch, mx, attention, layernorm, sym, args, data, label,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times, losses = [], []
-        for _ in range(SYM_BERT_STEPS):
+        for i in range(SYM_BERT_STEPS):
+            if i == 1:
+                first = _bert_counts(attention, layernorm)
+                _reset_counts(attention, layernorm)
             t = time.perf_counter()
             mod.forward_backward(batch)
             mod.update()
@@ -7128,11 +7165,15 @@ def sym_bert_train(torch, mx, attention, layernorm, sym, args, data, label,
     finally:
         attention.flash_attention_bshd_fwd = orig_a
         layernorm.layer_norm_fwd = orig_l
-    n = SYM_BERT_STEPS
-    want = (BERT_ATTN_PER_STEP * n,) * 2 + (BERT_LN_PER_STEP * n,) * 2
-    check(counts == (want, (0, 0)),
-          "%s: launches %r in %d steps, want %r and no (B, H, T, D) ones"
-          % (what, counts, n, want))
+    n = SYM_BERT_STEPS - 1
+    per = (BERT_ATTN_PER_STEP,) * 2 + (BERT_LN_PER_STEP,) * 2
+    want = tuple(v * n for v in per)
+    check(counts == (want, (0, 0))
+          and first == (tuple(2 * v for v in per), (0, 0)),
+          "%s: launches %r in the %d steps after the first, %r in the "
+          "first, want %r a step (twice that in the first) and no (B, H, "
+          "T, D) ones" % (what, counts, n, first, per))
+    counts = (tuple(a + b for a, b in zip(first[0], counts[0])), counts[1])
     check(seen_attn == {want_attn_dtype} and seen_ln == {"float32"},
           "%s: attention got %s, LayerNorm %s" % (what, seen_attn, seen_ln))
     check(all(onp_isfinite(v) for v in losses) and losses[-1] < losses[0],
@@ -7147,8 +7188,8 @@ def sym_bert_train(torch, mx, attention, layernorm, sym, args, data, label,
     return mod, batch, {
         "step_ms": statistics.median(times[1:]) * 1e3,
         "step_ms_all": [v * 1e3 for v in times], "losses": losses,
-        "launches_per_step": tuple(c // n for c in counts[0]),
-        "launches": counts[0], "peak_bytes": torch.cuda.max_memory_allocated(),
+        "launches_per_step": per, "launches": counts[0],
+        "peak_bytes": torch.cuda.max_memory_allocated(),
         "profile": prof}
 
 
@@ -7451,6 +7492,704 @@ def print_symbolic(r, card):
         "%s %.1f" % kv for kv in r["seconds"].items()))
 
 
+# ---------------------------------------------------------------------------
+# compiled training: the Gluon loop (hybridize, record, backward,
+# Trainer.step) and Module.fit, each as CUDA graphs and eagerly
+# ---------------------------------------------------------------------------
+
+# Steps each way; the first builds the graphs (its warm-up runs every
+# kernel once more), the rest replay them.
+CT_STEPS = 5
+# the graphs each path's first step builds: the block's forward/backward
+# pair and the Trainer's update, or the Executor's pair (Module.update
+# stays per weight, as in the JAX package)
+CT_BUILDS = {"bert": 2, "resnet": 2, "sym_bert": 1, "sym_resnet": 1}
+# steps' worth of gradient copies timed between two events
+CT_COPY_BURST = 10
+
+
+class _OneBatchIter:
+    """One batch served ``n`` times an epoch, for ``Module.fit``."""
+
+    def __init__(self, mx, names, data, label, n):
+        self.batch = mx.io.DataBatch(data=data, label=label, pad=0)
+        self.provide_data = [mx.io.DataDesc(k, tuple(d.shape))
+                             for k, d in zip(names, data)]
+        self.provide_label = [mx.io.DataDesc("softmax_label",
+                                             tuple(label[0].shape))]
+        self.batch_size = data[0].shape[0]
+        self._n, self._i = n, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._i >= self._n:
+            raise StopIteration
+        self._i += 1
+        return self.batch
+
+    next = __next__
+
+    def reset(self):
+        self._i = 0
+
+
+def _ct_counts(attention, layernorm, fused_norm, reset=False):
+    if reset:
+        _reset_counts(attention, layernorm)
+        fused_norm.LAUNCHES = fused_norm.BWD_LAUNCHES = 0
+    return _hand_kernel_launches(attention, layernorm, fused_norm)
+
+
+def _ct_run(torch, kernels, steps, graphed):
+    """``steps`` (a function running CT_STEPS steps, calling its argument
+    after each) through the graphs or inside ``cuda_graph.disabled()``:
+    each step's ms (synced), the loss each step returns, the launches of
+    the first step and of the others (counts from 0 just before each), the
+    graphs the first step built and those built after it, and the peak
+    device memory."""
+    import contextlib
+    from mxnet_tpu_torch import cuda_graph, telemetry
+    rec = {"ms": [], "losses": []}
+    state = {"t": None}
+    before = telemetry.compile_counts()
+
+    def mark(loss):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec["ms"].append((now - state["t"]) * 1e3)
+        rec["losses"].append(loss)
+        if len(rec["ms"]) == 1:
+            rec["first"] = kernels()
+            rec["built"] = telemetry.compile_deltas(before)
+            state["after"] = telemetry.compile_counts()
+            kernels(reset=True)
+        state["t"] = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels(reset=True)
+    state["t"] = time.perf_counter()
+    with (contextlib.nullcontext() if graphed else cuda_graph.disabled()):
+        steps(mark)
+    rec["rest"] = kernels()
+    rec["total"] = {k: tuple(a + b for a, b in zip(v, rec["first"][k]))
+                    for k, v in rec["rest"].items()}
+    rec["rebuilt"] = telemetry.compile_deltas(state["after"])
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["step_ms"] = statistics.median(rec["ms"][1:])
+    n = len(rec["ms"]) - 1
+    rec["per_step"] = {k: (f // n, b // n) for k, (f, b) in
+                       rec["rest"].items()}
+    return rec
+
+
+def _ct_compare(torch, what, graphed, eager, want, state_g, state_e):
+    """The hard checks of one path: the same bits for every loss and every
+    tensor of the state after the steps, the launches a step, and no graph
+    built after the first step."""
+    check(len(graphed["losses"]) == len(eager["losses"]) == CT_STEPS
+          and all(torch.equal(a, b) for a, b in zip(graphed["losses"],
+                                                    eager["losses"])),
+          "%s: graphed losses %s, eager %s" % (
+              what, [float(v.float().mean()) for v in graphed["losses"]],
+              [float(v.float().mean()) for v in eager["losses"]]))
+    differ = sorted(k for k in state_g if not torch.equal(state_g[k],
+                                                          state_e[k]))
+    check(not differ, "%s: graphed and eager differ after %d steps in %s"
+          % (what, CT_STEPS, differ[:8]))
+    for run, name in ((graphed, "graphed"), (eager, "eager")):
+        got = {k: v for k, v in run["per_step"].items() if any(v)}
+        check(got == want and all(
+            f % (CT_STEPS - 1) == 0 and b % (CT_STEPS - 1) == 0
+            for f, b in run["rest"].values()),
+            "%s, %s: launches in %d steps after the first %r, want %r a "
+            "step" % (what, name, CT_STEPS - 1, run["rest"], want))
+    first = {k: v for k, v in graphed["first"].items() if any(v)}
+    check(first == {k: (2 * f, 2 * b) for k, (f, b) in want.items()},
+          "%s: the building step launched %r (want twice %r: the warm-up "
+          "and the replay)" % (what, first, want))
+    check(not graphed["rebuilt"], "%s: graphs built after the first step: "
+          "%r" % (what, graphed["rebuilt"]))
+    check(not eager["built"] and not eager["rebuilt"],
+          "%s: the eager run built graphs %r" % (what, eager["built"]))
+
+
+def _ct_capture_s(entries):
+    """Seconds of the warm-ups and captures of graphs and pairs."""
+    return sum((getattr(e, "warmup_s", None) or 0.0)
+               + (e.capture_s or 0.0) for e in entries)
+
+
+def _ct_gluon_graphs(net, trainer):
+    out = []
+    for rec, _ in net._cached_graph._cache.values():
+        out += getattr(rec, "pairs", [rec])
+    out += [c for c, _ in trainer._fused._cache.values()]
+    return out
+
+
+def ct_bert(torch, mx, attention, layernorm, fused_norm, seed, card,
+            profile):
+    """BERT-base bf16 as ``bench.py:_build_bert_step`` builds it (24 x
+    512, its valid lengths, 76 masked positions a row, fused LayerNorm),
+    Adam at lr 1e-4 through ``gluon.Trainer``, the net hybridized and run
+    inside ``record()``/``backward()``/``step()``, then from the same
+    weights with ``hybridize(False)`` inside ``cuda_graph.disabled()``;
+    and one f32 step of the hybridized net at batch 2 against the CPU."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    os.environ["MXNET_FUSED_LAYERNORM"] = "1"
+    loss_rel, (update_rel, per_param), _ = bert_train_card_vs_cpu(
+        torch, mx, seed, hybridize=True, floor=False)
+    check(loss_rel <= BERT_TRAIN_PARITY_LOSS_RTOL
+          and update_rel <= BERT_TRAIN_PARITY_UPDATE_REL_L2
+          and per_param[0][0] <= BERT_TRAIN_PARITY_PARAM_REL_L2,
+          "graphed BERT-base f32 step card vs CPU: loss rel %.3g (limit "
+          "%g), update rel L2 %.3g (limit %g), worst %s %.3g (limit %g)"
+          % (loss_rel, BERT_TRAIN_PARITY_LOSS_RTOL, update_rel,
+             BERT_TRAIN_PARITY_UPDATE_REL_L2, per_param[0][1],
+             per_param[0][0], BERT_TRAIN_PARITY_PARAM_REL_L2))
+    torch.cuda.empty_cache()
+    tokens, lens, pos = bert_inputs(seed)
+    labels = onp.random.RandomState(seed + 2).randint(
+        0, BERT_VOCAB, (BERT_BATCH, BERT_PRED)).astype("float32")
+    gpu = mx.gpu(0)
+    x = mx.nd.array(tokens, ctx=gpu)
+    vl = mx.nd.array(lens, ctx=gpu, dtype="int32")
+    mp = mx.nd.array(pos, ctx=gpu, dtype="int32")
+    y = mx.nd.array(labels, ctx=gpu)
+    net = _bench_bert_bf16(mx, seed, tokens)
+    params = net._collect_params_with_prefix()
+    w0 = {k: p.data().astorch().detach().clone() for k, p in params.items()}
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    kernels = lambda reset=False: _ct_counts(attention, layernorm,  # noqa
+                                             fused_norm, reset)
+    runs = {}
+    for graphed in (True, False):
+        with torch.no_grad():
+            for k, p in params.items():
+                p.data().astorch().copy_(w0[k])
+        net.hybridize(graphed)
+        trainer = _adam(mx, net)
+
+        def step():
+            return _mlm_step(mx, net, trainer, ce, x, vl, mp, y)[1].astorch()
+
+        def steps(mark):
+            for _ in range(CT_STEPS):
+                mark(step().detach().clone())
+        run = _ct_run(torch, kernels, steps, graphed)
+        run["state"] = {k: p.data().astorch().detach().clone()
+                        for k, p in params.items()}
+        if graphed:
+            graphs = _ct_gluon_graphs(net, trainer)
+            check(all(g.graphed for g in graphs), "BERT: a graph was not "
+                  "captured")
+            run["capture_s"] = _ct_capture_s(graphs)
+            run["graphs"] = len(graphs)
+        if profile:
+            run["profile"] = profile_calls(
+                torch, step, "compiled training: BERT-base bf16 Trainer "
+                "step, %s" % ("graphed" if graphed else "eager"), calls=3)
+        runs["graphed" if graphed else "eager"] = run
+        del trainer
+        torch.cuda.empty_cache()
+    g, e = runs["graphed"], runs["eager"]
+    check(sum(g["built"].values()) == CT_BUILDS["bert"] == g["graphs"],
+          "BERT: the first step built %r" % g["built"])
+    _ct_compare(torch, "compiled BERT-base", g, e,
+                {"attention_bshd": (BERT_ATTN_PER_STEP, BERT_ATTN_PER_STEP),
+                 "layernorm": (BERT_LN_PER_STEP, BERT_LN_PER_STEP)},
+                g.pop("state"), e.pop("state"))
+    # what the stable gradient buffers cost: the 'write' hooks copy each
+    # gradient into its buffer (autograd._move_grad), one copy_ a
+    # parameter, timed on the device (CT_COPY_BURST steps' copies between
+    # two events, enqueued while a spin kernel holds the card: a step's
+    # copies take the host about 3 ms, more than time_cuda's spin covers
+    # over its 30 timed launches) and on the host
+    bufs = [p.grad().astorch() for p in params.values()
+            if p.grad_req != "null"]
+    srcs = [b.clone() for b in bufs]
+
+    def copies():
+        for b, src in zip(bufs, srcs):
+            b.copy_(src)
+    copies()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(CT_COPY_BURST):
+        copies()
+    end.record()
+    torch.cuda.synchronize()
+    nbytes = sum(b.numel() * b.element_size() for b in bufs)
+    grad_copy = {"device_ms": start.elapsed_time(end) / CT_COPY_BURST,
+                 "host_us": host_us(torch, copies), "bytes": nbytes,
+                 "tensors": len(bufs),
+                 "bound_ms": 2 * nbytes / memory_bytes_per_s(card) * 1e3}
+    del net, w0, bufs, srcs
+    del os.environ["MXNET_FUSED_LAYERNORM"]
+    torch.cuda.empty_cache()
+    return {"graphed": g, "eager": e, "grad_copy": grad_copy,
+            "parity": {"loss_rel": loss_rel, "update_rel_l2": update_rel,
+                       "worst": per_param[0]}}
+
+
+def ct_resnet(torch, mx, attention, layernorm, fused_norm, seed, profile):
+    """ResNet-50 v1 at batch 32, SGD (lr 0.1, momentum 0.9, wd 1e-4) in the
+    same loop, graphed and eager, under ``cudnn.deterministic``: the same
+    bits for the losses, the weights and the running statistics; and one
+    step of the hybridized net at batch 2 against the CPU."""
+    import numpy as onp
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    gpu = mx.gpu(0)
+    mx.random.seed(seed)
+    net = resnet50_v1()
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    with mx.autograd.predict_mode():
+        net(mx.nd.zeros((1, 3, IMAGE_SIZE, IMAGE_SIZE), ctx=gpu))
+    rng = onp.random.RandomState(seed)
+    data = rng.uniform(-1, 1, (TRAIN_BATCH, 3, IMAGE_SIZE, IMAGE_SIZE)) \
+        .astype("float32")
+    label = rng.randint(0, 1000, TRAIN_BATCH).astype("float32")
+    host0 = _param_arrays(net)
+    net.hybridize()
+    loss_rel, (update_rel, per_param), _ = card_vs_cpu_step(
+        torch, mx, net, host0, data, label, floor=False)
+    check(loss_rel <= PARITY_LOSS_RTOL and update_rel <= PARITY_UPDATE_REL_L2
+          and per_param[0][0] <= PARITY_PARAM_REL_L2,
+          "graphed ResNet-50 step card vs CPU: loss rel %.3g (limit %g), "
+          "update rel L2 %.3g (limit %g), worst %s %.3g (limit %g)"
+          % (loss_rel, PARITY_LOSS_RTOL, update_rel, PARITY_UPDATE_REL_L2,
+             per_param[0][1], per_param[0][0], PARITY_PARAM_REL_L2))
+    params = net._collect_params_with_prefix()
+    x = mx.nd.array(data, ctx=gpu)
+    y = mx.nd.array(label, ctx=gpu)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    kernels = lambda reset=False: _ct_counts(attention, layernorm,  # noqa
+                                             fused_norm, reset)
+    runs = {}
+    for graphed in (True, False):
+        for k, p in params.items():
+            p.set_data(host0[k])
+        net.hybridize(graphed)
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                dict(SGD_PARAMS))
+
+        def step():
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(TRAIN_BATCH)
+            return loss.astorch()
+
+        def steps(mark):
+            for _ in range(CT_STEPS):
+                mark(step().detach().clone())
+        run = _ct_run(torch, kernels, steps, graphed)
+        run["state"] = {k: p.data().astorch().detach().clone()
+                        for k, p in params.items()}
+        if graphed:
+            graphs = _ct_gluon_graphs(net, trainer)
+            check(all(g.graphed for g in graphs), "ResNet-50: a graph was "
+                  "not captured")
+            run["capture_s"] = _ct_capture_s(graphs)
+            run["graphs"] = len(graphs)
+        if profile:
+            run["profile"] = profile_calls(
+                torch, step, "compiled training: ResNet-50 v1 batch %d "
+                "Trainer step, %s" % (TRAIN_BATCH, "graphed" if graphed
+                                      else "eager"), calls=3)
+        runs["graphed" if graphed else "eager"] = run
+        del trainer
+    g, e = runs["graphed"], runs["eager"]
+    check(sum(g["built"].values()) == CT_BUILDS["resnet"] == g["graphs"],
+          "ResNet-50: the first step built %r" % g["built"])
+    moved = [k for k in params if k.endswith("running_mean")
+             and not torch.equal(g["state"][k].cpu(),
+                                 torch.from_numpy(host0[k]))]
+    check(moved, "ResNet-50: the running statistics did not move")
+    _ct_compare(torch, "compiled ResNet-50", g, e,
+                {"fused_norm": (16, 16)}, g.pop("state"), e.pop("state"))
+    torch.backends.cudnn.deterministic = det
+    del net
+    torch.cuda.empty_cache()
+    return {"graphed": g, "eager": e,
+            "parity": {"loss_rel": loss_rel, "update_rel_l2": update_rel,
+                       "worst": per_param[0]}}
+
+
+def _ct_module_runs(torch, mx, kernels, make_mod, names, data, label,
+                    optimizer, params, what, profile):
+    """``Module.fit`` over one batch served CT_STEPS times, graphed and
+    eager, each from a module that ``make_mod()`` builds and initializes
+    from the same weights: the runs, with each module's parameters and
+    auxiliary states after the fit as ``state``."""
+    runs = {}
+    for graphed in (True, False):
+        mod = make_mod()
+        it = _OneBatchIter(mx, names, data, label, CT_STEPS)
+
+        def steps(mark):
+            mod.fit(it, num_epoch=1, optimizer=optimizer,
+                    optimizer_params=params, eval_metric="acc",
+                    batch_end_callback=lambda _: mark(
+                        mod.get_outputs()[0].astorch().clone()))
+        run = _ct_run(torch, kernels, steps, graphed)
+        arg, aux = mod.get_params()
+        run["state"] = {k: v.astorch().detach().clone()
+                        for k, v in list(arg.items()) + list(aux.items())}
+        if graphed:
+            graphs = [e for _, e in mod._exec._graphs.values()]
+            check(all(e.graphed for e in graphs), "%s: a graph was not "
+                  "captured" % what)
+            run["capture_s"] = _ct_capture_s(graphs)
+            run["graphs"] = len(graphs)
+        if profile:
+            def one():
+                mod.forward_backward(it.batch)
+                mod.update()
+            run["profile"] = profile_calls(
+                torch, one, "compiled training: %s Module step, %s"
+                % (what, "graphed" if graphed else "eager"), calls=3)
+        runs["graphed" if graphed else "eager"] = run
+        del mod
+        torch.cuda.empty_cache()
+    return runs
+
+
+def ct_symbolic(torch, mx, attention, layernorm, fused_norm, seed, profile):
+    """The symbolic BERT-base of ``sym_bert_phase`` after
+    ``amp.convert_model(..., "bfloat16")`` and ``train_imagenet.py``'s
+    ResNet-50 (batch 32, under ``cudnn.deterministic``), each through
+    ``Module.fit`` on the captured Executor and inside
+    ``cuda_graph.disabled()``, from the same weights; the 2-layer
+    symbolic BERT's graphed step against the CPU."""
+    from mxnet_tpu_torch.contrib import amp
+    os.environ["MXNET_FUSED_LAYERNORM"] = "1"
+    gpu = mx.gpu(0)
+    kernels = lambda reset=False: _ct_counts(attention, layernorm,  # noqa
+                                             fused_norm, reset)
+    parity = sym_bert_card_vs_cpu(torch, mx, seed)
+    sym = bert_symbol(mx.sym, BERT_LAYERS, BERT_UNITS, BERT_HEADS,
+                      4 * BERT_UNITS, BERT_VOCAB)
+    data, label = _sym_bert_batch(torch, seed, BERT_BATCH, BERT_SEQ,
+                                  BERT_PRED)
+    init = _sym_bert_module(mx, sym, data, label, gpu)
+    mx.random.seed(seed)
+    init.init_params(mx.init.Xavier())
+    args = _host_params(init)[0]
+    del init
+    conv, cargs, _ = amp.convert_model(sym, _as_nd(mx, args, mx.cpu()), {},
+                                       target_dtype="bfloat16")
+    cargs = {k: v.astorch() for k, v in cargs.items()}
+    del args
+    torch.cuda.empty_cache()
+
+    def make_bert():
+        mod = _sym_bert_module(mx, conv, data, label, gpu)
+        mod.init_params(arg_params=_as_nd(mx, cargs, gpu))
+        return mod
+    bert = _ct_module_runs(
+        torch, mx, kernels, make_bert, SYM_BERT_DATA,
+        [mx.nd.array(d.numpy(), ctx=gpu) for d in data],
+        [mx.nd.array(label.numpy(), ctx=gpu)], "adam", SYM_BERT_ADAM,
+        "symbolic BERT-base bf16", profile)
+    g, e = bert["graphed"], bert["eager"]
+    check(sum(g["built"].values()) == CT_BUILDS["sym_bert"] == g["graphs"],
+          "symbolic BERT: the first step built %r" % g["built"])
+    _ct_compare(torch, "compiled symbolic BERT-base", g, e,
+                {"attention_bshd": (BERT_ATTN_PER_STEP, BERT_ATTN_PER_STEP),
+                 "layernorm": (BERT_LN_PER_STEP, BERT_LN_PER_STEP)},
+                g.pop("state"), e.pop("state"))
+    del conv, cargs
+    del os.environ["MXNET_FUSED_LAYERNORM"]
+    torch.cuda.empty_cache()
+
+    import numpy as onp
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    net = resnet_symbol(mx.sym, 50, 1000)
+    shape = (TRAIN_BATCH, 3, IMAGE_SIZE, IMAGE_SIZE)
+    rs = onp.random.RandomState(seed)
+    x = mx.nd.array(rs.uniform(-1, 1, shape).astype("float32"), ctx=gpu)
+    y = mx.nd.array(rs.randint(0, 1000, (TRAIN_BATCH,)).astype("float32"),
+                    ctx=gpu)
+    init = mx.mod.Module(net, context=gpu)
+    init.bind(data_shapes=[("data", shape)],
+              label_shapes=[("softmax_label", (TRAIN_BATCH,))])
+    mx.random.seed(seed)
+    init.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                    magnitude=2))
+    arg0, aux0 = _host_params(init)
+    del init
+
+    def make_resnet():
+        mod = mx.mod.Module(net, context=gpu)
+        mod.bind(data_shapes=[("data", shape)],
+                 label_shapes=[("softmax_label", (TRAIN_BATCH,))])
+        mod.init_params(arg_params=_as_nd(mx, arg0, gpu),
+                        aux_params=_as_nd(mx, aux0, gpu))
+        return mod
+    resnet = _ct_module_runs(
+        torch, mx, kernels, make_resnet, ("data",), [x], [y], "sgd",
+        SYM_RN_SGD, "symbolic ResNet-50 (train_imagenet.py)", profile)
+    g, e = resnet["graphed"], resnet["eager"]
+    check(sum(g["built"].values()) == CT_BUILDS["sym_resnet"]
+          == g["graphs"],
+          "symbolic ResNet-50: the first step built %r" % g["built"])
+    moved = [k for k in aux0 if k.endswith("moving_mean")
+             and not torch.equal(g["state"][k].cpu(), aux0[k])]
+    check(moved, "symbolic ResNet-50: the moving statistics did not move")
+    _ct_compare(torch, "compiled symbolic ResNet-50", g, e, {},
+                g.pop("state"), e.pop("state"))
+    torch.backends.cudnn.deterministic = det
+    torch.cuda.empty_cache()
+    return {"bert": bert, "resnet": resnet, "parity": parity}
+
+
+# the recorded-call cases on the card: an MLP of CT_PAIR_LAYERS dense
+# layers of CT_PAIR_WIDTH units and a BatchNorm, batch CT_PAIR_BATCH
+CT_PAIR_BATCH, CT_PAIR_WIDTH, CT_PAIR_LAYERS, CT_PAIR_STEPS = 256, 2048, 3, 4
+# the create_graph case's second derivatives, graphed against eager
+CT_SECOND_REL_L2 = 1e-5
+
+
+def ct_recorded_cases(torch, mx, seed):
+    """The three cases of a recorded call of ``gluon/block.py`` on the
+    card, each graphed and eagerly (``hybridize(False)`` inside
+    ``cuda_graph.disabled()``) from the same weights, to the same bits:
+
+    * two calls of one key in one ``record()`` with a ``backward()`` each
+      (``grad_req`` ``'add'``, SGD with momentum, CT_PAIR_STEPS steps),
+      in the order of the calls in even steps and in the other order in
+      odd ones: the second call takes a second pair, whose forward saves
+      its activations in a pool of its own, out of reach of the first
+      pair's backward;
+    * ``autograd.grad(..., create_graph=True)`` of an input, then the
+      backward of the gradient's square (the eager rerun of the body): the
+      gradient the same bits, the second derivatives of the input and the
+      parameters within CT_SECOND_REL_L2 relative L2 of eager's (summed
+      in another order);
+    * dropout in train mode on an input that ``attach_grad``: two replays
+      draw two masks, and each gradient is its own forward's mask."""
+    import contextlib
+    import numpy as onp
+    from mxnet_tpu_torch import cuda_graph, gluon
+    nn = gluon.nn
+    gpu = mx.gpu(0)
+    B, W = CT_PAIR_BATCH, CT_PAIR_WIDTH
+    rs = onp.random.RandomState(seed + 7)
+    batches = [(mx.nd.array(rs.uniform(-1, 1, (B, W)).astype("float32"),
+                            ctx=gpu),
+                mx.nd.array(rs.randint(0, 10, B).astype("float32"),
+                            ctx=gpu)) for _ in range(2 * CT_PAIR_STEPS)]
+    mx.random.seed(seed)
+    net = nn.HybridSequential(prefix="ctpair_")
+    with net.name_scope():
+        for _ in range(CT_PAIR_LAYERS):
+            net.add(nn.Dense(W, activation="relu", in_units=W))
+        net.add(nn.BatchNorm(in_channels=W), nn.Dense(10, in_units=W))
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    params = net._collect_params_with_prefix()
+    w0 = {k: p.data().astorch().detach().clone() for k, p in params.items()}
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    out = {}
+
+    def two_calls(graphed):
+        with torch.no_grad():
+            for k, p in params.items():
+                p.data().astorch().copy_(w0[k])
+        net.hybridize(graphed)
+        net.collect_params().setattr("grad_req", "add")
+        net.collect_params().zero_grad()
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                dict(SGD_PARAMS))
+        losses = []
+        for s in range(CT_PAIR_STEPS):
+            (x1, y1), (x2, y2) = batches[2 * s], batches[2 * s + 1]
+            with mx.autograd.record():
+                l1 = ce(net(x1), y1)
+                l2 = ce(net(x2), y2)
+            for loss in ((l1, l2) if s % 2 == 0 else (l2, l1)):
+                loss.backward()
+            trainer.step(2 * B)
+            net.collect_params().zero_grad()
+            losses += [l1.astorch().detach().clone(),
+                       l2.astorch().detach().clone()]
+        state = {k: p.data().astorch().detach().clone()
+                 for k, p in params.items()}
+        pairs = [p for rec, _ in net._cached_graph._cache.values()
+                 for p in getattr(rec, "pairs", [])] if graphed else []
+        net.collect_params().setattr("grad_req", "write")
+        return losses, state, pairs
+
+    def second(graphed):
+        with torch.no_grad():
+            for k, p in params.items():
+                p.data().astorch().copy_(w0[k])
+        net.hybridize(graphed)
+        x = batches[0][0].copy()
+        x.attach_grad()
+        with mx.autograd.record():
+            y = net(x)
+            gx = mx.autograd.grad((y * y).sum(), [x], create_graph=True)[0]
+            z = (gx * gx).sum()
+        z.backward()
+        return [gx.astorch().detach().clone(), x.grad.astorch().clone()] \
+            + [p.grad().astorch().clone() for p in params.values()
+               if p.grad_req != "null"]
+
+    runs = {}
+    for graphed in (True, False):
+        with (contextlib.nullcontext() if graphed
+              else cuda_graph.disabled()):
+            runs[graphed] = (two_calls(graphed), second(graphed))
+    (gl, gs, pairs), gsec = runs[True]
+    (el, es, _), esec = runs[False]
+    check(len(pairs) == 2 and all(p.graphed and not p.busy for p in pairs),
+          "two calls of one key: %d pairs, graphed %s"
+          % (len(pairs), [p.graphed for p in pairs]))
+    check(all(torch.equal(a, b) for a, b in zip(gl, el)),
+          "two calls of one key: graphed losses %s, eager %s"
+          % ([float(v.mean()) for v in gl], [float(v.mean()) for v in el]))
+    differ = sorted(k for k in gs if not torch.equal(gs[k], es[k]))
+    check(not differ, "two calls of one key, a backward each: graphed and "
+          "eager differ after %d steps in %s" % (CT_PAIR_STEPS, differ))
+    out["two_calls"] = {"pairs": len(pairs), "steps": CT_PAIR_STEPS,
+                        "first_loss": float(gl[0].mean()),
+                        "last_loss": float(gl[-1].mean())}
+    # the first derivative is the same arithmetic; the second sums the
+    # paths through the rerun and through the head gradient in another
+    # order than eager autograd
+    rel = [float((a.double() - b.double()).norm() / b.double().norm())
+           for a, b in zip(gsec, esec)]
+    check(torch.equal(gsec[0], esec[0]) and max(rel) <= CT_SECOND_REL_L2,
+          "create_graph: the graphed call's first derivative the eager "
+          "bits %s, second derivatives rel L2 %s (limit %g)"
+          % (torch.equal(gsec[0], esec[0]), rel, CT_SECOND_REL_L2))
+    out["create_graph"] = {"rel_l2": max(rel), "tensors": len(gsec)}
+    del net, params, w0, runs
+    drop = nn.Dropout(0.5, prefix="ctdrop_")
+    drop.hybridize()
+    x0 = mx.nd.array(rs.uniform(1, 2, (B, W)).astype("float32"), ctx=gpu)
+    masks = []
+    for _ in range(3):
+        x = x0.copy()
+        x.attach_grad()
+        with mx.autograd.record():
+            y = drop(x)
+        y.backward()
+        yt, g = y.astorch(), x.grad.astorch()
+        check(torch.equal(g, (yt != 0).float() * 2.0)
+              and torch.allclose(yt, x0.astorch() * g, rtol=1e-6),
+              "dropout: a replay's gradient is not its own forward's mask")
+        masks.append(yt != 0)
+    (rec, _), = drop._cached_graph._cache.values()
+    check(rec.pairs[0].graphed and len(rec.pairs) == 1,
+          "dropout: the call was not one captured pair")
+    share = [float(m.float().mean()) for m in masks]
+    check(not torch.equal(masks[0], masks[1])
+          and not torch.equal(masks[1], masks[2])
+          and all(0.45 < v < 0.55 for v in share),
+          "dropout: replays drew the same mask, or kept shares %s" % share)
+    out["dropout"] = {"kept_share": share}
+    torch.cuda.empty_cache()
+    return out
+
+
+def compiled_training_phase(torch, mx, attention, layernorm, fused_norm,
+                            seed, card, profile=False):
+    """The recorded-call cases (``ct_recorded_cases``), then the three
+    compiled training paths, each graphed and eager in the same run:
+    BERT-base bf16 and ResNet-50 v1 through hybridize, record, backward
+    and ``Trainer.step``, and the symbolic BERT-base (after
+    ``amp.convert_model``) and ResNet-50 through ``Module.fit``.  Prints
+    each path's lines as it ends."""
+    r = {"recorded": ct_recorded_cases(torch, mx, seed)}
+    c = r["recorded"]
+    print("compiled training: recorded-call cases on the card (MLP of %d "
+          "x %d dense layers and a BatchNorm, batch %d), graphed against "
+          "eager to the bits: two calls of one key with a backward each, "
+          "in either order, %d steps through %d pairs (loss %.4f -> %.4f); "
+          "create_graph second derivatives (%d tensors, rel L2 %.3g); "
+          "dropout replays kept %s of a (%d, %d) input, each gradient its "
+          "own mask" % (CT_PAIR_LAYERS, CT_PAIR_WIDTH, CT_PAIR_BATCH,
+                        c["two_calls"]["steps"], c["two_calls"]["pairs"],
+                        c["two_calls"]["first_loss"],
+                        c["two_calls"]["last_loss"],
+                        c["create_graph"]["tensors"],
+                        c["create_graph"]["rel_l2"],
+                        [round(v, 4) for v in c["dropout"]["kept_share"]],
+                        CT_PAIR_BATCH, CT_PAIR_WIDTH))
+    r["bert"] = ct_bert(torch, mx, attention, layernorm, fused_norm, seed,
+                        card, profile)
+    _print_ct("BERT-base bf16, hybridize + record + Trainer.step (Adam), "
+              "%d x %d" % (BERT_BATCH, BERT_SEQ), r["bert"], card,
+              "BERT-base f32 batch 2 x %d" % BERT_PARITY_SEQ)
+    r["resnet"] = ct_resnet(torch, mx, attention, layernorm, fused_norm,
+                            seed, profile)
+    _print_ct("ResNet-50 v1, hybridize + record + Trainer.step (SGD), batch "
+              "%d" % TRAIN_BATCH, r["resnet"], card,
+              "ResNet-50 v1 batch %d" % PARITY_BATCH)
+    r["symbolic"] = sym = ct_symbolic(torch, mx, attention, layernorm,
+                                      fused_norm, seed, profile)
+    _print_ct("symbolic BERT-base after amp.convert_model(bfloat16), "
+              "Module.fit (Adam), %d x %d" % (BERT_BATCH, BERT_SEQ),
+              sym["bert"], card)
+    _print_ct("symbolic ResNet-50 (train_imagenet.py), Module.fit (SGD), "
+              "batch %d" % TRAIN_BATCH, sym["resnet"], card)
+    print("compiled training: graphed 2-layer symbolic BERT step, card vs "
+          "CPU: probabilities rel L2 %.3g, gradients rel L2 %.3g"
+          % (sym["parity"]["probs_rel_l2"], sym["parity"]["grads_rel_l2"]))
+    return r
+
+
+def _print_ct(what, p, card, parity_what=None):
+    g, e = p["graphed"], p["eager"]
+    print("compiled training: %s: step %.3f ms graphed, %.3f ms eager "
+          "(median of %d after the first); first step %.3f ms graphed "
+          "(warm-up and capture %.3f s), %.3f ms eager; peak %.2f GiB "
+          "graphed, %.2f GiB eager; graphs built %d in the first step, %d "
+          "after; the same bits (%s)"
+          % (what, g["step_ms"], e["step_ms"], CT_STEPS - 1, g["ms"][0],
+             g["capture_s"], e["ms"][0], g["peak_bytes"] / 2 ** 30,
+             e["peak_bytes"] / 2 ** 30, sum(g["built"].values()),
+             sum(g["rebuilt"].values()), card))
+    print("compiled training: %s: step ms graphed %s, eager %s"
+          % (what, [round(v, 3) for v in g["ms"]],
+             [round(v, 3) for v in e["ms"]]))
+    print("compiled training: %s: launches a step after the first %s; in "
+          "the first step %s"
+          % (what, {k: v for k, v in g["per_step"].items() if any(v)},
+             {k: v for k, v in g["first"].items() if any(v)}))
+    for run in (g, e):
+        if "profile" in run:
+            prof = run["profile"]
+            print("compiled training: %s: device busy %.3f ms a step, idle "
+                  "share %.3f, wall %.3f ms (%s)"
+                  % (prof["label"], prof["device_busy_ms"],
+                     prof["device_idle_share"], prof["wall_ms"], card))
+    if "grad_copy" in p:
+        c = p["grad_copy"]
+        print("compiled training: %s: the 'write' hooks' copies into the "
+              "stable gradient buffers: %d tensors, %.1f MB, %.4f ms of "
+              "device time a step (bound %.4f ms), %.1f us of host time "
+              "(%s)" % (what, c["tensors"], c["bytes"] / 1e6,
+                        c["device_ms"], c["bound_ms"], c["host_us"], card))
+    if parity_what:
+        q = p["parity"]
+        print("compiled training: graphed %s step, card vs CPU: loss rel "
+              "%.3g, update rel L2 %.3g, worst %s %.3g"
+              % (parity_what, q["loss_rel"], q["update_rel_l2"],
+                 q["worst"][1], q["worst"][0]))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7733,7 +8472,26 @@ def main(argv=None):
                           args.seed, card, profile=args.profile)
     print_symbolic(symb, card)
     mark("symbolic")
+    # compiled training: each path's counts from 0 just before each of its
+    # runs, read just after
+    ct = compiled_training_phase(torch, mx, attention, layernorm, fused_norm,
+                                 args.seed, card, profile=args.profile)
+    mark("compiled training")
     print("phase seconds: %s" % ", ".join("%s %.1f" % c for c in clock))
+    ct_paths = {"compiled_bert": ct["bert"],
+                "compiled_resnet50": ct["resnet"],
+                "compiled_sym_bert_bf16": ct["symbolic"]["bert"]}
+
+    def ct_launches(kernel, way):
+        """Each compiled path's launches of ``kernel`` (forward ``way`` 0,
+        backward 1) over its graphed run and its eager run."""
+        out = {}
+        for path, r in ct_paths.items():
+            for run in ("graphed", "eager"):
+                n = r[run]["total"][kernel][way]
+                if n:
+                    out["%s_%s" % (path, run)] = n
+        return out
     sym_f32 = symb["bert"]["f32"]["launches"]
     sym_bf16 = symb["bert"]["bf16"]["launches"]
     amp_dp = symb["amp_dp"]["launches"]
@@ -7774,7 +8532,8 @@ def main(argv=None):
                           "estimator_resnet50":
                           rest["estimator"]["launches"][0],
                           "training_rest_sweeps":
-                          rest["sweep_launches"]["fused_norm"][0]},
+                          rest["sweep_launches"]["fused_norm"][0],
+                          **ct_launches("fused_norm", 0)},
         serving=numbers("fwd", "serve"),
         resnet152_inference=numbers("fwd", "infer152"),
         per="ms/plain_ms/bound_ms: one batch-32 ResNet-50 training step (16 "
@@ -7800,7 +8559,8 @@ def main(argv=None):
                           dpr["trainer_nccl"]["bwd_launches"],
                           "lstm_lm": lm_launches["fused_norm"][1],
                           "estimator_resnet50":
-                          rest["estimator"]["launches"][1]},
+                          rest["estimator"]["launches"][1],
+                          **ct_launches("fused_norm", 1)},
         per="ms/plain_ms/bound_ms: one batch-32 ResNet-50 training step (16 "
             "launches at the train shapes below); launches: the training "
             "path's %d steps; library: %s" % (train["steps"], no_library),
@@ -7842,7 +8602,8 @@ def main(argv=None):
                           "lstm_lm": lm_launches["layernorm"][0],
                           "sym_bert_f32": sym_f32[2],
                           "sym_bert_bf16": sym_bf16[2],
-                          "dp_bert_amp_bf16": amp_dp[2]},
+                          "dp_bert_amp_bf16": amp_dp[2],
+                          **ct_launches("layernorm", 0)},
         max_abs_err=max(r["max_abs_err"] for r in ln_rows
                         if r["dtype"] != "float16"),
         bound_by="bytes",
@@ -7873,7 +8634,8 @@ def main(argv=None):
                           "lstm_lm": lm_launches["layernorm"][1],
                           "sym_bert_f32": sym_f32[3],
                           "sym_bert_bf16": sym_bf16[3],
-                          "dp_bert_amp_bf16": amp_dp[3]},
+                          "dp_bert_amp_bf16": amp_dp[3],
+                          **ct_launches("layernorm", 1)},
         max_abs_err=max(r["max_abs_err"] for r in ln_bwd_rows
                         if r["dtype"] != "float16"),
         sums_max_rel_err=max(r["sums_max_rel_err"] for r in ln_bwd_rows
@@ -7987,7 +8749,10 @@ def main(argv=None):
                     tuple(rest["adamw"]["graph"]["launches"][:2]),
                     "lstm_lm": lm_launches["attention_bshd"],
                     "sym_bert_bf16": tuple(sym_bf16[:2]),
-                    "dp_bert_amp_bf16": tuple(amp_dp[:2])},
+                    "dp_bert_amp_bf16": tuple(amp_dp[:2]),
+                    **{k: (v, ct_launches("attention_bshd", 1)[k])
+                       for k, v in ct_launches("attention_bshd",
+                                               0).items()}},
         per={"fwd": "ms/plain_ms/bound_ms/library_ms: 12 launches at the "
                     "case 'bert' (what a BERT-base bf16 forward at 24 x 512 "
                     "would take through this entry; the BERT path runs the "

@@ -14,7 +14,9 @@ What this module adds to torch are MXNet's rules:
   an NDArray, with ``grad_req`` ``'write'`` (each backward overwrites it),
   ``'add'`` (each backward adds to it) or ``'null'``; torch's own
   ``.grad`` of the leaf is moved into that buffer, and cleared, after every
-  backward that reaches it;
+  backward that reaches it.  The buffer stays where it is: ``'write'``
+  copies into it, so a captured update that reads it (``Trainer.step``)
+  finds each step's gradient at one address;
 * ``backward(head_grads=None)`` seeds ones, as the JAX package does.
 
 Both flags are thread-local, as torch's grad mode is, so a worker thread
@@ -135,8 +137,10 @@ def predict_mode() -> _Scope:
 
 def _move_grad(var_ref, tensor):
     """Post-accumulate hook of a variable's leaf tensor: move the gradient
-    torch accumulated into the variable's buffer (``'write'`` replaces it,
-    ``'add'`` adds to it) and clear the leaf's ``.grad``."""
+    torch accumulated into the variable's buffer (``'write'`` copies it in,
+    ``'add'`` adds it) and clear the leaf's ``.grad``.  A gradient that
+    carries a graph (``create_graph``) replaces the buffer's tensor under
+    ``'write'``, so that it can be differentiated again."""
     g = tensor.grad
     tensor.grad = None
     var = var_ref()
@@ -147,9 +151,11 @@ def _move_grad(var_ref, tensor):
     with torch.no_grad():
         if var._grad_req == "add":
             buf._data.add_(g)
-        else:
+        elif g.requires_grad or buf._data.requires_grad:
             buf._data = g if g.dtype == buf._data.dtype else g.to(
                 buf._data.dtype)
+        else:
+            buf._data.copy_(g)
     var._fresh_grad = True
 
 

@@ -1,29 +1,48 @@
-"""Executor: a bound Symbol graph, run eagerly under torch autograd.
+"""Executor: a bound Symbol graph, captured as CUDA graphs.
 
 Counterpart of ``mxnet_tpu/executor.py``, whose conventions it keeps; where
 the JAX package jits one pure function of the DAG and takes its
 ``jax.vjp``, this Executor walks the DAG node by node, each node through its
-registered op (``symbol/_eval.py``), on the executor's device:
+registered op (``symbol/_eval.py``), on the executor's device, and
+captures that walk (``cuda_graph``), one graph or pair of graphs per key:
+``is_train``, the bound arrays' shapes and dtypes, ``grad_req`` and the
+storage of the bound arrays, which are the graphs' static inputs:
 
-* ``forward(is_train=True)`` with gradient arrays bound runs the walk with
-  fresh leaves (the bound arrays' tensors, detached, requiring grad) for
-  the arguments whose ``grad_req`` is not ``"null"``, and keeps the
-  outputs for ``backward``; otherwise it runs under ``torch.no_grad()``;
-* ``backward()`` is ``torch.autograd.grad`` of the outputs with respect to
-  those leaves: with no ``out_grads`` every floating head gets a ones
-  cotangent (``SoftmaxOutput`` and the regression outputs ignore it, as
-  their backward is the loss's gradient), and each gradient is written to
-  (``"write"``) or added to (``"add"``) its array; an argument the outputs
-  do not depend on gets zeros, as from ``jax.vjp``;
+* ``forward`` copies keyword feeds into the bound arrays (a feed of
+  another shape replaces its array, and the next call captures anew);
+* ``forward(is_train=True)`` with gradient arrays bound replays the
+  forward of a pair (``cuda_graph.CapturedPair``), differentiated against
+  the arguments whose ``grad_req`` is not ``"null"``, and keeps it for
+  ``backward``; otherwise it replays a forward graph (``Captured``);
+* ``backward()`` replays the pair's backward on the head gradients: with
+  no ``out_grads`` every floating head gets a ones cotangent
+  (``SoftmaxOutput`` and the regression outputs ignore it, as their
+  backward is the loss's gradient), and each gradient is written to
+  (``"write"``) or added to (``"add"``) its array in place; an argument
+  the outputs do not depend on gets zeros, as from ``jax.vjp``;
 * in training, the moving statistics of a node named ``BatchNorm`` (and of
   no other op, as in the JAX package) become ``aux * momentum + batch *
-  (1 - momentum)``;
+  (1 - momentum)``, written into the bound auxiliary arrays by the graph;
 * a random node draws from the port's generator of the executor's device
-  (``random.generator``).
+  (``random.generator``), registered with the graphs: each replay draws
+  anew.
 
-``reshape`` makes an Executor for new input shapes that shares the arrays
-whose shapes stay.  Capturing the walk as CUDA graphs waits (ROADMAP.md,
-queue 1, item 6).
+Each Executor keeps its own graphs, from a pool of its own (and each
+pair from one of its own), where the JAX package's reshaped executors
+share one jit: ``reshape`` makes an Executor for new input shapes that
+shares the arrays whose shapes stay and captures graphs of its own
+(``Module`` keeps its executors by shape, so a batch of an earlier shape
+finds them).  A training forward reads the arguments it does not
+differentiate (the data, the labels) through copies of its own, which its
+backward reads: a feed between a forward and its backward (into an array
+that a same-shape reshape shares) leaves that backward as it was, as the
+JAX package's vjp keeps the values its forward saw.  The differentiated
+arguments are read in place (writes into bound arrays are in place, so
+that the graphs' static inputs keep their storage), so ``backward``
+raises when one of them was written since the forward (a copy into a
+weight), where the JAX package differentiates the forward's values.  On
+the CPU each call runs the walk (with autograd for a pair), the same
+protocol without the capture.
 """
 from __future__ import annotations
 
@@ -33,7 +52,10 @@ import numpy as onp
 import torch
 
 from . import random as _random
+from . import telemetry
 from .base import MXNetError
+from .cuda_graph import Captured, CapturedPair, enabled, new_pool, \
+    storage_key
 from .context import current_context
 from .symbol import _is_random
 from .symbol._eval import eval_node
@@ -112,6 +134,10 @@ class Executor:
         self._random = [n.op is not None and get_op(n.op) is not None
                         and _is_random(get_op(n.op)) for n in self._nodes]
         self._pending = None
+        # {key: (storage, Captured or CapturedPair)}, and the pool of the
+        # forward-only graphs (a pair has its own)
+        self._graphs = {}
+        self._pool = None
 
     # -- execution ------------------------------------------------------
     def _run(self, arg_vals, aux_vals, training):
@@ -150,31 +176,103 @@ class Executor:
             if name not in self.arg_dict:
                 raise MXNetError("unknown input %r" % name)
             dst = self.arg_dict[name]
-            dst._data = val._data.to(device=dst._data.device,
-                                     dtype=dst._data.dtype)
+            src = val._data if hasattr(val, "_data") else torch.as_tensor(val)
+            if tuple(src.shape) == tuple(dst._data.shape):
+                with torch.no_grad():
+                    dst._data.copy_(src)
+            else:
+                dst._data = src.to(device=dst._data.device,
+                                   dtype=dst._data.dtype)
         diff_idx = [i for i, r in enumerate(self._grad_req)
                     if r != "null" and self.grad_arrays[i] is not None]
-        aux_vals = [a._data for a in self.aux_arrays]
+        self._pending = None
         if is_train and diff_idx:
-            leaves = [self.arg_arrays[i]._data.detach().requires_grad_()
-                      for i in diff_idx]
-            arg_vals = [a._data for a in self.arg_arrays]
-            for i, leaf in zip(diff_idx, leaves):
-                arg_vals[i] = leaf
-            with torch.enable_grad():
-                outs, new_aux = self._run(arg_vals, aux_vals, True)
-            self._pending = (outs, leaves, diff_idx)
+            pair = self._pair(diff_idx)
+            outs, gen = pair.forward([])
+            self._pending = (pair, gen, diff_idx, self._versions(diff_idx))
         else:
-            with torch.no_grad():
-                outs, new_aux = self._run([a._data for a in self.arg_arrays],
-                                          aux_vals, bool(is_train))
-            self._pending = None
-        if is_train:
+            outs = self._entry(bool(is_train))([])
+        self.outputs = [_wrap(o) for o in outs]
+        return self.outputs
+
+    def _versions(self, diff_idx):
+        # torch's count of in-place writes of each differentiated argument
+        return tuple(self.arg_arrays[i]._data._version for i in diff_idx)
+
+    def _sig(self, is_train, pair):
+        arrays = self.arg_arrays + self.aux_arrays
+        return (is_train, pair, tuple(self._grad_req) if pair else None,
+                tuple((tuple(a.shape), str(a._data.dtype)) for a in arrays))
+
+    def _lookup(self, key, make, doc):
+        if not enabled():
+            # cuda_graph.disabled(): a body run eagerly, neither kept nor
+            # reported
+            return make()
+        arrays = self.arg_arrays + self.aux_arrays
+        storage = storage_key([a._data for a in arrays])
+        hit = self._graphs.get(key)
+        if hit is None or hit[0] != storage:
+            hit = self._graphs[key] = (storage, make())
+            telemetry.record_compile(
+                "Executor[%x]" % id(self),
+                dict(doc, arrays=[{"shape": list(a.shape),
+                                   "dtype": str(a._data.dtype)}
+                                  for a in arrays]))
+        return hit[1]
+
+    def _gens(self):
+        return (_random.generator(self._device),) \
+            if self._device.type == "cuda" else ()
+
+    def _write_aux(self, new_aux):
+        with torch.no_grad():
             for name, a in self.aux_dict.items():
                 if name in new_aux:
-                    a._data = new_aux[name].detach().to(a._data.dtype)
-        self.outputs = [_wrap(o.detach()) for o in outs]
-        return self.outputs
+                    a._data.copy_(new_aux[name].detach())
+
+    def _entry(self, is_train):
+        """The forward graph of ``is_train`` (the moving statistics written
+        in training)."""
+        def body(_):
+            with torch.no_grad():
+                outs, new_aux = self._run([a._data for a in self.arg_arrays],
+                                          [a._data for a in self.aux_arrays],
+                                          is_train)
+                if is_train:
+                    self._write_aux(new_aux)
+            return outs
+
+        def make():
+            if self._pool is None:
+                self._pool = new_pool(self._device)
+            return Captured(body, [], pool=self._pool,
+                            generators=self._gens(), device=self._device)
+        return self._lookup(self._sig(is_train, False), make,
+                            {"is_train": is_train})
+
+    def _pair(self, diff_idx):
+        """The forward and backward pair of a training forward."""
+        def body(_, leaves):
+            # the other arguments through copies, which the backward reads
+            # whatever is fed after the forward
+            diff = dict(zip(diff_idx, leaves))
+            arg_vals = [diff[i] if i in diff else a._data.clone()
+                        for i, a in enumerate(self.arg_arrays)]
+            outs, new_aux = self._run(arg_vals,
+                                      [a._data for a in self.aux_arrays],
+                                      True)
+            self._write_aux(new_aux)
+            return outs
+
+        def make():
+            return CapturedPair(body, [], [], [self.arg_arrays[i]._data
+                                               for i in diff_idx],
+                                generators=self._gens(),
+                                state=[a._data for a in self.aux_arrays])
+        return self._lookup(self._sig(True, True), make,
+                            {"is_train": True,
+                             "grad_req": list(self._grad_req)})
 
     def backward(self, out_grads=None, is_train=True):
         """Write or add the gradients of the bound arguments, from ones
@@ -183,31 +281,33 @@ class Executor:
             raise MXNetError(
                 "backward() requires a prior forward(is_train=True) with "
                 "gradient arrays bound")
-        outs, leaves, diff_idx = self._pending
+        pair, gen, diff_idx, versions = self._pending
+        if versions != self._versions(diff_idx):
+            raise MXNetError(
+                "backward(): an argument it differentiates was written "
+                "after the forward (a copy into a weight); call forward "
+                "again")
+        outs = self.outputs
         if out_grads is None:
-            cots = [torch.ones_like(o) if o.is_floating_point() else None
-                    for o in outs]
+            cots = [torch.ones_like(o._data) if o._data.is_floating_point()
+                    else None for o in outs]
         else:
             if not isinstance(out_grads, (list, tuple)):
                 out_grads = [out_grads]
             cots = [g._data if hasattr(g, "_data")
-                    else torch.as_tensor(g, device=o.device)
+                    else torch.as_tensor(g, device=o._data.device)
                     for g, o in zip(out_grads, outs)]
-        pairs = [(o, c) for o, c in zip(outs, cots)
-                 if c is not None and o.requires_grad]
-        grads = [None] * len(leaves)
-        if pairs:
-            grads = torch.autograd.grad([o for o, _ in pairs], leaves,
-                                        [c.to(o.dtype) for o, c in pairs],
-                                        allow_unused=True)
-        for i, g in zip(diff_idx, grads):
-            if g is None:
-                g = torch.zeros_like(leaves[diff_idx.index(i)])
-            dst = self.grad_arrays[i]
-            if self._grad_req[i] == "add":
-                dst._data = dst._data + g
-            else:
-                dst._data = g
+        grads = pair.backward(gen, cots)
+        with torch.no_grad():
+            for i, g in zip(diff_idx, grads):
+                dst = self.grad_arrays[i]._data
+                if self._grad_req[i] == "add":
+                    if g is not None:
+                        dst.add_(g)
+                elif g is None:
+                    dst.zero_()
+                else:
+                    dst.copy_(g)
 
     # -- parameter management ------------------------------------------
     def copy_params_from(self, arg_params, aux_params=None,
@@ -215,8 +315,12 @@ class Executor:
         """Copy ``{name: NDArray}`` into the bound arguments (and auxiliary
         states), in their dtypes and on their devices."""
         def copy(dst, src):
-            dst._data = src._data.to(device=dst._data.device,
-                                     dtype=dst._data.dtype, copy=True)
+            if tuple(src.shape) == tuple(dst._data.shape):
+                with torch.no_grad():
+                    dst._data.copy_(src._data)
+            else:
+                dst._data = src._data.to(device=dst._data.device,
+                                         dtype=dst._data.dtype, copy=True)
 
         for name, arr in arg_params.items():
             if name in self.arg_dict:

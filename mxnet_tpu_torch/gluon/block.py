@@ -19,12 +19,37 @@ read at its old address; ``set_data`` writes in place and needs nothing.
 ``summary`` prints each layer's output shape and parameter count;
 ``export`` writes the parameters.
 The forward and its writes of auxiliary state (BatchNorm's running
-statistics) are captured whenever no gradient is recorded.  These calls
-run eagerly, as in the JAX package: a call with keyword arguments, a first
-call that completes deferred shapes, and a child called inside its
-parent's graph (or any captured body), which runs through.  Under
-``autograd.record()`` a hybridized block runs eagerly too (a forward and
-backward pair of graphs waits: ``ROADMAP.md``, queue 1).
+statistics) are captured whenever no gradient is recorded.  Under
+``autograd.record()`` a call is a forward and backward pair of graphs
+(``cuda_graph.CapturedPair``), keyed also on the recording flag and on
+which inputs and parameters need a gradient: the call returns the outputs
+of a ``torch.autograd.Function`` whose forward replays the forward graph
+and whose backward replays the backward graph, returning the gradients of
+the inputs and of the parameters, which the parameters' hooks then write
+or add into their buffers as after an eager backward (``grad_req``
+``'write'``, ``'add'`` and ``'null'`` hold).  The running statistics are
+written in the forward graph, once a call, as the JAX package writes back
+its ``meta["mutated"]``.  Three cases:
+
+* the same key called twice before a backward (a siamese net, several
+  micro-batches in one ``record()``): a replay would overwrite the
+  activations the first call saved, so a pair is busy from its forward
+  until its backward runs or its graph dies, and a call that finds every
+  pair of its key busy builds another (one build more, reported), with a
+  memory pool of its own, so that its backwards may run in either order;
+* ``autograd.grad(..., create_graph=True)``: a captured backward is not
+  differentiable, so under ``create_graph`` (or after its forward was
+  overwritten) the Function's backward runs the body again eagerly on the
+  call's own inputs, with the forward's random state and the running
+  statistics left alone, and differentiates it: the same values, and a
+  graph through them;
+* inputs that need a gradient (``attach_grad``, or the outputs of earlier
+  recorded operations): their gradients come out of the backward graph
+  too.
+
+These calls run eagerly, as in the JAX package: a call with keyword
+arguments, a first call that completes deferred shapes, and a child called
+inside its parent's graph (or any captured body), which runs through.
 ``hybridize(False)`` and ``cast`` drop the graphs.  Called on a Symbol, a
 ``HybridBlock`` builds a graph: ``hybrid_forward(mx.sym, x, ...)`` with
 each parameter as ``Parameter.var()``.  ``SymbolBlock`` runs a Symbol
@@ -42,7 +67,8 @@ import torch
 from .. import autograd, telemetry
 from .. import random as _random
 from ..context import cpu
-from ..cuda_graph import Captured, capturing, new_pool, storage_key
+from ..cuda_graph import (Captured, CapturedPair, _run_inside, capturing,
+                          new_pool, storage_key)
 from ..ndarray.ndarray import NDArray, _wrap
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
@@ -326,9 +352,12 @@ def _rebuild_args(template, arrays):
 
 class _CachedGraph:
     """The CachedOp counterpart: one captured forward of a block per
-    ``(training, input shapes and dtypes)``, from one memory pool.  The
-    parameter list is fixed for the life of the cache (``hybridize()`` and
-    ``cast`` make a new one), as in the JAX package."""
+    ``(training, input shapes and dtypes)``, from one memory pool, and
+    under ``autograd.record()`` captured forward and backward pairs, each
+    with a pool of its own, per ``(training, which inputs and parameters
+    need a gradient, input shapes and dtypes)``.  The parameter list is
+    fixed for the life of the cache (``hybridize()`` and ``cast`` make a
+    new one), as in the JAX package."""
 
     def __init__(self, block):
         self._block = block
@@ -340,24 +369,40 @@ class _CachedGraph:
     def clear(self):
         self._cache.clear()
 
+    def _report(self, key_doc):
+        telemetry.record_compile("CachedOp_%s" % self._block.name, key_doc)
+
     def __call__(self, args):
         arrays, template = _flatten_args(args)
         training = autograd.is_training()
-        key = (training, tuple((tuple(a.shape), str(a.dtype))
-                               for a in arrays))
-        storage = storage_key([p._data._data for p in self._params])
+        sig = tuple((tuple(a.shape), str(a.dtype)) for a in arrays)
+        doc = {"training": training,
+               "inputs": [{"shape": list(a.shape), "dtype": str(a.dtype)}
+                          for a in arrays]}
+        tensors = [p._data._data for p in self._params]
+        storage = storage_key(tensors)
+        if autograd.is_recording():
+            needs = tuple(a._data.requires_grad for a in arrays)
+            diff = tuple(t.requires_grad for t in tensors)
+            if any(needs) or any(diff):
+                return self._recorded((training, True, needs, diff, sig),
+                                      storage, template, arrays, doc)
+        key = (training, sig)
         hit = self._cache.get(key)
         if hit is None or hit[1] != storage:
-            telemetry.record_compile(
-                "CachedOp_%s" % self._block.name,
-                {"training": training,
-                 "inputs": [{"shape": list(a.shape), "dtype": str(a.dtype)}
-                            for a in arrays]})
+            self._report(doc)
             hit = self._cache[key] = (self._build(template, training,
                                                   arrays), storage)
         graph, meta = hit[0]
         outs = [_wrap(o) for o in graph([a._data for a in arrays])]
         return outs if meta["seq"] else outs[0]
+
+    def _generators(self, device):
+        # the device's generator is registered in either mode: dropout
+        # draws while training, and a block may draw (F.random.normal) in
+        # either; each replay draws new numbers, as each call of the JAX
+        # package's _CachedGraph takes a fresh key
+        return (_random.generator(device),) if device.type == "cuda" else ()
 
     def _build(self, template, training, arrays):
         block = self._block
@@ -372,13 +417,144 @@ class _CachedGraph:
         device = arrays[0]._data.device
         if self._pool is None:
             self._pool = new_pool(device)
-        # the device's generator is registered in either mode: dropout
-        # draws while training, and a block may draw (F.random.normal) in
-        # either; each replay draws new numbers, as each call of the JAX
-        # package's _CachedGraph takes a fresh key
-        gens = (_random.generator(device),) if device.type == "cuda" else ()
         return Captured(body, [a._data for a in arrays], pool=self._pool,
-                        generators=gens), meta
+                        generators=self._generators(device)), meta
+
+    def _recorded(self, key, storage, template, arrays, doc):
+        hit = self._cache.get(key)
+        if hit is None or hit[1] != storage:
+            hit = self._cache[key] = (_Recorded(self, template, key[0],
+                                                key[2], key[3]), storage)
+        rec = hit[0]
+        pair = rec.free_pair(arrays, doc)
+        outs = _ReplayCall.apply(rec, pair, *[a._data for a in arrays],
+                                 *rec.weights())
+        outs = [_wrap(o) for o in outs]
+        return outs if rec.meta["seq"] else outs[0]
+
+
+class _Recorded:
+    """The recorded calls of one key: its pairs (one a call in flight),
+    the parameters the gradient reaches and the body they share."""
+
+    def __init__(self, cache, template, training, needs, diff):
+        self._cache = cache
+        self._template = template
+        self.training = training
+        self.needs = needs
+        self._diff = [p for p, d in zip(cache._params, diff) if d]
+        self._aux = [p for p, d in zip(cache._params, diff) if not d]
+        self.meta = {"seq": None}
+        self.pairs = []
+
+    def weights(self):
+        return [p._data._data for p in self._diff]
+
+    def _forward(self, inputs, weights):
+        """The block's forward on ``inputs``, recorded, with each
+        parameter the gradient reaches read as ``weights``."""
+        holders = [p._data for p in self._diff]
+        saved = [h._data for h in holders]
+        for h, w in zip(holders, weights):
+            h._data = w
+        try:
+            args = _rebuild_args(self._template, [_wrap(v) for v in inputs])
+            with autograd.record(train_mode=self.training):
+                out = self._cache._block.forward(*args)
+        finally:
+            for h, t in zip(holders, saved):
+                h._data = t
+        self.meta["seq"] = isinstance(out, (list, tuple))
+        return [o._data for o in (out if self.meta["seq"] else [out])]
+
+    def free_pair(self, arrays, doc):
+        """A pair of this key that no call in flight holds, built (and
+        reported to the recompile detector) when there is none."""
+        for pair in self.pairs:
+            if not pair.busy:
+                return pair
+        self._cache._report(dict(doc, recording=True,
+                                 needs_grad=list(self.needs),
+                                 pair=len(self.pairs)))
+        device = arrays[0]._data.device
+        pair = CapturedPair(self._forward, [a._data for a in arrays],
+                            self.needs, self.weights(),
+                            generators=self._cache._generators(device),
+                            state=[p._data._data for p in self._aux])
+        self.pairs.append(pair)
+        return pair
+
+    def rerun(self, saved, cots, rng):
+        """The eager backward: the body run again on the call's own
+        inputs and parameters (``saved``) from the forward's random state
+        ``rng``, the running statistics it writes set aside, and
+        differentiated from ``cots``; a graph through the result under
+        ``create_graph``."""
+        n = len(self.needs)
+        inputs, weights = list(saved[:n]), list(saved[n:])
+        gen = _random.generator(inputs[0].device)
+        now = gen.get_state()
+        holders = [p._data for p in self._aux]
+        kept = [h._data for h in holders]
+        gen.set_state(rng)
+        for h in holders:
+            h._data = h._data.detach().clone()
+        try:
+            with torch.enable_grad():
+                outs = _run_inside(self._forward, inputs, weights)
+        finally:
+            for h, t in zip(holders, kept):
+                h._data = t
+            gen.set_state(now)
+        wrt = [x for x, f in zip(inputs, self.needs) if f] + weights
+        pairs = [(o, torch.zeros_like(o) if c is None else c)
+                 for o, c in zip(outs, cots) if o.requires_grad]
+        grads = [None] * len(wrt)
+        if pairs:
+            grads = torch.autograd.grad(
+                [o for o, _ in pairs], wrt, [c for _, c in pairs],
+                create_graph=torch.is_grad_enabled(), allow_unused=True)
+        it = iter(grads)
+        return [next(it) if f else None for f in self.needs] + \
+            [next(it) for _ in weights]
+
+
+class _Release:
+    """Frees its pair for other calls when the graph of its call dies
+    without a backward."""
+
+    def __init__(self, pair, gen):
+        self._pair, self._gen = pair, gen
+
+    def __del__(self):
+        self._pair.release(self._gen)
+
+
+class _ReplayCall(torch.autograd.Function):
+    """A recorded call of a hybridized block: the forward replays the
+    pair's forward graph, the backward its backward graph (or, under
+    ``create_graph`` or once a later forward overwrote this one's
+    activations, :meth:`_Recorded.rerun`)."""
+
+    @staticmethod
+    def forward(ctx, rec, pair, *tensors):
+        n = len(rec.needs)
+        ctx.rng = _random.generator(pair.device).get_state()
+        outs, gen = pair.forward(tensors[:n])
+        ctx.rec, ctx.pair, ctx.gen = rec, pair, gen
+        ctx.release = _Release(pair, gen)
+        ctx.save_for_backward(*tensors)
+        ctx.mark_non_differentiable(*[o for o in outs
+                                      if not o.is_floating_point()])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        if torch.is_grad_enabled() or ctx.gen != ctx.pair.gen:
+            grads = ctx.rec.rerun(ctx.saved_tensors, cots, ctx.rng)
+        else:
+            grads = ctx.pair.backward(ctx.gen, cots)
+        return (None, None) + tuple(grads)
 
 
 class HybridBlock(Block):
@@ -410,11 +586,10 @@ class HybridBlock(Block):
 
     def __call__(self, *args, **kwargs):
         if not self._active or kwargs or capturing() \
-                or autograd.is_recording() or self._deferred_params():
+                or self._deferred_params():
             # eager: keyword arguments are not in the key, a parent's graph
-            # runs its children through, a recorded forward waits for a
-            # forward/backward pair, and a first call completes deferred
-            # shapes
+            # runs its children through, and a first call completes
+            # deferred shapes
             return super().__call__(*args, **kwargs)
         arrays, _ = _flatten_args(args)
         if not arrays:

@@ -189,7 +189,7 @@ class Parameter:
         """Set the gradient buffer to zeros (for ``grad_req='add'``)."""
         if self._grad is not None:
             with torch.no_grad():
-                self._grad._data = torch.zeros_like(self._grad._data)
+                self._grad._data.zero_()
 
     def list_ctx(self):
         if self._data is None:

@@ -13,7 +13,14 @@ the store's updater (``update_on_kvstore``, the default) or in
 ``allreduce_grads`` before the Trainer's own.  Where the JAX package fuses
 every parameter's update into one jitted program (``_FusedUpdate``), the
 update here runs the optimizer once over all the parameters with
-``torch._foreach_*`` operations, in the jitted program's arithmetic.
+``torch._foreach_*`` operations, in the jitted program's arithmetic, and
+captures that as one CUDA graph per key (the JAX package's key: the
+indices, the scalar hyperparameters, the weight decays, the weights'
+shapes and dtypes; here also the storage the graph reads).  The graph
+reads the gradient buffers in place (``'write'`` copies each gradient into
+its buffer) and each step's rates from ``optimizer.DeviceScales``.  A rule
+without ``make_step`` (every rule but SGD, Adam and AdamW) updates
+eagerly, as the JAX package's Trainer falls back to its ``Updater``.
 ``shard_optimizer`` shards the optimizer state over a mesh of more than
 one rank, through the same ``zero_sharded_update`` as
 ``DataParallelStep``; gradient compression waits (``ROADMAP.md``).
@@ -31,17 +38,26 @@ import torch
 
 from .. import kvstore as kvs
 from .. import optimizer as opt
+from .. import telemetry
 from ..base import MXNetError
-from ..optimizer.optimizer import _f32, _leaves
+from ..cuda_graph import Captured, capturing, new_pool, storage_key
+from ..cuda_graph import enabled as cuda_graph_enabled
+from ..optimizer.optimizer import DeviceScales, _f32, _leaves
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
 
 
+# optimizer attributes that no update graph reads: the clocks, and the
+# rate, which reaches the graph through its device scales
+_UNBAKED = ("num_update", "begin_num_update", "lr")
+
+
 class _FusedUpdate:
-    """Every parameter's update in one pass through an ``Updater`` (the
-    states stay its own, so ``save_states`` writes what this updates).
-    With ``shard_optimizer`` on a mesh of more than one rank, each
+    """Every parameter's update in one pass (the states stay the
+    ``Updater``'s, so ``save_states`` writes what this updates), captured
+    as one graph per key (:meth:`_captured`) where the rule has a pure
+    step.  With ``shard_optimizer`` on a mesh of more than one rank, each
     weight's state lives as this rank's flat shards (``_sharded``, built
     from the updater's states at first use) and the update is
     ``zero_sharded_update``'s; ``materialize_states`` gathers the shards
@@ -49,6 +65,8 @@ class _FusedUpdate:
 
     def __init__(self, updater, shard_optimizer=False):
         self._updater = updater
+        self._cache = {}
+        self._pool = None
         if shard_optimizer not in (False, None, True, "auto"):
             raise ValueError("shard_optimizer must be True/False/'auto', "
                              "got %r" % (shard_optimizer,))
@@ -93,6 +111,61 @@ class _FusedUpdate:
     def invalidate_sharded(self):
         self._sharded.clear()
 
+    def _captured(self, indices, grads, weights):
+        """The replicated update as one captured graph: the body is
+        ``Updater._trainer_update`` (the same bits), and each step's rates
+        reach it as :class:`DeviceScales` (``Optimizer._scale_table``),
+        written before each replay.  False where the rule has no pure step
+        (the caller updates eagerly)."""
+        updater = self._updater
+        optimizer = updater.optimizer
+        if not optimizer._has_step or optimizer._in_order or capturing() \
+                or not cuda_graph_enabled():
+            # no pure step, inside another graph's body (which holds the
+            # update in its own capture), or graphs disabled
+            return False
+        indices = list(indices)
+        states = updater._states(indices, weights)
+        values, index = optimizer._scale_table(indices, weights)
+        fingerprint = tuple(sorted(
+            (k, v) for k, v in vars(optimizer).items()
+            if isinstance(v, (int, float, bool, str, type(None)))
+            and k not in _UNBAKED))
+        wds = tuple(optimizer._get_wds(indices))
+        key = (tuple(indices), fingerprint, wds,
+               tuple((tuple(w.shape), str(w._data.dtype)) for w in weights),
+               tuple(index))
+        storage = storage_key([t._data for t in weights + grads]
+                              + [l for s in states for l in _leaves(s)])
+        hit = self._cache.get(key)
+        if hit is None or hit[1] != storage:
+            telemetry.record_compile(
+                "FusedUpdate[%x]" % id(self),
+                {"indices": indices, "hyperparams": dict(fingerprint),
+                 "wds": list(wds),
+                 "weights": [{"shape": list(w.shape),
+                              "dtype": str(w._data.dtype)}
+                             for w in weights]})
+            hit = self._cache[key] = (self._build(indices, grads, weights,
+                                                  index), storage)
+        hit[0]([torch.tensor(values, dtype=torch.float32)])
+        return True
+
+    def _build(self, indices, grads, weights, index):
+        updater = self._updater
+
+        def body(inputs):
+            updater._trainer_update(indices, grads, weights,
+                                    DeviceScales(inputs[0], index))
+            return []
+        device = weights[0]._data.device
+        if self._pool is None:
+            self._pool = new_pool(device)
+        return Captured(body, [torch.empty(max(index) + 1,
+                                           dtype=torch.float32,
+                                           device=device)],
+                        pool=self._pool)
+
     def __call__(self, indices, grads, weights, reduce):
         """Update ``weights`` from ``grads``; ``reduce``: the gradients
         are this rank's own, to be summed over the ranks (else they are
@@ -102,7 +175,8 @@ class _FusedUpdate:
         if not self._shard_ready():
             if reduce:
                 return False
-            updater._trainer_update(indices, grads, weights)
+            if not self._captured(indices, grads, weights):
+                updater._trainer_update(indices, grads, weights)
             return True
         optimizer = updater.optimizer
         for i, w in zip(indices, weights):
@@ -144,12 +218,18 @@ class Trainer:
     name of :func:`kvstore.create` or a KVStore.  ``update_on_kvstore``:
     None (True with a store) updates through the store's updater; False
     reduces the gradients and updates here (``allreduce_grads`` and
-    ``update`` may then be called apart).  ``shard_optimizer``: shard the
+    ``update`` may then be called apart).  ``donate_grads``: accepted as
+    the JAX package's keyword, where it lets the jitted update consume the
+    gradient buffers instead of copying them.  The captured update here
+    reads the gradient buffers in place and copies nothing, with or
+    without it, so it changes no arithmetic, and ``param.grad()`` stays
+    readable after ``step`` either way.  ``shard_optimizer``: shard the
     optimizer state over a mesh of more than one rank."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
-                 update_on_kvstore=None, shard_optimizer=False):
+                 update_on_kvstore=None, donate_grads=False,
+                 shard_optimizer=False):
         if isinstance(params, (dict, ParameterDict)):
             params = [params[key] for key in sorted(params.keys())]
         if not isinstance(params, (list, tuple)):
@@ -177,6 +257,7 @@ class Trainer:
         self._updater = opt.get_updater(self._optimizer)
         self._kvstore_params = {"kvstore": kvstore,
                                 "update_on_kvstore": update_on_kvstore}
+        self._donate_grads = bool(donate_grads)
         self._shard_optimizer = shard_optimizer
         self._kv_initialized = False
         self._kvstore = None

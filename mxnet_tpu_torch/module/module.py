@@ -54,6 +54,8 @@ class Module(BaseModule):
         self._param_names = [n for n in arg_names if n not in input_names]
         self._aux_names = symbol.list_auxiliary_states()
         self._exec = None
+        # the executors of earlier input shapes, and their graphs
+        self._execs = {}
         self._data_shapes = None
         self._label_shapes = None
         self._optimizer = None
@@ -164,6 +166,7 @@ class Module(BaseModule):
 
         from ..executor import Executor
         self._exec = Executor(self._symbol, ctx, args, grads, reqs, aux)
+        self._execs = {}
         self.binded = True
         if shared_module is not None and shared_module.params_initialized:
             self.params_initialized = True
@@ -259,7 +262,8 @@ class Module(BaseModule):
     def forward(self, data_batch, is_train=None):
         """Copy the batch into the bound inputs and run the Executor; a
         batch of other shapes first re-binds through ``Executor.reshape``
-        (parameters keep their arrays)."""
+        (parameters keep their arrays), or takes the executor that an
+        earlier batch of its shapes bound, with its captured graphs."""
         assert self.binded and self.params_initialized
         if is_train is None:
             is_train = self.for_training
@@ -270,8 +274,9 @@ class Module(BaseModule):
         cur_shapes = {n: tuple(self._exec.arg_dict[n].shape)
                       for n in feeds}
         if new_shapes != cur_shapes:
-            self._exec = self._exec.reshape(allow_up_sizing=True,
-                                            **new_shapes)
+            self._execs[tuple(sorted(cur_shapes.items()))] = self._exec
+            self._exec = self._execs.get(tuple(sorted(new_shapes.items()))) \
+                or self._exec.reshape(allow_up_sizing=True, **new_shapes)
         self._exec.forward(is_train=is_train, **feeds)
 
     def backward(self, out_grads=None):

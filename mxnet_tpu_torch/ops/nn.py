@@ -660,8 +660,10 @@ class _SoftmaxOutput(torch.autograd.Function):
         if use_ignore:
             valid = label != ignore_label
             dx = dx * valid[:, None].to(dx.dtype)
-        scale = torch.tensor(grad_scale, dtype=torch.float32,
-                             device=out.device)
+        # filled on the device (a captured backward copies nothing from
+        # the host), and divided there, as the JAX op divides
+        scale = torch.full((), grad_scale, dtype=torch.float32,
+                           device=out.device)
         if normalization == "batch":
             scale = scale / batch_size
         elif normalization == "valid":

@@ -253,14 +253,18 @@ class Optimizer:
         the master's value."""
         self._update_multi_precision(index, weight, grad, state, False)
 
-    def _update_multi_precision(self, index, weight, grad, state, fused):
+    def _update_multi_precision(self, index, weight, grad, state, fused,
+                                scales=None):
         """:meth:`update_multi_precision`; ``fused``: as the JAX package's
         ``Trainer.step`` updates, through the optimizer's jitted step (see
         :meth:`_step`).  A rule without one (``_has_step`` false) updates
         eagerly there too, as the JAX package's Trainer falls back to its
         ``Updater``; a rule whose host state advances weight by weight
         (``_in_order``) updates one weight after another, in index
-        order."""
+        order.  ``scales`` (fused, a rule with a step): the rates as
+        :class:`DeviceScales`, one entry index a weight, from
+        :meth:`_scale_table`, which advanced the clocks already (the
+        update the Trainer captures)."""
         indices, weights, grads, states = _as_lists(index, weight, grad,
                                                     state)
         if self._in_order and len(indices) > 1:
@@ -268,7 +272,8 @@ class Optimizer:
                 self._update_multi_precision(*one, fused)
             return
         fused = fused and self._has_step
-        self._update_count(indices)
+        if scales is None:
+            self._update_count(indices)
         half = [self.multi_precision and self._is_half(w._data.dtype)
                 for w in weights]
         full = [k for k, h in enumerate(half) if not h]
@@ -276,22 +281,29 @@ class Optimizer:
             self._run([indices[k] for k in full],
                       [weights[k]._data for k in full],
                       [grads[k]._data for k in full],
-                      [states[k] for k in full], fused)
+                      [states[k] for k in full], fused,
+                      scales and scales.pick(full))
         mp = [k for k, h in enumerate(half) if h]
         if mp:
             masters = [states[k][0]._data for k in mp]
             # the jitted step widens the gradient itself
             self._run([indices[k] for k in mp], masters,
                       [grads[k]._data if fused else grads[k]._data.float()
-                       for k in mp], [states[k][1] for k in mp], fused)
+                       for k in mp], [states[k][1] for k in mp], fused,
+                      scales and scales.pick(mp))
             with torch.no_grad():
                 for k, m in zip(mp, masters):
                     weights[k]._data.copy_(m)
 
-    def _run(self, indices, ws, gs, states, fused):
+    def _run(self, indices, ws, gs, states, fused, scales=None):
         leaves = [_leaves(s) for s in states]
         slots = [list(col) for col in zip(*leaves)] if leaves and leaves[0] \
             else []
+        if scales is not None:
+            with torch.no_grad():
+                self._step(ws, gs, slots, None, self._get_wds(indices), None,
+                           True, scales)
+            return
         counts = [self._index_update_count[i] for i in indices]
         lrs = self._get_lrs(indices)
         if fused:
@@ -306,6 +318,25 @@ class Optimizer:
         for a weight of ``dtype`` at rate ``lr`` (fp32) and step ``t``, as
         a Python float: what the update multiplies by."""
         raise NotImplementedError
+
+    def _scale_table(self, indices, weights):
+        """Advance the clocks of ``indices`` and return the rates of their
+        fused update as ``(values, index)`` for :class:`DeviceScales`: one
+        :meth:`_fused_scale` for each distinct ``(rate, step count, update
+        dtype)`` (fp32 for a half-width weight under ``multi_precision``),
+        and the entry each weight reads."""
+        self._update_count(indices)
+        lrs = [_f32(lr) for lr in self._get_lrs(indices)]
+        entries, index, values = {}, [], []
+        for i, lr, w in zip(indices, lrs, weights):
+            dtype = torch.float32 if self.multi_precision \
+                and self._is_half(w._data.dtype) else w._data.dtype
+            k = (lr, self._index_update_count[i], dtype)
+            if k not in entries:
+                entries[k] = len(values)
+                values.append(self._fused_scale(*k))
+            index.append(entries[k])
+        return values, index
 
     def _fused_scales(self, lrs, counts, ws):
         """:meth:`_fused_scale` of each weight of ``ws``."""
@@ -1264,7 +1295,7 @@ class Test(Optimizer):
     def _update_count(self, indices):
         pass
 
-    def _run(self, indices, ws, gs, states, fused):
+    def _run(self, indices, ws, gs, states, fused, scales=None):
         with torch.no_grad():
             torch._foreach_add_(ws, _smul(gs, self.rescale_grad))
 
@@ -1344,16 +1375,28 @@ class Updater:
         """Update one weight, or lists of them in one pass."""
         self._update(index, grad, weight, False)
 
-    def _trainer_update(self, index, grad, weight):
+    def _trainer_update(self, index, grad, weight, scales=None):
         """As a call, in the arithmetic of the JAX package's
-        ``Trainer.step`` (see :meth:`Optimizer._update_multi_precision`)."""
-        self._update(index, grad, weight, True)
+        ``Trainer.step`` (see :meth:`Optimizer._update_multi_precision`,
+        which takes ``scales``)."""
+        self._update(index, grad, weight, True, scales)
 
-    def _update(self, index, grad, weight, fused):
+    def _update(self, index, grad, weight, fused, scales=None):
         if isinstance(index, (list, tuple)):
             indices, grads, weights = list(index), list(grad), list(weight)
         else:
             indices, grads, weights = [index], [grad], [weight]
+        states = self._states(indices, weights)
+        if fused:
+            self.optimizer._update_multi_precision(indices, weights, grads,
+                                                   states, True, scales)
+        else:
+            self.optimizer.update_multi_precision(indices, weights, grads,
+                                                  states)
+
+    def _states(self, indices, weights):
+        """The states of ``indices``, made at first use and moved to their
+        weights' devices."""
         for i, w in zip(indices, weights):
             if i not in self.states:
                 self.states[i] = self.optimizer.create_state_multi_precision(
@@ -1363,13 +1406,7 @@ class Updater:
                 self.states[i] = self.sync_state_context(self.states[i],
                                                          w.context)
                 self.states_synced[i] = True
-        states = [self.states[i] for i in indices]
-        if fused:
-            self.optimizer._update_multi_precision(indices, weights, grads,
-                                                   states, True)
-        else:
-            self.optimizer.update_multi_precision(indices, weights, grads,
-                                                  states)
+        return [self.states[i] for i in indices]
 
     def sync_state_context(self, state, context):
         if isinstance(state, NDArray):

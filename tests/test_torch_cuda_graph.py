@@ -17,10 +17,12 @@ the first replays one; ``tests/test_torch_cuda.py`` holds that there).
   tests/test_torch_data_parallel.py through the same code);
 * ``_CachedGraph``, as tests/test_gluon.py:96-169 hold the JAX package's:
   it matches eager and the JAX package's hybridized forward, BatchNorm's
-  running statistics move, keyword arguments, a deferred first call, a
-  recorded forward and a child inside its parent's body run eagerly,
-  ``cast`` and ``hybridize(False)`` drop the cache, and a replaced
-  parameter tensor is captured again;
+  running statistics move, keyword arguments, a deferred first call and a
+  child inside its parent's body run eagerly, a recorded forward is a
+  captured pair (the eager gradient's bits; tests/test_torch_compiled_
+  training.py holds it against the JAX package), ``cast`` and
+  ``hybridize(False)`` drop the cache, and a replaced parameter tensor is
+  captured again;
 * outputs and losses are fresh tensors, never aliased across calls;
 * ``AotModel`` refuses buckets and shapes outside its menu, and
   ``from_exported`` waits;
@@ -320,7 +322,17 @@ def test_kwargs_deferred_recorded_calls_run_eagerly_and_cache_drops():
         assert net._cached_graph is None
         with mxt.autograd.record():
             y = net(x)
-        y.backward()                             # eager under record
+        y.backward()                             # the captured pair
+        (key, (rec, _)), = net._cached_graph._cache.items()
+        assert key[:2] == (True, True)           # training, recording
+        assert len(rec.pairs) == 1 and not rec.pairs[0].busy
+        graphed = net[0].weight.grad().asnumpy()
+        net.hybridize(False)
+        with mxt.autograd.record():
+            y = net(x)
+        y.backward()                             # eager: the same gradient
+        assert onp.array_equal(net[0].weight.grad().asnumpy(), graphed)
+        net.hybridize()
         assert net._cached_graph is None
         dense = net[0]
         dense.hybridize()
